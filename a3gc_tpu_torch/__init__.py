@@ -5,13 +5,15 @@ port mirrors its module layout and names, keeps its parameter layouts at
 every public function (dense kernels ``[in, out]``, the fused gate kernel
 ``[F+H, 4H]`` in gate order i, f, g, o with the recurrent half in the last H
 rows, left-multiplying adjacency, a leading direction axis of 2), and runs
-its hot loop — the bidirectional graph-LSTM scan — as a CUDA kernel written
-for Hopper (``ops/csrc/gcn_lstm.cu``).
+its recurrent scans as CUDA kernels written for Hopper: ``ops/csrc/
+gcn_lstm.cu`` (graph-LSTM cells), ``ggru.cu`` (G-GRU) and ``lstm.cu`` (the
+dense biLSTM of DIP and TransPose).
 
-What runs today: the A3GC/AAGC/AGC graph cascade at inference, offline
-(``models.pipeline.cascade_apply``) and online
-(``eval.streaming.StreamingCascade``, plain windows with per-slot
-``active`` masks and ``reset``). Entry points run on ``cuda`` unless the
+What runs today, at inference: the A3GC/AAGC/AGC and G-GRU graph cascades
+and the TransPose cascade, offline (``models.pipeline.cascade_apply``) and
+online (``eval.streaming.StreamingCascade``), and the DIP net online
+(``eval.streaming.DipStreamingSession``) — plain windows with per-slot
+``active`` masks and ``reset``. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; they raise when CUDA is asked for and
 absent.
 

@@ -1,5 +1,5 @@
-r"""Parameter bridge: the JAX package's graph-net parameter pytrees → the
-port's modules.
+r"""Parameter bridge: the JAX package's graph-net and DIP-net parameter
+pytrees → the port's modules.
 
 The functions take the pytree with numpy leaves (for example
 ``jax.tree_util.tree_map(np.asarray, params)``) and read its fields by
@@ -18,6 +18,7 @@ from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import nets as N
 
 __all__ = ["cell_params_from_jax", "graph_net_params_from_jax",
+           "lstm_layer_params_from_jax", "dip_params_from_jax",
            "cascade_params_from_jax"]
 
 
@@ -30,10 +31,11 @@ def _graph_conv(t) -> C.GraphConvParams:
                              bias=_a(t.bias))
 
 
-def _cell(t) -> C.GCNLSTMCellParams:
+def _cell(t):
     if hasattr(t, "w_in"):
-        raise NotImplementedError(
-            "G-GRU parameters are not ported yet (ROADMAP Queue 1 item 5)")
+        return C.GGRUCellParams(w_in=_a(t.w_in), b_in=_a(t.b_in),
+                                w_hid=_a(t.w_hid),
+                                gcn_kernel=_a(t.gcn_kernel), adj=_a(t.adj))
     att = t.attention
     return C.GCNLSTMCellParams(
         kernel=_a(t.kernel), adj=_a(t.adj), bias=_a(t.bias),
@@ -42,9 +44,10 @@ def _cell(t) -> C.GCNLSTMCellParams:
             bs=_a(att.bs), bu=_a(att.bu)))
 
 
-def cell_params_from_jax(tree, device="cuda") -> C.GCNLSTMCellParams:
-    r"""One direction-stacked JAX ``GCNLSTMCellParams`` pytree → the port's
-    ``GCNLSTMCellParams`` on ``device``."""
+def cell_params_from_jax(tree, device="cuda"):
+    r"""One direction-stacked JAX ``GCNLSTMCellParams`` or
+    ``GGRUCellParams`` pytree (told apart by its ``w_in`` field) → the
+    port's module of the same name on ``device``."""
     return _cell(tree).to(device)
 
 
@@ -57,7 +60,29 @@ def graph_net_params_from_jax(tree, device="cuda") -> N.GraphNetParams:
     ).to(device)
 
 
-def cascade_params_from_jax(trees3: Sequence, device="cuda"
-                            ) -> Tuple[N.GraphNetParams, ...]:
-    r"""The three stages' pytrees → a tuple of the port's modules."""
-    return tuple(graph_net_params_from_jax(t, device) for t in trees3)
+def _dense(t) -> N.DenseParams:
+    return N.DenseParams(kernel=_a(t.kernel), bias=_a(t.bias))
+
+
+def lstm_layer_params_from_jax(t, device="cuda") -> N.LSTMLayerParams:
+    r"""One direction-stacked JAX ``LSTMLayerParams`` pytree → the port's
+    ``LSTMLayerParams`` on ``device``."""
+    return N.LSTMLayerParams(w_ih=_a(t.w_ih), w_hh=_a(t.w_hh),
+                             b_ih=_a(t.b_ih), b_hh=_a(t.b_hh)).to(device)
+
+
+def dip_params_from_jax(tree, device="cuda") -> N.DIPParams:
+    r"""One JAX ``DIPParams`` pytree (bidirectional) → the port's
+    ``DIPParams`` on ``device``."""
+    return N.DIPParams(
+        linear1=_dense(tree.linear1),
+        lstm=[lstm_layer_params_from_jax(t, "cpu") for t in tree.lstm],
+        linear2=_dense(tree.linear2)).to(device)
+
+
+def cascade_params_from_jax(trees3: Sequence, device="cuda") -> Tuple:
+    r"""The three stages' pytrees → a tuple of the port's modules: DIP
+    nets for a TransPose cascade (told apart by their ``lstm`` field),
+    graph nets otherwise."""
+    return tuple(dip_params_from_jax(t, device) if hasattr(t, "lstm")
+                 else graph_net_params_from_jax(t, device) for t in trees3)

@@ -1,12 +1,14 @@
 r"""Online / streaming inference with carried recurrent state (counterpart
-of ``a3gc_tpu/eval/streaming.py`` ``make_window_step`` and
-``StreamingCascade``), plain windows only.
+of ``a3gc_tpu/eval/streaming.py`` ``make_window_step``,
+``StreamingCascade``, ``make_dip_window_step`` and
+``DipStreamingSession``), plain windows only.
 
 One fixed-size window of raw IMU frames per client slot goes through
-normalize → scatter → the three graph stages → IK, while each stage's
-recurrent state threads across windows. The cells are bidirectional, so
-the backward direction sees only the current window — as in the JAX
-package and the reference.
+normalize → the graph scatter or the flat concatenation → the three stages
+→ IK (or, for DIP, trim the root sensor → normalize → one net → IK), while
+each net's recurrent state threads across windows. The nets are
+bidirectional, so the backward direction sees only the current window — as
+in the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -17,14 +19,33 @@ import numpy as np
 import torch
 
 from a3gc_tpu_torch._device import check_module_device, resolve_device
-from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.data import pipeline as DPipe
 from a3gc_tpu_torch.models import nets as N
 from a3gc_tpu_torch.models.pipeline import (
-    CascadeConfig, _stage_out, pose_net_forward, reduced_global_to_full_local,
+    CascadeConfig, PoseNetConfig, _node_features, _stage_out,
+    pose_net_forward, reduced_global_to_full_local,
 )
 
-__all__ = ["make_window_step", "StreamingCascade"]
+__all__ = ["make_window_step", "StreamingCascade", "make_dip_window_step",
+           "DipStreamingSession"]
+
+
+def _tree_map(fn, tree):
+    r"""Apply ``fn`` to every tensor leaf of a nest of tuples/lists."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tuple(_tree_map(fn, t) for t in tree)
+
+
+def _zero_slot(t: torch.Tensor, slot: int) -> torch.Tensor:
+    out = t.clone()
+    out[:, slot] = 0.0
+    return out
+
+
+def _frame_mask(active: torch.Tensor, B: int, T: int, dtype):
+    return (active if active.dim() == 2
+            else active[:, None].expand(B, T)).to(dtype)
 
 
 def make_window_step(cfg: CascadeConfig, model, stats=None):
@@ -46,16 +67,18 @@ def make_window_step(cfg: CascadeConfig, model, stats=None):
 
     def _step(params3, ori, acc, s1, s2, s3, active):
         o, a = DPipe.normalize_imu(ori, acc, stats)
-        imu = DPipe.scatter_graph_inputs(o, a)             # [S,T_w,15,12]
+        if cfg.is_graph:
+            imu = DPipe.scatter_graph_inputs(o, a)         # [S,T_w,15,12]
+        else:
+            imu = torch.cat((a, o), dim=-1)                # [S,T_w,72]
         B, T = imu.shape[0], imu.shape[1]
-        mask = (active if active.dim() == 2
-                else active[:, None].expand(B, T)).to(imu.dtype)
+        mask = _frame_mask(active, B, T, imu.dtype)
         p1, p2, p3 = params3
 
         leaf, s1 = pose_net_forward(p1, cfg.stage1, imu, s1, frame_mask=mask)
-        x2 = torch.cat((imu, leaf.reshape(B, T, JS.n_reduced, 3)), dim=-1)
+        x2 = torch.cat((imu, _node_features(cfg, leaf, B, T)), dim=-1)
         full, s2 = pose_net_forward(p2, cfg.stage2, x2, s2, frame_mask=mask)
-        x3 = torch.cat((imu, full.reshape(B, T, JS.n_reduced, 3)), dim=-1)
+        x3 = torch.cat((imu, _node_features(cfg, full, B, T)), dim=-1)
         out, s3 = pose_net_forward(p3, cfg.stage3, x3, s3, frame_mask=mask)
         rotsize = cfg.stage3.rotsize
         pose = reduced_global_to_full_local(_stage_out(out, rotsize), model,
@@ -90,37 +113,49 @@ class StreamingCascade:
                  normalize: bool = False, streams: int = 1,
                  lookahead: int = 0, history: int = 0, mesh=None,
                  device="cuda"):
+        self.cfg = cfg
+        self._init_session(tuple(params3), window, streams, lookahead,
+                           history, mesh, device,
+                           stats if normalize else None)
+        self._step_fn = make_window_step(cfg, model, self.stats)
+
+    def _init_session(self, params, window, streams, lookahead, history,
+                      mesh, device, stats):
+        r"""Wiring shared with :class:`DipStreamingSession`: ``params3``
+        holds the three stages' params here, the one net's there."""
         if lookahead or history or mesh is not None:
             raise NotImplementedError(
                 "lookahead/history buffering and mesh serving are not ported "
                 "yet (ROADMAP Queue 1 item 7)")
         self.device = resolve_device(device)
-        for p in params3:
+        for p in (params if isinstance(params, tuple) else (params,)):
             check_module_device(p, self.device)
-        self.cfg = cfg
-        self.params3 = tuple(params3)
+        self.params3 = params
         self.window = window
         self.streams = streams
-        self.stats = ({k: torch.as_tensor(v, dtype=torch.float32,
+        self.stats = (None if stats is None else
+                      {k: torch.as_tensor(v, dtype=torch.float32,
                                           device=self.device)
-                       for k, v in stats.items()}
-                      if (normalize and stats is not None) else None)
-        self._step_fn = make_window_step(cfg, model, self.stats)
+                       for k, v in stats.items()})
         self._states = self._zero_states()
 
     def _zero_states(self):
-        return tuple(N.graph_net_zero_state(c.net, self.streams, self.device)
+        zero = (N.graph_net_zero_state if self.cfg.is_graph
+                else N.dip_zero_state)
+        return tuple(zero(c.net, self.streams, self.device)
                      for c in self.cfg.stages)
 
     def reset(self, stream: Optional[int] = None):
-        r"""Clear carried stage states; ``stream=i`` zeroes only client i's
-        slice (axis 1 of every [2, S, N, H] state)."""
+        r"""Clear carried states; ``stream=i`` zeroes only client i's slice:
+        index i along axis 1 (the slot axis) of every tensor of every
+        state, whatever its structure — (h, c) [2, S, N, H] for the
+        graph-LSTM cells, h [2, S, N, H] for ggru, per-layer (h, c) [2, S,
+        H] for the DIP nets."""
         if stream is None:
             self._states = self._zero_states()
-            return
-        for state in self._states:
-            for s in state:
-                s[:, stream] = 0.0
+        else:
+            self._states = _tree_map(lambda t: _zero_slot(t, stream),
+                                     self._states)
 
     @torch.no_grad()
     def _dispatch(self, ori_window, acc_window, active=None) -> torch.Tensor:
@@ -159,3 +194,61 @@ class StreamingCascade:
     def flush(self, *args, **kwargs):
         raise NotImplementedError("flush is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
+
+
+def make_dip_window_step(cfg: PoseNetConfig, model, stats):
+    r"""Build the windowed single-net DIP step.
+
+    Returns ``step(params, ori, acc, state, active) -> (pose, state)``: one
+    raw IMU window (ori [S, T_w, 54], acc [S, T_w, 18]) has its root
+    sensor's channels dropped, is normalized with the train stats (tensors
+    on the inputs' device), runs through the net with carried state, and
+    becomes the full local pose via IK — the output contract of
+    :func:`make_window_step`, [S·T_w, 24, 3, 3]."""
+    if cfg.rotsize not in (6, 9):
+        raise ValueError("dip online serving emits full local poses via IK; "
+                         "train the net with --rotsize 9 or 6")
+    om = stats["ori_mean_channel"][..., :-9]
+    os_ = stats["ori_std_channel"][..., :-9]
+    am = stats["acc_mean_channel"][..., :-3]
+    as_ = stats["acc_std_channel"][..., :-3]
+    rotsize = cfg.rotsize
+
+    def _step(params, ori, acc, state, active):
+        o = (ori[..., :-9] - om) / os_
+        a = (acc[..., :-3] - am) / as_
+        x = torch.cat((a, o), dim=-1)                      # [S, T_w, 60]
+        mask = _frame_mask(active, x.shape[0], x.shape[1], x.dtype)
+        out, state = pose_net_forward(params, cfg, x, state, frame_mask=mask)
+        pose = reduced_global_to_full_local(_stage_out(out, rotsize), model,
+                                            rotsize=rotsize)
+        return pose, state
+
+    return _step
+
+
+class DipStreamingSession(StreamingCascade):
+    r"""Online single-net DIP serving with the serving contract of
+    :class:`StreamingCascade` — ``step(ori, acc, active)`` on raw IMU
+    windows returning full local poses, ``reset(stream=i)`` — over ONE net
+    with one carried state. ``params3`` holds that net's params.
+
+    Lookahead, history and the mesh raise ``NotImplementedError`` (ROADMAP
+    Queue 1 item 7)."""
+
+    def __init__(self, params, cfg: PoseNetConfig, model, window: int = 60,
+                 stats: Dict[str, np.ndarray] = None, streams: int = 1,
+                 lookahead: int = 0, history: int = 0, device="cuda"):
+        if stats is None:
+            raise ValueError("dip serving needs normalization stats")
+        if cfg.is_graph:
+            raise ValueError("DipStreamingSession drives the dense single "
+                             "net; graph cascades stream through "
+                             "StreamingCascade")
+        self.cfg = cfg
+        self._init_session(params, window, streams, lookahead, history,
+                           None, device, stats)
+        self._step_fn = make_dip_window_step(cfg, model, self.stats)
+
+    def _zero_states(self):
+        return (N.dip_zero_state(self.cfg.net, self.streams, self.device),)

@@ -1,5 +1,5 @@
-r"""Graph-recurrent cells of the A3GC/AAGC/AGC family (counterpart of
-``a3gc_tpu/models/cells.py``), inference only.
+r"""Graph-recurrent cells of the A3GC/AAGC/AGC family and the G-GRU cell
+(counterpart of ``a3gc_tpu/models/cells.py``), inference only.
 
 Parameter containers are ``nn.Module``s whose parameters keep the JAX
 names and layouts:
@@ -26,8 +26,9 @@ from torch import nn
 
 __all__ = [
     "GraphConvParams", "AttentionParams", "GCNLSTMCellParams",
-    "graph_conv", "gcn_lstm_gates", "gcn_lstm_step_hoisted",
-    "init_graph_conv", "init_attention", "init_gcn_lstm_cell",
+    "GGRUCellParams", "graph_conv", "gcn_lstm_gates",
+    "gcn_lstm_step_hoisted", "ggru_step_hoisted", "init_graph_conv",
+    "init_attention", "init_gcn_lstm_cell", "init_ggru_cell",
 ]
 
 
@@ -68,6 +69,18 @@ class GCNLSTMCellParams(nn.Module):
         self.adj = _param(adj)           # [4, N, N] per-gate left-multiplying
         self.bias = _param(bias)         # [4, H]
         self.attention = attention
+
+
+class GGRUCellParams(nn.Module):
+    r"""G-GRU cell: a GRU with a graph message on the hidden state."""
+
+    def __init__(self, w_in, b_in, w_hid, gcn_kernel, adj):
+        super().__init__()
+        self.w_in = _param(w_in)             # [F, 3H] gate order r, u, c
+        self.b_in = _param(b_in)             # [3H]
+        self.w_hid = _param(w_hid)           # [H, 3H] (no bias)
+        self.gcn_kernel = _param(gcn_kernel)  # [H, H]
+        self.adj = _param(adj)               # [N, N] left-multiplying
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +143,24 @@ def gcn_lstm_step_hoisted(p: GCNLSTMCellParams, u_t: torch.Tensor, state, *,
     return gcn_lstm_gates(p, z, (h, c))
 
 
+def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,
+                      state: Tuple[torch.Tensor]):
+    r"""G-GRU step given the hoisted input projection ``zi = x·W_in +
+    b_in``, direction-stacked: zi [D, B, N, 3H], state ``(h,)`` with h
+    [D, B, N, H]. msg = adj·(h·G), zh = msg·W_hid, r = σ(zi_r + zh_r),
+    u = σ(zi_u + zh_u), cand = tanh(zi_c + r·zh_c), h' = u·h + (1−u)·cand.
+    Returns the new state ``(h',)``; the layer's output is h'."""
+    (h,) = state
+    H = h.shape[-1]
+    msg = torch.matmul(h, p.gcn_kernel[:, None])
+    msg = torch.einsum("dnm,dbmh->dbnh", p.adj, msg)
+    zh = torch.matmul(msg, p.w_hid[:, None])
+    r = torch.sigmoid(zi[..., 0:H] + zh[..., 0:H])
+    u = torch.sigmoid(zi[..., H:2 * H] + zh[..., H:2 * H])
+    cand = torch.tanh(zi[..., 2 * H:] + r * zh[..., 2 * H:])
+    return (u * h + (1.0 - u) * cand,)
+
+
 # ---------------------------------------------------------------------------
 # initializers: the JAX package's xavier/zero distributions, drawn from a
 # torch.Generator (the bits differ from jax.random's)
@@ -142,6 +173,15 @@ def _xavier_uniform(gen: torch.Generator, torch_shape) -> torch.Tensor:
     bound = (6.0 / (fan_in + fan_out)) ** 0.5
     w = torch.rand(torch_shape, generator=gen) * (2 * bound) - bound
     return w.T.contiguous()
+
+
+def _torch_linear_init(gen: torch.Generator, fan_in: int, fan_out: int):
+    """torch.nn.Linear's default init, U(±1/√fan_in), for a weight in the
+    [in, out] layout and its bias."""
+    bound = 1.0 / fan_in ** 0.5
+    w = torch.rand((fan_in, fan_out), generator=gen) * (2 * bound) - bound
+    b = torch.rand((fan_out,), generator=gen) * (2 * bound) - bound
+    return w, b
 
 
 def init_graph_conv(gen: torch.Generator, units_in: int, units_out: int,
@@ -183,3 +223,22 @@ def init_gcn_lstm_cell(gen: torch.Generator, units_in: int, units_out: int,
         bias=torch.zeros(4, units_out),
         attention=(init_attention(gen, units_out, a0.shape[0])
                    if attention else None))
+
+
+def init_ggru_cell(gen: torch.Generator, units_in: int, units_out: int,
+                   adjacency) -> GGRUCellParams:
+    r"""torch.nn.Linear inits for the r/u/c input and hidden projections
+    (the hidden ones without bias), xavier ``gcn_kernel`` and a xavier
+    adjacency: as in the JAX package, only the template's size is used,
+    not its values."""
+    n = np.asarray(adjacency).shape[0]
+    w_in, b_in = zip(*(_torch_linear_init(gen, units_in, units_out)
+                       for _ in range(3)))
+    w_hid = [_torch_linear_init(gen, units_out, units_out)[0]
+             for _ in range(3)]
+    return GGRUCellParams(
+        w_in=torch.cat(w_in, dim=1),
+        b_in=torch.cat(b_in),
+        w_hid=torch.cat(w_hid, dim=1),
+        gcn_kernel=_xavier_uniform(gen, (units_out, units_out)),
+        adj=_xavier_uniform(gen, (n, n)).T.contiguous())

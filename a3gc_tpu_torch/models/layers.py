@@ -1,7 +1,8 @@
 r"""The masked bidirectional scan over hoisted inputs (counterpart of
 ``a3gc_tpu/models/layers.py`` ``stack_directions``, ``_masked_state`` and
 ``bi_rnn_precomputed``), inference only. It is the building block of the
-plain version of the graph-LSTM kernel."""
+plain versions of the three scan kernels (graph-LSTM, G-GRU, dense
+LSTM)."""
 
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def bi_rnn_precomputed(step_fn: Callable, params2, seq_stack: torch.Tensor,
         on direction-stacked parameters and states.
     :param seq_stack: [2, T, B, ...] — direction 1's sequence already
         time-flipped.
-    :param init_state2: state tuple, each leaf [2, B, ...].
+    :param init_state2: state tuple, each leaf [2, B, ...] (a 1-tuple for
+        the G-GRU cell).
     :param frame_mask: [B, T] validity mask (ones-prefix rows for
         end-padded input); masked steps carry the state through.
     :return: (carried h of every step [2, T, B, ...] in walk order — the

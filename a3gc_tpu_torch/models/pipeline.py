@@ -1,5 +1,6 @@
 r"""Pose pipelines: net + reduced-global → full-local pose, and the 3-stage
-cascade (counterpart of ``a3gc_tpu/models/pipeline.py``), graph nets only.
+cascade (counterpart of ``a3gc_tpu/models/pipeline.py``), for graph nets
+and DIP nets.
 
 ``rotsize``: 3 → raw per-node positions; 6 → 6D rotations → full local
 pose via IK; 9 → rotation matrices → full local pose via IK.
@@ -18,22 +19,26 @@ from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.models import nets as N
 from a3gc_tpu_torch.ops import rotations as R
 
-__all__ = ["PoseNetConfig", "CascadeConfig", "pose_net_forward",
-           "reduced_global_to_full_local", "cascade_apply"]
+__all__ = ["PoseNetConfig", "CascadeConfig", "init_pose_net",
+           "pose_net_forward", "reduced_global_to_full_local",
+           "cascade_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
 class PoseNetConfig:
-    r"""Static config of one pipeline stage."""
+    r"""Static config of one pipeline stage: a graph net or a DIP net."""
 
-    net: N.GraphNetConfig = None
+    net: object = None          # N.GraphNetConfig | N.DIPConfig
     rotsize: int = 9
 
     def __post_init__(self):
-        if not isinstance(self.net, N.GraphNetConfig):
-            raise NotImplementedError(
-                "only graph nets are ported; the DIP/TransPose family comes "
-                "with ROADMAP Queue 1 item 5 and Queue 2 item 4 (_lstm_kernel)")
+        if not isinstance(self.net, (N.GraphNetConfig, N.DIPConfig)):
+            raise TypeError("PoseNetConfig.net must be a GraphNetConfig or "
+                            f"a DIPConfig, got {type(self.net).__name__}")
+
+    @property
+    def is_graph(self) -> bool:
+        return isinstance(self.net, N.GraphNetConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +53,24 @@ class CascadeConfig:
     def stages(self) -> Tuple[PoseNetConfig, PoseNetConfig, PoseNetConfig]:
         return (self.stage1, self.stage2, self.stage3)
 
+    @property
+    def is_graph(self) -> bool:
+        return self.stage1.is_graph
+
+
+def init_pose_net(gen: torch.Generator, cfg: PoseNetConfig, adjacency=None):
+    r"""Initialize one stage's net on the CPU from ``gen``."""
+    if cfg.is_graph:
+        return N.init_graph_net(gen, cfg.net, adjacency)
+    return N.init_dip(gen, cfg.net)
+
 
 def pose_net_forward(params, cfg: PoseNetConfig, imu: torch.Tensor,
                      state=None, frame_mask=None):
     r"""Raw net forward on the device ``imu`` lies on."""
-    return N.graph_net_apply(params, cfg.net, imu, state,
-                             frame_mask=frame_mask, device=imu.device)
+    apply = N.graph_net_apply if cfg.is_graph else N.dip_apply
+    return apply(params, cfg.net, imu, state, frame_mask=frame_mask,
+                 device=imu.device)
 
 
 def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,
@@ -78,6 +95,13 @@ def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,
     return pose
 
 
+def _node_features(cfg: CascadeConfig, out: torch.Tensor, B: int,
+                   T: int) -> torch.Tensor:
+    r"""A stage's output as the next stage's extra features: per node
+    [B, T, 15, 3] in a graph cascade, flat [B, T, F] in a TransPose one."""
+    return out.reshape(B, T, JS.n_reduced, 3) if cfg.is_graph else out
+
+
 def _stage_out(out: torch.Tensor, rotsize: int) -> torch.Tensor:
     rep = (3, 3) if rotsize == 9 else (rotsize,)
     return out.reshape((-1, JS.n_reduced) + rep)
@@ -86,9 +110,10 @@ def _stage_out(out: torch.Tensor, rotsize: int) -> torch.Tensor:
 @torch.no_grad()
 def cascade_apply(params3: Tuple, cfg: CascadeConfig, model, imu,
                   frame_mask=None, *, device="cuda") -> torch.Tensor:
-    r"""Full cascade at inference: imu [B, T, 15, 12] → full local pose
-    [B·T, 24, 3, 3]. Stage outputs are concatenated onto the node
-    features."""
+    r"""Full cascade at inference → full local pose [B·T, 24, 3, 3].
+    Graph variant: imu [B, T, 15, 12], stage outputs concatenated onto the
+    node features. Flat variant (TransPose): imu [B, T, 72], stage outputs
+    concatenated onto the flat features."""
     dev = resolve_device(device)
     for p in params3:
         check_module_device(p, dev)
@@ -99,9 +124,9 @@ def cascade_apply(params3: Tuple, cfg: CascadeConfig, model, imu,
     B, T = imu.shape[0], imu.shape[1]
 
     leaf, _ = pose_net_forward(p1, cfg.stage1, imu, frame_mask=frame_mask)
-    x2 = torch.cat((imu, leaf.reshape(B, T, JS.n_reduced, 3)), dim=-1)
+    x2 = torch.cat((imu, _node_features(cfg, leaf, B, T)), dim=-1)
     full, _ = pose_net_forward(p2, cfg.stage2, x2, frame_mask=frame_mask)
-    x3 = torch.cat((imu, full.reshape(B, T, JS.n_reduced, 3)), dim=-1)
+    x3 = torch.cat((imu, _node_features(cfg, full, B, T)), dim=-1)
     out, _ = pose_net_forward(p3, cfg.stage3, x3, frame_mask=frame_mask)
     rotsize = cfg.stage3.rotsize
     return reduced_global_to_full_local(_stage_out(out, rotsize), model,

@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()      # guards _name_locks
+_name_locks = {}              # one lock per library: builds run in parallel
 _loaded = {}
 
 
@@ -55,8 +56,11 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> BuiltLibrary:
     r"""Build (once per source version) and load ``csrc/<name>.cu``.
-    Raises if nvcc is missing or the build fails."""
+    Raises if nvcc is missing or the build fails. Different libraries
+    build concurrently when called from several threads."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = os.path.join(_CSRC, name + ".cu")

@@ -27,29 +27,17 @@ the training slice (ROADMAP Queue 1 item 11).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import layers as L
+from a3gc_tpu_torch.ops._common import (SMEM_LIMIT, check_f32, check_n_valid,
+                                        f32 as _f32, kernel_library, launch,
+                                        n_valid_tensor as _n_valid)
 
 __all__ = ["bi_gcn_lstm", "bi_gcn_lstm_reference", "scan", "scan_inputs"]
-
-_SMEM_LIMIT = 232448          # bytes of shared memory one block can have
-
-
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    # bf16/fp16 inputs are upcast at the boundary: the kernel is fp32 inside
-    return t if t.dtype == torch.float32 else t.float()
-
-
-def _n_valid(n_valid, S: int, T: int, device) -> torch.Tensor:
-    if n_valid is None:
-        return torch.full((S,), T, dtype=torch.int32, device=device)
-    nv = torch.as_tensor(n_valid, device=device).to(torch.int32).reshape(-1)
-    return nv.expand(S).contiguous() if nv.numel() == 1 else nv
 
 
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
@@ -78,21 +66,6 @@ def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
     return torch.tanh(y), (h, c)
 
 
-def _lib():
-    from a3gc_tpu_torch.ops._build import load_library
-    built = load_library("gcn_lstm")
-    fn = built.lib.gcn_lstm_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        built.lib.gcn_lstm_error_string.argtypes = [ctypes.c_int]
-        built.lib.gcn_lstm_error_string.restype = ctypes.c_char_p
-        built.lib.gcn_lstm_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        built.lib.gcn_lstm_smem_bytes.restype = ctypes.c_size_t
-    return built.lib
-
-
 def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
          bias: torch.Tensor, attention: Optional[tuple], h0: torch.Tensor,
          c0: torch.Tensor, n_valid: torch.Tensor):
@@ -110,36 +83,23 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     if attention is not None:
         shapes += list(zip(attention, [(2, H, H)] * 3 + [(2, H)] * 2
                            + [(2, N)]))
-    for t, shape in shapes:
-        if t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"gcn_lstm: expected a contiguous float32 "
-                             f"tensor {shape} on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if n_valid.device != dev or n_valid.dtype != torch.int32 \
-            or n_valid.shape != (S,):
-        raise ValueError(f"gcn_lstm: n_valid must be int32 [{S}] on {dev}")
+    check_f32("gcn_lstm", dev, shapes)
+    check_n_valid("gcn_lstm", dev, n_valid, S)
     if H % 4 or N > 16:
         raise ValueError(f"gcn_lstm: needs H % 4 == 0 and N <= 16, got "
                          f"H={H}, N={N}")
-    lib = _lib()
-    if lib.gcn_lstm_smem_bytes(N, H) > _SMEM_LIMIT:
+    lib = kernel_library("gcn_lstm", 16, 5, 2)
+    if lib.gcn_lstm_smem_bytes(N, H) > SMEM_LIMIT:
         raise ValueError(f"gcn_lstm: H={H} needs more shared memory than a "
                          "block has")
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
     att = [t.data_ptr() for t in attention] if attention else [None] * 6
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gcn_lstm_forward(
-            u.data_ptr(), wh.data_ptr(), adj.data_ptr(), bias.data_ptr(),
-            *att, h0.data_ptr(), c0.data_ptr(), n_valid.data_ptr(),
-            y.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            S, T, N, H, int(attention is not None), stream)
-    if err != 0:
-        raise RuntimeError("gcn_lstm kernel launch failed: "
-                           + lib.gcn_lstm_error_string(err).decode())
+    launch("gcn_lstm", lib, dev, u.data_ptr(), wh.data_ptr(),
+           adj.data_ptr(), bias.data_ptr(), *att, h0.data_ptr(),
+           c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+           c_out.data_ptr(), S, T, N, H, int(attention is not None))
     bi_gcn_lstm.launches += 1
     return y, h_out, c_out
 

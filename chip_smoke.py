@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
 r"""Smoke run of the PyTorch/CUDA port (``a3gc_tpu_torch``) on one NVIDIA
 card: builds the Hopper kernels from this checkout, holds each against its
-plain PyTorch version, drives the serving path through the entry points a
-user calls, and times it.
+plain PyTorch version, drives the serving paths through the entry points a
+user calls, and times them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device  — the card (nvidia-smi name and power limit), the kernel build;
-  2. kernel  — ``gcn_lstm.cu`` against ``bi_gcn_lstm_reference`` at the
-               three stage widths of the A3GC cascade, a3gc and aagc cells,
-               S = 1 and S = 8 streams, T = 60, per-stream n_valid;
-  3. serving — ``StreamingCascade`` at full width (hidden 256/64/128,
-               8 streams, 60-frame windows, shipped normalization stats,
-               random weights from torch.Generator seed 0) for 5 windows
-               with a per-slot reset and an idle slot; launch counts,
-               finiteness, one window against the plain path; ms/window;
-  4. offline — ``cascade_apply`` at batch 1, T = 300, timed, and against
-               the plain path;
-  5. kernels — the ``{"kernels": [...]}`` line: launches on the serving
-               path, max |d| of phase 2, and per layer shape (S = 8
-               and 1, T = 60) the wrapper's, the kernel's and the plain
-               version's times (CUDA events) beside their bounds.
+  1. device       — the card (nvidia-smi name and power limit); the three
+                    kernel libraries (gcn_lstm, ggru, lstm) built by three
+                    nvcc processes at once, with their ptxas reports;
+  2. kernel       — ``gcn_lstm.cu`` against ``bi_gcn_lstm_reference`` at
+                    the three stage widths of the A3GC cascade, a3gc and
+                    aagc cells, S = 1 and S = 8 streams, T = 60, per-stream
+                    n_valid;
+     kernel_ggru  — ``ggru.cu`` against ``bi_ggru_reference``, the same
+                    widths, F ∈ {H, 2H}, S ∈ {1, 8};
+     kernel_lstm  — ``lstm.cu`` against ``bi_lstm_reference`` at H = 256,
+                    64, 128, 512, F ∈ {H, 2H} and the nets' input widths;
+  3. serving      — ``StreamingCascade`` at full width (8 streams, 60-frame
+                    windows, shipped normalization stats, random weights
+                    from torch.Generator seed 0) for 5 windows with a
+                    per-slot reset and an idle slot: launch counts,
+                    finiteness, one window against the plain path;
+                    ms/window. The A3GC cascade (hidden 256/64/128);
+     serving_ggru — the G-GRU cascade (hidden 256/64/128);
+     serving_tp   — the TransPose cascade of dense biLSTMs (hidden
+                    256/64/128);
+     serving_dip  — ``DipStreamingSession``, the DIP net (hidden 512);
+  4. offline      — ``cascade_apply`` at batch 1, T = 300: launch counts
+                    (6, the S = 1 contract of the kernel), timed, and
+                    against the plain path; offline_tp the same for the
+                    TransPose cascade;
+  5. kernels      — the ``{"kernels": [...]}`` line: launches on each
+                    kernel's serving paths, max |d| of phase 2, and per
+                    layer shape of those paths (S = 8 and 1, T = 60) the
+                    wrapper's, the kernel's and the plain version's times
+                    (CUDA events) beside their bounds, and for ``lstm``
+                    cuDNN's ``torch.nn.LSTM`` on the same weights.
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that line; so does a machine without CUDA or a directory without the
 package. Imports nothing of JAX or of the JAX package.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -40,10 +57,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores, 700 W
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 KERNEL_TOL = 1e-5           # fp32, sums reordered over a 60-step recurrence
-                            # (an H100 showed at most 2.1e-7)
+                            # (an H100 showed at most 2.1e-7 for gcn_lstm)
 PATH_TOL = 1e-3             # poses after three stages and IK
-STAGES = ((256, 12, 3, 3), (64, 15, 3, 3), (128, 15, 9, 9))  # H, in, out, rot
+# stage widths: (H, units in, units out, rotsize) of the graph cascades,
+# (H, n_input, n_output, rotsize) of the TransPose cascade and of DIP
+STAGES = ((256, 12, 3, 3), (64, 15, 3, 3), (128, 15, 9, 9))
+TP_STAGES = ((256, 72, 15, 3), (64, 87, 69, 3), (128, 141, 135, 9))
+DIP = (512, 60, 135, 9)
 S_SERVE, WINDOW, N_NODES = 8, 60, 15
+LIBRARIES = ("gcn_lstm", "ggru", "lstm")
 
 
 def emit(obj):
@@ -75,9 +97,10 @@ def cuda_ms(fn, reps, warmup=2):
 
 
 def layer_work(S, T, F, H, attention, hoist):
-    """(FLOP, bytes) one bidirectional layer call needs: each input read
-    once, each output written once. hoist=True counts the wrapper's whole
-    function (x → y, state), hoist=False the kernel alone (u → y, state)."""
+    """(FLOP, bytes) one bidirectional graph-LSTM layer call needs: each
+    input read once, each output written once. hoist=True counts the
+    wrapper's whole function (x → y, state), hoist=False the kernel alone
+    (u → y, state)."""
     N = N_NODES
     rec = 2 * N * H * 4 * H + 2 * 4 * N * N * H
     if attention:
@@ -94,6 +117,44 @@ def layer_work(S, T, F, H, attention, hoist):
     else:
         read = 2 * S * T * N * 4 * H + params + state
     write = S * T * N * 2 * H + state
+    return flop, 4 * (read + write) + 4 * S
+
+
+def gcn_layer_work(S, T, F, H, hoist):
+    """layer_work of the a3gc cell, the one the serving path runs."""
+    return layer_work(S, T, F, H, True, hoist)
+
+
+def ggru_layer_work(S, T, F, H, hoist):
+    """(FLOP, bytes) of one bidirectional G-GRU layer call, as layer_work:
+    8·N·H² + 2·N²·H FLOP per (stream, direction, frame) in the scan."""
+    N = N_NODES
+    flop = 2 * T * S * (8 * N * H * H + 2 * N * N * H)
+    params = 2 * (H * H + N * N + 3 * H * H)
+    state = 2 * S * N * H
+    if hoist:
+        flop += 2 * 2 * S * T * N * F * 3 * H
+        params += 2 * (F * 3 * H + 3 * H)
+        read = S * T * N * F + params + state
+    else:
+        read = 2 * S * T * N * 3 * H + params + state
+    write = S * T * N * 2 * H + state
+    return flop, 4 * (read + write) + 4 * S
+
+
+def lstm_layer_work(S, T, F, H, hoist):
+    """(FLOP, bytes) of one bidirectional dense LSTM layer call, as
+    layer_work: 8·H² FLOP per (stream, direction, frame) in the scan."""
+    flop = 2 * T * S * 8 * H * H
+    params = 2 * 4 * H * H
+    state = 2 * 2 * S * H
+    if hoist:
+        flop += 2 * 2 * S * T * F * 4 * H
+        params += 2 * (F * 4 * H + 2 * 4 * H)
+        read = S * T * F + params + state
+    else:
+        read = 2 * S * T * 4 * H + params + state
+    write = S * T * 2 * H + state
     return flop, 4 * (read + write) + 4 * S
 
 
@@ -115,36 +176,64 @@ def random_rotations(rng, shape):
     ], axis=-1).astype(np.float32)
 
 
+def leaves(tree):
+    """The tensors of a nest of tuples/lists, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in leaves(sub)]
+    return [tree]
+
+
+def clone_tree(tree):
+    if isinstance(tree, (tuple, list)):
+        return tuple(clone_tree(t) for t in tree)
+    return tree.clone()
+
+
 class Smoke:
     def __init__(self):
         import torch
+        from a3gc_tpu_torch.ops import gcn_lstm, ggru, lstm
         self.torch = torch
         self.dev = torch.device("cuda", 0)
+        self.wrappers = {"gcn_lstm": gcn_lstm.bi_gcn_lstm,
+                         "ggru": ggru.bi_ggru, "lstm": lstm.bi_lstm}
         self.failures = []
-        self.max_err = 0.0
-        self.shapes = []
-        self.launches = None
+        self.max_err = {}
+        self.shapes = {name: [] for name in LIBRARIES}
+        self.launches = {}          # path -> {kernel: launches}
 
     def check(self, ok, what):
         if not ok:
             self.failures.append(what)
 
+    def zero_counts(self):
+        for w in self.wrappers.values():
+            w.launches = 0
+
+    def counts(self):
+        return {name: w.launches for name, w in self.wrappers.items()}
+
     # -- 1 ---------------------------------------------------------------
     def phase_device(self):
+        from concurrent.futures import ThreadPoolExecutor
         from a3gc_tpu_torch.ops._build import load_library
         torch = self.torch
         t0 = time.perf_counter()
-        built = load_library("gcn_lstm")
+        with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+            built = dict(zip(LIBRARIES, pool.map(load_library, LIBRARIES)))
         wall = time.perf_counter() - t0
-        ptxas = [l.strip() for l in built.log.splitlines()
-                 if "registers" in l or "spill" in l or "smem" in l]
         emit({"phase": "device", "nvidia_smi": nvidia_smi(),
               "name": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "python": sys.version.split()[0],
-              "build_s": round(built.build_seconds, 3),
-              "load_s": round(wall, 3), "ptxas": ptxas})
+              "build_s": {n: round(b.build_seconds, 3)
+                          for n, b in built.items()},
+              "load_s": round(wall, 3),
+              "ptxas": {n: [l.strip() for l in b.log.splitlines()
+                            if "registers" in l or "spill" in l
+                            or "smem" in l]
+                        for n, b in built.items()}})
 
     # -- helpers -----------------------------------------------------------
     def cell(self, gen, cell, F, H):
@@ -155,6 +244,8 @@ class Smoke:
         nira = load_adjacency_template()
 
         def one():
+            if cell == "ggru":       # its init draws nonzero biases
+                return C.init_ggru_cell(gen, F, H, nira)
             p = C.init_gcn_lstm_cell(gen, F, H, nira,
                                      attention=cell == "a3gc")
             with torch.no_grad():      # nonzero biases exercise every term
@@ -167,15 +258,46 @@ class Smoke:
 
         return L.stack_directions(one(), one()).to(self.dev)
 
-    def layer_inputs(self, gen, S, T, F, H, n_valid):
+    def lstm_layer(self, gen, F, H):
+        from a3gc_tpu_torch.models import layers as L
+        from a3gc_tpu_torch.models import nets as N
         torch = self.torch
-        x = torch.randn((S, T, N_NODES, F), generator=gen).to(self.dev)
-        st = tuple((0.5 * torch.randn((2, S, N_NODES, H), generator=gen)
-                    ).to(self.dev) for _ in range(2))
+        b = 1.0 / H ** 0.5
+
+        def u(*shape):
+            return torch.rand(shape, generator=gen) * (2 * b) - b
+
+        def one():
+            return N.LSTMLayerParams(w_ih=u(F, 4 * H), w_hh=u(H, 4 * H),
+                                     b_ih=u(4 * H), b_hh=u(4 * H))
+
+        return L.stack_directions(one(), one()).to(self.dev)
+
+    def layer_inputs(self, gen, S, T, F, H, n_valid, nodes=True, n_state=2):
+        torch = self.torch
+        lead = (S, T, N_NODES) if nodes else (S, T)
+        st_shape = (2, S, N_NODES, H) if nodes else (2, S, H)
+        x = torch.randn(lead + (F,), generator=gen).to(self.dev)
+        st = tuple((0.5 * torch.randn(st_shape, generator=gen)).to(self.dev)
+                   for _ in range(n_state))
         nv = torch.tensor(n_valid, dtype=torch.int32, device=self.dev)
-        return x, st, nv
+        return x, (st if n_state > 1 else st[0]), nv
 
     # -- 2 ---------------------------------------------------------------
+    def compare_layer(self, name, label, kernel_fn, plain_fn, args):
+        torch = self.torch
+        with torch.no_grad():
+            out = kernel_fn(*args)
+            torch.cuda.synchronize()
+            ref = plain_fn(*args)
+        errs = [float((a - b).abs().max())
+                for a, b in zip(leaves(out), leaves(ref))]
+        err = max(errs)
+        self.max_err[name] = max(self.max_err.get(name, 0.0), err)
+        ok = err <= KERNEL_TOL and bool(torch.isfinite(leaves(out)[0]).all())
+        self.check(ok, f"{name} {label}: max|d|={err:.3e}")
+        return errs, ok
+
     def phase_kernel(self):
         from a3gc_tpu_torch.ops import gcn_lstm as G
         torch = self.torch
@@ -189,59 +311,99 @@ class Smoke:
                     for S, nv in ((1, [T]),
                                   (8, [T, T, 37, T, 0, T, T, T])):
                         x, st, nvt = self.layer_inputs(gen, S, T, F, H, nv)
-                        with torch.no_grad():
-                            y, (h, c) = G.bi_gcn_lstm(p, x, st, nvt)
-                            torch.cuda.synchronize()
-                            ry, (rh, rc) = G.bi_gcn_lstm_reference(
-                                p, x, st, nvt)
-                        errs = [float((a - b).abs().max())
-                                for a, b in ((y, ry), (h, rh), (c, rc))]
-                        err = max(errs)
-                        self.max_err = max(self.max_err, err)
-                        ok = err <= KERNEL_TOL and bool(
-                            torch.isfinite(y).all())
-                        self.check(ok, f"kernel H={H} F={F} {cell} S={S}: "
-                                       f"max|d|={err:.3e}")
+                        errs, ok = self.compare_layer(
+                            "gcn_lstm", f"H={H} F={F} {cell} S={S}",
+                            G.bi_gcn_lstm, G.bi_gcn_lstm_reference,
+                            (p, x, st, nvt))
                         rows.append({"H": H, "F": F, "cell": cell, "S": S,
                                      "y": errs[0], "h": errs[1],
                                      "c": errs[2], "ok": ok})
         emit({"phase": "kernel", "tol": KERNEL_TOL, "max_abs_err":
-              self.max_err, "cases": rows})
+              self.max_err["gcn_lstm"], "cases": rows})
+
+    def phase_kernel_ggru(self):
+        from a3gc_tpu_torch.ops import ggru as GG
+        torch = self.torch
+        gen = torch.Generator().manual_seed(3)
+        T = WINDOW
+        rows = []
+        for H, _, _, _ in STAGES:
+            for F in (H, 2 * H):
+                p = self.cell(gen, "ggru", F, H)
+                for S, nv in ((1, [T]), (8, [T, T, 37, T, 0, T, T, T])):
+                    x, h, nvt = self.layer_inputs(gen, S, T, F, H, nv,
+                                                  n_state=1)
+                    errs, ok = self.compare_layer(
+                        "ggru", f"H={H} F={F} S={S}", GG.bi_ggru,
+                        GG.bi_ggru_reference, (p, x, h, nvt))
+                    rows.append({"H": H, "F": F, "S": S, "y": errs[0],
+                                 "h": errs[1], "ok": ok})
+        emit({"phase": "kernel_ggru", "tol": KERNEL_TOL, "max_abs_err":
+              self.max_err["ggru"], "cases": rows})
+
+    def phase_kernel_lstm(self):
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        gen = torch.Generator().manual_seed(4)
+        T = WINDOW
+        rows = []
+        widths = [(H, F) for H in (256, 64, 128, 512) for F in (H, 2 * H)]
+        widths += [(256, TP_STAGES[0][1]), (512, DIP[1])]   # F = 72, 60
+        for H, F in widths:
+            p = self.lstm_layer(gen, F, H)
+            for S, nv in ((1, [T]), (8, [T, T, 37, T, 0, T, T, T])):
+                x, st, nvt = self.layer_inputs(gen, S, T, F, H, nv,
+                                               nodes=False)
+                errs, ok = self.compare_layer(
+                    "lstm", f"H={H} F={F} S={S}", LS.bi_lstm,
+                    LS.bi_lstm_reference, (p, x, st, nvt))
+                rows.append({"H": H, "F": F, "S": S, "y": errs[0],
+                             "h": errs[1], "c": errs[2], "ok": ok})
+        emit({"phase": "kernel_lstm", "tol": KERNEL_TOL, "max_abs_err":
+              self.max_err["lstm"], "cases": rows})
 
     # -- 3 ---------------------------------------------------------------
-    def cascade(self, backend):
+    def cascade(self, kind, backend):
         from a3gc_tpu_torch.models import nets as N
         from a3gc_tpu_torch.models.pipeline import (CascadeConfig,
                                                     PoseNetConfig)
+        if kind == "tp":
+            return CascadeConfig(*(
+                PoseNetConfig(net=N.DIPConfig(
+                    n_input=ni, n_output=no, n_hidden=H, backend=backend),
+                    rotsize=rot)
+                for H, ni, no, rot in TP_STAGES))
         return CascadeConfig(*(
             PoseNetConfig(net=N.GraphNetConfig(
-                cell="a3gc", units_in=ui, units_out=uo, units_hidden=H,
+                cell=kind, units_in=ui, units_out=uo, units_hidden=H,
                 backend=backend), rotsize=rot)
             for H, ui, uo, rot in STAGES))
 
+    def dip_cfg(self, backend):
+        from a3gc_tpu_torch.models import nets as N
+        from a3gc_tpu_torch.models.pipeline import PoseNetConfig
+        H, ni, no, rot = DIP
+        return PoseNetConfig(net=N.DIPConfig(
+            n_input=ni, n_output=no, n_hidden=H, backend=backend),
+            rotsize=rot)
+
     def params3(self, cfg):
         from a3gc_tpu_torch.data import load_adjacency_template
-        from a3gc_tpu_torch.models import nets as N
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
         gen = self.torch.Generator().manual_seed(0)
         nira = load_adjacency_template()
-        return tuple(N.init_graph_net(gen, c.net, nira).to(self.dev)
+        return tuple(init_pose_net(gen, c, nira).to(self.dev)
                      for c in cfg.stages)
 
-    def phase_serving(self):
+    def serve(self, path, sess, step_for, kernel, per_window_launches,
+              hidden):
+        """Drive ``sess`` (the path's entry point) for 5 windows with a
+        per-slot reset and an idle slot, counting every kernel's launches;
+        then hold one window to the plain path from the same carried state
+        and time 30 windows."""
         import numpy as np
-        from a3gc_tpu_torch.data import load_stats
-        from a3gc_tpu_torch.eval.streaming import (StreamingCascade,
-                                                   make_window_step)
-        from a3gc_tpu_torch.ops import gcn_lstm as G
-        from a3gc_tpu_torch.smpl import ParametricModel
         torch = self.torch
         S, W = S_SERVE, WINDOW
-        cfg = self.cascade("auto")
-        params3 = self.params3(cfg)
-        model = ParametricModel()
-        sess = StreamingCascade(params3, cfg, model, window=W,
-                                stats=load_stats(), normalize=True,
-                                streams=S, device=self.dev)
         rng = np.random.default_rng(0)
 
         def window():
@@ -252,42 +414,46 @@ class Smoke:
         per_window, finite = [], True
         idle = np.ones(S, np.float32)
         idle[5] = 0.0
-        G.bi_gcn_lstm.launches = 0                    # the main path starts
+        wrapper = self.wrappers[kernel]
+        self.zero_counts()                            # the main path starts
         for w in range(5):
-            before = G.bi_gcn_lstm.launches
+            before = wrapper.launches
             active = idle if w == 3 else None
             pose = sess.step(*window(), active=active)
-            per_window.append(G.bi_gcn_lstm.launches - before)
+            per_window.append(wrapper.launches - before)
             rows = np.ones(S, bool) if active is None else active > 0
             finite &= bool(np.isfinite(pose[rows]).all())
-            self.check(pose.shape == (S, W, 24, 3, 3), "serving pose shape")
+            self.check(pose.shape == (S, W, 24, 3, 3), f"{path} pose shape")
             if w == 1:
                 sess.reset(stream=3)
-        self.launches = G.bi_gcn_lstm.launches        # the main path ended
-        self.check(finite, "serving poses not finite")
-        self.check(per_window == [6] * 5,
-                   f"launches per window {per_window} != 6")
+        counts = self.counts()                        # the main path ended
+        self.launches[path] = counts
+        self.check(finite, f"{path} poses not finite")
+        self.check(per_window == [per_window_launches] * 5,
+                   f"{path} launches per window {per_window} != "
+                   f"{per_window_launches}")
+        self.check(all(n == 0 for k, n in counts.items() if k != kernel),
+                   f"{path} launched other kernels: {counts}")
 
         # one more window on the kernel path and on the plain path, from
         # the same carried state
         ori, acc = (torch.as_tensor(a, device=self.dev) for a in window())
         act = torch.as_tensor(idle, device=self.dev)
-        states = tuple(tuple(t.clone() for t in s) for s in sess._states)
         outs = {}
         with torch.no_grad():
             for backend in ("auto", "eager"):
-                step = make_window_step(self.cascade(backend), model,
-                                        sess.stats)
-                outs[backend] = step(params3, ori, acc, *states, act)
+                outs[backend] = step_for(backend)(
+                    sess.params3, ori, acc, *clone_tree(sess._states), act)
         torch.cuda.synchronize()
         rows = torch.as_tensor(idle > 0, device=self.dev).repeat_interleave(W)
         pose_err = float((outs["auto"][0] - outs["eager"][0])[rows].abs()
                          .max())
-        state_err = max(float((a - b).abs().max())
-                        for sa, sb in zip(outs["auto"][1:], outs["eager"][1:])
-                        for a, b in zip(sa, sb))
+        state_err = max(float((a - b).abs().max()) for a, b in zip(
+            leaves(outs["auto"][1:]), leaves(outs["eager"][1:])))
         self.check(pose_err <= PATH_TOL,
-                   f"serving window vs plain path: {pose_err:.3e}")
+                   f"{path} window vs plain path: {pose_err:.3e}")
+        self.check(state_err <= PATH_TOL,
+                   f"{path} state vs plain path: {state_err:.3e}")
 
         # timing: host clock around step(), which ends in the host copy
         for _ in range(3):
@@ -304,15 +470,58 @@ class Smoke:
             profile = self.profile_window(sess, inputs[:3])
         except Exception as e:     # a measurement aid, not a check
             profile = f"not measured: the profiler raised {e!r}"
-        emit({"phase": "serving", "streams": S, "window": W,
-              "hidden": [s[0] for s in STAGES], "launches_per_window":
-              per_window, "launches": self.launches, "finite": finite,
-              "pose_max_abs_err_vs_plain": pose_err,
+        emit({"phase": path, "streams": S, "window": W, "hidden": hidden,
+              "launches_per_window": per_window, "launches": counts,
+              "finite": finite, "pose_max_abs_err_vs_plain": pose_err,
               "state_max_abs_err_vs_plain": state_err,
               "ms_per_window_median": med,
               "ms_per_window_p90": float(np.percentile(times, 90)),
               "frames_per_s": S * W / (med / 1e3), "timed_windows":
               len(times), "profile": profile, "card": nvidia_smi()})
+
+    def serve_cascade(self, path, kind, kernel):
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import (StreamingCascade,
+                                                   make_window_step)
+        from a3gc_tpu_torch.smpl import ParametricModel
+        cfg = self.cascade(kind, "auto")
+        model = ParametricModel()
+        sess = StreamingCascade(self.params3(cfg), cfg, model,
+                                window=WINDOW, stats=load_stats(),
+                                normalize=True, streams=S_SERVE,
+                                device=self.dev)
+        self.serve(path, sess,
+                   lambda b: make_window_step(self.cascade(kind, b), model,
+                                              sess.stats),
+                   kernel, 6, [s[0] for s in
+                               (TP_STAGES if kind == "tp" else STAGES)])
+
+    def phase_serving(self):
+        self.serve_cascade("serving", "a3gc", "gcn_lstm")
+
+    def phase_serving_ggru(self):
+        self.serve_cascade("serving_ggru", "ggru", "ggru")
+
+    def phase_serving_tp(self):
+        self.serve_cascade("serving_tp", "tp", "lstm")
+
+    def phase_serving_dip(self):
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                                   make_dip_window_step)
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.smpl import ParametricModel
+        cfg = self.dip_cfg("auto")
+        model = ParametricModel()
+        params = init_pose_net(self.torch.Generator().manual_seed(0),
+                               cfg).to(self.dev)
+        sess = DipStreamingSession(params, cfg, model, window=WINDOW,
+                                   stats=load_stats(), streams=S_SERVE,
+                                   device=self.dev)
+        self.serve("serving_dip", sess,
+                   lambda b: make_dip_window_step(self.dip_cfg(b), model,
+                                                  sess.stats),
+                   "lstm", 2, [DIP[0]])
 
     def profile_window(self, sess, inputs):
         """Device time by kernel over a few serving windows, and the
@@ -351,24 +560,30 @@ class Smoke:
                         for us, k, c in rows[:8]]}
 
     # -- 4 ---------------------------------------------------------------
-    def phase_offline(self):
+    def offline(self, path, kind, kernel, feature_shape):
         import numpy as np
         from a3gc_tpu_torch.models.pipeline import cascade_apply
         from a3gc_tpu_torch.smpl import ParametricModel
         torch = self.torch
-        cfg = self.cascade("auto")
+        cfg = self.cascade(kind, "auto")
         params3 = self.params3(cfg)
         model = ParametricModel()
         rng = np.random.default_rng(1)
-        imu = torch.as_tensor(rng.normal(size=(1, 300, 15, 12)).astype(
-            np.float32), device=self.dev)
+        imu = torch.as_tensor(rng.normal(size=(1, 300) + feature_shape)
+                              .astype(np.float32), device=self.dev)
+        self.zero_counts()                            # the batch-1 path
         pose = cascade_apply(params3, cfg, model, imu, device=self.dev)
-        plain = cascade_apply(params3, self.cascade("eager"), model, imu,
-                              device=self.dev)
+        counts = self.counts()
+        self.launches[path] = counts
+        self.check(counts == {k: (6 if k == kernel else 0)
+                              for k in LIBRARIES},
+                   f"{path} launches {counts} != 6 of {kernel}")
+        plain = cascade_apply(params3, self.cascade(kind, "eager"), model,
+                              imu, device=self.dev)
         err = float((pose - plain).abs().max())
         finite = bool(torch.isfinite(pose).all())
         self.check(finite and err <= PATH_TOL,
-                   f"offline vs plain path: {err:.3e}, finite={finite}")
+                   f"{path} vs plain path: {err:.3e}, finite={finite}")
         times = []
         for _ in range(12):
             torch.cuda.synchronize()
@@ -377,58 +592,141 @@ class Smoke:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         med = float(np.median(times[2:]))
-        emit({"phase": "offline", "batch": 1, "frames": 300,
+        emit({"phase": path, "batch": 1, "frames": 300, "launches": counts,
               "pose_max_abs_err_vs_plain": err, "ms_median": med,
               "frames_per_s": 300 / (med / 1e3), "card": nvidia_smi()})
 
+    def phase_offline(self):
+        self.offline("offline", "a3gc", "gcn_lstm", (N_NODES, 12))
+
+    def phase_offline_tp(self):
+        self.offline("offline_tp", "tp", "lstm", (TP_STAGES[0][1],))
+
     # -- 5 ---------------------------------------------------------------
+    def time_layer(self, name, path, S, F, H, layer, args, work,
+                   library=None):
+        mod = importlib.import_module(f"a3gc_tpu_torch.ops.{name}")
+        torch = self.torch
+        T = WINDOW
+        with torch.no_grad():
+            scan_args = mod.scan_inputs(layer, *args)
+            ms = cuda_ms(lambda: self.wrappers[name](layer, *args), 20)
+            scan_ms = cuda_ms(lambda: mod.scan(*scan_args), 20)
+            plain = getattr(mod, f"bi_{name}_reference")
+            plain_ms = cuda_ms(lambda: plain(layer, *args), 3, warmup=1)
+            lib_ms = None if library is None else cuda_ms(library, 20)
+        b_ms, b_by = bound(*work(S, T, F, H, True))
+        sb_ms, sb_by = bound(*work(S, T, F, H, False))
+        self.shapes[name].append({
+            "path": path, "S": S, "T": T, "H": H, "F": F, "ms": ms,
+            "scan_ms": scan_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "scan_bound_ms": sb_ms,
+            "scan_bound_by": sb_by})
+
+    def cudnn_lstm(self, p, x, st):
+        """cuDNN's torch.nn.LSTM on the layer's weights, checked against
+        the plain version at n_valid = T; returns the call to time."""
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        F, H = p.w_ih.shape[1], p.w_hh.shape[1]
+        mod = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True).to(
+            self.dev)
+        with torch.no_grad():
+            for d, suffix in enumerate(("", "_reverse")):
+                getattr(mod, "weight_ih_l0" + suffix).copy_(p.w_ih[d].T)
+                getattr(mod, "weight_hh_l0" + suffix).copy_(p.w_hh[d].T)
+                getattr(mod, "bias_ih_l0" + suffix).copy_(p.b_ih[d])
+                getattr(mod, "bias_hh_l0" + suffix).copy_(p.b_hh[d])
+            got = mod(x, st)
+            want = LS.bi_lstm_reference(p, x, st)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(leaves(got), leaves(want)))
+        self.check(err <= KERNEL_TOL,
+                   f"cuDNN LSTM vs plain H={H} F={F}: {err:.3e}")
+        return lambda: mod(x, st)
+
     def phase_times(self):
-        from a3gc_tpu_torch.ops import gcn_lstm as G
         torch = self.torch
         gen = torch.Generator().manual_seed(2)
         T = WINDOW
-        for H, _, _, _ in STAGES:
-            for F in (H, 2 * H):
-                p = self.cell(gen, "a3gc", F, H)
-                for S in (S_SERVE, 1):
-                    x, st, nv = self.layer_inputs(gen, S, T, F, H, [T] * S)
-                    with torch.no_grad():
-                        args = G.scan_inputs(p, x, st, nv)
-                        ms = cuda_ms(lambda: G.bi_gcn_lstm(p, x, st, nv), 20)
-                        scan_ms = cuda_ms(lambda: G.scan(*args), 20)
-                        plain_ms = cuda_ms(
-                            lambda: G.bi_gcn_lstm_reference(p, x, st, nv), 3,
-                            warmup=1)
-                    b_ms, b_by = bound(*layer_work(S, T, F, H, True, True))
-                    sb_ms, sb_by = bound(*layer_work(S, T, F, H, True, False))
-                    self.shapes.append({
-                        "S": S, "T": T, "H": H, "F": F, "ms": ms,
-                        "scan_ms": scan_ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "scan_bound_ms": sb_ms, "scan_bound_by": sb_by})
+        for S in (S_SERVE, 1):
+            full = [T] * S
+            for H, _, _, _ in STAGES:
+                for F in (H, 2 * H):
+                    p = self.cell(gen, "a3gc", F, H)
+                    x, st, nv = self.layer_inputs(gen, S, T, F, H, full)
+                    self.time_layer("gcn_lstm", "serving", S, F, H, p,
+                                    (x, st, nv), gcn_layer_work)
+                    p = self.cell(gen, "ggru", F, H)
+                    x, h, nv = self.layer_inputs(gen, S, T, F, H, full,
+                                                 n_state=1)
+                    self.time_layer("ggru", "serving_ggru", S, F, H, p,
+                                    (x, h, nv), ggru_layer_work)
+            lstm_paths = [("serving_tp", H) for H, _, _, _ in TP_STAGES]
+            lstm_paths.append(("serving_dip", DIP[0]))
+            for path, H in lstm_paths:
+                for F in (H, 2 * H):
+                    p = self.lstm_layer(gen, F, H)
+                    x, st, nv = self.layer_inputs(gen, S, T, F, H, full,
+                                                  nodes=False)
+                    self.time_layer("lstm", path, S, F, H, p, (x, st, nv),
+                                    lstm_layer_work,
+                                    library=self.cudnn_lstm(p, x, st))
 
     def kernels_line(self):
-        main = [r for r in self.shapes if r["S"] == S_SERVE]
-        ms = sum(r["ms"] for r in main)
-        plain = sum(r["plain_ms"] for r in main)
-        b_ms = sum(r["bound_ms"] for r in main)
-        flop = sum(layer_work(r["S"], r["T"], r["F"], r["H"], True, True)[0]
-                   for r in main)
-        nbytes = sum(layer_work(r["S"], r["T"], r["F"], r["H"], True,
-                                True)[1] for r in main)
-        emit({"kernels": [{
-            "name": "gcn_lstm", "route": "cuda",
-            "source": "a3gc_tpu_torch/ops/csrc/gcn_lstm.cu",
-            "replaces": "a3gc_tpu/ops/pallas_gcn_lstm.py:92 (_kernel), "
-                        "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
-                        "(_dirfused_kernel)",
-            "launches": self.launches, "max_abs_err": self.max_err,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": bound(flop, nbytes)[1], "library_ms": None,
-            "timed": "the six layer calls of one serving window "
-                     "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
-                     "including its hoisted input projection",
-            "per_shape": self.shapes, "card": nvidia_smi()}]})
+        meta = {
+            "gcn_lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:92 (_kernel), "
+                         "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
+                         "(_dirfused_kernel)", ("serving",), gcn_layer_work,
+                         "the six layer calls of one A3GC serving window "
+                         "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
+                         "including its hoisted input projection",
+                         "no PyTorch call mixes a per-gate graph adjacency "
+                         "and joint attention into an LSTM recurrence"),
+            "ggru": ("a3gc_tpu/ops/pallas_gcn_lstm.py:412 (_ggru_kernel)",
+                     ("serving_ggru",), ggru_layer_work,
+                     "the six layer calls of one G-GRU serving window "
+                     "(3 stages x rnn1/rnn2, S=8, T=60), bi_ggru including "
+                     "its hoisted input projection",
+                     "no PyTorch call mixes a graph message into a GRU "
+                     "recurrence"),
+            "lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:580 (_lstm_kernel)",
+                     ("serving_tp", "serving_dip"), lstm_layer_work,
+                     "the six layer calls of one TransPose serving window "
+                     "plus the two of one DIP serving window (S=8, T=60), "
+                     "bi_lstm including its hoisted input projection; "
+                     "library: cuDNN torch.nn.LSTM on the same weights",
+                     None),
+        }
+        entries = []
+        for name, (replaces, paths, work, timed, no_lib) in meta.items():
+            main = [r for r in self.shapes[name] if r["S"] == S_SERVE]
+            flop = sum(work(r["S"], r["T"], r["F"], r["H"], True)[0]
+                       for r in main)
+            nbytes = sum(work(r["S"], r["T"], r["F"], r["H"], True)[1]
+                         for r in main)
+            lib = [r["library_ms"] for r in main]
+            entry = {
+                "name": name, "route": "cuda",
+                "source": f"a3gc_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": sum(self.launches[p][name] for p in paths),
+                "launches_by_path": {p: self.launches[p][name]
+                                     for p in paths},
+                "max_abs_err": self.max_err[name],
+                "ms": sum(r["ms"] for r in main),
+                "plain_ms": sum(r["plain_ms"] for r in main),
+                "bound_ms": sum(r["bound_ms"] for r in main),
+                "bound_by": bound(flop, nbytes)[1],
+                "library_ms": (sum(lib) if lib and None not in lib
+                               else None),
+                "timed": timed, "per_shape": self.shapes[name],
+                "card": nvidia_smi()}
+            if no_lib:
+                entry["library_note"] = no_lib
+            entries.append(entry)
+        emit({"kernels": entries})
 
 
 def main():
@@ -450,9 +748,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smoke = Smoke()
-    for phase in (smoke.phase_device, smoke.phase_kernel,
-                  smoke.phase_serving, smoke.phase_offline,
-                  smoke.phase_times):
+    phases = (smoke.phase_device, smoke.phase_kernel,
+              smoke.phase_kernel_ggru, smoke.phase_kernel_lstm,
+              smoke.phase_serving, smoke.phase_serving_ggru,
+              smoke.phase_serving_tp, smoke.phase_serving_dip,
+              smoke.phase_offline, smoke.phase_offline_tp,
+              smoke.phase_times)
+    for phase in phases:
         try:
             phase()
         except Exception:
@@ -460,7 +762,7 @@ def main():
                                   + traceback.format_exc())
             if phase is smoke.phase_device:
                 break
-    if smoke.shapes and smoke.launches is not None:
+    if all(smoke.shapes.values()) and len(smoke.launches) == 6:
         smoke.kernels_line()
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

@@ -1,6 +1,6 @@
-"""Tests of the PyTorch port that need a CUDA card: the Hopper kernel
-against its plain version, and the serving path through the kernel against
-the plain path. They import neither jax nor the JAX package, so they run on
+"""Tests of the PyTorch port that need a CUDA card: each Hopper kernel
+(gcn_lstm, ggru, lstm) against its plain version, and the serving paths
+through the kernels against the plain path. They import neither jax nor the JAX package, so they run on
 a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_port_card.py -q --noconftest
@@ -110,3 +110,116 @@ def test_torch_port_streaming_kernel_path_matches_plain_on_card():
         assert np.isfinite(got[rows]).all()
         np.testing.assert_allclose(got[rows], want[rows], atol=1e-4)
     assert G.bi_gcn_lstm.launches == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n_valid", [(1, [60]), (8, [60, 60, 37, 60, 0,
+                                                        60, 60, 60])])
+def test_torch_port_ggru_kernel_matches_plain_on_card(S, n_valid):
+    """Every frame and the final state; 1e-5 absolute (fp32, sums
+    reordered by the kernel over a 60-step recurrence)."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    from a3gc_tpu_torch.ops import ggru as GG
+    gen = torch.Generator().manual_seed(4)
+    T, N, H = 60, 15, 64
+    nira = load_adjacency_template()
+    p = L.stack_directions(*(C.init_ggru_cell(gen, 2 * H, H, nira)
+                             for _ in range(2))).cuda()
+    x = torch.randn((S, T, N, 2 * H), generator=gen).cuda()
+    h = (0.5 * torch.randn((2, S, N, H), generator=gen)).cuda()
+    nv = torch.tensor(n_valid, device="cuda")
+    GG.bi_ggru.launches = 0
+    with torch.no_grad():
+        y, hn = GG.bi_ggru(p, x, h, nv)
+        ref_y, ref_h = GG.bi_ggru_reference(p, x, h, nv)
+    torch.cuda.synchronize()
+    assert GG.bi_ggru.launches == 1
+    for a, b in ((y, ref_y), (hn, ref_h)):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n_valid", [(1, [60]), (8, [60, 60, 37, 60, 0,
+                                                        60, 60, 60])])
+def test_torch_port_lstm_kernel_matches_plain_on_card(S, n_valid):
+    """Every frame and the final state; 1e-5 absolute."""
+    _need_card()
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(5)
+    T, H = 60, 128
+    p = N.init_dip(gen, N.DIPConfig(n_hidden=H)).lstm[1].cuda()
+    x = torch.randn((S, T, 2 * H), generator=gen).cuda()
+    st = tuple((0.5 * torch.randn((2, S, H), generator=gen)).cuda()
+               for _ in range(2))
+    nv = torch.tensor(n_valid, device="cuda")
+    LS.bi_lstm.launches = 0
+    with torch.no_grad():
+        y, (h, c) = LS.bi_lstm(p, x, st, nv)
+        ref_y, (ref_h, ref_c) = LS.bi_lstm_reference(p, x, st, nv)
+    torch.cuda.synchronize()
+    assert LS.bi_lstm.launches == 1
+    for a, b in ((y, ref_y), (h, ref_h), (c, ref_c)):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ggru", "tp", "dip"])
+def test_torch_port_new_family_serving_matches_plain_on_card(kind):
+    """One serving window of the ggru cascade, the TransPose cascade or
+    the DIP session through the kernels against the plain path, an idle
+    slot included; 1e-4 absolute on poses after IK."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                               StreamingCascade)
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig,
+                                                PoseNetConfig, init_pose_net)
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.smpl import ParametricModel
+
+    def cfg(backend):
+        if kind == "dip":
+            return PoseNetConfig(net=N.DIPConfig(n_hidden=64,
+                                                 backend=backend))
+        if kind == "tp":
+            return CascadeConfig(*(PoseNetConfig(net=N.DIPConfig(
+                n_input=ni, n_output=no, n_hidden=32, backend=backend),
+                rotsize=rot) for ni, no, rot in ((72, 15, 3), (87, 69, 3),
+                                                 (141, 135, 9))))
+        return CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+            cell="ggru", units_in=ui, units_out=uo, units_hidden=32,
+            backend=backend), rotsize=rot)
+            for ui, uo, rot in ((12, 3, 3), (15, 3, 3), (15, 9, 9))))
+
+    gen = torch.Generator().manual_seed(6)
+    nira = load_adjacency_template()
+    S, W = 3, 20
+    if kind == "dip":
+        params = init_pose_net(gen, cfg("auto")).cuda()
+        sessions = [DipStreamingSession(params, cfg(b), ParametricModel(),
+                                        window=W, stats=load_stats(),
+                                        streams=S) for b in ("auto", "eager")]
+    else:
+        params = tuple(init_pose_net(gen, c, nira).cuda()
+                       for c in cfg("auto").stages)
+        sessions = [StreamingCascade(params, cfg(b), ParametricModel(),
+                                     window=W, stats=load_stats(),
+                                     normalize=True, streams=S)
+                    for b in ("auto", "eager")]
+    counter = GG.bi_ggru if kind == "ggru" else LS.bi_lstm
+    rng = np.random.default_rng(7)
+    counter.launches = 0
+    active = np.array([1.0, 0.0, 1.0], np.float32)
+    ori = rng.normal(size=(S, W, 54)).astype(np.float32)
+    acc = rng.normal(size=(S, W, 18)).astype(np.float32)
+    got, want = (s.step(ori, acc, active=active) for s in sessions)
+    rows = active > 0
+    assert np.isfinite(got[rows]).all()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-4)
+    assert counter.launches == (2 if kind == "dip" else 6)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing a3gc_tpu_torch and serving a tiny
-StreamingCascade on the CPU loads no jax, flax or a3gc_tpu module."""
+"""The port stands alone: importing a3gc_tpu_torch and serving tiny a3gc,
+ggru and TransPose cascades through StreamingCascade and a DIP net through
+DipStreamingSession on the CPU loads no jax, flax or a3gc_tpu module."""
 
 import json
 import os
@@ -14,24 +15,42 @@ import numpy as np
 import torch
 import a3gc_tpu_torch
 from a3gc_tpu_torch.data import load_adjacency_template, load_stats
-from a3gc_tpu_torch.eval.streaming import StreamingCascade
+from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                           StreamingCascade)
 from a3gc_tpu_torch.models import nets as N
-from a3gc_tpu_torch.models.pipeline import CascadeConfig, PoseNetConfig
+from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                            init_pose_net)
 from a3gc_tpu_torch.smpl import ParametricModel
 
-def stage(ui, uo):
-    return PoseNetConfig(net=N.GraphNetConfig(units_in=ui, units_out=uo,
-                                              units_hidden=8), rotsize=9)
-cfg = CascadeConfig(stage(12, 3), stage(15, 3), stage(15, 9))
+def graph(cell, ui, uo, rot):
+    return PoseNetConfig(net=N.GraphNetConfig(
+        cell=cell, units_in=ui, units_out=uo, units_hidden=8), rotsize=rot)
+
+def dense(ni, no, rot):
+    return PoseNetConfig(net=N.DIPConfig(n_input=ni, n_output=no,
+                                         n_hidden=8), rotsize=rot)
+
 gen = torch.Generator().manual_seed(0)
 nira = load_adjacency_template()
-params3 = tuple(N.init_graph_net(gen, c.net, nira) for c in cfg.stages)
-sess = StreamingCascade(params3, cfg, ParametricModel(), window=4,
-                        stats=load_stats(), normalize=True, streams=2,
-                        device="cpu")
 rng = np.random.default_rng(0)
-pose = sess.step(rng.normal(size=(2, 4, 54)), rng.normal(size=(2, 4, 18)))
-assert pose.shape == (2, 4, 24, 3, 3) and np.isfinite(pose).all()
+cascades = [CascadeConfig(*(graph(cell, *d) for d in
+                            ((12, 3, 3), (15, 3, 3), (15, 9, 9))))
+            for cell in ("a3gc", "ggru")]
+cascades.append(CascadeConfig(dense(72, 15, 3), dense(87, 69, 3),
+                              dense(141, 135, 9)))
+sessions = [StreamingCascade(
+    tuple(init_pose_net(gen, c, nira) for c in cfg.stages), cfg,
+    ParametricModel(), window=4, stats=load_stats(), normalize=True,
+    streams=2, device="cpu") for cfg in cascades]
+dip = dense(60, 135, 9)
+sessions.append(DipStreamingSession(init_pose_net(gen, dip), dip,
+                                    ParametricModel(), window=4,
+                                    stats=load_stats(), streams=2,
+                                    device="cpu"))
+for sess in sessions:
+    pose = sess.step(rng.normal(size=(2, 4, 54)),
+                     rng.normal(size=(2, 4, 18)))
+    assert pose.shape == (2, 4, 24, 3, 3) and np.isfinite(pose).all()
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

@@ -87,5 +87,5 @@ def test_torch_port_init_graph_net_shapes_match_jax():
     nira = load_adjacency_template()
     np.testing.assert_array_equal(p.rnn1.adj[0, 2].detach().numpy(), nira.T)
     assert not p.rnn1.bias.detach().any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TN.GraphNetConfig(cell="ggru")
+    with pytest.raises(ValueError, match="unknown cell"):
+        TN.GraphNetConfig(cell="gru")

@@ -2,14 +2,16 @@ r"""Build the port's CUDA sources with nvcc into a shared library with a
 plain C interface, and load it with ctypes.
 
 The library is built at first use into ``build/kernels/`` beside the
-package (a directory git ignores), named by a hash of the source and the
-flags so that an edited source is never served by a stale build. Nothing
+package (a directory git ignores), named by a hash of the source, every
+header in ``csrc/`` and the flags, so that an edited source or header is
+never served by a stale build. Nothing
 here runs at import: the CPU-only test machines have no nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -18,7 +20,7 @@ import tempfile
 import threading
 import time
 
-__all__ = ["load_library", "NVCC_FLAGS"]
+__all__ = ["load_library", "library_digest", "NVCC_FLAGS"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -54,6 +56,19 @@ def _nvcc() -> str:
     return found
 
 
+def library_digest(name: str, csrc: str = _CSRC) -> str:
+    r"""Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` (by name and
+    content, in name order) and the nvcc flags."""
+    h = hashlib.sha1()
+    for path in [os.path.join(csrc, name + ".cu")] + sorted(
+            glob.glob(os.path.join(csrc, "*.cuh"))):
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> BuiltLibrary:
     r"""Build (once per source version) and load ``csrc/<name>.cu``.
     Raises if nvcc is missing or the build fails. Different libraries
@@ -64,9 +79,7 @@ def load_library(name: str) -> BuiltLibrary:
         if name in _loaded:
             return _loaded[name]
         src = os.path.join(_CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = library_digest(name)
         os.makedirs(BUILD_DIR, exist_ok=True)
         out = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
         log_path = out + ".log"

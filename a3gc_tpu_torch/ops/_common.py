@@ -3,18 +3,45 @@ port's scan kernels (``gcn_lstm``, ``ggru``, ``lstm``).
 
 Each ``csrc/<name>.cu`` exports a plain C interface: ``<name>_forward``
 (device pointers, then ints, then the CUDA stream; returns a
-``cudaError_t``), ``<name>_error_string`` and ``<name>_smem_bytes``."""
+``cudaError_t``), ``<name>_error_string`` and ``<name>_smem_bytes``.
+
+The launch plans of the weight-stationary kernels (``lstm``, ``gcn_lstm``)
+are computed here in Python and passed to C: :func:`k_slices` is the
+thread mapping both use."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-__all__ = ["SMEM_LIMIT", "f32", "n_valid_tensor", "check_f32",
-           "check_n_valid", "kernel_library", "launch"]
+__all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
+           "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
+           "k_slices", "sm_count", "kernel_library", "launch"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
+SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
+THREADS = 256                # threads per CTA of lstm.cu and gcn_lstm.cu
+MAX_CLUSTER = 8              # the portable thread-block cluster size
+
+
+def k_slices(columns: int, K: int, threads: int = THREADS) -> int:
+    r"""k-slices per column of a product over K rows: the largest power of
+    two ≤ 32 such that ``columns`` × slices threads fit in ``threads`` and
+    every slice is a whole number of float4 (K % (4·slices) == 0). Lanes
+    ``ks·(32 / slices) + column`` of a warp share a column and are summed by
+    shuffles (scan_common.cuh ``reduce_k_slices``)."""
+    ks = 1
+    while ks < 32 and columns * ks * 2 <= threads and K % (8 * ks) == 0:
+        ks *= 2
+    return ks
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    r"""Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def f32(t: torch.Tensor) -> torch.Tensor:
@@ -48,6 +75,15 @@ def check_n_valid(kernel: str, dev: torch.device, n_valid: torch.Tensor,
     if n_valid.device != dev or n_valid.dtype != torch.int32 \
             or n_valid.shape != (S,):
         raise ValueError(f"{kernel}: n_valid must be int32 [{S}] on {dev}")
+
+
+def check_aligned(kernel: str, *tensors):
+    r"""Raise unless each tensor starts on a 16-byte boundary: the kernels
+    copy their inputs with 16-byte cp.async and cp.async.bulk."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: a {tuple(t.shape)} input is not "
+                             "16-byte aligned")
 
 
 def kernel_library(name: str, n_pointers: int, n_ints: int,

@@ -4,11 +4,15 @@ and ``bi_gcn_lstm_pallas_dirfused``).
 
 :func:`bi_gcn_lstm` hoists the input projection ``u = x·W_x`` out of the
 scan with one ``torch.matmul`` (as the JAX package leaves it to XLA outside
-its kernel) and launches ``csrc/gcn_lstm.cu``: grid (streams, directions),
-both directions in one launch, the recurrent state in shared memory for the
-whole window. On a CPU tensor it computes :func:`bi_gcn_lstm_reference`,
-the plain PyTorch version of the same function; on a CUDA tensor it
-launches the kernel or raises.
+its kernel) and launches ``csrc/gcn_lstm.cu``, both directions in one
+launch: a thread-block cluster of C CTAs per (stream, direction) that split
+the hidden units, keep their slice of the recurrent weights in shared
+memory (and registers) for the whole window, and exchange h and the
+attention sums through distributed shared memory each frame (``st.async``
+stores completing on the receiver's mbarriers).
+:func:`launch_plan` chooses C. On a CPU tensor it computes
+:func:`bi_gcn_lstm_reference`, the plain PyTorch version of the same
+function; on a CUDA tensor it launches the kernel or raises.
 
 The function, for x [S, T, N, F], state2 (h, c) each [2, S, N, H] and
 per-stream ``n_valid`` [S]:
@@ -27,17 +31,91 @@ the training slice (ROADMAP Queue 1 item 11).
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import layers as L
-from a3gc_tpu_torch.ops._common import (SMEM_LIMIT, check_f32, check_n_valid,
-                                        f32 as _f32, kernel_library, launch,
+from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
+                                        THREADS, check_aligned, check_f32,
+                                        check_n_valid, f32 as _f32, k_slices,
+                                        kernel_library, launch,
                                         n_valid_tensor as _n_valid)
 
-__all__ = ["bi_gcn_lstm", "bi_gcn_lstm_reference", "scan", "scan_inputs"]
+__all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
+           "launch_plan", "max_active", "scan", "scan_inputs", "smem_bytes"]
+
+NODES = 16           # node rows padded to 16
+MAX_KW = 32          # attention weights a thread keeps in registers: of
+MAX_KCA = 32         # W 1 column × H / KSQ rows, of Wh 2 columns × H / KSA
+
+
+class LaunchPlan(NamedTuple):
+    r"""How ``csrc/gcn_lstm.cu`` runs one layer call: a cluster of C CTAs
+    per (stream, direction)."""
+    C: int             # CTAs per cluster; CTA c owns hidden units c·H/C …
+    KS: int            # k-slices per group of 4 gate columns of h·W_h
+    KSA: int           # k-slices per column pair of hy·Wh (attention)
+    KSQ: int           # k-slices per column of q·Wq and (Σ hy)·W
+    threads: int
+    smem: int          # dynamic shared memory per CTA, bytes
+
+    @property
+    def cluster(self) -> int:
+        return self.C
+
+
+def smem_bytes(N: int, H: int, C: int, KSQ: int, attention: bool) -> int:
+    r"""Dynamic shared memory of one CTA (``gcn_lstm_smem_bytes`` in C):
+    the W_h slice [H, 4H/C] (rows padded by 4 floats), the full h
+    double-buffered [2, 16, H], the mixed gates [16, 4H/C], u [N, 4H/C],
+    c [N, H/C], bias, adjacency; with attention Wq's columns [H, H/C]
+    (rows padded by max(4, 32/KSQ) floats), s, q, Σ_nodes hy and the
+    partial sums."""
+    Hc = H // C
+    M = 4 * Hc
+    floats = (H * (M + 4) + 2 * NODES * H + NODES * M + N * M + N * Hc + M
+              + 4 * N * N)
+    if attention:
+        floats += (H * (Hc + max(4, 32 // KSQ)) + NODES * Hc + 2 * H
+                   + 2 * Hc + C * NODES + 2 * NODES)
+    return SMEM_HEADER + 4 * floats
+
+
+def launch_plan(N: int, H: int, attention: bool,
+                C: Optional[int] = None) -> LaunchPlan:
+    r"""The cluster for a layer of N ≤ 16 nodes at hidden width H: the
+    smallest C ≤ 4 whose CTAs own at most 64 gate columns each, else the
+    smallest C ≤ 8 with at most 128 (wider only where no C gives that),
+    whose slices fit in shared memory and, with attention, whose W
+    column and Wh column pair fit in 32 + 32 registers a thread. The
+    64-column step is measured (``scripts/torch_kernel_ab.py``: C = 4
+    beats 2 at H = 64 on an H100); clusters of 8 stop at 4 because 16
+    clusters of 8, one (stream, direction) each at S = 8, do not all fit
+    on the card at once (an H100 holds 15). ``C``
+    forces the split, for measuring C against 2C. Raises if nothing
+    fits."""
+    if N <= 0 or N > NODES or H <= 0 or H % 4:
+        raise ValueError(f"gcn_lstm: needs N <= {NODES} and H % 4 == 0, got "
+                         f"N={N}, H={H}")
+    passes = (((THREADS, MAX_CLUSTER),) if C is not None
+              else ((64, 4), (128, MAX_CLUSTER), (THREADS, MAX_CLUSTER)))
+    for widest, most in passes:
+        for c in ([C] if C is not None else range(1, most + 1)):
+            Hc = H // c
+            if c > MAX_CLUSTER or H % c or Hc % 4 or 4 * Hc > widest:
+                continue
+            ksa, ksq = k_slices(Hc // 2, H), k_slices(Hc, H)
+            smem = smem_bytes(N, H, c, ksq, attention)
+            if smem > SMEM_LIMIT or (attention and (
+                    2 * (H // ksa) > MAX_KCA or H // ksq > MAX_KW)):
+                continue
+            return LaunchPlan(c, k_slices(Hc, H), ksa, ksq, THREADS, smem)
+    raise ValueError(f"gcn_lstm: no launch plan for N={N}, H={H}, "
+                     f"attention={attention}"
+                     + (f", C={C}" if C is not None else ""))
 
 
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
@@ -66,14 +144,40 @@ def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
     return torch.tanh(y), (h, c)
 
 
+def _library():
+    return kernel_library("gcn_lstm", 16, 11, 5)
+
+
+def _plan_ints(plan: LaunchPlan):
+    return (plan.C, plan.KS, plan.KSA, plan.KSQ, plan.threads, plan.smem)
+
+
+def max_active(plan: LaunchPlan, S: int, N: int, H: int,
+               attention: bool) -> int:
+    r"""Clusters of ``plan`` the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Raises on a plan the kernel
+    refuses."""
+    lib = _library()
+    fn = lib.gcn_lstm_max_active
+    fn.argtypes = [ctypes.c_int] * 10
+    fn.restype = ctypes.c_int
+    n = fn(S, N, H, int(attention), *_plan_ints(plan))
+    if n < 0:
+        raise RuntimeError("gcn_lstm occupancy query failed: "
+                           + lib.gcn_lstm_error_string(-n).decode())
+    return n
+
+
 def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
          bias: torch.Tensor, attention: Optional[tuple], h0: torch.Tensor,
-         c0: torch.Tensor, n_valid: torch.Tensor):
+         c0: torch.Tensor, n_valid: torch.Tensor,
+         plan: Optional[LaunchPlan] = None):
     r"""Launch the kernel on hoisted inputs. u [2, S, T, N, 4H] (both
     directions in forward frame order), wh [2, H, 4H], adj [2, 4, N, N],
     bias [2, 4, H], attention None or (w, wq, wh, u [2, H], bs, bu), h0/c0
     [2, S, N, H], n_valid [S] int32 — all contiguous fp32 on one card.
-    Returns (y [S, T, N, 2H], h [2, S, N, H], c [2, S, N, H])."""
+    ``plan`` defaults to :func:`launch_plan`. Returns (y [S, T, N, 2H],
+    h [2, S, N, H], c [2, S, N, H])."""
     _, S, T, N, G = u.shape
     H = G // 4
     dev = u.device
@@ -85,13 +189,10 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
                            + [(2, N)]))
     check_f32("gcn_lstm", dev, shapes)
     check_n_valid("gcn_lstm", dev, n_valid, S)
-    if H % 4 or N > 16:
-        raise ValueError(f"gcn_lstm: needs H % 4 == 0 and N <= 16, got "
-                         f"H={H}, N={N}")
-    lib = kernel_library("gcn_lstm", 16, 5, 2)
-    if lib.gcn_lstm_smem_bytes(N, H) > SMEM_LIMIT:
-        raise ValueError(f"gcn_lstm: H={H} needs more shared memory than a "
-                         "block has")
+    check_aligned("gcn_lstm", u, wh, *(attention[1:2] if attention else ()))
+    if plan is None:
+        plan = launch_plan(N, H, attention is not None)
+    lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
@@ -99,7 +200,8 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     launch("gcn_lstm", lib, dev, u.data_ptr(), wh.data_ptr(),
            adj.data_ptr(), bias.data_ptr(), *att, h0.data_ptr(),
            c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-           c_out.data_ptr(), S, T, N, H, int(attention is not None))
+           c_out.data_ptr(), S, T, N, H, int(attention is not None),
+           *_plan_ints(plan))
     bi_gcn_lstm.launches += 1
     return y, h_out, c_out
 

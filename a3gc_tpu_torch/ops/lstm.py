@@ -4,11 +4,15 @@ the recurrent layer of the DIP net and of the TransPose cascade.
 
 :func:`bi_lstm` hoists the input projection ``u = x·W_ih + b_ih + b_hh``
 out of the scan with one ``torch.matmul`` (as the JAX package leaves it to
-XLA outside its kernel) and launches ``csrc/lstm.cu``: grid (blocks of up
-to 8 streams, directions), both directions in one launch, the recurrent
-state in shared memory for the whole window. On a CPU tensor it computes
-:func:`bi_lstm_reference`, the plain PyTorch version of the same function;
-on a CUDA tensor it launches the kernel or raises.
+XLA outside its kernel) and launches ``csrc/lstm.cu``, both directions in
+one launch: per (direction, block of up to 8 streams) a group of P CTAs
+that split the hidden units and keep their slice of W_hh in shared memory
+for the whole window, exchanging h each frame — a thread-block cluster
+through distributed shared memory, or, where a cluster cannot hold W_hh,
+a cooperative launch through L2. :func:`launch_plan` chooses the group.
+On a CPU tensor it computes :func:`bi_lstm_reference`, the plain PyTorch
+version of the same function; on a CUDA tensor it launches the kernel or
+raises.
 
 The function, for x [S, T, F], state2 (h, c) each [2, S, H] and
 per-stream ``n_valid`` [S] (the Pallas kernel takes one scalar for all
@@ -25,16 +29,91 @@ The kernel is forward-only: a CUDA call with grad enabled raises.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple, Optional
+
 import torch
 from torch import nn
 
 from a3gc_tpu_torch.models import layers as L
-from a3gc_tpu_torch.ops._common import (SMEM_LIMIT, check_f32, check_n_valid,
-                                        f32, kernel_library, launch,
-                                        n_valid_tensor)
+from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
+                                        THREADS, check_aligned, check_f32,
+                                        check_n_valid, f32, k_slices,
+                                        kernel_library, launch,
+                                        n_valid_tensor, sm_count)
 
-__all__ = ["bi_lstm", "bi_lstm_reference", "lstm_step_hoisted", "scan",
-           "scan_inputs"]
+__all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "launch_plan",
+           "lstm_step_hoisted", "max_active", "scan", "scan_inputs",
+           "smem_bytes"]
+
+
+class LaunchPlan(NamedTuple):
+    r"""How ``csrc/lstm.cu`` runs one layer call."""
+    R: int                 # streams per group (1, 2, 4 or 8)
+    P: int                 # CTAs per group; CTA p owns hidden units p·H/P …
+    KS: int                # k-slices per gate column of h·W_hh
+    groups: int            # groups per direction on the card at once
+    cooperative: bool      # False: a cluster of P CTAs exchanging through
+                           # DSMEM; True: a cooperative grid, through L2
+    threads: int
+    smem: int              # dynamic shared memory per CTA, bytes
+
+    @property
+    def cluster(self) -> int:
+        return 1 if self.cooperative else self.P
+
+    @property
+    def ctas(self) -> int:
+        return 2 * self.P * self.groups
+
+
+def rows_per_group(S: int) -> int:
+    r"""Streams per group: the least power of two ≥ min(S, 8)."""
+    return 1 if S <= 1 else 2 if S <= 2 else 4 if S <= 4 else 8
+
+
+def smem_bytes(R: int, H: int, P: int, cooperative: bool) -> int:
+    r"""Dynamic shared memory of one CTA (``lstm_smem_bytes`` in C): the
+    W_hh slice [H, 4H/P] with rows padded by 4 floats, the full h
+    (double-buffered in a cluster), the z and u slices [R, 4H/P] and the
+    c slice [R, H/P]."""
+    Hc = H // P
+    M = 4 * Hc
+    floats = (H * (M + 4) + (1 if cooperative else 2) * R * H + 2 * R * M
+              + R * Hc)
+    return SMEM_HEADER + 4 * floats
+
+
+def launch_plan(S: int, H: int, sms: int = 132,
+                P: Optional[int] = None) -> LaunchPlan:
+    r"""The group for S streams at hidden width H on a card of ``sms`` SMs:
+    the smallest P whose CTAs own at most 64 gate columns each (wider only
+    where no P gives that) and whose W_hh slice fits in shared memory; a
+    cluster up to P = 8, a cooperative grid beyond (H = 256: P = 16,
+    H = 512: P = 32). The 64-column width is measured
+    (``scripts/torch_kernel_ab.py``: on an H100 it beats 128 columns at
+    every serving width). ``P`` forces the split, for measuring P against
+    2P. Raises if nothing fits."""
+    if S <= 0 or H <= 0 or H % 4:
+        raise ValueError(f"lstm: needs S >= 1 and H % 4 == 0, got S={S}, "
+                         f"H={H}")
+    R = rows_per_group(S)
+    n_blocks = -(-S // R)
+    widths = (THREADS,) if P is not None else (64, 128, THREADS)
+    for widest in widths:
+        for p in ([P] if P is not None else range(1, 65)):
+            Hc = H // p
+            if H % p or Hc % 4 or 4 * Hc > widest:
+                continue
+            coop = p > MAX_CLUSTER
+            smem = smem_bytes(R, H, p, coop)
+            groups = min(n_blocks, sms // (2 * p)) if coop else n_blocks
+            if smem > SMEM_LIMIT or groups < 1:
+                continue
+            return LaunchPlan(R, p, k_slices(4 * Hc, H), groups, coop,
+                              THREADS, smem)
+    raise ValueError(f"lstm: no launch plan for S={S}, H={H}"
+                     + (f", P={P}" if P is not None else ""))
 
 
 def _hoist(params2: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -81,30 +160,62 @@ def bi_lstm_reference(params2: nn.Module, x: torch.Tensor, state2,
     return y, (h, c)
 
 
+def _library():
+    return kernel_library("lstm", 10, 10, 4)
+
+
+def _plan_ints(plan: LaunchPlan):
+    return (plan.R, plan.P, plan.KS, plan.groups, int(plan.cooperative),
+            plan.threads, plan.smem)
+
+
+def max_active(plan: LaunchPlan, S: int, H: int) -> int:
+    r"""Groups of ``plan`` the current card holds at once: clusters
+    (``cudaOccupancyMaxActiveClusters``) or, cooperative, resident CTAs.
+    Raises on a plan the kernel refuses."""
+    lib = _library()
+    fn = lib.lstm_max_active
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_int
+    n = fn(S, H, *_plan_ints(plan))
+    if n < 0:
+        raise RuntimeError("lstm occupancy query failed: "
+                           + lib.lstm_error_string(-n).decode())
+    return n
+
+
 def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
-         c0: torch.Tensor, n_valid: torch.Tensor):
+         c0: torch.Tensor, n_valid: torch.Tensor,
+         plan: Optional[LaunchPlan] = None):
     r"""Launch the kernel on hoisted inputs. u [2, S, T, 4H] (both
     directions in forward frame order), w_hh [2, H, 4H], h0/c0 [2, S, H],
-    n_valid [S] int32 — all contiguous fp32 on one card. Returns (y [S, T,
-    2H], h [2, S, H], c [2, S, H])."""
+    n_valid [S] int32 — all contiguous fp32 on one card. ``plan`` defaults
+    to :func:`launch_plan`. Returns (y [S, T, 2H], h [2, S, H], c [2, S,
+    H])."""
     _, S, T, G = u.shape
     H = G // 4
     dev = u.device
     check_f32("lstm", dev, [(u, (2, S, T, 4 * H)), (w_hh, (2, H, 4 * H)),
                             (h0, (2, S, H)), (c0, (2, S, H))])
     check_n_valid("lstm", dev, n_valid, S)
-    if H % 4:
-        raise ValueError(f"lstm: needs H % 4 == 0, got H={H}")
-    lib = kernel_library("lstm", 8, 3, 2)
-    if lib.lstm_smem_bytes(S, H) > SMEM_LIMIT:
-        raise ValueError(f"lstm: H={H} needs more shared memory than a "
-                         "block has")
+    check_aligned("lstm", u, w_hh)
+    if plan is None:
+        plan = launch_plan(S, H, sm_count(dev.index or 0))
+    lib = _library()
     y = torch.empty((S, T, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
+    xchg = counter = None
+    if plan.cooperative:
+        xchg = torch.empty((2, plan.groups, 2, plan.R, H),
+                           dtype=torch.float32, device=dev)
+        counter = torch.zeros((2, plan.groups), dtype=torch.int32,
+                              device=dev)
     launch("lstm", lib, dev, u.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
            c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-           c_out.data_ptr(), S, T, H)
+           c_out.data_ptr(), None if xchg is None else xchg.data_ptr(),
+           None if counter is None else counter.data_ptr(), S, T, H,
+           *_plan_ints(plan))
     bi_lstm.launches += 1
     return y, h_out, c_out
 

@@ -11,13 +11,15 @@ Phases, each printing one JSON line:
                     kernel libraries (gcn_lstm, ggru, lstm) built by three
                     nvcc processes at once, with their ptxas reports;
   2. kernel       — ``gcn_lstm.cu`` against ``bi_gcn_lstm_reference`` at
-                    the three stage widths of the A3GC cascade, a3gc and
-                    aagc cells, S = 1 and S = 8 streams, T = 60, per-stream
-                    n_valid;
+                    the three stage widths of the A3GC cascade (clusters of
+                    8 / 4 / 4), a3gc and aagc cells, S = 1, 3, 8 and 12
+                    streams, T = 60, per-stream n_valid;
      kernel_ggru  — ``ggru.cu`` against ``bi_ggru_reference``, the same
                     widths, F ∈ {H, 2H}, S ∈ {1, 8};
      kernel_lstm  — ``lstm.cu`` against ``bi_lstm_reference`` at H = 256,
-                    64, 128, 512, F ∈ {H, 2H} and the nets' input widths;
+                    64, 128, 512 (cooperative groups of 16 and 32, clusters
+                    of 4 and 8), F ∈ {H, 2H} and the nets' input widths,
+                    S = 1, 3, 8 and 12;
   3. serving      — ``StreamingCascade`` at full width (8 streams, 60-frame
                     windows, shipped normalization stats, random weights
                     from torch.Generator seed 0) for 5 windows with a
@@ -35,9 +37,12 @@ Phases, each printing one JSON line:
   5. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving paths, max |d| of phase 2, and per
                     layer shape of those paths (S = 8 and 1, T = 60) the
+                    launch plan (split, cluster or cooperative, CTAs,
+                    shared memory, groups the card holds at once), the
                     wrapper's, the kernel's and the plain version's times
                     (CUDA events) beside their bounds, and for ``lstm``
-                    cuDNN's ``torch.nn.LSTM`` on the same weights.
+                    cuDNN's ``torch.nn.LSTM`` on the same weights, timed in
+                    turns with the kernel (kernel, cuDNN, cuDNN, kernel).
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that line; so does a machine without CUDA or a directory without the
@@ -66,6 +71,15 @@ TP_STAGES = ((256, 72, 15, 3), (64, 87, 69, 3), (128, 141, 135, 9))
 DIP = (512, 60, 135, 9)
 S_SERVE, WINDOW, N_NODES = 8, 60, 15
 LIBRARIES = ("gcn_lstm", "ggru", "lstm")
+
+
+def ragged(S, T=WINDOW):
+    """Per-stream valid lengths with full, short and idle streams."""
+    return [T, T, 37, T, 0, T, T, T, 11, T, 59, T][:S]
+
+
+KERNEL_S = (1, 3, 8, 12)    # streams of the kernel phases: one and two
+                            # stream blocks, a part-filled block
 
 
 def emit(obj):
@@ -308,9 +322,9 @@ class Smoke:
             for F in (H, 2 * H):
                 for cell in ("a3gc", "aagc"):
                     p = self.cell(gen, cell, F, H)
-                    for S, nv in ((1, [T]),
-                                  (8, [T, T, 37, T, 0, T, T, T])):
-                        x, st, nvt = self.layer_inputs(gen, S, T, F, H, nv)
+                    for S in KERNEL_S:
+                        x, st, nvt = self.layer_inputs(gen, S, T, F, H,
+                                                       ragged(S))
                         errs, ok = self.compare_layer(
                             "gcn_lstm", f"H={H} F={F} {cell} S={S}",
                             G.bi_gcn_lstm, G.bi_gcn_lstm_reference,
@@ -351,8 +365,8 @@ class Smoke:
         widths += [(256, TP_STAGES[0][1]), (512, DIP[1])]   # F = 72, 60
         for H, F in widths:
             p = self.lstm_layer(gen, F, H)
-            for S, nv in ((1, [T]), (8, [T, T, 37, T, 0, T, T, T])):
-                x, st, nvt = self.layer_inputs(gen, S, T, F, H, nv,
+            for S in KERNEL_S:
+                x, st, nvt = self.layer_inputs(gen, S, T, F, H, ragged(S),
                                                nodes=False)
                 errs, ok = self.compare_layer(
                     "lstm", f"H={H} F={F} S={S}", LS.bi_lstm,
@@ -603,6 +617,28 @@ class Smoke:
         self.offline("offline_tp", "tp", "lstm", (TP_STAGES[0][1],))
 
     # -- 5 ---------------------------------------------------------------
+    def plan_record(self, name, S, H):
+        """The launch plan of a weight-stationary kernel at this shape, with
+        how many of its groups the card holds at once."""
+        if name == "lstm":
+            from a3gc_tpu_torch.ops import lstm as LS
+            from a3gc_tpu_torch.ops._common import sm_count
+            plan = LS.launch_plan(S, H, sm_count(0))
+            rec = {"P": plan.P, "R": plan.R, "KS": plan.KS,
+                   "groups": plan.groups, "cooperative": plan.cooperative,
+                   "max_active": LS.max_active(plan, S, H)}
+        elif name == "gcn_lstm":
+            from a3gc_tpu_torch.ops import gcn_lstm as G
+            plan = G.launch_plan(N_NODES, H, True)
+            rec = {"C": plan.C, "KS": plan.KS, "KSA": plan.KSA,
+                   "KSQ": plan.KSQ, "groups": 2 * S,
+                   "max_active": G.max_active(plan, S, N_NODES, H, True)}
+        else:
+            return None
+        rec.update(cluster=plan.cluster, smem=plan.smem,
+                   ctas=(plan.ctas if name == "lstm" else 2 * S * plan.C))
+        return rec
+
     def time_layer(self, name, path, S, F, H, layer, args, work,
                    library=None):
         mod = importlib.import_module(f"a3gc_tpu_torch.ops.{name}")
@@ -610,18 +646,26 @@ class Smoke:
         T = WINDOW
         with torch.no_grad():
             scan_args = mod.scan_inputs(layer, *args)
-            ms = cuda_ms(lambda: self.wrappers[name](layer, *args), 20)
-            scan_ms = cuda_ms(lambda: mod.scan(*scan_args), 20)
+            # in turns (kernel, library, library, kernel): the card's clock
+            # and its neighbours move every timed call alike
+            calls = {"ms": lambda: self.wrappers[name](layer, *args),
+                     "scan_ms": lambda: mod.scan(*scan_args)}
+            if library is not None:
+                calls["library_ms"] = library
+            order = list(calls) + list(reversed(calls))
+            times = {k: 0.0 for k in calls}
+            for k in order:
+                times[k] += cuda_ms(calls[k], 20) / 2
             plain = getattr(mod, f"bi_{name}_reference")
             plain_ms = cuda_ms(lambda: plain(layer, *args), 3, warmup=1)
-            lib_ms = None if library is None else cuda_ms(library, 20)
         b_ms, b_by = bound(*work(S, T, F, H, True))
         sb_ms, sb_by = bound(*work(S, T, F, H, False))
         self.shapes[name].append({
-            "path": path, "S": S, "T": T, "H": H, "F": F, "ms": ms,
-            "scan_ms": scan_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "path": path, "S": S, "T": T, "H": H, "F": F, "ms": times["ms"],
+            "scan_ms": times["scan_ms"], "plain_ms": plain_ms,
+            "library_ms": times.get("library_ms"),
             "bound_ms": b_ms, "bound_by": b_by, "scan_bound_ms": sb_ms,
-            "scan_bound_by": sb_by})
+            "scan_bound_by": sb_by, "plan": self.plan_record(name, S, H)})
 
     def cudnn_lstm(self, p, x, st):
         """cuDNN's torch.nn.LSTM on the layer's weights, checked against

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+r"""Where a frame of the port's weight-stationary scan kernels
+(``gcn_lstm.cu``, ``lstm.cu``) goes, on one CUDA card: builds both with
+``-DSCAN_PHASE_CLOCK`` (``csrc/scan_common.cuh`` ``PhaseClock``), runs one
+launch per layer shape of the serving paths (S = 8) and the batch-1 path
+(S = 1), T = 60, every frame valid, and prints the SM cycles that thread 0
+of CTA (0, 0, 0) spent per frame in each phase, barrier waits included,
+beside the launch's time (CUDA events, the instrumented build).
+
+    python3 scripts/torch_kernel_phases.py [--out FILE]
+
+One JSON line per shape, then the card's name and power limit. The marks
+cost a few cycles each; the shipped build has none. Imports nothing of JAX
+or of the JAX package.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLOTS = 24
+PHASES = {
+    "gcn_lstm": {16: "init", 0: "wait u, sync", 1: "masked frame",
+                 2: "h.W_h", 3: "s.u wait, sigma(a), sync",
+                 20: "u + scale", 4: "graph mix", 5: "sync",
+                 6: "cell", 7: "sync", 8: "hy push",
+                 9: "hy wait (barrier without attention)",
+                 15: "previous y", 18: "sum_nodes hy, sync",
+                 19: "q, push", 10: "hy.Wh", 11: "q wait, sync",
+                 12: "q.Wq, s", 13: "sync", 14: "s.u partials, push",
+                 17: "final state"},
+    "lstm": {16: "init", 0: "frame check", 1: "skipped frame",
+             2: "cooperative wait, h from L2", 3: "h.W_hh",
+             4: "wait u, sync", 5: "cell", 6: "sync", 7: "prefetch u",
+             8: "h push (DSMEM)", 9: "cluster barrier / release"},
+}
+
+
+def build(name):
+    """nvcc ``csrc/<name>.cu`` with the phase clock into build/."""
+    from a3gc_tpu_torch.ops._build import (_CSRC, BUILD_DIR, NVCC_FLAGS,
+                                           _nvcc)
+    out_dir = os.path.join(os.path.dirname(BUILD_DIR), "kernels_phase")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"{name}_phase.so")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-DSCAN_PHASE_CLOCK", "-o",
+                           out, os.path.join(_CSRC, name + ".cu")],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    n_ptr, n_int = (10, 10) if name == "lstm" else (16, 11)
+    fn = getattr(lib, f"{name}_forward")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    cyc = getattr(lib, f"{name}_phase_cycles")
+    cyc.argtypes = [ctypes.c_void_p]
+    cyc.restype = ctypes.c_int
+    return lib
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the JSON lines here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_phases: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import lstm as LS
+    smoke = CS.Smoke()
+    with ThreadPoolExecutor(2) as pool:
+        libs = dict(zip(("gcn_lstm", "lstm"),
+                        pool.map(build, ("gcn_lstm", "lstm"))))
+    G._library = lambda: libs["gcn_lstm"]        # the instrumented builds
+    LS._library = lambda: libs["lstm"]
+
+    def cycles(name):
+        buf = (ctypes.c_ulonglong * SLOTS)()
+        err = getattr(libs[name], f"{name}_phase_cycles")(buf)
+        if err:
+            raise RuntimeError(f"{name}_phase_cycles failed ({err})")
+        return list(buf)
+
+    gen = torch.Generator().manual_seed(10)
+    T = CS.WINDOW
+    shapes = [("gcn_lstm", H, cell) for H, _, _, _ in CS.STAGES
+              for cell in ("a3gc", "aagc")]
+    shapes += [("lstm", H, None) for H, _, _, _ in CS.TP_STAGES]
+    shapes.append(("lstm", CS.DIP[0], None))
+    lines = []
+    for S in (CS.S_SERVE, 1):
+        for name, H, cell in shapes:
+            if name == "gcn_lstm":
+                mod, p = G, smoke.cell(gen, cell, H, H)
+                x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S)
+            else:
+                mod, p = LS, smoke.lstm_layer(gen, H, H)
+                x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
+                                               nodes=False)
+            with torch.no_grad():
+                sargs = mod.scan_inputs(p, x, st, nv)
+                mod.scan(*sargs)
+                torch.cuda.synchronize()
+                cycles(name)                      # zero the slots
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                mod.scan(*sargs)
+                end.record()
+                torch.cuda.synchronize()
+            got = cycles(name)
+            total = sum(got)
+            ms = start.elapsed_time(end)
+            line = {"kernel": name, "cell": cell, "S": S, "H": H, "T": T,
+                    "ms": ms, "cycles_total": total,
+                    "ns_per_cycle": ms * 1e6 / total if total else None,
+                    "cycles_per_frame": {
+                        label: got[i] / (1 if i in (16, 17) else T)
+                        for i, label in PHASES[name].items() if got[i]}}
+            lines.append(line)
+            print(json.dumps(line), flush=True)
+    card = CS.nvidia_smi()
+    print(card)
+    if args.out:
+        with open(args.out, "w") as f:
+            for line in lines:
+                f.write(json.dumps(line) + "\n")
+            f.write(json.dumps({"card": card}) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,6 +20,18 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _ragged(S, T=60):
+    """Per-stream valid lengths with full, short and idle streams."""
+    return [T, T, 37, T, 0, T, T, T, 11, T, 59, T][:S]
+
+
+# every launch plan regime of the two weight-stationary kernels (gcn_lstm
+# H = 64/128/256 -> clusters of C = 4/4/8; lstm H = 64/128 -> clusters of
+# P = 4/8, H = 256/512 -> cooperative groups of P = 16/32), and stream
+# counts that fill 1, 3, 8 and 12 (two stream blocks) slots
+PLAN_S = [1, 3, 8, 12]
+
+
 def _cell(gen, cell, F, H):
     from a3gc_tpu_torch.data import load_adjacency_template
     from a3gc_tpu_torch.models import cells as C
@@ -36,20 +48,22 @@ def _cell(gen, cell, F, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", PLAN_S)
+@pytest.mark.parametrize("H", [64, 128, 256])
 @pytest.mark.parametrize("cell", ["a3gc", "aagc"])
-def test_torch_port_kernel_matches_plain_on_card(cell):
+def test_torch_port_kernel_matches_plain_on_card(cell, H, S):
     """Every frame and the final state; 1e-5 absolute (fp32, sums reordered
     by the kernel over a 60-step recurrence; an H100 showed at most
     2.1e-7)."""
     _need_card()
     from a3gc_tpu_torch.ops import gcn_lstm as G
     gen = torch.Generator().manual_seed(0)
-    S, T, N, H = 8, 60, 15, 64
+    T, N = 60, 15
     p = _cell(gen, cell, 2 * H, H).cuda()
     x = torch.randn((S, T, N, 2 * H), generator=gen).cuda()
     st = tuple((0.5 * torch.randn((2, S, N, H), generator=gen)).cuda()
                for _ in range(2))
-    n_valid = torch.tensor([T, T, 37, T, 0, T, T, T], device="cuda")
+    n_valid = torch.tensor(_ragged(S, T), device="cuda")
     G.bi_gcn_lstm.launches = 0
     with torch.no_grad():
         y, (h, c) = G.bi_gcn_lstm(p, x, st, n_valid)
@@ -142,20 +156,20 @@ def test_torch_port_ggru_kernel_matches_plain_on_card(S, n_valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,n_valid", [(1, [60]), (8, [60, 60, 37, 60, 0,
-                                                        60, 60, 60])])
-def test_torch_port_lstm_kernel_matches_plain_on_card(S, n_valid):
+@pytest.mark.parametrize("S", PLAN_S)
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_torch_port_lstm_kernel_matches_plain_on_card(H, S):
     """Every frame and the final state; 1e-5 absolute."""
     _need_card()
     from a3gc_tpu_torch.models import nets as N
     from a3gc_tpu_torch.ops import lstm as LS
     gen = torch.Generator().manual_seed(5)
-    T, H = 60, 128
+    T = 60
     p = N.init_dip(gen, N.DIPConfig(n_hidden=H)).lstm[1].cuda()
     x = torch.randn((S, T, 2 * H), generator=gen).cuda()
     st = tuple((0.5 * torch.randn((2, S, H), generator=gen)).cuda()
                for _ in range(2))
-    nv = torch.tensor(n_valid, device="cuda")
+    nv = torch.tensor(_ragged(S, T), device="cuda")
     LS.bi_lstm.launches = 0
     with torch.no_grad():
         y, (h, c) = LS.bi_lstm(p, x, st, nv)
@@ -164,6 +178,35 @@ def test_torch_port_lstm_kernel_matches_plain_on_card(S, n_valid):
     assert LS.bi_lstm.launches == 1
     for a, b in ((y, ref_y), (h, ref_h), (c, ref_c)):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gcn_lstm", "lstm"])
+def test_torch_port_refused_plan_raises_on_card(kernel):
+    """A plan the kernel does not take (shared memory that disagrees with
+    the kernel's own count) raises at the launch; nothing falls back."""
+    _need_card()
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(8)
+    S, T, H = 2, 4, 32
+    if kernel == "lstm":
+        from a3gc_tpu_torch.models import nets as N
+        p = N.init_dip(gen, N.DIPConfig(n_hidden=H)).lstm[1].cuda()
+        args = LS.scan_inputs(p, torch.randn((S, T, 2 * H)).cuda(),
+                              tuple(torch.zeros((2, S, H), device="cuda")
+                                    for _ in range(2)))
+        plan = LS.launch_plan(S, H)
+        mod = LS
+    else:
+        p = _cell(gen, "a3gc", H, H).cuda()
+        args = G.scan_inputs(p, torch.randn((S, T, 15, H)).cuda(),
+                             tuple(torch.zeros((2, S, 15, H), device="cuda")
+                                   for _ in range(2)))
+        plan = G.launch_plan(15, H, True)
+        mod = G
+    with torch.no_grad(), pytest.raises(RuntimeError, match="launch failed"):
+        mod.scan(*args, plan=plan._replace(smem=plan.smem + 16))
 
 
 @pytest.mark.cuda

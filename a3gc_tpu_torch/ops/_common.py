@@ -18,7 +18,8 @@ import torch
 
 __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
            "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
-           "k_slices", "sm_count", "kernel_library", "launch"]
+           "k_slices", "sm_count", "device_index", "kernel_library",
+           "launch"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
 SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
@@ -42,6 +43,12 @@ def k_slices(columns: int, K: int, threads: int = THREADS) -> int:
 def sm_count(index: int) -> int:
     r"""Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_index(dev: torch.device) -> int:
+    r"""The index of CUDA device ``dev``; a bare ``cuda`` is the current
+    device."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def f32(t: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,12 @@
 // Device helpers shared by the weight-stationary scan kernels (lstm.cu,
-// gcn_lstm.cu) for Hopper, sm_90a: the one-shot bulk load of a weight slice
-// into shared memory (cp.async.bulk completing on an mbarrier), the 16-byte
+// gcn_lstm.cu, ggru.cu) for Hopper, sm_90a: the one-shot bulk load of a
+// weight slice into shared memory (cp.async.bulk on an mbarrier), the 16-byte
 // cp.async prefetch of a frame's hoisted inputs, the release/acquire
 // counter of a cooperative group, the st.async exchange between the CTAs
-// of a cluster, and the k-slice reduction over the lanes of a warp.
+// of a cluster, and the k-slice reductions over the lanes of a warp.
 //
 // A header, not a library: ops/_build.py hashes every csrc/*.cuh into the
-// name of each library it builds, so an edited helper rebuilds both kernels.
+// name of each library it builds, so an edited helper rebuilds every kernel.
 
 #pragma once
 
@@ -119,8 +119,9 @@ struct PhaseClock {
   __device__ void mark(int i) {
     if (!on) return;
     const long long t = phase_now();
-    g_phase_cycles[i] += (unsigned long long)(t - last);
-    last = t;
+    // a reduction without a return value: the thread does not wait for it
+    atomicAdd(&g_phase_cycles[i], (unsigned long long)(t - last));
+    last = phase_now();
   }
 };
 #define SCAN_PHASE_EXPORT(name)                                            \
@@ -152,6 +153,32 @@ __device__ __forceinline__ void reduce_k_slices(float (&acc)[N], int cpw) {
     for (int i = 0; i < N; ++i)
       acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
   }
+}
+
+// The same sum, each total left in ONE lane: a lane keeps the half of its
+// values that its k-slice's lowest bit chooses and sends the other half, so
+// the shuffles halve at every step (SIZE - SIZE / KS in all, where
+// reduce_k_slices needs SIZE · log2 KS). Afterwards v[0 … SIZE / KS) hold
+// the totals of the accumulators first … first + SIZE / KS - 1, `first`
+// returned. Call with SIZE = N, ks = the lane's k-slice, off = cpw; every
+// lane of the warp must call it.
+template <int N, int SIZE>
+__device__ __forceinline__ int reduce_scatter_k_slices(float (&v)[N], int ks,
+                                                       int off, int KS) {
+  if constexpr (SIZE >= 2 && SIZE % 2 == 0) {
+    if (KS > 1) {
+      const bool up = ks & 1;
+#pragma unroll
+      for (int i = 0; i < SIZE / 2; ++i) {
+        const float keep = up ? v[SIZE / 2 + i] : v[i];
+        const float send = up ? v[i] : v[SIZE / 2 + i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+      return (up ? SIZE / 2 : 0) + reduce_scatter_k_slices<N, SIZE / 2>(
+                                       v, ks >> 1, off << 1, KS >> 1);
+    }
+  }
+  return 0;
 }
 
 // Distributed-shared-memory exchange without cluster barriers: a producer

@@ -38,8 +38,8 @@ from torch import nn
 from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         THREADS, check_aligned, check_f32,
-                                        check_n_valid, f32, k_slices,
-                                        kernel_library, launch,
+                                        check_n_valid, device_index, f32,
+                                        k_slices, kernel_library, launch,
                                         n_valid_tensor, sm_count)
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "launch_plan",
@@ -200,7 +200,7 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     check_n_valid("lstm", dev, n_valid, S)
     check_aligned("lstm", u, w_hh)
     if plan is None:
-        plan = launch_plan(S, H, sm_count(dev.index or 0))
+        plan = launch_plan(S, H, sm_count(device_index(dev)))
     lib = _library()
     y = torch.empty((S, T, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, H), dtype=torch.float32, device=dev)

@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
                     8 / 4 / 4), a3gc and aagc cells, S = 1, 3, 8 and 12
                     streams, T = 60, per-stream n_valid;
      kernel_ggru  — ``ggru.cu`` against ``bi_ggru_reference``, the same
-                    widths, F ∈ {H, 2H}, S ∈ {1, 8};
+                    widths, F ∈ {H, 2H}, the same streams and n_valid, each
+                    with its launch plan and the clusters the card holds
+                    at once;
      kernel_lstm  — ``lstm.cu`` against ``bi_lstm_reference`` at H = 256,
                     64, 128, 512 (cooperative groups of 16 and 32, clusters
                     of 4 and 8), F ∈ {H, 2H} and the nets' input widths,
@@ -33,7 +35,7 @@ Phases, each printing one JSON line:
   4. offline      — ``cascade_apply`` at batch 1, T = 300: launch counts
                     (6, the S = 1 contract of the kernel), timed, and
                     against the plain path; offline_tp the same for the
-                    TransPose cascade;
+                    TransPose cascade, offline_ggru for the G-GRU cascade;
   5. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving paths, max |d| of phase 2, and per
                     layer shape of those paths (S = 8 and 1, T = 60) the
@@ -140,10 +142,12 @@ def gcn_layer_work(S, T, F, H, hoist):
 
 
 def ggru_layer_work(S, T, F, H, hoist):
-    """(FLOP, bytes) of one bidirectional G-GRU layer call, as layer_work:
-    8·N·H² + 2·N²·H FLOP per (stream, direction, frame) in the scan."""
+    """(FLOP, bytes) of one bidirectional G-GRU layer call, as layer_work.
+    The least the function needs: adj·(h·G)·W_hid = (adj·h)·(G·W_hid), so
+    6·N·H² + 2·N²·H FLOP per (stream, direction, frame) in the scan and one
+    G·W_hid (2·H·H·3H) per direction."""
     N = N_NODES
-    flop = 2 * T * S * (8 * N * H * H + 2 * N * N * H)
+    flop = 2 * T * S * (6 * N * H * H + 2 * N * N * H) + 2 * 2 * H * H * 3 * H
     params = 2 * (H * H + N * N + 3 * H * H)
     state = 2 * S * N * H
     if hoist:
@@ -344,14 +348,15 @@ class Smoke:
         for H, _, _, _ in STAGES:
             for F in (H, 2 * H):
                 p = self.cell(gen, "ggru", F, H)
-                for S, nv in ((1, [T]), (8, [T, T, 37, T, 0, T, T, T])):
-                    x, h, nvt = self.layer_inputs(gen, S, T, F, H, nv,
+                for S in KERNEL_S:
+                    x, h, nvt = self.layer_inputs(gen, S, T, F, H, ragged(S),
                                                   n_state=1)
                     errs, ok = self.compare_layer(
                         "ggru", f"H={H} F={F} S={S}", GG.bi_ggru,
                         GG.bi_ggru_reference, (p, x, h, nvt))
                     rows.append({"H": H, "F": F, "S": S, "y": errs[0],
-                                 "h": errs[1], "ok": ok})
+                                 "h": errs[1], "ok": ok,
+                                 "plan": self.plan_record("ggru", S, H)})
         emit({"phase": "kernel_ggru", "tol": KERNEL_TOL, "max_abs_err":
               self.max_err["ggru"], "cases": rows})
 
@@ -616,6 +621,9 @@ class Smoke:
     def phase_offline_tp(self):
         self.offline("offline_tp", "tp", "lstm", (TP_STAGES[0][1],))
 
+    def phase_offline_ggru(self):
+        self.offline("offline_ggru", "ggru", "ggru", (N_NODES, 12))
+
     # -- 5 ---------------------------------------------------------------
     def plan_record(self, name, S, H):
         """The launch plan of a weight-stationary kernel at this shape, with
@@ -634,7 +642,10 @@ class Smoke:
                    "KSQ": plan.KSQ, "groups": 2 * S,
                    "max_active": G.max_active(plan, S, N_NODES, H, True)}
         else:
-            return None
+            from a3gc_tpu_torch.ops import ggru as GG
+            plan = GG.launch_plan(S, N_NODES, H)
+            rec = {"C": plan.C, "KS": plan.KS, "groups": 2 * S,
+                   "max_active": GG.max_active(plan, S, N_NODES, H)}
         rec.update(cluster=plan.cluster, smem=plan.smem,
                    ctas=(plan.ctas if name == "lstm" else 2 * S * plan.C))
         return rec
@@ -797,7 +808,7 @@ def main():
               smoke.phase_serving, smoke.phase_serving_ggru,
               smoke.phase_serving_tp, smoke.phase_serving_dip,
               smoke.phase_offline, smoke.phase_offline_tp,
-              smoke.phase_times)
+              smoke.phase_offline_ggru, smoke.phase_times)
     for phase in phases:
         try:
             phase()
@@ -806,7 +817,7 @@ def main():
                                   + traceback.format_exc())
             if phase is smoke.phase_device:
                 break
-    if all(smoke.shapes.values()) and len(smoke.launches) == 6:
+    if all(smoke.shapes.values()) and len(smoke.launches) == 7:
         smoke.kernels_line()
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-r"""A/B of the port's two weight-stationary scan kernels (``gcn_lstm.cu``,
-``lstm.cu`` in ``a3gc_tpu_torch/ops/csrc``) on one CUDA card, in one
-process, timed in turns with CUDA events:
+r"""A/B of the port's weight-stationary scan kernels (``gcn_lstm.cu``,
+``ggru.cu``, ``lstm.cu`` in ``a3gc_tpu_torch/ops/csrc``) on one CUDA card,
+in one process, timed in turns with CUDA events:
 
   * against an earlier design of the same kernels, built from a directory
     of sources (``--old``) that export the single-CTA C interfaces
     ``lstm_forward(u, whh, h0, c0, n_valid, y, h_out, c_out, S, T, H,
-    stream)`` and ``gcn_lstm_forward(<16 pointers>, S, T, N, H, attention,
-    stream)`` — one CTA per (stream block, direction), the recurrent
-    weights read from L2 every frame;
+    stream)``, ``gcn_lstm_forward(<16 pointers>, S, T, N, H, attention,
+    stream)`` and ``ggru_forward(zi, G, adj, W_hid, h0, n_valid, y, h_out,
+    S, T, N, H, stream)`` — one CTA per (stream block, direction), the
+    recurrent weights read from L2 every frame;
   * the default split of the hidden units (P CTAs for ``lstm``, a cluster
-    of C for ``gcn_lstm``) against twice that split, where that is a plan.
+    of C for ``gcn_lstm`` and ``ggru``) against twice that split, or half
+    of it where twice is no plan.
 
 Shapes: the recurrent layers of the serving paths (S = 8) and of the
 batch-1 path (S = 1), T = 60: ``gcn_lstm`` at the A3GC stage widths
-(a3gc cell, H = 256 / 64 / 128), ``lstm`` at the TransPose widths and the
-DIP width (H = 256 / 64 / 128 / 512). The kernel's time does not depend on
-the input width F (its input projection is hoisted), so one shape stands
-for both layers of a stage; a window's sum counts each twice.
+(a3gc cell, H = 256 / 64 / 128), ``ggru`` at the same widths, ``lstm`` at
+the TransPose widths and the DIP width (H = 256 / 64 / 128 / 512). The
+kernel's time does not depend on the input width F (its input projection
+is hoisted), so one shape stands for both layers of a stage; a window's
+sum counts each twice.
 
-    python3 scripts/torch_kernel_ab.py --old DIR [--out FILE]
+    python3 scripts/torch_kernel_ab.py --old DIR [--kernels ggru] [--out FILE]
 
 Each shape prints one JSON line (times in ms per launch, the largest
 difference between the two designs' outputs, the plans and how many of
@@ -55,7 +58,7 @@ def build_old(src_dir, name):
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
     fn = getattr(lib, f"{name}_forward")
-    n_ptr, n_int = (8, 3) if name == "lstm" else (16, 5)
+    n_ptr, n_int = {"lstm": (8, 3), "ggru": (8, 4), "gcn_lstm": (16, 5)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -71,6 +74,18 @@ def old_scan(torch, name, fn, args):
         y = torch.empty((S, T, 2 * H), device=u.device)
         ptrs = [u, w_hh, h0, c0, nv]
         ints = [S, T, H]
+    elif name == "ggru":
+        zi, gk, adj, w_hid, h0, nv = args
+        _, S, T, N, G3 = zi.shape
+        H = G3 // 3
+        y = torch.empty((S, T, N, 2 * H), device=zi.device)
+        h_out = torch.empty_like(h0)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[t.data_ptr() for t in (zi, gk, adj, w_hid, h0, nv, y,
+                                          h_out)], S, T, N, H, stream)
+        if err:
+            raise RuntimeError(f"earlier ggru kernel: launch failed ({err})")
+        return y, h_out
     else:
         u, wh, adj, bias, att, h0, c0, nv = args
         _, S, T, N, G = u.shape
@@ -90,9 +105,14 @@ def old_scan(torch, name, fn, args):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True,
-                    help="directory with the earlier gcn_lstm.cu and lstm.cu")
+                    help="directory with the earlier <kernel>.cu of every "
+                    "kernel asked for")
+    ap.add_argument("--kernels", default="gcn_lstm,ggru,lstm",
+                    help="comma-separated kernels to compare (default: all)")
     ap.add_argument("--out", help="also write the JSON lines here")
     args = ap.parse_args()
+    names = [n for n in ("gcn_lstm", "ggru", "lstm")
+             if n in args.kernels.split(",")]
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -100,15 +120,15 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
     from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
     from a3gc_tpu_torch.ops import lstm as LS
     from a3gc_tpu_torch.ops._build import load_library
     from a3gc_tpu_torch.ops._common import sm_count
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = CS.Smoke()
-    with ThreadPoolExecutor(4) as pool:
-        old = {n: pool.submit(build_old, args.old, n)
-               for n in ("gcn_lstm", "lstm")}
-        new = [pool.submit(load_library, n) for n in ("gcn_lstm", "lstm")]
+    with ThreadPoolExecutor(6) as pool:
+        old = {n: pool.submit(build_old, args.old, n) for n in names}
+        new = [pool.submit(load_library, n) for n in names]
         old = {n: f.result() for n, f in old.items()}
         for f in new:
             f.result()
@@ -117,12 +137,28 @@ def main():
     gen = torch.Generator().manual_seed(9)
     T, N = CS.WINDOW, CS.N_NODES
     shapes = [("gcn_lstm", H) for H, _, _, _ in CS.STAGES]
+    shapes += [("ggru", H) for H, _, _, _ in CS.STAGES]
     shapes += [("lstm", H) for H, _, _, _ in CS.TP_STAGES]
     shapes.append(("lstm", CS.DIP[0]))
+    shapes = [sh for sh in shapes if sh[0] in names]
     for S in (CS.S_SERVE, 1):
         for name, H in shapes:
-            mod = G if name == "gcn_lstm" else LS
-            if name == "gcn_lstm":
+            mod = {"gcn_lstm": G, "ggru": GG, "lstm": LS}[name]
+            if name == "ggru":
+                p = smoke.cell(gen, "ggru", H, H)
+                x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
+                                               n_state=1)
+                plan = GG.launch_plan(S, N, H)
+                split = {"C": plan.C}
+                plan2 = None
+                for c2 in (2 * plan.C, plan.C // 2):
+                    try:
+                        plan2 = GG.launch_plan(S, N, H, C=c2)
+                        break
+                    except ValueError:
+                        pass
+                active = lambda pl: GG.max_active(pl, S, N, H)
+            elif name == "gcn_lstm":
                 p = smoke.cell(gen, "a3gc", H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S)
                 plan = G.launch_plan(N, H, True)
@@ -164,12 +200,11 @@ def main():
                     "max_abs_diff_vs_old": err, "split": split,
                     "smem": plan.smem, "max_active": active(plan),
                     "split_2x": None if plan2 is None else
-                    {"split": 2 * (plan.C if name == "gcn_lstm"
-                                   else plan.P),
+                    {"split": plan2.P if name == "lstm" else plan2.C,
                      "smem": plan2.smem, "max_active": active(plan2)}}
             lines.append(line)
             print(json.dumps(line), flush=True)
-    for name in ("gcn_lstm", "lstm"):
+    for name in names:
         rows = [r for r in lines if r["kernel"] == name
                 and r["S"] == CS.S_SERVE]
         summary = {"kernel": name, "window_S": CS.S_SERVE,

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 r"""Where a frame of the port's weight-stationary scan kernels
-(``gcn_lstm.cu``, ``lstm.cu``) goes, on one CUDA card: builds both with
-``-DSCAN_PHASE_CLOCK`` (``csrc/scan_common.cuh`` ``PhaseClock``), runs one
-launch per layer shape of the serving paths (S = 8) and the batch-1 path
-(S = 1), T = 60, every frame valid, and prints the SM cycles that thread 0
-of CTA (0, 0, 0) spent per frame in each phase, barrier waits included,
-beside the launch's time (CUDA events, the instrumented build).
+(``gcn_lstm.cu``, ``ggru.cu``, ``lstm.cu``) goes, on one CUDA card: builds
+them with ``-DSCAN_PHASE_CLOCK`` (``csrc/scan_common.cuh`` ``PhaseClock``),
+runs one launch per layer shape of the serving paths (S = 8) and the batch-1
+path (S = 1), T = 60, every frame valid, and prints the SM cycles that
+thread 0 of CTA (0, 0, 0) spent per frame in each phase (per launch for the
+phases before and after the frames), barrier waits included, beside the
+launch's time (CUDA events, the instrumented build).
 
-    python3 scripts/torch_kernel_phases.py [--out FILE]
+    python3 scripts/torch_kernel_phases.py [--kernels ggru,lstm] [--out FILE]
 
 One JSON line per shape, then the card's name and power limit. The marks
 cost a few cycles each; the shipped build has none. Imports nothing of JAX
@@ -24,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLOTS = 24
+ONCE = (16, 17, 21)       # slots marked once per launch, not per frame
 PHASES = {
     "gcn_lstm": {16: "init", 0: "wait u, sync", 1: "masked frame",
                  2: "h.W_h", 3: "s.u wait, sigma(a), sync",
@@ -34,6 +36,10 @@ PHASES = {
                  19: "q, push", 10: "hy.Wh", 11: "q wait, sync",
                  12: "q.Wq, s", 13: "sync", 14: "s.u partials, push",
                  17: "final state"},
+    "ggru": {16: "init", 21: "G.W_hid slice", 6: "exchange wait, sync",
+             3: "gate product", 9: "gate k-slice sum, store",
+             4: "wait zi, sync", 5: "cell", 7: "carried frame",
+             1: "sync, graph mix, push", 17: "final state"},
     "lstm": {16: "init", 0: "frame check", 1: "skipped frame",
              2: "cooperative wait, h from L2", 3: "h.W_hh",
              4: "wait u, sync", 5: "cell", 6: "sync", 7: "prefetch u",
@@ -54,7 +60,8 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    n_ptr, n_int = (10, 10) if name == "lstm" else (16, 11)
+    n_ptr, n_int = {"lstm": (10, 10), "ggru": (8, 8),
+                    "gcn_lstm": (16, 11)}[name]
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
@@ -71,7 +78,10 @@ def build(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines here")
+    ap.add_argument("--kernels", default="gcn_lstm,ggru,lstm",
+                    help="comma-separated kernels to run (default: all)")
     args = ap.parse_args()
+    wanted = args.kernels.split(",")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_phases: no CUDA device", file=sys.stderr)
@@ -79,12 +89,13 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
     from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
     from a3gc_tpu_torch.ops import lstm as LS
     smoke = CS.Smoke()
-    with ThreadPoolExecutor(2) as pool:
-        libs = dict(zip(("gcn_lstm", "lstm"),
-                        pool.map(build, ("gcn_lstm", "lstm"))))
+    with ThreadPoolExecutor(3) as pool:
+        libs = dict(zip(CS.LIBRARIES, pool.map(build, CS.LIBRARIES)))
     G._library = lambda: libs["gcn_lstm"]        # the instrumented builds
+    GG._library = lambda: libs["ggru"]
     LS._library = lambda: libs["lstm"]
 
     def cycles(name):
@@ -98,14 +109,22 @@ def main():
     T = CS.WINDOW
     shapes = [("gcn_lstm", H, cell) for H, _, _, _ in CS.STAGES
               for cell in ("a3gc", "aagc")]
+    shapes += [("ggru", H, None) for H, _, _, _ in CS.STAGES]
     shapes += [("lstm", H, None) for H, _, _, _ in CS.TP_STAGES]
     shapes.append(("lstm", CS.DIP[0], None))
     lines = []
     for S in (CS.S_SERVE, 1):
         for name, H, cell in shapes:
+            if name not in wanted:
+                continue
             if name == "gcn_lstm":
                 mod, p = G, smoke.cell(gen, cell, H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S)
+            elif name == "ggru":
+                mod, p = GG, smoke.cell(gen, "ggru", H, H)
+                x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
+                                               n_state=1)
+                cell = "C=%d" % GG.launch_plan(S, CS.N_NODES, H).C
             else:
                 mod, p = LS, smoke.lstm_layer(gen, H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
@@ -128,7 +147,7 @@ def main():
                     "ms": ms, "cycles_total": total,
                     "ns_per_cycle": ms * 1e6 / total if total else None,
                     "cycles_per_frame": {
-                        label: got[i] / (1 if i in (16, 17) else T)
+                        label: got[i] / (1 if i in ONCE else T)
                         for i, label in PHASES[name].items() if got[i]}}
             lines.append(line)
             print(json.dumps(line), flush=True)

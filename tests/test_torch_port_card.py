@@ -25,10 +25,11 @@ def _ragged(S, T=60):
     return [T, T, 37, T, 0, T, T, T, 11, T, 59, T][:S]
 
 
-# every launch plan regime of the two weight-stationary kernels (gcn_lstm
+# every launch plan regime of the weight-stationary kernels (gcn_lstm
 # H = 64/128/256 -> clusters of C = 4/4/8; lstm H = 64/128 -> clusters of
-# P = 4/8, H = 256/512 -> cooperative groups of P = 16/32), and stream
-# counts that fill 1, 3, 8 and 12 (two stream blocks) slots
+# P = 4/8, H = 256/512 -> cooperative groups of P = 16/32; ggru: every
+# cluster size that fits), and stream counts that fill 1, 3, 8 and 12 (two
+# stream blocks) slots
 PLAN_S = [1, 3, 8, 12]
 
 
@@ -126,33 +127,63 @@ def test_torch_port_streaming_kernel_path_matches_plain_on_card():
     assert G.bi_gcn_lstm.launches == 12
 
 
+def _ggru_plans(S, H):
+    """Every plan the planner can return for S streams at width H: every
+    cluster size that fits."""
+    from a3gc_tpu_torch.ops import ggru as GG
+    plans = []
+    for C in (1, 2, 4, 8):
+        try:
+            plans.append(GG.launch_plan(S, 15, H, C=C))
+        except ValueError:
+            continue
+    assert GG.launch_plan(S, 15, H) in plans
+    return plans
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,n_valid", [(1, [60]), (8, [60, 60, 37, 60, 0,
-                                                        60, 60, 60])])
-def test_torch_port_ggru_kernel_matches_plain_on_card(S, n_valid):
-    """Every frame and the final state; 1e-5 absolute (fp32, sums
-    reordered by the kernel over a 60-step recurrence)."""
+@pytest.mark.parametrize("scale", [1.0, 1.5])
+@pytest.mark.parametrize("S", PLAN_S)
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("H", [32, 64, 128, 256])
+def test_torch_port_ggru_kernel_matches_plain_on_card(H, wide, S, scale):
+    """Every frame and the final state, F = H and 2H, ragged and idle
+    streams, the wrapper and every launch plan, at the initial recurrent
+    weights and at ``scale`` times their size (the kernel multiplies G into
+    W_hid first, the plain version h into G); 1e-5 absolute (fp32, sums
+    reordered by the kernel over a 60-step recurrence). At twice the
+    initial size the recurrence itself amplifies rounding differences past
+    1e-5 over 60 frames, whatever the order of the sums; at three times it
+    is chaotic."""
     _need_card()
     from a3gc_tpu_torch.data import load_adjacency_template
     from a3gc_tpu_torch.models import cells as C
     from a3gc_tpu_torch.models import layers as L
     from a3gc_tpu_torch.ops import ggru as GG
     gen = torch.Generator().manual_seed(4)
-    T, N, H = 60, 15, 64
+    T, N, F = 60, 15, 2 * H if wide else H
     nira = load_adjacency_template()
-    p = L.stack_directions(*(C.init_ggru_cell(gen, 2 * H, H, nira)
+    p = L.stack_directions(*(C.init_ggru_cell(gen, F, H, nira)
                              for _ in range(2))).cuda()
-    x = torch.randn((S, T, N, 2 * H), generator=gen).cuda()
+    with torch.no_grad():
+        p.gcn_kernel.mul_(scale)
+        p.w_hid.mul_(scale)
+    x = torch.randn((S, T, N, F), generator=gen).cuda()
     h = (0.5 * torch.randn((2, S, N, H), generator=gen)).cuda()
-    nv = torch.tensor(n_valid, device="cuda")
+    nv = torch.tensor(_ragged(S, T), device="cuda")
+    plans = _ggru_plans(S, H)
+    assert len(plans) >= (1 if H == 256 else 3)
     GG.bi_ggru.launches = 0
     with torch.no_grad():
-        y, hn = GG.bi_ggru(p, x, h, nv)
         ref_y, ref_h = GG.bi_ggru_reference(p, x, h, nv)
+        outs = [GG.bi_ggru(p, x, h, nv)]
+        args = GG.scan_inputs(p, x, h, nv)
+        outs += [GG.scan(*args, plan=plan) for plan in plans]
     torch.cuda.synchronize()
-    assert GG.bi_ggru.launches == 1
-    for a, b in ((y, ref_y), (hn, ref_h)):
-        assert (a - b).abs().max().item() <= 1e-5
+    assert GG.bi_ggru.launches == 1 + len(plans)
+    for plan, (y, hn) in zip([None] + plans, outs):
+        for a, b in ((y, ref_y), (hn, ref_h)):
+            assert (a - b).abs().max().item() <= 1e-5, plan
 
 
 @pytest.mark.cuda
@@ -181,16 +212,27 @@ def test_torch_port_lstm_kernel_matches_plain_on_card(H, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["gcn_lstm", "lstm"])
+@pytest.mark.parametrize("kernel", ["gcn_lstm", "lstm", "ggru"])
 def test_torch_port_refused_plan_raises_on_card(kernel):
     """A plan the kernel does not take (shared memory that disagrees with
     the kernel's own count) raises at the launch; nothing falls back."""
     _need_card()
     from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
     from a3gc_tpu_torch.ops import lstm as LS
     gen = torch.Generator().manual_seed(8)
     S, T, H = 2, 4, 32
-    if kernel == "lstm":
+    if kernel == "ggru":
+        from a3gc_tpu_torch.data import load_adjacency_template
+        from a3gc_tpu_torch.models import cells as C
+        from a3gc_tpu_torch.models import layers as L
+        p = L.stack_directions(*(C.init_ggru_cell(
+            gen, H, H, load_adjacency_template()) for _ in range(2))).cuda()
+        args = GG.scan_inputs(p, torch.randn((S, T, 15, H)).cuda(),
+                              torch.zeros((2, S, 15, H), device="cuda"))
+        plan = GG.launch_plan(S, 15, H)
+        mod = GG
+    elif kernel == "lstm":
         from a3gc_tpu_torch.models import nets as N
         p = N.init_dip(gen, N.DIPConfig(n_hidden=H)).lstm[1].cuda()
         args = LS.scan_inputs(p, torch.randn((S, T, 2 * H)).cuda(),

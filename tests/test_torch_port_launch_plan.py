@@ -1,5 +1,6 @@
 """Launch plans of the port's weight-stationary scan kernels
-(``ops/lstm.py`` and ``ops/gcn_lstm.py`` ``launch_plan``), checked on the
+(``ops/lstm.py``, ``ops/gcn_lstm.py`` and ``ops/ggru.py`` ``launch_plan``),
+checked on the
 CPU for every layer shape of the serving and offline paths and the small
 widths of the card tests: the hidden split is even, shared memory fits a
 CTA, clusters are portable, the thread mappings fit the block, and
@@ -15,6 +16,7 @@ import torch
 
 from a3gc_tpu_torch.ops import _build
 from a3gc_tpu_torch.ops import gcn_lstm as G
+from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_LIMIT, THREADS,
                                         k_slices)
@@ -85,6 +87,82 @@ def test_torch_port_gcn_lstm_launch_plan(H, attention):
     assert plan.C == expected_c
 
 
+@pytest.mark.parametrize("S", [1, 3, 8, 12])
+@pytest.mark.parametrize("H", [8, 32, 64, 128, 256])
+def test_torch_port_ggru_launch_plan(H, S):
+    N = 15
+    plan = GG.launch_plan(S, N, H)
+    assert H % plan.C == 0 and (H // plan.C) % 4 == 0      # even split
+    Hc = H // plan.C
+    assert plan.cluster == plan.C <= MAX_CLUSTER
+    assert plan.threads == GG.THREADS
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.smem == GG.smem_bytes(N, H, plan.C)
+    # the slice of G·W_hid and two [16, H] buffers of adj·h are resident
+    assert plan.smem >= 4 * (H * 3 * Hc + 2 * 16 * H)
+    _check_slices(Hc // 2, H, plan.KS)         # unit pairs of the gate matrix
+    # one stream takes the widest cluster that leaves a CTA 8 columns
+    if S == 1:
+        assert plan.C == {8: 1, 32: 4, 64: 8, 128: 8, 256: 8}[H]
+    # the serving widths at S = 8: H = 64 / 128 fit the wave every H100
+    # holds (120 SMs' worth of clusters), H = 256 only fits in clusters of
+    # 8 and needs no more CTAs than the card has SMs
+    if S == 8 and H in (64, 128):
+        assert 2 * S * plan.C <= 120
+        assert 2 * S <= GG.one_wave(plan.C, H100_SMS)
+    if S == 8 and H == 256:
+        assert plan.C == 8 and 2 * S * plan.C <= H100_SMS
+
+
+@pytest.mark.parametrize("H,C", [(256, 8), (128, 8), (128, 4), (128, 2),
+                                 (64, 8), (64, 4), (64, 2), (64, 1),
+                                 (32, 8), (32, 4), (32, 2), (32, 1),
+                                 (8, 2), (8, 1)])
+@pytest.mark.parametrize("S", [1, 8])
+def test_torch_port_ggru_forced_plan_is_honoured(H, C, S):
+    plan = GG.launch_plan(S, 15, H, C=C)
+    assert plan.C == C
+    assert plan.smem == GG.smem_bytes(15, H, C) <= SMEM_LIMIT
+    _check_slices(H // C // 2, H, plan.KS)
+
+
+def test_torch_port_ggru_smem_bytes():
+    """The H = 256 slice fits a CTA of a cluster of 8 and not one of 4."""
+    assert GG.smem_bytes(15, 256, 8) == 147136
+    assert GG.smem_bytes(15, 256, 4) > SMEM_LIMIT
+    for M in (12, 24, 48, 96, 192):            # banks 4 apart per 4 rows
+        assert (4 * M + GG.gate_pad(M)) % 32 == 4 and GG.gate_pad(M) % 4 == 0
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_torch_port_ggru_reassociated_frame_matches_cell(H, scale):
+    """What ``ggru.cu`` computes a frame, (adj·h)·(G·W_hid), against the
+    cell's own order adj·(h·G)·W_hid (``ggru_step_hoisted``) in fp32, at
+    the initial weights and at twice their size; 1e-5 absolute."""
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    gen = torch.Generator().manual_seed(H)
+    nira = load_adjacency_template()
+    p = L.stack_directions(*(C.init_ggru_cell(gen, H, H, nira)
+                             for _ in range(2)))
+    S, N = 3, 15
+    h = torch.tanh(torch.randn((2, S, N, H), generator=gen))
+    zi = torch.randn((2, S, N, 3 * H), generator=gen)
+    with torch.no_grad():
+        p.gcn_kernel.mul_(scale)
+        p.w_hid.mul_(scale)
+        (want,) = C.ggru_step_hoisted(p, zi, (h,))
+        zh = torch.matmul(torch.matmul(p.adj[:, None], h),
+                          torch.matmul(p.gcn_kernel, p.w_hid)[:, None])
+        r = torch.sigmoid(zi[..., :H] + zh[..., :H])
+        u = torch.sigmoid(zi[..., H:2 * H] + zh[..., H:2 * H])
+        cand = torch.tanh(zi[..., 2 * H:] + r * zh[..., 2 * H:])
+        got = u * h + (1 - u) * cand
+    assert (got - want).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("kernel,H", [("lstm", 64), ("lstm", 128),
                                       ("lstm", 256), ("gcn_lstm", 64),
                                       ("gcn_lstm", 128)])
@@ -108,6 +186,16 @@ def test_torch_port_doubled_split_is_a_valid_plan(kernel, H):
     lambda: G.launch_plan(17, 64, True),             # more than 16 nodes
     lambda: G.launch_plan(15, 256, True, C=16),      # not a portable cluster
     lambda: G.launch_plan(15, 256, True, C=4),       # slice over 227 KB
+    lambda: GG.launch_plan(8, 17, 64),               # more than 16 nodes
+    lambda: GG.launch_plan(8, 15, 30),               # H % 4
+    lambda: GG.launch_plan(0, 15, 64),               # no stream
+    lambda: GG.launch_plan(8, 15, 256, C=16),        # not a portable cluster
+    lambda: GG.launch_plan(8, 15, 256, C=4),         # slice over 227 KB
+    lambda: GG.launch_plan(8, 15, 256, C=3),         # uneven split
+    lambda: GG.launch_plan(8, 15, 512),              # 4 MiB fits no cluster
+    lambda: GG.launch_plan(8, 15, 64, C=0),          # no CTA
+    lambda: GG.launch_plan(8, 15, 128, C=1),         # slice over 227 KB
+    lambda: GG.launch_plan(8, 15, 8, C=4),           # 2 columns a CTA
 ])
 def test_torch_port_launch_plan_refuses(call):
     with pytest.raises(ValueError, match="needs|no launch plan"):
@@ -172,6 +260,32 @@ def test_torch_port_gcn_lstm_scan_inputs_layout(attention):
     assert nv.tolist() == [T, 2, 0] and nv.dtype == torch.int32
 
 
+@pytest.mark.parametrize("n_valid", [None, 3, [5, 2, 0]])
+def test_torch_port_ggru_scan_inputs_layout(n_valid):
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    gen = torch.Generator().manual_seed(2)
+    S, T, N, F, H = 3, 5, 15, 16, 32
+    nira = load_adjacency_template()
+    p = L.stack_directions(*(C.init_ggru_cell(gen, F, H, nira)
+                             for _ in range(2)))
+    x = torch.randn((S, T, N, F), generator=gen)
+    h = torch.randn((2, S, N, H), generator=gen)
+    zi, gk, adj, w_hid, h0, nv = GG.scan_inputs(p, x, h, n_valid)
+    for t, shape in ((zi, (2, S, T, N, 3 * H)), (gk, (2, H, H)),
+                     (adj, (2, N, N)), (w_hid, (2, H, 3 * H)),
+                     (h0, (2, S, N, H))):
+        assert tuple(t.shape) == shape and t.dtype == torch.float32
+        assert t.is_contiguous()
+    want = {None: [T] * S, 3: [3] * S}.get(n_valid if not isinstance(
+        n_valid, list) else 0, n_valid)
+    assert nv.tolist() == want and nv.dtype == torch.int32
+    # zi is x·W_in + b_in per direction, forward frame order
+    assert torch.allclose(zi[1], x @ p.w_in[1] + p.b_in[1], atol=1e-5)
+    assert torch.equal(gk, p.gcn_kernel) and torch.equal(w_hid, p.w_hid)
+
+
 def test_torch_port_library_digest_covers_headers(tmp_path):
     """An edited csrc/*.cuh renames every library, so no stale build of a
     kernel that includes it is reused."""
@@ -179,10 +293,10 @@ def test_torch_port_library_digest_covers_headers(tmp_path):
     copy = tmp_path / "csrc"
     shutil.copytree(csrc, copy)
     before = {n: _build.library_digest(n, str(copy))
-              for n in ("gcn_lstm", "lstm")}
+              for n in ("gcn_lstm", "ggru", "lstm")}
     with open(copy / "scan_common.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.library_digest(n, str(copy))
-             for n in ("gcn_lstm", "lstm")}
+             for n in ("gcn_lstm", "ggru", "lstm")}
     assert all(before[n] != after[n] for n in before)
     assert before["lstm"] == _build.library_digest("lstm")

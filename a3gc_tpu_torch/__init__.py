@@ -11,11 +11,14 @@ dense biLSTM of DIP and TransPose).
 
 What runs today, at inference: the A3GC/AAGC/AGC and G-GRU graph cascades
 and the TransPose cascade, offline (``models.pipeline.cascade_apply``) and
-online (``eval.streaming.StreamingCascade``), and the DIP net online
-(``eval.streaming.DipStreamingSession``) — plain windows with per-slot
-``active`` masks and ``reset``. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``; they raise when CUDA is asked for and
-absent.
+online (``eval.streaming.StreamingCascade``), the DIP net online
+(``eval.streaming.DipStreamingSession``) and single nets
+(``eval.streaming.StreamingSession``) — plain windows or buffered
+lookahead/history context, per-slot ``active`` masks, ``reset`` and
+``flush`` — and the HTTP front end over them: ``serve.PoseServer``,
+``client.PoseClient`` and ``python -m a3gc_tpu_torch.cli serve``. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; they
+raise when CUDA is asked for and absent.
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax`` or
 any module of ``a3gc_tpu``.

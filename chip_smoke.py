@@ -32,13 +32,36 @@ Phases, each printing one JSON line:
      serving_tp   — the TransPose cascade of dense biLSTMs (hidden
                     256/64/128);
      serving_dip  — ``DipStreamingSession``, the DIP net (hidden 512);
+     kernel_long  — the three kernels at the shapes of the buffered
+                    sessions: T = 180 and 120, S = 8 and 1, n_valid of
+                    whole windows, and no kernel writes its initial state;
+     buffered     — ``StreamingCascade(lookahead=1, history=1)``, A3GC, for
+                    6 ticks with an idle slot and a reset: launches per
+                    tick, ``emitted``, poses against the plain path,
+                    ``fused`` against the two-pass path, ``flush``,
+                    ``run_windows`` and ``step_async`` against a ``step``
+                    loop; ms per steady tick;
+     buffered_dip — the same for ``DipStreamingSession(lookahead=1)``;
+     http         — an in-process ``PoseServer`` (A3GC, K = P = 1) on the
+                    card, 8 ``PoseClient`` threads over HTTP in binary mode
+                    streaming 12 windows each, one releasing and another
+                    acquiring midway: every client's poses against a
+                    single-slot session, a retried seq answered from the
+                    cache with no launch, JSON against binary, /v1/stats;
+                    the round trip as the clients see it;
+     http_dip     — the same over the DIP session on plain windows;
+     cli_serve    — ``python -m a3gc_tpu_torch.cli serve --quality
+                    balanced`` as a subprocess, two clients, a
+                    state-preserving exec-recycle under them: the poses
+                    after it against an uninterrupted session, the pause;
   4. offline      — ``cascade_apply`` at batch 1, T = 300: launch counts
                     (6, the S = 1 contract of the kernel), timed, and
                     against the plain path; offline_tp the same for the
                     TransPose cascade, offline_ggru for the G-GRU cascade;
   5. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving paths, max |d| of phase 2, and per
-                    layer shape of those paths (S = 8 and 1, T = 60) the
+                    layer shape of those paths (S = 8 and 1, T = 60; S = 8
+                    at the buffered ticks' T = 180 and 120) the
                     launch plan (split, cluster or cooperative, CTAs,
                     shared memory, groups the card holds at once), the
                     wrapper's, the kernel's and the plain version's times
@@ -73,6 +96,17 @@ TP_STAGES = ((256, 72, 15, 3), (64, 87, 69, 3), (128, 141, 135, 9))
 DIP = (512, 60, 135, 9)
 S_SERVE, WINDOW, N_NODES = 8, 60, 15
 LIBRARIES = ("gcn_lstm", "ggru", "lstm")
+# whole-window valid lengths of a flush over a (P+K+1)·W = 180-frame context
+LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
+# launch-counted paths: the seven of the plain windows and the offline
+# calls, and the buffered and HTTP ones
+N_PATHS = 11
+
+
+def whole_windows(S, T):
+    """Per-stream valid lengths of whole windows, as a buffered flush gives
+    them; one stream: one window short of the context."""
+    return [min(v, T) for v in LONG_N_VALID[:S]] if S > 1 else [T - WINDOW]
 
 
 def ragged(S, T=WINDOW):
@@ -207,6 +241,17 @@ def clone_tree(tree):
     return tree.clone()
 
 
+def tree_err(a, b):
+    """max |a - b| over two nests of tensors of one structure."""
+    return max(float((x - y).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def percentile(values, q):
+    import numpy as np
+    return float(np.percentile(values, q))
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -304,10 +349,15 @@ class Smoke:
     # -- 2 ---------------------------------------------------------------
     def compare_layer(self, name, label, kernel_fn, plain_fn, args):
         torch = self.torch
+        state_before = clone_tree(args[2])
         with torch.no_grad():
             out = kernel_fn(*args)
             torch.cuda.synchronize()
             ref = plain_fn(*args)
+        # the buffered sessions start two passes from one carried state
+        self.check(all(torch.equal(a, b) for a, b in zip(
+            leaves(args[2]), leaves(state_before))),
+            f"{name} {label}: the launch wrote its initial state")
         errs = [float((a - b).abs().max())
                 for a, b in zip(leaves(out), leaves(ref))]
         err = max(errs)
@@ -578,6 +628,460 @@ class Smoke:
                          "calls_per_window": c / n}
                         for us, k, c in rows[:8]]}
 
+    # -- 3b: the buffered sessions and the HTTP front end -----------------
+    def phase_kernel_long(self):
+        """Each kernel at the buffered ticks' lengths, at the widths of its
+        serving paths, with n_valid of whole windows."""
+        from a3gc_tpu_torch.ops import gcn_lstm as G
+        from a3gc_tpu_torch.ops import ggru as GG
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        gen = torch.Generator().manual_seed(5)
+        rows = []
+        graph = [(H, F) for H, _, _, _ in STAGES for F in (H, 2 * H)]
+        dense = [(H, F) for H in (256, 64, 128, 512) for F in (H, 2 * H)]
+        cases = [("gcn_lstm", G.bi_gcn_lstm, G.bi_gcn_lstm_reference, graph,
+                  lambda F, H: self.cell(gen, "a3gc", F, H), True, 2),
+                 ("ggru", GG.bi_ggru, GG.bi_ggru_reference, graph,
+                  lambda F, H: self.cell(gen, "ggru", F, H), True, 1),
+                 ("lstm", LS.bi_lstm, LS.bi_lstm_reference, dense,
+                  lambda F, H: self.lstm_layer(gen, F, H), False, 2)]
+        for name, kernel_fn, plain_fn, widths, make, nodes, n_state in cases:
+            for H, F in widths:
+                p = make(F, H)
+                for T in (180, 120):
+                    for S in (S_SERVE, 1):
+                        nv = whole_windows(S, T)
+                        args = self.layer_inputs(gen, S, T, F, H, nv,
+                                                 nodes=nodes, n_state=n_state)
+                        errs, ok = self.compare_layer(
+                            name, f"long H={H} F={F} S={S} T={T}",
+                            kernel_fn, plain_fn, (p,) + args)
+                        rows.append({"kernel": name, "H": H, "F": F, "S": S,
+                                     "T": T, "n_valid": nv, "y": errs[0],
+                                     "state": max(errs[1:]), "ok": ok})
+        emit({"phase": "kernel_long", "tol": KERNEL_TOL,
+              "max_abs_err": max(r["y"] for r in rows),
+              "max_abs_err_state": max(r["state"] for r in rows),
+              "n_cases": len(rows), "all_ok": all(r["ok"] for r in rows),
+              "cases": [r for r in rows if not r["ok"]] or "all within tol"})
+
+    def windows(self, rng, S):
+        import numpy as np
+        ori = random_rotations(rng, (S, WINDOW, 6)).reshape(S, WINDOW, 54)
+        acc = rng.normal(scale=0.5, size=(S, WINDOW, 18)).astype(np.float32)
+        return (ori, acc) if S > 1 else (ori[0], acc[0])
+
+    def buffered(self, path, make, kernel, K, P, per_pass, hidden):
+        """Drive ``make(backend, fused, S)``'s buffered session for 6 ticks
+        with an idle slot and a reset beside the same session on the plain
+        path and on the two-pass path; flush; the pipelined entry points at
+        S = 1; then time steady ticks."""
+        import numpy as np
+        torch = self.torch
+        S, W, cap = S_SERVE, WINDOW, P + K + 1
+        rng = np.random.default_rng(2)
+        sess = make("auto", True, S)
+        plain = make("eager", True, S)
+        twopass = make("auto", False, S)
+        wrapper = self.wrappers[kernel]
+        idle = np.ones(S, np.float32)
+        idle[5] = 0.0
+        fills = [0] * S
+        per_tick, want_per_tick, pose_err, fused_err = [], [], 0.0, 0.0
+        emitted_ok, finite = True, True
+        self.zero_counts()                            # the main path starts
+        for tick in range(6):
+            ori, acc = self.windows(rng, S)
+            active = idle if tick == 3 else None
+            act = np.ones(S, bool) if active is None else active > 0
+            before = wrapper.launches
+            pose, emitted = sess.step(ori, acc, active=active)
+            per_tick.append(wrapper.launches - before)
+            # what the fill counts say: a slot emits from K+1 windows on,
+            # one emission pass per distinct fill, the advance at capacity
+            fills = [f + 1 if a else f for f, a in zip(fills, act)]
+            want = np.array([a and f >= K + 1 for f, a in zip(fills, act)])
+            groups = {f for f, e in zip(fills, want) if e}
+            want_per_tick.append(per_pass * (len(groups) + (cap in groups)))
+            fills = [f - 1 if (e and f == cap) else f
+                     for f, e in zip(fills, want)]
+            emitted_ok &= bool((emitted == want).all())
+            counts = self.counts()
+            ref_pose, ref_emitted = plain.step(ori, acc, active=active)
+            two_pose, two_emitted = twopass.step(ori, acc, active=active)
+            for k, n in counts.items():               # the twins' launches
+                self.wrappers[k].launches = n         # do not count
+            emitted_ok &= bool((ref_emitted == want).all()
+                               and (two_emitted == want).all())
+            if want.any():
+                finite &= bool(np.isfinite(pose[want]).all())
+                pose_err = max(pose_err, float(
+                    np.abs(pose[want] - ref_pose[want]).max()))
+                fused_err = max(fused_err, float(
+                    np.abs(pose[want] - two_pose[want]).max()))
+            fused_err = max(fused_err, tree_err(sess._states,
+                                                twopass._states))
+            if tick == 2:
+                for s_ in (sess, plain, twopass):
+                    s_.reset(stream=3)
+                fills[3] = 0
+        state_err = tree_err(sess._states, plain._states)
+        before = wrapper.launches
+        tails = sess.flush()
+        flush_launches = wrapper.launches - before
+        counts = self.counts()                        # the main path ended
+        self.launches[path] = counts
+        ref_tails = plain.flush()
+        warm = [i for i in range(S) if fills[i]]
+        tails_ok = all(
+            (tails[i] is not None and tails[i].shape[0] == min(fills[i], K)
+             * W) if (i in warm and K) else tails[i] is None
+            for i in range(S))
+        tail_err = max([float(np.abs(a - b).max())
+                        for a, b in zip(tails, ref_tails) if a is not None]
+                       or [0.0])
+        self.check(per_tick == want_per_tick,
+                   f"{path} launches per tick {per_tick} != {want_per_tick}")
+        self.check(emitted_ok, f"{path} emitted differs from the fill counts")
+        self.check(finite, f"{path} poses not finite")
+        self.check(pose_err <= PATH_TOL and state_err <= PATH_TOL
+                   and tail_err <= PATH_TOL,
+                   f"{path} vs plain path: pose {pose_err:.3e} state "
+                   f"{state_err:.3e} flush {tail_err:.3e}")
+        self.check(fused_err <= 1e-6,
+                   f"{path} fused vs two-pass: {fused_err:.3e}")
+        self.check(tails_ok and flush_launches == per_pass
+                   and all(not b for b in sess._buffers),
+                   f"{path} flush: tails ok={tails_ok}, {flush_launches} "
+                   f"launches, buffers {[len(b) for b in sess._buffers]}")
+        self.check(all(n == 0 for k, n in counts.items() if k != kernel),
+                   f"{path} launched other kernels: {counts}")
+
+        # the pipelined entry points at one stream against a step loop
+        loop, ahead, deferred = (make("auto", True, 1, plain_windows=True)
+                                 for _ in range(3))
+        wins = [self.windows(rng, 1) for _ in range(5)]
+        want = np.stack([loop.step(o, a) for o, a in wins])
+        got = ahead.run_windows(np.stack([o for o, _ in wins]),
+                                np.stack([a for _, a in wins]))
+        late = [deferred.step_async(o, a) for o, a in wins]
+        late.append(deferred.flush())
+        pipe_err = max(float(np.abs(got - want).max()),
+                       float(np.abs(np.stack(late[1:]) - want).max()),
+                       tree_err(ahead._states, loop._states),
+                       tree_err(deferred._states, loop._states))
+        self.check(late[0] is None and deferred.flush() is None
+                   and pipe_err == 0.0,
+                   f"{path} run_windows / step_async vs step loop: "
+                   f"{pipe_err:.3e}")
+
+        # steady ticks: every slot at capacity, one fused tick per window
+        for _ in range(cap + 2):
+            sess.step(*self.windows(rng, S))
+        inputs = [self.windows(rng, S) for _ in range(20)]
+        torch.cuda.synchronize()
+        times = []
+        for ori_w, acc_w in inputs:
+            t0 = time.perf_counter()
+            sess.step(ori_w, acc_w)
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(times))
+        try:
+            profile = self.profile_window(sess, inputs[:3])
+        except Exception as e:     # a measurement aid, not a check
+            profile = f"not measured: the profiler raised {e!r}"
+        emit({"phase": path, "streams": S, "window": W, "lookahead": K,
+              "history": P, "hidden": hidden, "launches_per_tick": per_tick,
+              "flush_launches": flush_launches, "launches": counts,
+              "pose_max_abs_err_vs_plain": pose_err,
+              "state_max_abs_err_vs_plain": state_err,
+              "flush_max_abs_err_vs_plain": tail_err,
+              "fused_vs_two_pass_max_abs_err": fused_err,
+              "pipelined_vs_step_loop_max_abs_err": pipe_err,
+              "ms_per_tick_median": med,
+              "ms_per_tick_p90": percentile(times, 90),
+              "frames_per_s_emitted": S * W / (med / 1e3),
+              "timed_ticks": len(times), "profile": profile,
+              "card": nvidia_smi()})
+
+    def cascade_session(self, kind, model, params3_of, K, P):
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+
+        def make(backend, fused, S, plain_windows=False):
+            cfg = self.cascade(kind, backend)
+            k, p = (0, 0) if plain_windows else (K, P)
+            return StreamingCascade(params3_of(cfg), cfg, model,
+                                    window=WINDOW, stats=load_stats(),
+                                    normalize=True, streams=S, lookahead=k,
+                                    history=p, fused=fused, device=self.dev)
+        return make
+
+    def dip_session(self, model, params, K, P):
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import DipStreamingSession
+
+        def make(backend, fused, S, plain_windows=False):
+            k, p = (0, 0) if plain_windows else (K, P)
+            return DipStreamingSession(params, self.dip_cfg(backend), model,
+                                       window=WINDOW, stats=load_stats(),
+                                       streams=S, lookahead=k, history=p,
+                                       fused=fused, device=self.dev)
+        return make
+
+    def a3gc_sessions(self, K, P):
+        from a3gc_tpu_torch.smpl import ParametricModel
+        params3 = self.params3(self.cascade("a3gc", "auto"))
+        return self.cascade_session("a3gc", ParametricModel(),
+                                    lambda cfg: params3, K, P)
+
+    def dip_sessions(self, K, P):
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.smpl import ParametricModel
+        params = init_pose_net(self.torch.Generator().manual_seed(0),
+                               self.dip_cfg("auto")).to(self.dev)
+        return self.dip_session(ParametricModel(), params, K, P)
+
+    def phase_buffered(self):
+        self.buffered("buffered", self.a3gc_sessions(1, 1), "gcn_lstm", 1, 1,
+                      6, [s[0] for s in STAGES])
+
+    def phase_buffered_dip(self):
+        self.buffered("buffered_dip", self.dip_sessions(1, 0), "lstm", 1, 0,
+                      2, [DIP[0]])
+
+    def http(self, path, make, kernel, K, P):
+        """An in-process PoseServer on the card over ``make``'s session,
+        eight PoseClient threads in binary mode; every stream is held
+        against a single-slot session fed the same windows."""
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+        import numpy as np
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.serve import PoseServer
+        S, W, n_windows = S_SERVE, WINDOW, 12
+        rng = np.random.default_rng(3)
+        # stream 7 ends midway and releases; stream 8 takes its slot
+        lengths = [n_windows] * 7 + [n_windows // 2, n_windows // 2]
+        feeds = [[self.windows(rng, 1) for _ in range(n)] for n in lengths]
+        srv = PoseServer(None, None, None, host="127.0.0.1", port=0,
+                         session=make("auto", True, S), lookahead=K,
+                         history=P, max_wait_ms=5.0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        clients, trips, served = {}, [], {}
+        lock = threading.Lock()
+
+        def client():
+            return PoseClient(*srv.address[:2], binary=True, timeout=60.0,
+                              retry_s=10.0, retry_interval=0.05)
+
+        def stream(i, c, finish):
+            out, mine = [], []
+            for ori, acc in feeds[i]:
+                t0 = time.perf_counter()
+                pose = c.step(ori, acc)
+                mine.append((time.perf_counter() - t0) * 1e3)
+                if pose is not None:
+                    out.append(pose)
+            if finish:
+                tail = c.flush()
+                if tail is not None:
+                    out.append(tail)
+                c.release()
+            with lock:
+                trips.extend(mine)
+                served[i], clients[i] = out, c
+            return i
+
+        def worker(i):
+            for j in ((7, 8) if i == 7 else (i,)):  # 8: the slot's next tenant
+                c = client()
+                c.acquire()
+                stream(j, c, finish=j == 7)
+
+        try:
+            self.zero_counts()                        # the main path starts
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(S) as pool:
+                list(pool.map(worker, range(S)))
+            wall = time.perf_counter() - t0
+            counts = self.counts()                    # the main path ended
+            self.launches[path] = counts
+            stats = clients[0].stats()
+
+            # a retried seq: the cached answer, no tick, no launch
+            c0 = clients[0]
+            c0._seq -= 1
+            again = c0.step(*feeds[0][-1])
+            after = c0.stats()
+            self.check(np.array_equal(again, served[0][-1])
+                       and self.counts() == counts
+                       and after["ticks"] == stats["ticks"],
+                       f"{path} a retried seq was stepped again")
+            for i, c in clients.items():
+                if i != 7:
+                    tail = c.flush()
+                    if tail is not None:
+                        served[i].append(tail)
+                    c.release()
+
+            # JSON against binary on two fresh slots, the same windows
+            cb, cj = client(), client()
+            cj.binary = False
+            with cb, cj:
+                json_err = 0.0
+                for ori, acc in feeds[0][:K + P + 2]:
+                    b, j = cb.step(ori, acc), cj.step(ori, acc)
+                    self.check((b is None) == (j is None),
+                               f"{path} JSON and binary warm up apart")
+                    if b is not None:
+                        json_err = max(json_err,
+                                       float(np.abs(b - j).max()))
+                final = cb.stats()
+        finally:
+            srv.shutdown()
+        self.check(json_err <= 1e-6, f"{path} JSON vs binary {json_err:.3e}")
+        self.check(final["errors"] == 0 and stats["errors"] == 0,
+                   f"{path} /v1/stats reports errors: {final}")
+        self.check(stats["mean_coalesced"] is not None
+                   and final["active_sessions"] == 2,
+                   f"{path} /v1/stats: {final}")
+        self.check(all(n == 0 for k, n in counts.items() if k != kernel)
+                   and counts[kernel] > 0,
+                   f"{path} launches {counts}")
+
+        # every stream against a single-slot session on the card
+        pose_err, frames = 0.0, 0
+        for i, feed in enumerate(feeds):
+            ref = make("auto", True, 1)
+            want = [p for p in (ref.step(o, a) for o, a in feed)
+                    if p is not None]
+            tail = ref.flush()
+            if tail is not None:
+                want.append(tail)
+            got, want = np.concatenate(served[i]), np.concatenate(want)
+            ok = got.shape == want.shape == (len(feed) * W, 24, 3, 3)
+            self.check(ok, f"{path} stream {i}: {got.shape} vs {want.shape}")
+            if ok:
+                pose_err = max(pose_err, float(np.abs(got - want).max()))
+                frames += got.shape[0]
+        self.check(pose_err <= PATH_TOL and bool(np.isfinite(pose_err)),
+                   f"{path} streams vs single-slot sessions: {pose_err:.3e}")
+        emit({"phase": path, "streams": S, "window": W, "lookahead": K,
+              "history": P, "clients": len(feeds), "windows_per_client":
+              lengths, "launches": counts,
+              "pose_max_abs_err_vs_single_slot": pose_err,
+              "json_vs_binary_max_abs_err": json_err,
+              "round_trip_ms_median": percentile(trips, 50),
+              "round_trip_ms_p99": percentile(trips, 99),
+              "tick_ms_mean": stats["tick_ms_mean"],
+              "tick_ms_p99": stats["tick_ms_p99"],
+              "mean_coalesced": stats["mean_coalesced"],
+              "ticks": stats["ticks"], "requests": stats["requests"],
+              "errors": final["errors"], "exchange_s": wall,
+              "frames_per_s": sum(lengths) * W / wall,
+              "card": nvidia_smi()})
+
+    def phase_http(self):
+        self.http("http", self.a3gc_sessions(1, 1), "gcn_lstm", 1, 1)
+
+    def phase_http_dip(self):
+        self.http("http_dip", self.dip_sessions(0, 0), "lstm", 0, 0)
+
+    def phase_cli_serve(self):
+        """The server as a user starts it, recycled under two clients."""
+        import queue
+        import threading
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.smpl import ParametricModel
+        argv = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
+                "--quality", "balanced"]
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        lines = queue.Queue()
+        threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                         daemon=True).start()
+        try:
+            try:
+                info = json.loads(lines.get(timeout=180))
+            except (queue.Empty, ValueError):
+                proc.kill()
+                raise RuntimeError("cli serve printed no serving line:\n"
+                                   + proc.stderr.read()[-4000:])
+            start_s = time.perf_counter() - t_start
+            host, port = info["serving"].rsplit("//", 1)[1].rsplit(":", 1)
+            args = cli.build_parser().parse_args(argv)
+            cli._apply_quality(args)
+            cascade, is_graph = cli._stage_configs(args)
+            params3 = cli._init_cascade_params(cascade, is_graph, self.dev)
+            rng = np.random.default_rng(4)
+            feeds = [[self.windows(rng, 1) for _ in range(6)]
+                     for _ in range(2)]
+            refs = [StreamingCascade(
+                params3, cascade, ParametricModel(), window=args.window,
+                stats=cli._load_stats(args), normalize=True,
+                lookahead=args.lookahead, history=args.history,
+                device=self.dev) for _ in feeds]
+            clients = [PoseClient(host, int(port), timeout=120.0,
+                                  retry_s=300.0, retry_interval=0.25)
+                       for _ in feeds]
+            for c in clients:
+                c.acquire()
+            pose_err, n_poses, answered = 0.0, 0, []
+
+            def step_all(w):
+                nonlocal pose_err, n_poses
+                for c, ref, feed in zip(clients, refs, feeds):
+                    got = c.step(*feed[w])
+                    answered.append(time.perf_counter())
+                    want = ref.step(*feed[w])
+                    self.check((got is None) == (want is None),
+                               f"cli_serve window {w}: warm-up differs")
+                    if got is not None and want is not None:
+                        pose_err = max(pose_err,
+                                       float(np.abs(got - want).max()))
+                        n_poses += 1
+
+            for w in range(3):
+                step_all(w)
+            before = clients[0].stats()
+            t_last, n_before = time.perf_counter(), len(answered)
+            clients[0].recycle()
+            step_all(3)             # the clients retry through the pause
+            pause_s = answered[n_before] - t_last
+            step_all(4)
+            step_all(5)
+            after = clients[1].stats()
+            for c, ref in zip(clients, refs):
+                tail, want = c.flush(), ref.flush()
+                pose_err = max(pose_err, float(np.abs(tail - want).max()))
+                c.release()
+            alive = proc.poll() is None
+        finally:
+            proc.kill()
+            proc.wait()
+        err = proc.stderr.read()
+        self.check(alive, "cli_serve: the server exited:\n" + err[-2000:])
+        self.check("recycled: restored 2 live session(s)" in err,
+                   "cli_serve: no restored generation:\n" + err[-2000:])
+        self.check(n_poses == 10 and pose_err <= PATH_TOL,
+                   f"cli_serve: {n_poses} poses, max|d| {pose_err:.3e} vs an "
+                   "uninterrupted session")
+        self.check(after["errors"] == 0 and after["active_sessions"] == 2
+                   and after["ticks"] < before["ticks"] + 3,
+                   f"cli_serve: /v1/stats after the recycle: {after}")
+        emit({"phase": "cli_serve", "argv": argv, "serving": info,
+              "start_s": start_s, "recycle_pause_s": pause_s,
+              "pose_max_abs_err_vs_uninterrupted": pose_err,
+              "poses_compared": n_poses, "stats_before": before,
+              "stats_after": after, "card": nvidia_smi()})
+
     # -- 4 ---------------------------------------------------------------
     def offline(self, path, kind, kernel, feature_shape):
         import numpy as np
@@ -654,7 +1158,7 @@ class Smoke:
                    library=None):
         mod = importlib.import_module(f"a3gc_tpu_torch.ops.{name}")
         torch = self.torch
-        T = WINDOW
+        T = args[0].shape[1]
         with torch.no_grad():
             scan_args = mod.scan_inputs(layer, *args)
             # in turns (kernel, library, library, kernel): the card's clock
@@ -728,12 +1232,29 @@ class Smoke:
                     self.time_layer("lstm", path, S, F, H, p, (x, st, nv),
                                     lstm_layer_work,
                                     library=self.cudnn_lstm(p, x, st))
+        # the emission passes of the buffered ticks: (P+K+1)·W frames
+        S = S_SERVE
+        for H, _, _, _ in STAGES:
+            for F in (H, 2 * H):
+                p = self.cell(gen, "a3gc", F, H)
+                x, st, nv = self.layer_inputs(gen, S, 180, F, H, [180] * S)
+                self.time_layer("gcn_lstm", "buffered", S, F, H, p,
+                                (x, st, nv), gcn_layer_work)
+        H = DIP[0]
+        for F in (H, 2 * H):
+            p = self.lstm_layer(gen, F, H)
+            x, st, nv = self.layer_inputs(gen, S, 120, F, H, [120] * S,
+                                          nodes=False)
+            self.time_layer("lstm", "buffered_dip", S, F, H, p, (x, st, nv),
+                            lstm_layer_work,
+                            library=self.cudnn_lstm(p, x, st))
 
     def kernels_line(self):
         meta = {
             "gcn_lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:92 (_kernel), "
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
-                         "(_dirfused_kernel)", ("serving",), gcn_layer_work,
+                         "(_dirfused_kernel)",
+                         ("serving", "buffered", "http"), gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
                          "including its hoisted input projection",
@@ -747,7 +1268,8 @@ class Smoke:
                      "no PyTorch call mixes a graph message into a GRU "
                      "recurrence"),
             "lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:580 (_lstm_kernel)",
-                     ("serving_tp", "serving_dip"), lstm_layer_work,
+                     ("serving_tp", "serving_dip", "buffered_dip",
+                      "http_dip"), lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
                      "plus the two of one DIP serving window (S=8, T=60), "
                      "bi_lstm including its hoisted input projection; "
@@ -756,7 +1278,8 @@ class Smoke:
         }
         entries = []
         for name, (replaces, paths, work, timed, no_lib) in meta.items():
-            main = [r for r in self.shapes[name] if r["S"] == S_SERVE]
+            main = [r for r in self.shapes[name]
+                    if r["S"] == S_SERVE and r["T"] == WINDOW]
             flop = sum(work(r["S"], r["T"], r["F"], r["H"], True)[0]
                        for r in main)
             nbytes = sum(work(r["S"], r["T"], r["F"], r["H"], True)[1]
@@ -805,8 +1328,11 @@ def main():
     smoke = Smoke()
     phases = (smoke.phase_device, smoke.phase_kernel,
               smoke.phase_kernel_ggru, smoke.phase_kernel_lstm,
+              smoke.phase_kernel_long,
               smoke.phase_serving, smoke.phase_serving_ggru,
               smoke.phase_serving_tp, smoke.phase_serving_dip,
+              smoke.phase_buffered, smoke.phase_buffered_dip,
+              smoke.phase_http, smoke.phase_http_dip, smoke.phase_cli_serve,
               smoke.phase_offline, smoke.phase_offline_tp,
               smoke.phase_offline_ggru, smoke.phase_times)
     for phase in phases:
@@ -817,7 +1343,7 @@ def main():
                                   + traceback.format_exc())
             if phase is smoke.phase_device:
                 break
-    if all(smoke.shapes.values()) and len(smoke.launches) == 7:
+    if all(smoke.shapes.values()) and len(smoke.launches) == N_PATHS:
         smoke.kernels_line()
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

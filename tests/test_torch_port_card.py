@@ -308,3 +308,123 @@ def test_torch_port_new_family_serving_matches_plain_on_card(kind):
     assert np.isfinite(got[rows]).all()
     np.testing.assert_allclose(got[rows], want[rows], atol=1e-4)
     assert counter.launches == (2 if kind == "dip" else 6)
+
+
+# whole-window valid lengths of a buffered flush over a 180-frame context
+LONG_N_VALID = [180, 120, 60, 0, 180, 180, 60, 120]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 1])
+@pytest.mark.parametrize("T", [120, 180])
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+@pytest.mark.parametrize("kernel", ["gcn_lstm", "ggru", "lstm"])
+def test_torch_port_kernels_at_buffered_lengths_on_card(kernel, H, T, S):
+    """The shapes the buffered (lookahead/history) sessions launch: T =
+    (P+K+1)·W frames with per-stream n_valid of whole windows. Every frame
+    and the final state at 1e-5 absolute, and the launch leaves its initial
+    state as it was (the emission and the advance pass start from one
+    carried state)."""
+    _need_card()
+    if H == 512 and kernel != "lstm":
+        pytest.skip("the graph cascades have no stage of 512 hidden units")
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(7)
+    nodes = (15,) if kernel != "lstm" else ()
+    if kernel == "gcn_lstm":
+        p, fn, ref = _cell(gen, "a3gc", 2 * H, H), G.bi_gcn_lstm, \
+            G.bi_gcn_lstm_reference
+    elif kernel == "ggru":
+        from a3gc_tpu_torch.data import load_adjacency_template
+        nira = load_adjacency_template()
+        p = L.stack_directions(C.init_ggru_cell(gen, 2 * H, H, nira),
+                               C.init_ggru_cell(gen, 2 * H, H, nira))
+        fn, ref = GG.bi_ggru, GG.bi_ggru_reference
+    else:
+        p = N.init_dip(gen, N.DIPConfig(n_hidden=H)).lstm[1]
+        fn, ref = LS.bi_lstm, LS.bi_lstm_reference
+    p = p.cuda()
+    x = torch.randn((S, T) + nodes + (2 * H,), generator=gen).cuda()
+    st = tuple((0.5 * torch.randn((2, S) + nodes + (H,), generator=gen))
+               .cuda() for _ in range(2))
+    if kernel == "ggru":
+        st = st[0]
+    nv = torch.tensor([min(v, T) for v in LONG_N_VALID[:S]] if S > 1
+                      else [T - 60], device="cuda")
+    before = [t.clone() for t in (st if isinstance(st, tuple) else (st,))]
+    fn.launches = 0
+    with torch.no_grad():
+        y, fin = fn(p, x, st, nv)
+        ref_y, ref_fin = ref(p, x, st, nv)
+    torch.cuda.synchronize()
+    assert fn.launches == 1
+    assert (y - ref_y).abs().max().item() <= 1e-5
+    for a, b in zip(fin if isinstance(fin, tuple) else (fin,),
+                    ref_fin if isinstance(ref_fin, tuple) else (ref_fin,)):
+        assert (a - b).abs().max().item() <= 1e-5
+    for a, b in zip(st if isinstance(st, tuple) else (st,), before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_torch_port_buffered_session_from_a_thread_on_card(fused):
+    """A buffered session stepped and flushed from a second thread (where
+    grad mode starts enabled) launches the kernels and matches the plain
+    path at 1e-3 on poses after three stages and IK."""
+    _need_card()
+    import threading
+
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.eval.streaming import StreamingCascade
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                init_pose_net)
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.smpl import ParametricModel
+
+    def cfg(backend):
+        return CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+            cell="a3gc", units_in=ui, units_out=uo, units_hidden=H,
+            backend=backend), rotsize=rot)
+            for H, ui, uo, rot in ((64, 12, 3, 3), (64, 15, 3, 3),
+                                   (64, 15, 9, 9))))
+
+    nira = load_adjacency_template()
+    gen = torch.Generator().manual_seed(0)
+    params3 = tuple(init_pose_net(gen, c, nira).cuda()
+                    for c in cfg("auto").stages)
+    S, W = 4, 60
+    sessions = [StreamingCascade(params3, cfg(b), ParametricModel(),
+                                 window=W, stats=load_stats(),
+                                 normalize=True, streams=S, lookahead=1,
+                                 history=1, fused=fused, device="cuda")
+                for b in ("auto", "eager")]
+    rng = np.random.default_rng(0)
+    wins = [(rng.normal(size=(S, W, 54)).astype(np.float32),
+             rng.normal(size=(S, W, 18)).astype(np.float32))
+            for _ in range(4)]
+    out = {}
+
+    def work(name, sess):
+        res = [sess.step(o, a) for o, a in wins]
+        out[name] = res, sess.flush()
+
+    G.bi_gcn_lstm.launches = 0
+    for name, sess in zip(("kernel", "plain"), sessions):
+        t = threading.Thread(target=work, args=(name, sess))
+        t.start()
+        t.join(300)
+        assert not t.is_alive() and name in out
+    assert G.bi_gcn_lstm.launches == 0 + 6 + 12 + 12 + 6
+    for (pose, em), (ref_pose, ref_em) in zip(out["kernel"][0][1:],
+                                              out["plain"][0][1:]):
+        assert em.all() and ref_em.all()
+        assert np.abs(pose - ref_pose).max() <= 1e-3
+    for a, b in zip(out["kernel"][1], out["plain"][1]):
+        assert a.shape == (W, 24, 3, 3) and np.abs(a - b).max() <= 1e-3

@@ -113,10 +113,18 @@ def test_torch_port_streaming_cascade_matches_jax(jax_model):
 def test_torch_port_streaming_rejects_unported_modes():
     _, tcfg, params = _cascades(9)
     p3 = cascade_params_from_jax(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingCascade(p3, tcfg, ParametricModel(), lookahead=1,
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        StreamingCascade(p3, tcfg, ParametricModel(), mesh=object(),
                          device="cpu")
-    sess = StreamingCascade(p3, tcfg, ParametricModel(), device="cpu")
-    for method in (sess.flush, sess.step_async, sess.run_windows):
-        with pytest.raises(NotImplementedError):
-            method()
+    # lookahead/history, flush, step_async and run_windows are ported: a
+    # buffered session builds, and a plain one has nothing to flush
+    sess = StreamingCascade(p3, tcfg, ParametricModel(), lookahead=1,
+                            history=1, device="cpu")
+    assert (sess.lookahead, sess.history, sess.fused) == (1, 1, True)
+    assert sess.flush() is None
+    plain = StreamingCascade(p3, tcfg, ParametricModel(), fused=True,
+                             device="cpu")
+    assert plain.flush() is None and plain.fused is False
+    with pytest.raises(ValueError, match=">= 0"):
+        StreamingCascade(p3, tcfg, ParametricModel(), lookahead=-1,
+                         device="cpu")

@@ -259,9 +259,14 @@ def test_torch_port_dip_streaming_session_matches_jax(jax_model):
                                tcfg, ParametricModel(), window=W,
                                stats=stats, streams=S, device="cpu")
     _serve_and_compare(ref, sess, S, W, seed=14)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    buffered = DipStreamingSession(sess.params3, tcfg, ParametricModel(),
+                                   stats=stats, lookahead=1, fused=False,
+                                   device="cpu")
+    assert (buffered.lookahead, buffered.history, buffered.fused) == (
+        1, 0, False)
+    with pytest.raises(ValueError, match="stats"):
         DipStreamingSession(sess.params3, tcfg, ParametricModel(),
-                            stats=stats, lookahead=1, device="cpu")
+                            device="cpu")
 
 
 def _port_session(kind):

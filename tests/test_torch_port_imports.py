@@ -1,6 +1,8 @@
 """The port stands alone: importing a3gc_tpu_torch and serving tiny a3gc,
 ggru and TransPose cascades through StreamingCascade and a DIP net through
-DipStreamingSession on the CPU loads no jax, flax or a3gc_tpu module."""
+DipStreamingSession on the CPU, and a served step through
+a3gc_tpu_torch.serve, .client and .cli, loads no jax, flax or a3gc_tpu
+module."""
 
 import json
 import os
@@ -51,6 +53,27 @@ for sess in sessions:
     pose = sess.step(rng.normal(size=(2, 4, 54)),
                      rng.normal(size=(2, 4, 18)))
     assert pose.shape == (2, 4, 24, 3, 3) and np.isfinite(pose).all()
+# the serving stack: a buffered server on the CPU, one client over HTTP
+import threading
+import a3gc_tpu_torch.cli
+from a3gc_tpu_torch.client import PoseClient
+from a3gc_tpu_torch.serve import PoseServer
+args = a3gc_tpu_torch.cli.build_parser().parse_args(
+    ["serve", "--quality", "balanced"])
+a3gc_tpu_torch.cli._apply_quality(args)
+cfg = cascades[0]
+srv = PoseServer(tuple(init_pose_net(gen, c, nira) for c in cfg.stages),
+                 cfg, ParametricModel(), window=4, streams=2, port=0,
+                 max_wait_ms=1.0, lookahead=args.lookahead,
+                 history=args.history, device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+with PoseClient(*srv.address, timeout=30.0, retry_s=2.0) as c:
+    served = [c.step(rng.normal(size=(4, 54)), rng.normal(size=(4, 18)))
+              for _ in range(3)]
+    assert served[0] is None and served[2].shape == (4, 24, 3, 3)
+    assert c.flush().shape == (4, 24, 3, 3)
+    assert c.stats()["errors"] == 0
+srv.shutdown()
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

@@ -47,3 +47,55 @@ def jax_graph_net(cell, units_in, units_out, hidden, seed):
     params = JN.init_graph_net(jax.random.PRNGKey(seed), cfg,
                                load_adjacency_template())
     return cfg, perturbed(params, seed)
+
+
+GRAPH_DIMS = ((12, 3, 3), (15, 3, 3), (15, 9, 9))      # units in, out, rotsize
+TP_DIMS = ((72, 15, 3), (87, 69, 3), (141, 135, 9))    # n_input, n_output, rot
+
+
+def jax_dip(n_input, n_output, hidden, seed):
+    """(JAX DIPConfig on the XLA scan, perturbed numpy params)."""
+    cfg = JN.DIPConfig(n_input=n_input, n_output=n_output, n_hidden=hidden)
+    return cfg, perturbed(JN.init_dip(jax.random.PRNGKey(seed), cfg), seed)
+
+
+def cascades(kind, hidden=8, seed=20):
+    """The same small cascade in both packages: (JAX CascadeConfig on the
+    XLA scans, the port's CascadeConfig, perturbed numpy params of the three
+    stages). ``kind``: a graph cell name, or "tp" for the dense cascade."""
+    from a3gc_tpu.models import pipeline as JPL
+    from a3gc_tpu_torch.models import nets as TN
+    from a3gc_tpu_torch.models import pipeline as TPL
+
+    if kind == "tp":
+        jnets = [JN.DIPConfig(n_input=ni, n_output=no, n_hidden=hidden)
+                 for ni, no, _ in TP_DIMS]
+        tnets = [TN.DIPConfig(n_input=ni, n_output=no, n_hidden=hidden)
+                 for ni, no, _ in TP_DIMS]
+        rots = [rot for _, _, rot in TP_DIMS]
+    else:
+        jnets = [JN.GraphNetConfig(cell=kind, units_in=ui, units_out=uo,
+                                   units_hidden=hidden, backend="xla")
+                 for ui, uo, _ in GRAPH_DIMS]
+        tnets = [TN.GraphNetConfig(cell=kind, units_in=ui, units_out=uo,
+                                   units_hidden=hidden)
+                 for ui, uo, _ in GRAPH_DIMS]
+        rots = [rot for _, _, rot in GRAPH_DIMS]
+    jcfg = JPL.CascadeConfig(*(JPL.PoseNetConfig(net=n, rotsize=r)
+                               for n, r in zip(jnets, rots)))
+    tcfg = TPL.CascadeConfig(*(TPL.PoseNetConfig(net=n, rotsize=r)
+                               for n, r in zip(tnets, rots)))
+    nira = load_adjacency_template()
+    params = tuple(
+        perturbed(JPL.init_pose_net(jax.random.PRNGKey(i), c, nira),
+                  seed=seed + i)
+        for i, c in enumerate((jcfg.stage1, jcfg.stage2, jcfg.stage3)))
+    return jcfg, tcfg, params
+
+
+def state_leaves(tree):
+    """The leaves of a carried state (JAX arrays or torch tensors) as numpy
+    arrays, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [a for t in tree for a in state_leaves(t)]
+    return [tree.numpy() if hasattr(tree, "numpy") else np.asarray(tree)]

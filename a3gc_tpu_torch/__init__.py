@@ -7,7 +7,7 @@ every public function (dense kernels ``[in, out]``, the fused gate kernel
 rows, left-multiplying adjacency, a leading direction axis of 2), and runs
 its recurrent scans as CUDA kernels written for Hopper: ``ops/csrc/
 gcn_lstm.cu`` (graph-LSTM cells), ``ggru.cu`` (G-GRU) and ``lstm.cu`` (the
-dense biLSTM of DIP and TransPose).
+dense LSTM of DIP and TransPose, one direction or two).
 
 What runs today, at inference: the A3GC/AAGC/AGC and G-GRU graph cascades
 and the TransPose cascade, offline (``models.pipeline.cascade_apply``) and
@@ -16,7 +16,10 @@ online (``eval.streaming.StreamingCascade``), the DIP net online
 (``eval.streaming.StreamingSession``) — plain windows or buffered
 lookahead/history context, per-slot ``active`` masks, ``reset`` and
 ``flush`` — and the HTTP front end over them: ``serve.PoseServer``,
-``client.PoseClient`` and ``python -m a3gc_tpu_torch.cli serve``. Entry
+``client.PoseClient`` and ``python -m a3gc_tpu_torch.cli serve``, on
+trained checkpoints (the reference's ``.tar`` files through
+``compat.torch_import`` / ``compat.torch_export``, the port's own
+checkpoint directories through ``utils``). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is asked for and absent.
 

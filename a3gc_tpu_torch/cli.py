@@ -1,16 +1,28 @@
 r"""Command-line interface of the port (counterpart of ``a3gc_tpu/cli.py``):
-the ``serve`` subcommand.
+the ``serve`` and ``convert-checkpoint`` subcommands.
 
 Usage:
-    python -m a3gc_tpu_torch.cli serve --port 8765 --streams 8 --norm \
-        --quality balanced                       # on the card
+    python -m a3gc_tpu_torch.cli serve --torch_checkpoints s1.tar s2.tar \
+        s3.tar --norm --quality balanced         # on the card
+    python -m a3gc_tpu_torch.cli serve --path runs/x --type finetuning \
+        --mid1 12 ...                            # discovered checkpoints
+    python -m a3gc_tpu_torch.cli serve --model dip --hu1 512 \
+        --torch_checkpoints dip.tar              # the single DIP net
     python -m a3gc_tpu_torch.cli serve --device cpu ...
+    python -m a3gc_tpu_torch.cli convert-checkpoint --torch s1.tar \
+        --model a3gc --output runs/x/checkpoint_model1_finetuning_5
+    python -m a3gc_tpu_torch.cli convert-checkpoint --to_torch DIR \
+        --model a3gc --n_input 12 --n_output 3 --hu1 256 --output s1.tar
 
 The cascades (``--model a3gc | aagc | agc | ggru | tp``) are served from
-freshly initialised weights (``torch.Generator``, seed i for stage i), with
-the shipped normalization stats and the IK-only body model. Loading
-checkpoints, serving a deployment artifact, a mesh of cards and the other
-subcommands wait for later slices (see ROADMAP.md, Queue 1).
+reference ``.tar`` checkpoints (``--torch_checkpoints``, one a stage), from
+the latest checkpoints of a directory (``--path``, ``--type``,
+``--mid1/2/3``) or, given neither, from freshly initialised weights
+(``torch.Generator``, seed i for stage i); ``--model dip`` from a
+checkpoint only. Every server has the shipped normalization stats and the
+IK-only body model. Serving a deployment artifact, a mesh of cards, the
+SMPL file and the other subcommands wait for later slices (see
+ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -38,14 +50,18 @@ QUALITY_PRESETS = {
 # flags of the JAX CLI's `serve` that the port parses and refuses: what
 # each waits for
 _WAITS_FOR = {
-    "path": "--path (checkpoint discovery) waits for ROADMAP Queue 1 item 9",
-    "torch_checkpoints": "--torch_checkpoints (reference .tar checkpoints) "
-                         "waits for ROADMAP Queue 1 item 9",
     "artifact": "--artifact (serving a deployment artifact) waits for "
                 "ROADMAP Queue 1 item 13",
     "mesh": "--mesh (slots sharded over several cards) waits for ROADMAP "
             "Queue 1 item 14",
+    "smpl": "--smpl (an SMPL body-model file) waits for ROADMAP Queue 1 "
+            "item 4; the port serves with its IK-only body model",
+    "data_root": "--data_root (the SMPL file and stats under a data root) "
+                 "waits for ROADMAP Queue 1 item 4; the port serves with "
+                 "its IK-only body model and shipped stats",
 }
+# flags of the JAX CLI that steer JAX alone: accepted, noted, ignored
+_JAX_ONLY = ("profile", "debug_nans", "compilation_cache")
 
 
 def _add_quality_flag(p):
@@ -91,14 +107,33 @@ def _apply_quality(args):
 
 def _add_common_model_flags(p):
     p.add_argument("--model", choices=MODEL_CHOICES, default="a3gc")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="accepted for the JAX CLI's command lines and "
+                        "ignored (a jax.profiler trace there)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="accepted and ignored (jax_debug_nans there)")
+    p.add_argument("--compilation_cache", type=str, default=None,
+                   metavar="DIR",
+                   help="accepted and ignored (the jax compilation cache "
+                        "there; the port's kernels are built once into "
+                        "build/kernels)")
     p.add_argument("--hu1", type=int, default=256,
-                   help="stage-1 hidden units")
+                   help="stage-1 hidden units (the DIP net's with --model "
+                        "dip)")
     p.add_argument("--hu2", type=int, default=64)
     p.add_argument("--hu3", type=int, default=128)
     p.add_argument("--norm", action="store_true",
                    help="normalize inputs with train stats")
     p.add_argument("--cda", action="store_true",
                    help="use contralateral-augmented (sym) stats")
+    p.add_argument("--smpl", type=str, default=None,
+                   help="not ported yet: " + _WAITS_FOR["smpl"])
+    p.add_argument("--data_root", type=str, default=None,
+                   help="not ported yet: " + _WAITS_FOR["data_root"])
+    p.add_argument("--precision", choices=("highest", "default"),
+                   default=None,
+                   help="accepted; the port computes in fp32 whatever it "
+                        "says (the JAX CLI serves at 'default')")
     p.add_argument("--rotsize", type=int, default=9, choices=(3, 6, 9),
                    help="stage-3 rotation representation")
     p.add_argument("--device", type=str, default="cuda",
@@ -159,6 +194,119 @@ def _init_cascade_params(cascade, is_graph, device):
         for i, c in enumerate(cascade.stages))
 
 
+def _restore(found, cfg, device, seed=0):
+    r"""A discovered checkpoint directory restored into a net of ``cfg``
+    on ``device``; a checkpoint the port cannot read exits naming why."""
+    import torch
+
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.utils import restore_params
+
+    nira = load_adjacency_template() if cfg.is_graph else None
+    template = init_pose_net(torch.Generator().manual_seed(seed), cfg,
+                             nira).to(device)
+    try:
+        return restore_params(found[0], template)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+
+
+def _import_tar(path, cfg, model, device):
+    r"""A reference ``.tar`` as a net of ``cfg`` on ``device``; a file of
+    another net or width exits naming the key and both shapes."""
+    from a3gc_tpu_torch.compat.torch_import import (
+        dip_params_from_state_dict, graph_net_params_from_state_dict,
+        load_torch_checkpoint)
+
+    _require(os.path.isfile(path), f"no checkpoint file {path}")
+    sd = load_torch_checkpoint(path)
+    try:
+        if cfg.is_graph:
+            return graph_net_params_from_state_dict(sd, model, cfg=cfg.net,
+                                                    device=device)
+        return dip_params_from_state_dict(sd, cfg=cfg.net, device=device)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"error: {path}: {e}")
+
+
+def _load_cascade_params(args, cascade, is_graph, device):
+    r"""Per-stage checkpoint loading: one reference ``.tar`` a stage
+    (``--torch_checkpoints``), or the latest checkpoint of each stage in
+    ``--path`` (``--type`` phase, ``--mid1/2/3`` epoch pins); a fresh init
+    when neither is given. Every tensor ends on ``device``."""
+    pins = (args.mid1, args.mid2, args.mid3)
+    if args.torch_checkpoints:
+        _require(len(args.torch_checkpoints) == 3,
+                 f"--torch_checkpoints takes one .tar per stage (3), got "
+                 f"{len(args.torch_checkpoints)}")
+        return tuple(_import_tar(path, c, args.model, device)
+                     for path, c in zip(args.torch_checkpoints,
+                                        cascade.stages))
+    if not args.path:
+        return _init_cascade_params(cascade, is_graph, device)
+    from a3gc_tpu_torch.utils import discover_latest
+    params3 = []
+    for i, c in enumerate(cascade.stages):
+        found = discover_latest(args.path, i + 1, phase=args.type,
+                                epoch=pins[i] if pins[i] >= 0 else None)
+        _require(found, f"no {args.type} checkpoint for stage {i + 1} in "
+                        f"{args.path}" + (f" at epoch {pins[i]}"
+                                          if pins[i] >= 0 else ""))
+        params3.append(_restore(found, c, device, seed=i))
+    return tuple(params3)
+
+
+def _dip_config(args):
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig
+    return PoseNetConfig(net=N.DIPConfig(
+        n_input=60, n_output=15 * args.rotsize, n_hidden=args.hu1),
+        rotsize=args.rotsize)
+
+
+def _load_dip(args, device):
+    r"""The DIP net's config and params, from ``--torch_checkpoints`` (one
+    ``.tar``) or ``--path`` discovery (stage 1, ``--mid1``); DIP serves a
+    trained checkpoint only."""
+    from a3gc_tpu_torch.utils import discover_latest
+
+    cfg = _dip_config(args)
+    if args.torch_checkpoints:
+        return cfg, _import_tar(args.torch_checkpoints[0], cfg, "dip",
+                                device)
+    _require(args.path, "--model dip serves a trained checkpoint: give "
+                        "--torch_checkpoints DIP.tar or --path DIR")
+    found = discover_latest(args.path, 1, phase=args.type,
+                            epoch=args.mid1 if args.mid1 >= 0 else None)
+    _require(found, f"no {args.type} DIP checkpoint in {args.path}")
+    return cfg, _restore(found, cfg, device)
+
+
+def _reloading(load):
+    r"""``reload_fn`` for the server: ``load()`` on the HTTP thread, with a
+    missing or unreadable checkpoint turned from an exit into an error,
+    which ``POST /v1/reload`` answers with 500."""
+    def reload_fn():
+        try:
+            return load()
+        except SystemExit as e:
+            raise RuntimeError(str(e)) from None
+    return reload_fn
+
+
+def _note_ignored_flags(args):
+    r"""One note on stderr for the flags that mean something to the JAX
+    CLI only."""
+    given = [f"--{f}" for f in _JAX_ONLY if getattr(args, f, None)]
+    if args.precision:
+        given.append(f"--precision {args.precision}")
+    if given:
+        print(f"[a3gc_tpu_torch] ignoring {' '.join(given)}: the port "
+              "computes in fp32 and has no JAX profiler, NaN check or "
+              "compilation cache", file=sys.stderr)
+
+
 def cmd_serve(args):
     r"""Dynamic-batching HTTP pose serving (see a3gc_tpu_torch/serve.py):
     up to --streams concurrent clients share ONE multi-stream step;
@@ -169,9 +317,7 @@ def cmd_serve(args):
     _apply_quality(args)
     for attr, msg in _WAITS_FOR.items():
         _require(not getattr(args, attr), msg)
-    _require(args.model != "dip",
-             "--model dip serves a trained checkpoint only; loading one "
-             "waits for ROADMAP Queue 1 item 9")
+    _note_ignored_flags(args)
 
     # NOTE: construction happens inside this helper so its frame (and the
     # session/params/model locals pinning device tensors) is POPPED before
@@ -197,8 +343,31 @@ def _build_server(args):
     args.window = args.window or 60
     args.streams = args.streams or 8
     device = resolve_device(args.device)
+    if args.model == "dip":
+        # the single DIP net behind the same batcher: raw IMU in, full
+        # local poses out
+        from a3gc_tpu_torch.eval.streaming import DipStreamingSession
+
+        stats = _load_stats(args)
+        _require(stats is not None,
+                 "dip serving needs the shipped stats assets "
+                 "(a3gc_tpu_torch/assets/stats)")
+        cfg, params = _load_dip(args, device)
+        session = DipStreamingSession(
+            params, cfg, ParametricModel(), window=args.window, stats=stats,
+            streams=args.streams, lookahead=args.lookahead,
+            history=args.history, device=device)
+        srv = PoseServer(None, None, None, host=args.host, port=args.port,
+                         max_wait_ms=args.max_wait_ms, session=session,
+                         lookahead=args.lookahead, history=args.history,
+                         recycle_rss_mb=args.recycle_rss_mb,
+                         allow_recycle=True,
+                         # POST /v1/reload re-discovers the checkpoint
+                         reload_fn=_reloading(
+                             lambda: _load_dip(args, device)[1]))
+        return srv, args.streams, args.window
     cascade, is_graph = _stage_configs(args)
-    params3 = _init_cascade_params(cascade, is_graph, device)
+    params3 = _load_cascade_params(args, cascade, is_graph, device)
     stats = _load_stats(args) if args.norm else None
     _require(stats is not None or not args.norm,
              "--norm needs the shipped stats assets "
@@ -210,17 +379,69 @@ def _build_server(args):
                      lookahead=args.lookahead, history=args.history,
                      recycle_rss_mb=args.recycle_rss_mb,
                      allow_recycle=True, device=device,
-                     # POST /v1/reload re-runs the init; with checkpoint
-                     # loading it will re-discover the latest ones
-                     reload_fn=lambda: _init_cascade_params(
-                         cascade, is_graph, device))
+                     # POST /v1/reload re-discovers the latest checkpoints
+                     # (training can keep writing to --path) on the HTTP
+                     # thread, onto the device; the batcher swaps them in
+                     reload_fn=_reloading(lambda: _load_cascade_params(
+                         args, cascade, is_graph, device)))
     return srv, args.streams, args.window
+
+
+def cmd_convert(args):
+    r"""Checkpoint conversion, both ways: ``--torch X.tar`` → a checkpoint
+    directory of the port's format (``--output``); ``--to_torch DIR`` (the
+    port's format) → a reference ``.tar`` (``--output``), for a net of
+    ``--n_input`` / ``--n_output`` / ``--hu1``."""
+    import torch
+
+    from a3gc_tpu_torch.compat.torch_export import (
+        dip_state_dict, graph_net_state_dict, save_torch_checkpoint)
+    from a3gc_tpu_torch.compat.torch_import import (
+        dip_params_from_state_dict, graph_net_params_from_state_dict,
+        load_torch_checkpoint)
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig, init_pose_net
+    from a3gc_tpu_torch.utils import restore_params, write_params
+
+    dense = args.model in ("tp", "dip")
+    if args.to_torch:
+        if dense:
+            cfg = PoseNetConfig(net=N.DIPConfig(
+                n_input=args.n_input, n_output=args.n_output,
+                n_hidden=args.hu1))
+        else:
+            cfg = PoseNetConfig(net=N.GraphNetConfig(
+                cell=args.model, units_in=args.n_input,
+                units_out=args.n_output, units_hidden=args.hu1))
+        template = init_pose_net(torch.Generator().manual_seed(0), cfg,
+                                 load_adjacency_template())
+        try:
+            params = restore_params(args.to_torch, template)
+        except (ValueError, FileNotFoundError) as e:
+            raise SystemExit(f"error: {e}")
+        sd = (dip_state_dict(params) if dense
+              else graph_net_state_dict(params, args.model))
+        save_torch_checkpoint(args.output, sd, epoch=args.epoch)
+        print(f"exported {args.to_torch} ({len(sd)} tensors) -> "
+              f"{args.output}")
+        return
+    _require(args.torch, "give --torch (import) or --to_torch (export)")
+    _require(os.path.isfile(args.torch), f"no checkpoint file {args.torch}")
+    sd = load_torch_checkpoint(args.torch)
+    params = (dip_params_from_state_dict(sd, device="cpu") if dense
+              else graph_net_params_from_state_dict(sd, args.model,
+                                                    device="cpu"))
+    write_params(os.path.abspath(args.output), params, epoch=args.epoch)
+    n = sum(t.numel() for t in params.parameters())
+    print(f"converted {args.torch} ({n:,} params) -> {args.output}")
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="a3gc_tpu_torch",
-        description="PyTorch/CUDA port of a3gc_tpu: pose serving")
+        description="PyTorch/CUDA port of a3gc_tpu: pose serving and "
+                    "checkpoint conversion")
     sub = p.add_subparsers(dest="command", required=True)
 
     sv = sub.add_parser("serve", help="dynamic-batching HTTP pose serving "
@@ -257,12 +478,42 @@ def build_parser():
     sv.add_argument("--artifact", type=str, default="",
                     help="not ported yet: " + _WAITS_FOR["artifact"])
     sv.add_argument("--path", type=str, default="",
-                    help="not ported yet: " + _WAITS_FOR["path"])
+                    help="serve the latest checkpoints of this directory "
+                         "(checkpoint_model{stage}_{type}_{epoch}, the "
+                         "port's format; POST /v1/reload re-discovers)")
     sv.add_argument("--torch_checkpoints", nargs="+", default=None,
-                    help="not ported yet: "
-                         + _WAITS_FOR["torch_checkpoints"])
+                    help="serve reference .tar checkpoints: one per stage "
+                         "of a cascade, one for --model dip")
+    sv.add_argument("--type", choices=("pretrain", "finetuning"),
+                    default="finetuning",
+                    help="the phase --path discovery takes")
+    sv.add_argument("--mid1", type=int, default=-1,
+                    help="pin stage 1 (the DIP net) to this epoch")
+    sv.add_argument("--mid2", type=int, default=-1)
+    sv.add_argument("--mid3", type=int, default=-1)
     _add_quality_flag(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    c = sub.add_parser("convert-checkpoint",
+                       help="reference .tar <-> a checkpoint directory of "
+                            "the port (both ways)")
+    c.add_argument("--torch", type=str, default="",
+                   help="reference .tar to IMPORT (-> --output directory)")
+    c.add_argument("--to_torch", type=str, default="",
+                   help="a checkpoint directory of the port to EXPORT as a "
+                        "reference .tar (-> --output; set --n_input/"
+                        "--n_output/--hu1 to the net's sizes)")
+    c.add_argument("--model", choices=MODEL_CHOICES, required=True)
+    c.add_argument("--output", type=str, required=True)
+    c.add_argument("--n_input", type=int, default=15)
+    c.add_argument("--n_output", type=int, default=9)
+    c.add_argument("--hu1", type=int, default=128,
+                   help="hidden units of the exported net")
+    c.add_argument("--epoch", type=int, default=0,
+                   help="epoch number recorded in the written checkpoint")
+    c.add_argument("--compilation_cache", type=str, default=None,
+                   metavar="DIR", help="accepted and ignored")
+    c.set_defaults(fn=cmd_convert)
     return p
 
 

@@ -5,7 +5,8 @@ One fixed-size window of raw IMU frames per client slot goes through
 normalize → the graph scatter or the flat concatenation → the three stages
 → IK (or, for DIP, trim the root sensor → normalize → one net → IK), while
 each net's recurrent state threads across windows. The nets are
-bidirectional, so the backward direction sees only the current window — as
+bidirectional (but for the unidirectional DIP net), so the backward
+direction sees only the current window — as
 in the JAX package and the reference — unless the session buffers context:
 ``lookahead=K`` future windows (K windows of latency) and ``history=P``
 already-emitted past windows (no latency) are run with every emission.
@@ -48,6 +49,13 @@ def _zero_slot(t: torch.Tensor, slot: int, axis: int = 1) -> torch.Tensor:
     out = t.clone()
     out.select(axis, slot).zero_()
     return out
+
+
+def _slot_axis(cfg: PoseNetConfig) -> int:
+    r"""The slot axis of every state leaf of a net (``reset(stream=i)``
+    zeroes its slice): graph states are [2, S, N, H], dense bidirectional
+    [2, S, H], dense unidirectional [S, H]."""
+    return 1 if (cfg.is_graph or cfg.net.bidirectional) else 0
 
 
 def _frame_mask(active: torch.Tensor, B: int, T: int, dtype):
@@ -152,7 +160,8 @@ def make_window_step(cfg: CascadeConfig, model, stats=None):
 
 class StreamingSession:
     r"""Stateful streaming wrapper over ONE pipeline net (a graph net or
-    the bidirectional DIP net), with the serving and quality machinery of
+    a DIP net, bi- or unidirectional), with the serving and quality
+    machinery of
     :class:`StreamingCascade`:
 
       * ``streams=S`` multiplexes S independent clients through one step,
@@ -193,10 +202,7 @@ class StreamingSession:
         self.fused = bool(fused) and bool(self.lookahead or self.history)
         self._buffers = [collections.deque() for _ in range(streams)]
         self._state = self._zero_state()
-        # the slot axis of every state leaf (reset(stream=i) zeroes its
-        # slice): graph states are [2, S, N, H], dense bidirectional
-        # [2, S, H]
-        self._slot_axis = 1
+        self._slot_axis = _slot_axis(cfg)
 
     def _zero_state(self):
         zero = (N.graph_net_zero_state if self.cfg.is_graph
@@ -390,6 +396,10 @@ class StreamingCascade:
         self._pending = None        # step_async's result in flight
         self._staging = None        # run_windows / step_async buffers
 
+    def _slot_axes(self):
+        r"""The slot axis of each stage's state (see :func:`_slot_axis`)."""
+        return tuple(_slot_axis(c) for c in self.cfg.stages)
+
     def _zero_states(self):
         zero = (N.graph_net_zero_state if self.cfg.is_graph
                 else N.dip_zero_state)
@@ -398,18 +408,20 @@ class StreamingCascade:
 
     def reset(self, stream: Optional[int] = None):
         r"""Clear carried states; ``stream=i`` zeroes only client i's slice:
-        index i along axis 1 (the slot axis) of every tensor of every
-        state, whatever its structure — (h, c) [2, S, N, H] for the
-        graph-LSTM cells, h [2, S, N, H] for ggru, per-layer (h, c) [2, S,
-        H] for the DIP nets. In lookahead/history mode the slot's buffered
-        windows are dropped with it."""
+        index i along the slot axis of every tensor of every state,
+        whatever its structure — axis 1 of (h, c) [2, S, N, H] for the
+        graph-LSTM cells, of h [2, S, N, H] for ggru, of per-layer (h, c)
+        [2, S, H] for the bidirectional DIP nets; axis 0 of (h, c) [S, H]
+        for the unidirectional DIP net. In lookahead/history mode the
+        slot's buffered windows are dropped with it."""
         if stream is None:
             self._states = self._zero_states()
             for b in self._buffers:
                 b.clear()
         else:
-            self._states = _tree_map(lambda t: _zero_slot(t, stream),
-                                     self._states)
+            self._states = tuple(
+                _tree_map(lambda t, ax=ax: _zero_slot(t, stream, ax), st)
+                for st, ax in zip(self._states, self._slot_axes()))
             self._buffers[stream].clear()
         self._pending = None
 
@@ -874,6 +886,9 @@ class DipStreamingSession(StreamingCascade):
         self._init_session(params, window, streams, lookahead, history,
                            None, device, stats, fused)
         self._step_fn = make_dip_window_step(cfg, model, self.stats)
+
+    def _slot_axes(self):
+        return (_slot_axis(self.cfg),)
 
     def _zero_states(self):
         return (N.dip_zero_state(self.cfg.net, self.streams, self.device),)

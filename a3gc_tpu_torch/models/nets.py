@@ -1,4 +1,4 @@
-r"""Graph nets and the DIP biLSTM net (counterpart of
+r"""Graph nets and the DIP LSTM net (counterpart of
 ``a3gc_tpu/models/nets.py``), inference only.
 
 Graph-net topology:
@@ -10,15 +10,16 @@ Graph-net topology:
 The graph-LSTM cells (a3gc/aagc/agc) run their recurrent layers through
 :func:`a3gc_tpu_torch.ops.gcn_lstm.bi_gcn_lstm`, the G-GRU cell through
 :func:`a3gc_tpu_torch.ops.ggru.bi_ggru`, and the DIP net (dense → ReLU →
-stacked biLSTM → dense) through :func:`a3gc_tpu_torch.ops.lstm.bi_lstm`:
-the Hopper kernels on a CUDA tensor, or their plain versions.
+stacked bi- or unidirectional LSTM → dense) through
+:func:`a3gc_tpu_torch.ops.lstm.bi_lstm`: the Hopper kernels on a CUDA
+tensor, or their plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,7 +33,7 @@ from a3gc_tpu_torch.ops import lstm as LS
 __all__ = ["GraphNetConfig", "GraphNetParams", "init_graph_net",
            "graph_net_zero_state", "graph_net_apply", "DenseParams",
            "LSTMLayerParams", "DIPConfig", "DIPParams", "init_dip",
-           "dip_zero_state", "dip_apply"]
+           "dip_zero_state", "dip_apply", "check_ones_prefix"]
 
 CELL_KINDS = ("aagc", "a3gc", "agc", "ggru")
 BACKENDS = ("auto", "eager", "cuda")
@@ -129,10 +130,34 @@ def _rnn_layer(cfg: GraphNetConfig, x: torch.Tensor):
     return _pick(cfg.backend, x, G.bi_gcn_lstm, G.bi_gcn_lstm_reference)
 
 
+def check_ones_prefix(frame_mask):
+    r"""Raise ``ValueError`` unless ``frame_mask`` [B, T] has rows that are
+    ones-prefix (valid frames, then only padding), the form the layers can
+    take as per-row lengths. Checked where the mask lies on the host (numpy,
+    a list, a CPU tensor); a mask already on the card is taken as it is, so
+    that the sessions' own whole-row masks add no host sync."""
+    if frame_mask is None or (isinstance(frame_mask, torch.Tensor)
+                              and frame_mask.device.type != "cpu"):
+        return
+    m = (frame_mask.detach().numpy() if isinstance(frame_mask, torch.Tensor)
+         else np.asarray(frame_mask))
+    if m.ndim != 2:
+        raise ValueError(f"frame_mask must be [B, T], got shape {m.shape}")
+    valid = m != 0
+    bad = np.flatnonzero((valid[:, 1:] > valid[:, :-1]).any(axis=1))
+    if bad.size:
+        raise ValueError(
+            f"frame_mask row {int(bad[0])} is not a ones-prefix (a valid "
+            "frame follows a masked one); the port takes per-row lengths: "
+            "end-pad each row")
+
+
 def _n_valid(frame_mask, dev):
     if frame_mask is None:
         return None
-    return torch.as_tensor(frame_mask, device=dev).sum(dim=1).to(torch.int32)
+    check_ones_prefix(frame_mask)
+    return (torch.as_tensor(frame_mask, device=dev) != 0).sum(dim=1).to(
+        torch.int32)
 
 
 def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
@@ -140,8 +165,9 @@ def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
     r"""Forward pass at inference. x [B, T, N, F_in] → ([B, T, N, F_out],
     new state). ``frame_mask`` [B, T] marks valid frames; rows must be
     ones-prefix (end padding, or a whole idle row), since the layers take
-    per-row lengths ``n_valid = Σ_t frame_mask``. Outputs on masked frames
-    are undefined; the state carries through them."""
+    per-row lengths ``n_valid = Σ_t frame_mask``: a host mask that is not
+    raises ``ValueError`` (:func:`check_ones_prefix`). Outputs on masked
+    frames are undefined; the state carries through them."""
     dev = resolve_device(device)
     check_module_device(params, dev)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -168,7 +194,8 @@ class DenseParams(nn.Module):
 
 class LSTMLayerParams(nn.Module):
     r"""One LSTM layer in torch.nn.LSTM's gate order i, f, g, o, both bias
-    vectors kept; direction-stacked (leading axis 2) inside DIPParams."""
+    vectors kept; direction-stacked (leading axis 2) inside the DIPParams
+    of a bidirectional net, unstacked in a unidirectional one."""
 
     def __init__(self, w_ih, w_hh, b_ih, b_hh):
         super().__init__()
@@ -191,18 +218,19 @@ class DIPConfig:
     backend: str = "auto"
 
     def __post_init__(self):
-        if not self.bidirectional:
-            raise NotImplementedError(
-                "the unidirectional DIP net (uni_rnn) is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
         _check_backend(self.backend)
+
+    @property
+    def directions(self) -> int:
+        return 2 if self.bidirectional else 1
 
 
 class DIPParams(nn.Module):
     def __init__(self, linear1: DenseParams, lstm, linear2: DenseParams):
         super().__init__()
         self.linear1 = linear1
-        self.lstm = nn.ModuleList(lstm)   # per layer, direction-stacked
+        self.lstm = nn.ModuleList(lstm)   # per layer (direction-stacked if
+                                          # bidirectional)
         self.linear2 = linear2
 
 
@@ -225,20 +253,23 @@ def init_dip(gen: torch.Generator, cfg: DIPConfig) -> DIPParams:
             w_hh=_uniform(gen, (H, 4 * H), b),
             b_ih=_uniform(gen, (4 * H,), b), b_hh=_uniform(gen, (4 * H,), b))
 
+    D = cfg.directions
     linear1 = linear(cfg.n_input, H)
-    linear2 = linear(2 * H, cfg.n_output)
-    lstm = [L.stack_directions(direction(H if i == 0 else 2 * H),
-                               direction(H if i == 0 else 2 * H))
-            for i in range(cfg.n_layers)]
+    linear2 = linear(D * H, cfg.n_output)
+    lstm = []
+    for i in range(cfg.n_layers):
+        dirs = [direction(H if i == 0 else D * H) for _ in range(D)]
+        lstm.append(L.stack_directions(*dirs) if D == 2 else dirs[0])
     return DIPParams(linear1, lstm, linear2)
 
 
 def dip_zero_state(cfg: DIPConfig, batch: int, device="cuda",
                    dtype=torch.float32):
-    r"""Zero state: per layer (h, c), each [2, B, H]. Unlike the graph
-    nets, every layer carries its own state."""
+    r"""Zero state: per layer (h, c), each [2, B, H] (bidirectional) or
+    [B, H] (unidirectional). Unlike the graph nets, every layer carries its
+    own state."""
     dev = resolve_device(device)
-    shape = (2, batch, cfg.n_hidden)
+    shape = (2,) * (cfg.directions - 1) + (batch, cfg.n_hidden)
     return tuple((torch.zeros(shape, dtype=dtype, device=dev),
                   torch.zeros(shape, dtype=dtype, device=dev))
                  for _ in range(cfg.n_layers))

@@ -1,6 +1,6 @@
-r"""Pose pipelines: net + reduced-global → full-local pose, and the 3-stage
-cascade (counterpart of ``a3gc_tpu/models/pipeline.py``), for graph nets
-and DIP nets.
+r"""Pose pipelines: net + reduced-global → full-local pose, the offline
+single-net forward, the 3-stage cascade and the pose loss (counterpart of
+``a3gc_tpu/models/pipeline.py``), for graph nets and DIP nets.
 
 ``rotsize``: 3 → raw per-node positions; 6 → 6D rotations → full local
 pose via IK; 9 → rotation matrices → full local pose via IK.
@@ -21,7 +21,7 @@ from a3gc_tpu_torch.ops import rotations as R
 
 __all__ = ["PoseNetConfig", "CascadeConfig", "init_pose_net",
            "pose_net_forward", "reduced_global_to_full_local",
-           "cascade_apply"]
+           "forward_offline", "cascade_apply", "pose_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,47 @@ def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,
     return pose
 
 
+@torch.no_grad()
+def forward_offline(params, cfg: PoseNetConfig, model, imu: torch.Tensor,
+                    state=None) -> torch.Tensor:
+    r"""Offline forward of one net on the device ``imu`` lies on: net +
+    (for rotsize 9 / 6) the reduced → full IK conversion. imu [B, T, ...] →
+    rotsize 9 / 6: full local pose [B·T, 24, 3, 3]; rotsize 3: the raw net
+    output."""
+    out, _ = pose_net_forward(params, cfg, imu, state)
+    if cfg.rotsize == 3:
+        return out
+    return reduced_global_to_full_local(_stage_out(out, cfg.rotsize), model,
+                                        rotsize=cfg.rotsize)
+
+
+def pose_loss(pred: torch.Tensor, target: torch.Tensor,
+              loss_weight: Optional[torch.Tensor] = None,
+              frame_mask: Optional[torch.Tensor] = None,
+              sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    r"""Weighted squared error: sum over the last dim, mean over the rest.
+    ``frame_mask`` [B, T] restricts the mean to valid frames;
+    ``sample_weight`` [B] to real batch elements (the mean a tail batch
+    padded to the static batch size would have had at its own size). The
+    two exclude each other."""
+    err = torch.square(target - pred)
+    if loss_weight is not None:
+        err = err * loss_weight
+    err = err.sum(dim=-1)
+    if sample_weight is not None:
+        if frame_mask is not None:
+            raise ValueError("sample_weight excludes frame_mask")
+        w = sample_weight.reshape(sample_weight.shape
+                                  + (1,) * (err.dim() - 1))
+        denom = sample_weight.sum() * err[0].numel()
+        return (err * w).sum() / torch.clamp(denom, min=1.0)
+    if frame_mask is None:
+        return err.mean()
+    w = frame_mask.reshape(frame_mask.shape + (1,) * (err.dim() - 2))
+    denom = w.sum() * (err[0, 0].numel() if err.dim() > 2 else 1.0)
+    return (err * w).sum() / torch.clamp(denom, min=1.0)
+
+
 def _node_features(cfg: CascadeConfig, out: torch.Tensor, B: int,
                    T: int) -> torch.Tensor:
     r"""A stage's output as the next stage's extra features: per node
@@ -119,6 +160,7 @@ def cascade_apply(params3: Tuple, cfg: CascadeConfig, model, imu,
         check_module_device(p, dev)
     imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
     if frame_mask is not None:
+        N.check_ones_prefix(frame_mask)     # before it leaves the host
         frame_mask = torch.as_tensor(frame_mask, device=dev)
     p1, p2, p3 = params3
     B, T = imu.shape[0], imu.shape[1]

@@ -1,9 +1,10 @@
-// Bidirectional dense LSTM scan (the DIP / TransPose layers) for Hopper,
-// sm_90a: weight-stationary across SMs.
+// Dense LSTM scan (the DIP / TransPose layers) for Hopper, sm_90a:
+// weight-stationary across SMs, D = 2 directions (the biLSTM) or D = 1 (the
+// unidirectional DIP net).
 //
 // Replaces _lstm_kernel (a3gc_tpu/ops/pallas_gcn_lstm.py:580), which
 // lstm_scan_pallas launches once per direction over B rows with ONE scalar
-// n_valid for all of them. Here one launch runs both directions, and the
+// n_valid for all of them. Here one launch runs all D directions, and the
 // valid length is per stream (n_valid [S]): the contract of the XLA path of
 // dip_apply, whose frame_mask is per row, and what serving with an idle
 // slot needs.
@@ -47,9 +48,9 @@
 // side recomputes the shared memory and refuses a plan that disagrees.
 //
 // Layouts (all contiguous fp32 unless noted):
-//   u [2, S, T, 4H]   W_hh [2, H, 4H]   h0, c0, h_out, c_out [2, S, H]
-//   n_valid [S] int32   y [S, T, 2H]
-//   cooperative only: xchg [2, groups, 2, R, H], counter [2, groups] u32
+//   u [D, S, T, 4H]   W_hh [D, H, 4H]   h0, c0, h_out, c_out [D, S, H]
+//   n_valid [S] int32   y [S, T, D·H]   (direction d is blockIdx.z)
+//   cooperative only: xchg [D, groups, 2, R, H], counter [D, groups] u32
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (a3gc_tpu_torch/ops/_build.py); bound to PyTorch
@@ -81,7 +82,7 @@ struct Args {
   float* c_out;
   float* xchg;
   unsigned* counter;
-  int S, T, H, P, KS;
+  int S, T, H, D, P, KS;
 };
 
 // Floats of dynamic shared memory after the header. W_hh's rows are padded
@@ -99,6 +100,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
   const int p = blockIdx.x;      // cluster rank (cluster dims (P, 1, 1))
   const int d = blockIdx.z;
   const int S = a.S, T = a.T, H = a.H, P = a.P, KS = a.KS, G = 4 * H;
+  const size_t YW = (size_t)a.D * H;   // y's row: the D directions' h
   const int Hc = H / P, M = 4 * Hc, WS = M + 4, cpw = 32 / KS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_blocks = (S + R - 1) / R;
@@ -182,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
         if (step + 1 < T) prefetch_u(step + 1);
         for (int e = tid; e < rows * Hc; e += kThreads) {
           const int r = e / Hc, j = e - r * Hc;
-          a.y[((size_t)(s0 + r) * T + frame) * 2 * H + (size_t)d * H +
+          a.y[((size_t)(s0 + r) * T + frame) * YW + (size_t)d * H +
               p * Hc + j] = h_cur[r * H + p * Hc + j];
         }
         clk.mark(1);
@@ -257,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
         h_new[r * H + p * Hc + j] = h;
         if constexpr (COOP)
           xg[(size_t)((epoch + 1) & 1) * R * H + r * H + p * Hc + j] = h;
-        a.y[((size_t)(s0 + r) * T + frame) * 2 * H + (size_t)d * H + p * Hc +
+        a.y[((size_t)(s0 + r) * T + frame) * YW + (size_t)d * H + p * Hc +
             j] = h;
       }
       clk.mark(5);
@@ -301,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
 }
 
 struct Plan {
-  int R, P, KS, groups, coop, threads, smem;
+  int D, R, P, KS, groups, coop, threads, smem;
 };
 
 template <int R, bool COOP>
@@ -311,7 +313,7 @@ int launch(const Args& a, const Plan& pl, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.P, pl.groups, 2);
+  cfg.gridDim = dim3(pl.P, pl.groups, pl.D);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
@@ -348,7 +350,7 @@ int occupancy(const Plan& pl) {
     return err == cudaSuccess ? per_sm * sms : -(int)err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.P, pl.groups, 2);
+  cfg.gridDim = dim3(pl.P, pl.groups, pl.D);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cudaLaunchAttribute attr[1];
@@ -376,6 +378,7 @@ int dispatch(const Args* a, const Plan& pl, cudaStream_t stream) {
 }
 
 bool plan_ok(int S, int H, const Plan& pl) {
+  if (pl.D != 1 && pl.D != 2) return false;
   if (H <= 0 || H % 4 != 0 || pl.P <= 0 || H % pl.P != 0) return false;
   const int Hc = H / pl.P, M = 4 * Hc;
   if (Hc % 4 != 0 || M > kThreads || pl.threads != kThreads) return false;
@@ -404,9 +407,9 @@ size_t lstm_smem_bytes(int R, int H, int P, int coop) {
 // Most groups the card holds at once for a plan: clusters
 // (cudaOccupancyMaxActiveClusters) or, cooperative, resident CTAs. A
 // negative value is minus a cudaError_t.
-int lstm_max_active(int S, int H, int R, int P, int KS, int groups, int coop,
-                    int threads, int smem) {
-  const Plan pl{R, P, KS, groups, coop, threads, smem};
+int lstm_max_active(int S, int H, int D, int R, int P, int KS, int groups,
+                    int coop, int threads, int smem) {
+  const Plan pl{D, R, P, KS, groups, coop, threads, smem};
   if (!plan_ok(S, H, pl)) return -(int)cudaErrorInvalidValue;
   return coop ? dispatch<true>(nullptr, pl, nullptr)
               : dispatch<false>(nullptr, pl, nullptr);
@@ -416,14 +419,14 @@ int lstm_max_active(int S, int H, int R, int P, int KS, int groups, int coop,
 int lstm_forward(const float* u, const float* whh, const float* h0,
                  const float* c0, const int* n_valid, float* y, float* h_out,
                  float* c_out, float* xchg, unsigned* counter, int S, int T,
-                 int H, int R, int P, int KS, int groups, int coop,
+                 int H, int D, int R, int P, int KS, int groups, int coop,
                  int threads, int smem, cudaStream_t stream) {
-  const Plan pl{R, P, KS, groups, coop, threads, smem};
+  const Plan pl{D, R, P, KS, groups, coop, threads, smem};
   if (S <= 0 || T <= 0 || !plan_ok(S, H, pl))
     return (int)cudaErrorInvalidValue;
   if (coop && !(xchg && counter)) return (int)cudaErrorInvalidValue;
   Args a{u, whh, h0, c0, n_valid, y, h_out, c_out, xchg, counter,
-         S, T, H, P, KS};
+         S, T, H, D, P, KS};
   return coop ? dispatch<true>(&a, pl, stream)
               : dispatch<false>(&a, pl, stream);
 }

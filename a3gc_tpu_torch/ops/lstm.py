@@ -1,10 +1,11 @@
-r"""Bidirectional dense LSTM layer over a whole window in one kernel launch
-(counterpart of ``a3gc_tpu/ops/pallas_gcn_lstm.py`` ``bi_lstm_pallas``),
-the recurrent layer of the DIP net and of the TransPose cascade.
+r"""Dense LSTM layer over a whole window in one kernel launch
+(counterpart of ``a3gc_tpu/ops/pallas_gcn_lstm.py`` ``bi_lstm_pallas`` and,
+one direction, ``lstm_scan_pallas``), the recurrent layer of the DIP net
+and of the TransPose cascade.
 
 :func:`bi_lstm` hoists the input projection ``u = x·W_ih + b_ih + b_hh``
 out of the scan with one ``torch.matmul`` (as the JAX package leaves it to
-XLA outside its kernel) and launches ``csrc/lstm.cu``, both directions in
+XLA outside its kernel) and launches ``csrc/lstm.cu``, every direction in
 one launch: per (direction, block of up to 8 streams) a group of P CTAs
 that split the hidden units and keep their slice of W_hh in shared memory
 for the whole window, exchanging h each frame — a thread-block cluster
@@ -14,15 +15,19 @@ On a CPU tensor it computes :func:`bi_lstm_reference`, the plain PyTorch
 version of the same function; on a CUDA tensor it launches the kernel or
 raises.
 
-The function, for x [S, T, F], state2 (h, c) each [2, S, H] and
-per-stream ``n_valid`` [S] (the Pallas kernel takes one scalar for all
+The number of directions D is read from the parameters: direction-
+stacked ones (``w_hh`` [2, H, 4H], the biLSTM) give D = 2, unstacked ones
+(``w_hh`` [H, 4H], the unidirectional DIP net) give D = 1 — one wrapper
+and one launch counter for both, as one kernel serves both. The function,
+for x [S, T, F], state (h, c) each [2, S, H] (D = 2) or [S, H] (D = 1)
+and per-stream ``n_valid`` [S] (the Pallas kernel takes one scalar for all
 rows; the port keeps the per-row contract of the JAX XLA path):
 
   * direction 0 walks frames 0 … T-1, direction 1 walks T-1 … 0;
   * gate order i, f, g, o (torch.nn.LSTM's);
   * frames < n_valid[s] update stream s's state, later frames carry it;
-  * y [S, T, 2H] is the carried h after each frame, forward ‖ backward;
-  * returns (y, (h, c)) with the final states [2, S, H].
+  * y [S, T, D·H] is the carried h after each frame, forward ‖ backward;
+  * returns (y, (h, c)) with the final states in the shape of the state.
 
 The kernel is forward-only: a CUDA call with grad enabled raises.
 """
@@ -42,9 +47,9 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         k_slices, kernel_library, launch,
                                         n_valid_tensor, sm_count)
 
-__all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "launch_plan",
-           "lstm_step_hoisted", "max_active", "scan", "scan_inputs",
-           "smem_bytes"]
+__all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
+           "launch_plan", "lstm_step_hoisted", "max_active", "scan",
+           "scan_inputs", "smem_bytes"]
 
 
 class LaunchPlan(NamedTuple):
@@ -57,6 +62,7 @@ class LaunchPlan(NamedTuple):
                            # DSMEM; True: a cooperative grid, through L2
     threads: int
     smem: int              # dynamic shared memory per CTA, bytes
+    D: int = 2             # directions, one grid layer each
 
     @property
     def cluster(self) -> int:
@@ -64,7 +70,7 @@ class LaunchPlan(NamedTuple):
 
     @property
     def ctas(self) -> int:
-        return 2 * self.P * self.groups
+        return self.D * self.P * self.groups
 
 
 def rows_per_group(S: int) -> int:
@@ -85,18 +91,25 @@ def smem_bytes(R: int, H: int, P: int, cooperative: bool) -> int:
 
 
 def launch_plan(S: int, H: int, sms: int = 132,
-                P: Optional[int] = None) -> LaunchPlan:
-    r"""The group for S streams at hidden width H on a card of ``sms`` SMs:
-    the smallest P whose CTAs own at most 64 gate columns each (wider only
-    where no P gives that) and whose W_hh slice fits in shared memory; a
-    cluster up to P = 8, a cooperative grid beyond (H = 256: P = 16,
-    H = 512: P = 32). The 64-column width is measured
+                P: Optional[int] = None, D: int = 2) -> LaunchPlan:
+    r"""The group for S streams of D directions at hidden width H on a card
+    of ``sms`` SMs: the smallest P whose CTAs own at most 64 gate columns
+    each (wider only where no P gives that) and whose W_hh slice fits in
+    shared memory; a cluster up to P = 8, a cooperative grid beyond
+    (H = 256: P = 16, H = 512: P = 32). The 64-column width is measured
     (``scripts/torch_kernel_ab.py``: on an H100 it beats 128 columns at
     every serving width). ``P`` forces the split, for measuring P against
-    2P. Raises if nothing fits."""
-    if S <= 0 or H <= 0 or H % 4:
-        raise ValueError(f"lstm: needs S >= 1 and H % 4 == 0, got S={S}, "
-                         f"H={H}")
+    2P. Raises if nothing fits.
+
+    The split does not depend on D; a cooperative grid's ``groups`` does,
+    as every CTA must be resident: up to ``sms // (D·P)`` stream blocks at
+    once, so one direction holds twice the blocks (132 SMs: H = 512 4
+    against 2, H = 256 8 against 4). That changes ``groups`` only beyond
+    S = 16 at H = 512 (S = 32 at H = 256); every serving shape (S ≤ 12)
+    has the same plan at D = 1 as at D = 2 but for D."""
+    if S <= 0 or H <= 0 or H % 4 or D not in (1, 2):
+        raise ValueError(f"lstm: needs S >= 1, H % 4 == 0 and D in (1, 2), "
+                         f"got S={S}, H={H}, D={D}")
     R = rows_per_group(S)
     n_blocks = -(-S // R)
     widths = (THREADS,) if P is not None else (64, 128, THREADS)
@@ -107,22 +120,30 @@ def launch_plan(S: int, H: int, sms: int = 132,
                 continue
             coop = p > MAX_CLUSTER
             smem = smem_bytes(R, H, p, coop)
-            groups = min(n_blocks, sms // (2 * p)) if coop else n_blocks
+            groups = min(n_blocks, sms // (D * p)) if coop else n_blocks
             if smem > SMEM_LIMIT or groups < 1:
                 continue
             return LaunchPlan(R, p, k_slices(4 * Hc, H), groups, coop,
-                              THREADS, smem)
+                              THREADS, smem, D)
     raise ValueError(f"lstm: no launch plan for S={S}, H={H}"
                      + (f", P={P}" if P is not None else ""))
 
 
-def _hoist(params2: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    r"""u = x·W_ih + b_ih + b_hh for both directions, forward frame order:
-    [2, S, T, 4H]."""
+def directions(params: nn.Module) -> int:
+    r"""D of a layer's parameters: 2 when direction-stacked (``w_hh``
+    [2, H, 4H]), 1 when not (``w_hh`` [H, 4H])."""
+    return 2 if params.w_hh.dim() == 3 else 1
+
+
+def _hoist(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    r"""u = x·W_ih + b_ih + b_hh for every direction, forward frame order:
+    [D, S, T, 4H]."""
     S, T, F = x.shape
-    u = torch.matmul(x.reshape(1, S * T, F), f32(params2.w_ih))
-    u = u + (f32(params2.b_ih) + f32(params2.b_hh))[:, None, :]
-    return u.reshape(2, S, T, -1)
+    D = directions(params)
+    w_ih = f32(params.w_ih).reshape(D, F, -1)
+    bias = (f32(params.b_ih) + f32(params.b_hh)).reshape(D, 1, -1)
+    u = torch.matmul(x.reshape(1, S * T, F), w_ih) + bias
+    return u.reshape(D, S, T, -1)
 
 
 def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
@@ -140,33 +161,38 @@ def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
     return o * torch.tanh(c_new), c_new
 
 
-def bi_lstm_reference(params2: nn.Module, x: torch.Tensor, state2,
+def bi_lstm_reference(params: nn.Module, x: torch.Tensor, state,
                       n_valid=None):
     r"""The plain PyTorch version of :func:`bi_lstm` — the same function on
-    any device, built from the hoisted step and the masked bidirectional
-    scan. ``params2`` holds direction-stacked ``w_ih`` [2, F, 4H], ``w_hh``
-    [2, H, 4H], ``b_ih`` and ``b_hh`` [2, 4H]. The CPU path and the tests
-    use it; on the card it is what the kernel is held to."""
+    any device, built from the hoisted step and the masked scan. ``params``
+    holds direction-stacked ``w_ih`` [2, F, 4H], ``w_hh`` [2, H, 4H],
+    ``b_ih`` and ``b_hh`` [2, 4H] (the bidirectional scan), or the same
+    without the leading 2 (the unidirectional scan). The CPU path and the
+    tests use it; on the card it is what the kernel is held to."""
     x = f32(x)
     S, T = x.shape[0], x.shape[1]
-    u = _hoist(params2, x).transpose(1, 2)                    # [2,T,S,4H]
-    seq_stack = torch.stack((u[0], u[1].flip(0)))
+    u = _hoist(params, x)                                     # [D,S,T,4H]
     nv = n_valid_tensor(n_valid, S, T, x.device)
     frame_mask = torch.arange(T, device=x.device)[None] < nv[:, None]
+    state = tuple(f32(s) for s in state)
+    if directions(params) == 1:
+        return L.uni_rnn(lstm_step_hoisted, params, u[0], state,
+                         frame_mask=frame_mask)
+    u = u.transpose(1, 2)                                     # [2,T,S,4H]
+    seq_stack = torch.stack((u[0], u[1].flip(0)))
     hs, (h, c) = L.bi_rnn_precomputed(
-        lstm_step_hoisted, params2, seq_stack,
-        tuple(f32(s) for s in state2), frame_mask=frame_mask)
+        lstm_step_hoisted, params, seq_stack, state, frame_mask=frame_mask)
     y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
     return y, (h, c)
 
 
 def _library():
-    return kernel_library("lstm", 10, 10, 4)
+    return kernel_library("lstm", 10, 11, 4)
 
 
 def _plan_ints(plan: LaunchPlan):
-    return (plan.R, plan.P, plan.KS, plan.groups, int(plan.cooperative),
-            plan.threads, plan.smem)
+    return (plan.D, plan.R, plan.P, plan.KS, plan.groups,
+            int(plan.cooperative), plan.threads, plan.smem)
 
 
 def max_active(plan: LaunchPlan, S: int, H: int) -> int:
@@ -175,7 +201,7 @@ def max_active(plan: LaunchPlan, S: int, H: int) -> int:
     Raises on a plan the kernel refuses."""
     lib = _library()
     fn = lib.lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 9
+    fn.argtypes = [ctypes.c_int] * 10
     fn.restype = ctypes.c_int
     n = fn(S, H, *_plan_ints(plan))
     if n < 0:
@@ -187,29 +213,32 @@ def max_active(plan: LaunchPlan, S: int, H: int) -> int:
 def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
          c0: torch.Tensor, n_valid: torch.Tensor,
          plan: Optional[LaunchPlan] = None):
-    r"""Launch the kernel on hoisted inputs. u [2, S, T, 4H] (both
-    directions in forward frame order), w_hh [2, H, 4H], h0/c0 [2, S, H],
-    n_valid [S] int32 — all contiguous fp32 on one card. ``plan`` defaults
-    to :func:`launch_plan`. Returns (y [S, T, 2H], h [2, S, H], c [2, S,
-    H])."""
-    _, S, T, G = u.shape
+    r"""Launch the kernel on hoisted inputs. u [D, S, T, 4H] (every
+    direction in forward frame order), w_hh [D, H, 4H], h0/c0 [D, S, H],
+    n_valid [S] int32 — all contiguous fp32 on one card, D = 1 or 2.
+    ``plan`` defaults to :func:`launch_plan`. Returns (y [S, T, D·H],
+    h [D, S, H], c [D, S, H])."""
+    D, S, T, G = u.shape
     H = G // 4
     dev = u.device
-    check_f32("lstm", dev, [(u, (2, S, T, 4 * H)), (w_hh, (2, H, 4 * H)),
-                            (h0, (2, S, H)), (c0, (2, S, H))])
+    check_f32("lstm", dev, [(u, (D, S, T, 4 * H)), (w_hh, (D, H, 4 * H)),
+                            (h0, (D, S, H)), (c0, (D, S, H))])
     check_n_valid("lstm", dev, n_valid, S)
     check_aligned("lstm", u, w_hh)
     if plan is None:
-        plan = launch_plan(S, H, sm_count(device_index(dev)))
+        plan = launch_plan(S, H, sm_count(device_index(dev)), D=D)
+    if plan.D != D:
+        raise ValueError(f"lstm: a plan for D={plan.D} given {D} "
+                         "directions")
     lib = _library()
-    y = torch.empty((S, T, 2 * H), dtype=torch.float32, device=dev)
-    h_out = torch.empty((2, S, H), dtype=torch.float32, device=dev)
+    y = torch.empty((S, T, D * H), dtype=torch.float32, device=dev)
+    h_out = torch.empty((D, S, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
     xchg = counter = None
     if plan.cooperative:
-        xchg = torch.empty((2, plan.groups, 2, plan.R, H),
+        xchg = torch.empty((D, plan.groups, 2, plan.R, H),
                            dtype=torch.float32, device=dev)
-        counter = torch.zeros((2, plan.groups), dtype=torch.int32,
+        counter = torch.zeros((D, plan.groups), dtype=torch.int32,
                               device=dev)
     launch("lstm", lib, dev, u.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
            c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
@@ -220,31 +249,38 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     return y, h_out, c_out
 
 
-def bi_lstm(params2: nn.Module, x: torch.Tensor, state2, n_valid=None):
-    r"""Bidirectional dense LSTM layer: x [S, T, F], state2 (h, c) each
-    [2, S, H], ``n_valid`` None | int | [S] → (y [S, T, 2H], (h, c)). CPU
-    tensors take :func:`bi_lstm_reference`; CUDA tensors launch the kernel
-    (one launch, both directions) or raise."""
+def bi_lstm(params: nn.Module, x: torch.Tensor, state, n_valid=None):
+    r"""Dense LSTM layer, D directions read from ``params``: x [S, T, F],
+    state (h, c) each [2, S, H] (D = 2) or [S, H] (D = 1), ``n_valid`` None
+    | int | [S] → (y [S, T, D·H], (h, c)). CPU tensors take
+    :func:`bi_lstm_reference`; CUDA tensors launch the kernel (one launch,
+    every direction) or raise."""
     if not x.is_cuda:
-        return bi_lstm_reference(params2, x, state2, n_valid)
+        return bi_lstm_reference(params, x, state, n_valid)
     if torch.is_grad_enabled():
         raise RuntimeError(
             "bi_lstm: the CUDA kernel is forward-only; call it under "
             "torch.no_grad() or torch.inference_mode() (gradients come with "
             "the training slice, ROADMAP Queue 1 item 11)")
-    y, h, c = scan(*scan_inputs(params2, x, state2, n_valid))
+    y, h, c = scan(*scan_inputs(params, x, state, n_valid))
+    if directions(params) == 1:
+        h, c = h[0], c[0]
     return y, (h, c)
 
 
-def scan_inputs(params2: nn.Module, x: torch.Tensor, state2,
+def scan_inputs(params: nn.Module, x: torch.Tensor, state,
                 n_valid=None) -> tuple:
     r"""The arguments of :func:`scan` for one layer call: the hoisted input
-    projection for both directions (one ``torch.matmul``, forward frame
-    order) and the parameters and state in the kernel's layouts."""
+    projection for every direction (one ``torch.matmul``, forward frame
+    order) and the parameters and state in the kernel's layouts (a
+    unidirectional layer's gain a leading axis of 1)."""
     x = f32(x)
     S, T = x.shape[0], x.shape[1]
-    h0, c0 = (f32(s).contiguous() for s in state2)
-    return (_hoist(params2, x), f32(params2.w_hh).contiguous(), h0, c0,
+    D = directions(params)
+    H = params.w_hh.shape[-2]
+    h0, c0 = (f32(s).reshape(D, S, H).contiguous() for s in state)
+    w_hh = f32(params.w_hh).reshape(D, H, 4 * H).contiguous()
+    return (_hoist(params, x), w_hh, h0, c0,
             n_valid_tensor(n_valid, S, T, x.device))
 
 

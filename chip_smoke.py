@@ -22,6 +22,10 @@ Phases, each printing one JSON line:
                     64, 128, 512 (cooperative groups of 16 and 32, clusters
                     of 4 and 8), F ∈ {H, 2H} and the nets' input widths,
                     S = 1, 3, 8 and 12;
+     kernel_lstm_uni — ``lstm.cu`` at one direction (D = 1, the
+                    unidirectional DIP layer) against the same plain
+                    version, H = 512, 256, 64, 128, S = 1, 3, 8, 12,
+                    T = 60 and 120, ragged n_valid;
   3. serving      — ``StreamingCascade`` at full width (8 streams, 60-frame
                     windows, shipped normalization stats, random weights
                     from torch.Generator seed 0) for 5 windows with a
@@ -32,6 +36,9 @@ Phases, each printing one JSON line:
      serving_tp   — the TransPose cascade of dense biLSTMs (hidden
                     256/64/128);
      serving_dip  — ``DipStreamingSession``, the DIP net (hidden 512);
+     serving_dip_uni — the same over the unidirectional DIP net, then its
+                    K = 1 buffered session as ``buffered`` drives one
+                    (``buffered_dip_uni``);
      kernel_long  — the three kernels at the shapes of the buffered
                     sessions: T = 180 and 120, S = 8 and 1, n_valid of
                     whole windows, and no kernel writes its initial state;
@@ -54,6 +61,19 @@ Phases, each printing one JSON line:
                     balanced`` as a subprocess, two clients, a
                     state-preserving exec-recycle under them: the poses
                     after it against an uninterrupted session, the pause;
+     checkpoints  — every family (a3gc, aagc, agc, ggru, tp, dip, dip uni)
+                    written by the port's exporter as a reference ``.tar``
+                    and as a checkpoint directory, read back onto the card:
+                    params, an S = 8 window's poses and states bit-equal;
+     cli_serve_checkpoints — ``cli serve --torch_checkpoints`` (three A3GC
+                    stage ``.tar``s, K = P = 1), ``--path`` (a directory of
+                    two epochs written by ``cli convert-checkpoint``,
+                    ``--mid1/2`` pins) and ``--model dip --hu1 512`` as
+                    three subprocesses started at once, two clients each,
+                    against in-process sessions on the same params; then a
+                    newer epoch and ``POST /v1/reload``; cold starts and
+                    the reload's time (their launches are the
+                    subprocesses', not counted here);
   4. offline      — ``cascade_apply`` at batch 1, T = 300: launch counts
                     (6, the S = 1 contract of the kernel), timed, and
                     against the plain path; offline_tp the same for the
@@ -98,9 +118,9 @@ S_SERVE, WINDOW, N_NODES = 8, 60, 15
 LIBRARIES = ("gcn_lstm", "ggru", "lstm")
 # whole-window valid lengths of a flush over a (P+K+1)·W = 180-frame context
 LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
-# launch-counted paths: the seven of the plain windows and the offline
-# calls, and the buffered and HTTP ones
-N_PATHS = 11
+# launch-counted paths: the eight of the plain windows and the offline
+# calls, the five buffered and HTTP ones, and the checkpoint round trips
+N_PATHS = 14
 
 
 def whole_windows(S, T):
@@ -194,20 +214,26 @@ def ggru_layer_work(S, T, F, H, hoist):
     return flop, 4 * (read + write) + 4 * S
 
 
-def lstm_layer_work(S, T, F, H, hoist):
-    """(FLOP, bytes) of one bidirectional dense LSTM layer call, as
-    layer_work: 8·H² FLOP per (stream, direction, frame) in the scan."""
-    flop = 2 * T * S * 8 * H * H
-    params = 2 * 4 * H * H
-    state = 2 * 2 * S * H
+def lstm_layer_work(S, T, F, H, hoist, D=2):
+    """(FLOP, bytes) of one dense LSTM layer call of D directions (2: the
+    biLSTM, 1: the unidirectional DIP layer), as layer_work: 8·H² FLOP per
+    (stream, direction, frame) in the scan."""
+    flop = D * T * S * 8 * H * H
+    params = D * 4 * H * H
+    state = D * 2 * S * H
     if hoist:
-        flop += 2 * 2 * S * T * F * 4 * H
-        params += 2 * (F * 4 * H + 2 * 4 * H)
+        flop += D * 2 * S * T * F * 4 * H
+        params += D * (F * 4 * H + 2 * 4 * H)
         read = S * T * F + params + state
     else:
-        read = 2 * S * T * 4 * H + params + state
-    write = S * T * 2 * H + state
+        read = D * S * T * 4 * H + params + state
+    write = S * T * D * H + state
     return flop, 4 * (read + write) + 4 * S
+
+
+def uni_lstm_layer_work(S, T, F, H, hoist):
+    """lstm_layer_work of one direction."""
+    return lstm_layer_work(S, T, F, H, hoist, D=1)
 
 
 def bound(flop, nbytes):
@@ -321,7 +347,7 @@ class Smoke:
 
         return L.stack_directions(one(), one()).to(self.dev)
 
-    def lstm_layer(self, gen, F, H):
+    def lstm_layer(self, gen, F, H, D=2):
         from a3gc_tpu_torch.models import layers as L
         from a3gc_tpu_torch.models import nets as N
         torch = self.torch
@@ -334,12 +360,14 @@ class Smoke:
             return N.LSTMLayerParams(w_ih=u(F, 4 * H), w_hh=u(H, 4 * H),
                                      b_ih=u(4 * H), b_hh=u(4 * H))
 
-        return L.stack_directions(one(), one()).to(self.dev)
+        layer = L.stack_directions(one(), one()) if D == 2 else one()
+        return layer.to(self.dev)
 
-    def layer_inputs(self, gen, S, T, F, H, n_valid, nodes=True, n_state=2):
+    def layer_inputs(self, gen, S, T, F, H, n_valid, nodes=True, n_state=2,
+                     D=2):
         torch = self.torch
         lead = (S, T, N_NODES) if nodes else (S, T)
-        st_shape = (2, S, N_NODES, H) if nodes else (2, S, H)
+        st_shape = (2, S, N_NODES, H) if nodes else (2,) * (D - 1) + (S, H)
         x = torch.randn(lead + (F,), generator=gen).to(self.dev)
         st = tuple((0.5 * torch.randn(st_shape, generator=gen)).to(self.dev)
                    for _ in range(n_state))
@@ -431,6 +459,33 @@ class Smoke:
         emit({"phase": "kernel_lstm", "tol": KERNEL_TOL, "max_abs_err":
               self.max_err["lstm"], "cases": rows})
 
+    def phase_kernel_lstm_uni(self):
+        """``lstm.cu`` at D = 1 (the unidirectional DIP net's layer: F = H
+        in both layers) against its plain version at the DIP width and the
+        TransPose widths, one and several stream blocks, a serving window
+        and a K = 1 emission pass."""
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        gen = torch.Generator().manual_seed(7)
+        rows, worst = [], 0.0
+        for H in (512, 256, 64, 128):
+            p = self.lstm_layer(gen, H, H, D=1)
+            for T in (WINDOW, 2 * WINDOW):
+                for S in KERNEL_S:
+                    x, st, nvt = self.layer_inputs(gen, S, T, H, H,
+                                                   ragged(S, T), nodes=False,
+                                                   D=1)
+                    errs, ok = self.compare_layer(
+                        "lstm", f"uni H={H} S={S} T={T}", LS.bi_lstm,
+                        LS.bi_lstm_reference, (p, x, st, nvt))
+                    worst = max(worst, *errs)
+                    rows.append({"H": H, "F": H, "S": S, "T": T,
+                                 "y": errs[0], "h": errs[1], "c": errs[2],
+                                 "ok": ok,
+                                 "plan": self.plan_record("lstm", S, H, 1)})
+        emit({"phase": "kernel_lstm_uni", "tol": KERNEL_TOL,
+              "max_abs_err": worst, "cases": rows})
+
     # -- 3 ---------------------------------------------------------------
     def cascade(self, kind, backend):
         from a3gc_tpu_torch.models import nets as N
@@ -448,13 +503,13 @@ class Smoke:
                 backend=backend), rotsize=rot)
             for H, ui, uo, rot in STAGES))
 
-    def dip_cfg(self, backend):
+    def dip_cfg(self, backend, bidirectional=True):
         from a3gc_tpu_torch.models import nets as N
         from a3gc_tpu_torch.models.pipeline import PoseNetConfig
         H, ni, no, rot = DIP
         return PoseNetConfig(net=N.DIPConfig(
-            n_input=ni, n_output=no, n_hidden=H, backend=backend),
-            rotsize=rot)
+            n_input=ni, n_output=no, n_hidden=H, backend=backend,
+            bidirectional=bidirectional), rotsize=rot)
 
     def params3(self, cfg):
         from a3gc_tpu_torch.data import load_adjacency_template
@@ -574,23 +629,33 @@ class Smoke:
     def phase_serving_tp(self):
         self.serve_cascade("serving_tp", "tp", "lstm")
 
-    def phase_serving_dip(self):
+    def serve_dip(self, path, bidirectional):
         from a3gc_tpu_torch.data import load_stats
         from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
                                                    make_dip_window_step)
         from a3gc_tpu_torch.models.pipeline import init_pose_net
         from a3gc_tpu_torch.smpl import ParametricModel
-        cfg = self.dip_cfg("auto")
+        cfg = self.dip_cfg("auto", bidirectional)
         model = ParametricModel()
         params = init_pose_net(self.torch.Generator().manual_seed(0),
                                cfg).to(self.dev)
         sess = DipStreamingSession(params, cfg, model, window=WINDOW,
                                    stats=load_stats(), streams=S_SERVE,
                                    device=self.dev)
-        self.serve("serving_dip", sess,
-                   lambda b: make_dip_window_step(self.dip_cfg(b), model,
-                                                  sess.stats),
+        self.serve(path, sess,
+                   lambda b: make_dip_window_step(
+                       self.dip_cfg(b, bidirectional), model, sess.stats),
                    "lstm", 2, [DIP[0]])
+
+    def phase_serving_dip(self):
+        self.serve_dip("serving_dip", True)
+
+    def phase_serving_dip_uni(self):
+        """The unidirectional DIP net: lstm.cu at D = 1, plain windows and
+        K = 1."""
+        self.serve_dip("serving_dip_uni", False)
+        self.buffered("buffered_dip_uni", self.dip_sessions(1, 0, False),
+                      "lstm", 1, 0, 2, [DIP[0]])
 
     def profile_window(self, sess, inputs):
         """Device time by kernel over a few serving windows, and the
@@ -818,13 +883,15 @@ class Smoke:
                                     history=p, fused=fused, device=self.dev)
         return make
 
-    def dip_session(self, model, params, K, P):
+    def dip_session(self, model, params, K, P, bidirectional=True):
         from a3gc_tpu_torch.data import load_stats
         from a3gc_tpu_torch.eval.streaming import DipStreamingSession
 
         def make(backend, fused, S, plain_windows=False):
             k, p = (0, 0) if plain_windows else (K, P)
-            return DipStreamingSession(params, self.dip_cfg(backend), model,
+            return DipStreamingSession(params,
+                                       self.dip_cfg(backend, bidirectional),
+                                       model,
                                        window=WINDOW, stats=load_stats(),
                                        streams=S, lookahead=k, history=p,
                                        fused=fused, device=self.dev)
@@ -836,12 +903,14 @@ class Smoke:
         return self.cascade_session("a3gc", ParametricModel(),
                                     lambda cfg: params3, K, P)
 
-    def dip_sessions(self, K, P):
+    def dip_sessions(self, K, P, bidirectional=True):
         from a3gc_tpu_torch.models.pipeline import init_pose_net
         from a3gc_tpu_torch.smpl import ParametricModel
         params = init_pose_net(self.torch.Generator().manual_seed(0),
-                               self.dip_cfg("auto")).to(self.dev)
-        return self.dip_session(ParametricModel(), params, K, P)
+                               self.dip_cfg("auto", bidirectional)
+                               ).to(self.dev)
+        return self.dip_session(ParametricModel(), params, K, P,
+                                bidirectional)
 
     def phase_buffered(self):
         self.buffered("buffered", self.a3gc_sessions(1, 1), "gcn_lstm", 1, 1,
@@ -989,17 +1058,12 @@ class Smoke:
     def phase_http_dip(self):
         self.http("http_dip", self.dip_sessions(0, 0), "lstm", 0, 0)
 
-    def phase_cli_serve(self):
-        """The server as a user starts it, recycled under two clients."""
+    def spawn_server(self, argv):
+        """Start ``python -m a3gc_tpu_torch.cli`` with ``argv``; returns the
+        process and a function that waits for its serving line and returns
+        (the line, seconds since the start, host, port)."""
         import queue
         import threading
-        import numpy as np
-        from a3gc_tpu_torch import cli
-        from a3gc_tpu_torch.client import PoseClient
-        from a3gc_tpu_torch.eval.streaming import StreamingCascade
-        from a3gc_tpu_torch.smpl import ParametricModel
-        argv = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
-                "--quality", "balanced"]
         t_start = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv, cwd=ROOT,
@@ -1007,15 +1071,30 @@ class Smoke:
         lines = queue.Queue()
         threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
                          daemon=True).start()
-        try:
+
+        def ready():
             try:
                 info = json.loads(lines.get(timeout=180))
             except (queue.Empty, ValueError):
                 proc.kill()
-                raise RuntimeError("cli serve printed no serving line:\n"
-                                   + proc.stderr.read()[-4000:])
-            start_s = time.perf_counter() - t_start
+                raise RuntimeError(f"cli {' '.join(argv)} printed no serving "
+                                   "line:\n" + proc.stderr.read()[-4000:])
             host, port = info["serving"].rsplit("//", 1)[1].rsplit(":", 1)
+            return info, time.perf_counter() - t_start, host, int(port)
+        return proc, ready
+
+    def phase_cli_serve(self):
+        """The server as a user starts it, recycled under two clients."""
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.smpl import ParametricModel
+        argv = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
+                "--quality", "balanced"]
+        proc, ready = self.spawn_server(argv)
+        try:
+            info, start_s, host, port = ready()
             args = cli.build_parser().parse_args(argv)
             cli._apply_quality(args)
             cascade, is_graph = cli._stage_configs(args)
@@ -1082,6 +1161,257 @@ class Smoke:
               "poses_compared": n_poses, "stats_before": before,
               "stats_after": after, "card": nvidia_smi()})
 
+    # -- 3c: trained checkpoints -------------------------------------------
+    def phase_checkpoints(self):
+        """Every family's random params written as a reference ``.tar`` by
+        the port's exporter and as a checkpoint directory of its own
+        format, read back onto the card, and one S = 8 window of a session
+        on each against the session on the original params: parameters,
+        poses and carried states bit-equal."""
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch.compat import torch_export as TE
+        from a3gc_tpu_torch.compat import torch_import as TI
+        from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+        from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                                   StreamingCascade)
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.smpl import ParametricModel
+        from a3gc_tpu_torch.utils import restore_params, save_params
+        torch = self.torch
+        model, nira = ParametricModel(), load_adjacency_template()
+        ori, acc = self.windows(np.random.default_rng(6), S_SERVE)
+        rows = []
+
+        def to_tar(path, p, cfg, family):
+            TE.save_torch_checkpoint(path, TE.graph_net_state_dict(p, family)
+                                     if cfg.is_graph else TE.dip_state_dict(p))
+            sd = TI.load_torch_checkpoint(path)
+            if cfg.is_graph:
+                return TI.graph_net_params_from_state_dict(
+                    sd, family, cfg=cfg.net, device=self.dev)
+            return TI.dip_params_from_state_dict(sd, cfg=cfg.net,
+                                                 device=self.dev)
+
+        self.zero_counts()                            # the main path starts
+        with tempfile.TemporaryDirectory() as tmp:
+            for family in ("a3gc", "aagc", "agc", "ggru", "tp", "dip",
+                           "dip_uni"):
+                if family.startswith("dip"):
+                    cfg = self.dip_cfg("auto", family == "dip")
+                    cfgs = (cfg,)
+                    params = (init_pose_net(torch.Generator().manual_seed(0),
+                                            cfg).to(self.dev),)
+
+                    def session(ps, cfg=cfg):
+                        return DipStreamingSession(
+                            ps[0], cfg, model, window=WINDOW,
+                            stats=load_stats(), streams=S_SERVE,
+                            device=self.dev)
+                else:
+                    cascade = self.cascade(family, "auto")
+                    cfgs, params = cascade.stages, self.params3(cascade)
+
+                    def session(ps, cascade=cascade):
+                        return StreamingCascade(
+                            tuple(ps), cascade, model, window=WINDOW,
+                            stats=load_stats(), normalize=True,
+                            streams=S_SERVE, device=self.dev)
+                loaded = {"tar": [], "dir": []}
+                for i, (p, c) in enumerate(zip(params, cfgs)):
+                    loaded["tar"].append(to_tar(
+                        os.path.join(tmp, f"{family}{i}.tar"), p, c, family))
+                    path = save_params(p, os.path.join(tmp, family), i + 1, 1)
+                    template = init_pose_net(
+                        torch.Generator().manual_seed(99), c, nira)
+                    loaded["dir"].append(restore_params(
+                        path, template.to(self.dev)))
+                ref = session(params)
+                want = ref.step(ori, acc)
+                row = {"family": family}
+                for how, ps in loaded.items():
+                    same = all(a.device == self.dev and torch.equal(a, b)
+                               for x, y in zip(ps, params)
+                               for a, b in zip(x.parameters(),
+                                               y.parameters()))
+                    sess = session(ps)
+                    got = sess.step(ori, acc)
+                    pose_err = float(np.abs(got - want).max())
+                    state_err = tree_err(sess._states, ref._states)
+                    self.check(same and pose_err == 0.0 and state_err == 0.0
+                               and bool(np.isfinite(got).all()),
+                               f"checkpoints {family} via {how}: params "
+                               f"equal {same}, pose {pose_err:.3e}, state "
+                               f"{state_err:.3e}")
+                    row[how] = {"params_equal": same, "pose_max_abs_err":
+                                pose_err, "state_max_abs_err": state_err}
+                rows.append(row)
+        counts = self.counts()                        # the main path ended
+        self.launches["checkpoints"] = counts
+        self.check(all(n > 0 for n in counts.values()),
+                   f"checkpoints launches {counts}")
+        emit({"phase": "checkpoints", "streams": S_SERVE, "window": WINDOW,
+              "launches": counts, "families": rows})
+
+    def phase_cli_serve_checkpoints(self):
+        """Checkpoints served the way a user starts them: three A3GC stage
+        ``.tar``s, a ``--path`` directory of two epochs written by ``cli
+        convert-checkpoint``, and the DIP net from a ``.tar``, each behind
+        a ``cli serve`` subprocess (the three start at once) with two
+        clients, against in-process sessions on the same params; then a
+        newer epoch written into the directory and ``POST /v1/reload``."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.compat import torch_export as TE
+        from a3gc_tpu_torch.data import load_adjacency_template
+        from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                                   StreamingCascade)
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.smpl import ParametricModel
+        from a3gc_tpu_torch.utils import save_params
+        torch = self.torch
+        model, nira = ParametricModel(), load_adjacency_template()
+        base = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
+                "--window", str(WINDOW)]
+        for i, (H, _, _, _) in enumerate(STAGES):    # the defaults
+            base += [f"--hu{i + 1}", str(H)]
+        cascade, _ = cli._stage_configs(cli.build_parser().parse_args(base))
+
+        def params3(seed):
+            return tuple(init_pose_net(torch.Generator().manual_seed(seed + i),
+                                       c, nira).to(self.dev)
+                         for i, c in enumerate(cascade.stages))
+
+        epochs = {1: params3(0), 2: params3(10), 3: params3(20)}
+        dip_cfg = self.dip_cfg("auto")
+        dip = init_pose_net(torch.Generator().manual_seed(30),
+                            dip_cfg).to(self.dev)
+        tmp = tempfile.mkdtemp()
+        runs = os.path.join(tmp, "runs")
+        tars = {}
+        for ep in (1, 2):
+            for i, p in enumerate(epochs[ep]):
+                tars[ep, i] = os.path.join(tmp, f"e{ep}s{i + 1}.tar")
+                TE.save_torch_checkpoint(tars[ep, i],
+                                         TE.graph_net_state_dict(p, "a3gc"))
+        dip_tar = os.path.join(tmp, "dip.tar")
+        TE.save_torch_checkpoint(dip_tar, TE.dip_state_dict(dip))
+        procs = {}
+        try:
+            t0 = time.perf_counter()
+            converts = [subprocess.Popen(
+                [sys.executable, "-m", "a3gc_tpu_torch.cli",
+                 "convert-checkpoint", "--torch", tars[ep, i], "--model",
+                 "a3gc", "--output", os.path.join(
+                     runs, f"checkpoint_model{i + 1}_finetuning_{ep}"),
+                 "--epoch", str(ep)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+                for ep in (1, 2) for i in range(3)]
+            for c in converts:
+                out, err = c.communicate(timeout=300)
+                self.check(c.returncode == 0 and "converted" in out,
+                           f"cli convert-checkpoint: {err[-2000:]}")
+            convert_s = time.perf_counter() - t0
+            argvs = {
+                "torch_checkpoints": base + [
+                    "--quality", "balanced", "--torch_checkpoints"]
+                + [tars[1, i] for i in range(3)],
+                # stages 1 and 2 pinned to epochs 1 and 2, stage 3 the
+                # latest: the reload below moves it alone
+                "path": base + ["--path", runs, "--mid1", "1", "--mid2", "2"],
+                "dip": base[:-6] + ["--model", "dip", "--hu1", str(DIP[0]),
+                                    "--torch_checkpoints", dip_tar],
+            }
+            served = {"torch_checkpoints": epochs[1],
+                      "path": (epochs[1][0], epochs[2][1], epochs[2][2]),
+                      "dip": dip}
+            t0 = time.perf_counter()
+            procs = {k: self.spawn_server(v) for k, v in argvs.items()}
+            up = {k: wait() for k, (_, wait) in procs.items()}
+            all_up_s = time.perf_counter() - t0
+            rng = np.random.default_rng(8)
+            report = {}
+            for name, argv in argvs.items():
+                args = cli.build_parser().parse_args(argv)
+                cli._apply_quality(args)
+                stats = cli._load_stats(args)
+                kw = dict(window=args.window or WINDOW, stats=stats,
+                          lookahead=args.lookahead, history=args.history,
+                          device=self.dev)
+                refs = [DipStreamingSession(served[name], dip_cfg, model,
+                                            **kw) if name == "dip" else
+                        StreamingCascade(served[name], cascade, model,
+                                         normalize=True, **kw)
+                        for _ in range(2)]
+                _, start_s, host, port = up[name]
+                clients = [PoseClient(host, port, timeout=120.0, retry_s=30.0,
+                                      retry_interval=0.1) for _ in refs]
+                feeds = [[self.windows(rng, 1) for _ in range(5)]
+                         for _ in refs]
+                err, n = 0.0, 0
+
+                def drive(windows):
+                    nonlocal err, n
+                    for w in windows:
+                        for c, ref, feed in zip(clients, refs, feeds):
+                            got, want = c.step(*feed[w]), ref.step(*feed[w])
+                            self.check((got is None) == (want is None),
+                                       f"cli_serve_checkpoints {name} "
+                                       f"window {w}: warm-up differs")
+                            if got is not None and want is not None:
+                                err = max(err, float(np.abs(got - want)
+                                                     .max()))
+                                n += 1
+
+                for c in clients:
+                    c.acquire()
+                drive(range(3))
+                report[name] = {"argv": argv, "serving": up[name][0],
+                                "start_s": start_s, "pose_max_abs_err": err,
+                                "poses_compared": n}
+                self.check(n >= 4 and err <= PATH_TOL,
+                           f"cli_serve_checkpoints {name}: {n} poses, "
+                           f"max|d| {err:.3e} vs in-process")
+                if name == "path":
+                    for i, p in enumerate(epochs[3]):
+                        save_params(p, runs, i + 1, 3, finetuning=True)
+                    t1 = time.perf_counter()
+                    answer = clients[0].reload()
+                    reload_s = time.perf_counter() - t1
+                    newer = (epochs[1][0], epochs[2][1], epochs[3][2])
+                    for ref in refs:
+                        ref.params3 = newer
+                    err, n = 0.0, 0
+                    t1 = time.perf_counter()
+                    drive(range(3, 5))
+                    report[name].update(
+                        reload=answer, reload_s=reload_s,
+                        after_reload_two_windows_s=time.perf_counter() - t1,
+                        pose_max_abs_err_after_reload=err)
+                    self.check(answer == {"reloaded": True} and n == 4
+                               and err <= PATH_TOL,
+                               f"cli_serve_checkpoints reload: {answer}, "
+                               f"{n} poses, max|d| {err:.3e}")
+                stats_now = clients[0].stats()
+                self.check(stats_now["errors"] == 0,
+                           f"cli_serve_checkpoints {name}: {stats_now}")
+                for c in clients:
+                    c.release()
+            alive = {k: p.poll() is None for k, (p, _) in procs.items()}
+        finally:
+            for proc, _ in procs.values():
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.check(all(alive.values()), f"cli_serve_checkpoints: a server "
+                   f"exited: {alive}")
+        emit({"phase": "cli_serve_checkpoints", "convert_s": convert_s,
+              "servers_up_s": all_up_s, "servers": report,
+              "card": nvidia_smi()})
+
     # -- 4 ---------------------------------------------------------------
     def offline(self, path, kind, kernel, feature_shape):
         import numpy as np
@@ -1129,14 +1459,15 @@ class Smoke:
         self.offline("offline_ggru", "ggru", "ggru", (N_NODES, 12))
 
     # -- 5 ---------------------------------------------------------------
-    def plan_record(self, name, S, H):
+    def plan_record(self, name, S, H, D=2):
         """The launch plan of a weight-stationary kernel at this shape, with
-        how many of its groups the card holds at once."""
+        how many of its groups the card holds at once (``lstm``: of D
+        directions)."""
         if name == "lstm":
             from a3gc_tpu_torch.ops import lstm as LS
             from a3gc_tpu_torch.ops._common import sm_count
-            plan = LS.launch_plan(S, H, sm_count(0))
-            rec = {"P": plan.P, "R": plan.R, "KS": plan.KS,
+            plan = LS.launch_plan(S, H, sm_count(0), D=D)
+            rec = {"D": D, "P": plan.P, "R": plan.R, "KS": plan.KS,
                    "groups": plan.groups, "cooperative": plan.cooperative,
                    "max_active": LS.max_active(plan, S, H)}
         elif name == "gcn_lstm":
@@ -1173,6 +1504,10 @@ class Smoke:
                 times[k] += cuda_ms(calls[k], 20) / 2
             plain = getattr(mod, f"bi_{name}_reference")
             plain_ms = cuda_ms(lambda: plain(layer, *args), 3, warmup=1)
+        D = 2
+        if name == "lstm":
+            from a3gc_tpu_torch.ops import lstm as LS
+            D = LS.directions(layer)
         b_ms, b_by = bound(*work(S, T, F, H, True))
         sb_ms, sb_by = bound(*work(S, T, F, H, False))
         self.shapes[name].append({
@@ -1180,30 +1515,37 @@ class Smoke:
             "scan_ms": times["scan_ms"], "plain_ms": plain_ms,
             "library_ms": times.get("library_ms"),
             "bound_ms": b_ms, "bound_by": b_by, "scan_bound_ms": sb_ms,
-            "scan_bound_by": sb_by, "plan": self.plan_record(name, S, H)})
+            "scan_bound_by": sb_by, "plan": self.plan_record(name, S, H, D)})
 
     def cudnn_lstm(self, p, x, st):
-        """cuDNN's torch.nn.LSTM on the layer's weights, checked against
-        the plain version at n_valid = T; returns the call to time."""
+        """cuDNN's torch.nn.LSTM on the layer's weights (one direction or
+        two, as the layer has), checked against the plain version at
+        n_valid = T; returns the call to time."""
         from a3gc_tpu_torch.ops import lstm as LS
         torch = self.torch
-        F, H = p.w_ih.shape[1], p.w_hh.shape[1]
-        mod = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True).to(
-            self.dev)
+        D = LS.directions(p)
+        H = p.w_hh.shape[-2]
+        F = p.w_ih.shape[-2]
+        mod = torch.nn.LSTM(F, H, bidirectional=D == 2,
+                            batch_first=True).to(self.dev)
         with torch.no_grad():
-            for d, suffix in enumerate(("", "_reverse")):
-                getattr(mod, "weight_ih_l0" + suffix).copy_(p.w_ih[d].T)
-                getattr(mod, "weight_hh_l0" + suffix).copy_(p.w_hh[d].T)
-                getattr(mod, "bias_ih_l0" + suffix).copy_(p.b_ih[d])
-                getattr(mod, "bias_hh_l0" + suffix).copy_(p.b_hh[d])
-            got = mod(x, st)
+            for d, suffix in enumerate(("", "_reverse")[:D]):
+                w = {k: (v[d] if D == 2 else v)
+                     for k, v in p.named_parameters()}
+                getattr(mod, "weight_ih_l0" + suffix).copy_(w["w_ih"].T)
+                getattr(mod, "weight_hh_l0" + suffix).copy_(w["w_hh"].T)
+                getattr(mod, "bias_ih_l0" + suffix).copy_(w["b_ih"])
+                getattr(mod, "bias_hh_l0" + suffix).copy_(w["b_hh"])
+            # torch.nn.LSTM's state is [D, S, H] either way
+            cst = st if D == 2 else tuple(t[None] for t in st)
+            got = mod(x, cst)
             want = LS.bi_lstm_reference(p, x, st)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max())
+        err = max(float((a.reshape(b.shape) - b).abs().max())
                   for a, b in zip(leaves(got), leaves(want)))
         self.check(err <= KERNEL_TOL,
-                   f"cuDNN LSTM vs plain H={H} F={F}: {err:.3e}")
-        return lambda: mod(x, st)
+                   f"cuDNN LSTM vs plain H={H} F={F} D={D}: {err:.3e}")
+        return lambda: mod(x, cst)
 
     def phase_times(self):
         torch = self.torch
@@ -1248,20 +1590,31 @@ class Smoke:
             self.time_layer("lstm", "buffered_dip", S, F, H, p, (x, st, nv),
                             lstm_layer_work,
                             library=self.cudnn_lstm(p, x, st))
+        # the unidirectional DIP net: two layers of F = H, one direction,
+        # against cuDNN's torch.nn.LSTM(bidirectional=False)
+        for S in (S_SERVE, 1):
+            for _ in range(2):
+                p = self.lstm_layer(gen, H, H, D=1)
+                x, st, nv = self.layer_inputs(gen, S, WINDOW, H, H,
+                                              [WINDOW] * S, nodes=False, D=1)
+                self.time_layer("lstm", "serving_dip_uni", S, H, H, p,
+                                (x, st, nv), uni_lstm_layer_work,
+                                library=self.cudnn_lstm(p, x, st))
 
     def kernels_line(self):
         meta = {
             "gcn_lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:92 (_kernel), "
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
                          "(_dirfused_kernel)",
-                         ("serving", "buffered", "http"), gcn_layer_work,
+                         ("serving", "buffered", "http", "checkpoints"),
+                         gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
                          "including its hoisted input projection",
                          "no PyTorch call mixes a per-gate graph adjacency "
                          "and joint attention into an LSTM recurrence"),
             "ggru": ("a3gc_tpu/ops/pallas_gcn_lstm.py:412 (_ggru_kernel)",
-                     ("serving_ggru",), ggru_layer_work,
+                     ("serving_ggru", "checkpoints"), ggru_layer_work,
                      "the six layer calls of one G-GRU serving window "
                      "(3 stages x rnn1/rnn2, S=8, T=60), bi_ggru including "
                      "its hoisted input projection",
@@ -1269,21 +1622,25 @@ class Smoke:
                      "recurrence"),
             "lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:580 (_lstm_kernel)",
                      ("serving_tp", "serving_dip", "buffered_dip",
-                      "http_dip"), lstm_layer_work,
+                      "http_dip", "serving_dip_uni", "buffered_dip_uni",
+                      "checkpoints"), lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
-                     "plus the two of one DIP serving window (S=8, T=60), "
-                     "bi_lstm including its hoisted input projection; "
-                     "library: cuDNN torch.nn.LSTM on the same weights",
+                     "plus the two of one DIP serving window plus the two "
+                     "of one unidirectional DIP serving window (D=1) (S=8, "
+                     "T=60), bi_lstm including its hoisted input "
+                     "projection; library: cuDNN torch.nn.LSTM on the same "
+                     "weights, as many directions",
                      None),
         }
         entries = []
         for name, (replaces, paths, work, timed, no_lib) in meta.items():
             main = [r for r in self.shapes[name]
                     if r["S"] == S_SERVE and r["T"] == WINDOW]
-            flop = sum(work(r["S"], r["T"], r["F"], r["H"], True)[0]
-                       for r in main)
-            nbytes = sum(work(r["S"], r["T"], r["F"], r["H"], True)[1]
-                         for r in main)
+            works = [(uni_lstm_layer_work if r["plan"].get("D") == 1
+                      else work)(r["S"], r["T"], r["F"], r["H"], True)
+                     for r in main]
+            flop = sum(w[0] for w in works)
+            nbytes = sum(w[1] for w in works)
             lib = [r["library_ms"] for r in main]
             entry = {
                 "name": name, "route": "cuda",
@@ -1328,11 +1685,13 @@ def main():
     smoke = Smoke()
     phases = (smoke.phase_device, smoke.phase_kernel,
               smoke.phase_kernel_ggru, smoke.phase_kernel_lstm,
-              smoke.phase_kernel_long,
+              smoke.phase_kernel_lstm_uni, smoke.phase_kernel_long,
               smoke.phase_serving, smoke.phase_serving_ggru,
               smoke.phase_serving_tp, smoke.phase_serving_dip,
+              smoke.phase_serving_dip_uni,
               smoke.phase_buffered, smoke.phase_buffered_dip,
               smoke.phase_http, smoke.phase_http_dip, smoke.phase_cli_serve,
+              smoke.phase_checkpoints, smoke.phase_cli_serve_checkpoints,
               smoke.phase_offline, smoke.phase_offline_tp,
               smoke.phase_offline_ggru, smoke.phase_times)
     for phase in phases:

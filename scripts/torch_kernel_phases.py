@@ -60,7 +60,7 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    n_ptr, n_int = {"lstm": (10, 10), "ggru": (8, 8),
+    n_ptr, n_int = {"lstm": (10, 11), "ggru": (8, 8),
                     "gcn_lstm": (16, 11)}[name]
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int

@@ -428,3 +428,131 @@ def test_torch_port_buffered_session_from_a_thread_on_card(fused):
         assert np.abs(pose - ref_pose).max() <= 1e-3
     for a, b in zip(out["kernel"][1], out["plain"][1]):
         assert a.shape == (W, 24, 3, 3) and np.abs(a - b).max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [60, 120])
+@pytest.mark.parametrize("S", PLAN_S)
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_torch_port_uni_lstm_kernel_matches_plain_on_card(H, S, T):
+    """``lstm.cu`` at D = 1 (the unidirectional DIP layer) against the
+    plain version, every launch plan regime, ragged ``n_valid``: every
+    frame and the final state at 1e-5 absolute; the initial state is not
+    written."""
+    _need_card()
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(9)
+    p = N.init_dip(gen, N.DIPConfig(n_hidden=H, bidirectional=False)
+                   ).lstm[1].cuda()
+    x = torch.randn((S, T, H), generator=gen).cuda()
+    st = tuple((0.5 * torch.randn((S, H), generator=gen)).cuda()
+               for _ in range(2))
+    before = tuple(t.clone() for t in st)
+    nv = torch.tensor(_ragged(S, T)[:S] if T == 60 else
+                      [T, 60, 0, T, 120, 1, T, 59, T, 0, 61, T][:S],
+                      device="cuda")
+    LS.bi_lstm.launches = 0
+    with torch.no_grad():
+        y, (h, c) = LS.bi_lstm(p, x, st, nv)
+        ref_y, (ref_h, ref_c) = LS.bi_lstm_reference(p, x, st, nv)
+    torch.cuda.synchronize()
+    assert LS.bi_lstm.launches == 1
+    assert y.shape == (S, T, H) and h.shape == c.shape == (S, H)
+    for a, b in ((y, ref_y), (h, ref_h), (c, ref_c)):
+        assert (a - b).abs().max().item() <= 1e-5, LS.launch_plan(S, H, D=1)
+    assert all(torch.equal(a, b) for a, b in zip(st, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 1])
+def test_torch_port_uni_dip_session_matches_eager_on_card(K):
+    """A ``DipStreamingSession`` over the unidirectional DIP net through
+    ``lstm.cu`` against the same session on the plain path, an idle slot
+    and a reset included; 1e-4 on poses after IK."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_stats
+    from a3gc_tpu_torch.eval.streaming import DipStreamingSession
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig, init_pose_net
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.smpl import ParametricModel
+
+    def cfg(backend):
+        return PoseNetConfig(net=N.DIPConfig(n_hidden=512,
+                                             bidirectional=False,
+                                             backend=backend))
+
+    gen = torch.Generator().manual_seed(10)
+    params = init_pose_net(gen, cfg("auto")).cuda()
+    S, W = 3, 20
+    sessions = [DipStreamingSession(params, cfg(b), ParametricModel(),
+                                    window=W, stats=load_stats(), streams=S,
+                                    lookahead=K) for b in ("auto", "eager")]
+    rng = np.random.default_rng(11)
+    idle = np.ones(S, np.float32)
+    idle[1] = 0.0
+    LS.bi_lstm.launches = 0
+    for w, active in enumerate((None, idle, None, None)):
+        ori = rng.normal(size=(S, W, 54)).astype(np.float32)
+        acc = rng.normal(scale=0.5, size=(S, W, 18)).astype(np.float32)
+        got, want = (s.step(ori, acc, active=active) for s in sessions)
+        if K:
+            (got, em), (want, _) = got, want
+        else:
+            em = np.ones(S, bool) if active is None else active > 0
+        if em.any():
+            assert np.abs(got[em] - want[em]).max() <= 1e-4
+        if w == 1:
+            for s in sessions:
+                s.reset(stream=2)
+    assert LS.bi_lstm.launches > 0
+    for la, lb in zip(sessions[0]._states[0], sessions[1]._states[0]):
+        for a, b in zip(la, lb):
+            assert a.shape == (S, 512)
+            assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["a3gc", "ggru", "dip", "dip_uni"])
+def test_torch_port_checkpoint_round_trip_onto_card(family, tmp_path):
+    """A net written with the port's exporter and read back with its
+    importer onto the card, and through the port's checkpoint directory,
+    is bit-equal to the original, and so is one window it computes."""
+    _need_card()
+    from a3gc_tpu_torch.compat import torch_export as TE
+    from a3gc_tpu_torch.compat import torch_import as TI
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig, init_pose_net
+    from a3gc_tpu_torch.utils import restore_params, save_params
+    gen = torch.Generator().manual_seed(12)
+    if family.startswith("dip"):
+        net = N.DIPConfig(n_hidden=64, bidirectional=family == "dip")
+        x = torch.randn((2, 30, 60), generator=gen).cuda()
+    else:
+        net = N.GraphNetConfig(cell=family, units_hidden=64)
+        x = torch.randn((2, 30, 15, 12), generator=gen).cuda()
+    cfg = PoseNetConfig(net=net, rotsize=3)
+    nira = load_adjacency_template()
+    params = init_pose_net(gen, cfg, nira).cuda()
+    tar = str(tmp_path / "net.tar")
+    if family.startswith("dip"):
+        TE.save_torch_checkpoint(tar, TE.dip_state_dict(params))
+        loaded = TI.dip_params_from_state_dict(
+            TI.load_torch_checkpoint(tar), cfg=net)
+    else:
+        TE.save_torch_checkpoint(tar, TE.graph_net_state_dict(params,
+                                                              family))
+        loaded = TI.graph_net_params_from_state_dict(
+            TI.load_torch_checkpoint(tar), family, cfg=net)
+    path = save_params(params, str(tmp_path), 1, 2)
+    restored = restore_params(path, init_pose_net(gen, cfg, nira).cuda())
+    apply = N.dip_apply if family.startswith("dip") else N.graph_net_apply
+    with torch.no_grad():
+        want, want_state = apply(params, net, x)
+        for other in (loaded, restored):
+            for a, b in zip(other.parameters(), params.parameters()):
+                assert a.is_cuda and torch.equal(a, b)
+            got, got_state = apply(other, net, x)
+            assert torch.equal(got, want)

@@ -1,6 +1,8 @@
 """The port's command line (a3gc_tpu_torch.cli, the ``serve`` subcommand):
 its parser's defaults and quality presets against the JAX package's for the
-flags both have, the flags that wait for later slices, and one end-to-end
+flags both have (every flag of the JAX CLI's ``serve``), the flags that wait
+for later slices, the JAX-only flags it accepts and ignores, and one
+end-to-end
 state-preserving exec-recycle of ``python -m a3gc_tpu_torch.cli serve
 --device cpu`` at small widths: the clients ride the pause with their seq
 and token, and the poses equal an uninterrupted in-process session's at
@@ -29,7 +31,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHARED_FLAGS = ("model", "hu1", "hu2", "hu3", "norm", "cda", "rotsize",
                 "window", "streams", "host", "port", "max_wait_ms",
                 "lookahead", "history", "quality", "recycle_rss_mb", "mesh",
-                "artifact", "path", "torch_checkpoints")
+                "artifact", "path", "torch_checkpoints", "type", "mid1",
+                "mid2", "mid3", "smpl", "data_root", "precision", "profile",
+                "debug_nans", "compilation_cache")
 
 
 @pytest.mark.parametrize("argv", [
@@ -38,6 +42,11 @@ SHARED_FLAGS = ("model", "hu1", "hu2", "hu3", "norm", "cda", "rotsize",
     ["--quality", "ultra", "--window", "30", "--lookahead", "0"],
     ["--lookahead", "2"], ["--model", "ggru", "--hu1", "32", "--norm",
                            "--cda", "--streams", "4", "--port", "0"],
+    ["--path", "runs/x", "--type", "pretrain", "--mid1", "3", "--mid2",
+     "4", "--mid3", "5"],
+    ["--model", "dip", "--torch_checkpoints", "dip.tar", "--smpl", "m.pkl",
+     "--data_root", "d", "--precision", "highest", "--profile", "p",
+     "--debug_nans", "--compilation_cache", "c"],
 ])
 def test_torch_port_cli_serve_flags_match_jax_cli(argv):
     ours = TCLI.build_parser().parse_args(["serve"] + argv)
@@ -82,16 +91,33 @@ def test_torch_port_cli_shipped_stats_match_jax_cli():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--path", "runs/x"], "item 9"),
-    (["--torch_checkpoints", "a.tar", "b.tar", "c.tar"], "item 9"),
+    (["--smpl", "smpl_male.pkl"], "item 4"),
+    (["--data_root", "data"], "item 4"),
     (["--artifact", "bundle"], "item 13"),
     (["--mesh"], "item 14"),
-    (["--model", "dip"], "item 9"),
+    (["--model", "dip", "--data_root", "data"], "item 4"),
 ])
 def test_torch_port_cli_refuses_flags_of_later_slices(argv, item):
     with pytest.raises(SystemExit) as ei:
         TCLI.main(["serve", "--device", "cpu"] + argv)
     assert "ROADMAP Queue 1 " + item in str(ei.value)
+
+
+@pytest.mark.parametrize("argv,noted", [
+    (["--precision", "default"], ["--precision default", "fp32"]),
+    (["--precision", "highest", "--profile", "trace", "--debug_nans",
+      "--compilation_cache", "cache"],
+     ["--profile", "--debug_nans", "--compilation_cache",
+      "--precision highest"]),
+    ([], []),
+])
+def test_torch_port_cli_notes_jax_only_flags_once(argv, noted, capsys):
+    args = TCLI.build_parser().parse_args(["serve"] + argv)
+    TCLI._note_ignored_flags(args)
+    err = capsys.readouterr().err
+    assert err.count("\n") == (1 if noted else 0)
+    for word in noted:
+        assert word in err
 
 
 def test_torch_port_cli_has_serve_only_and_require_exits():

@@ -1,13 +1,19 @@
 """The port stands alone: importing a3gc_tpu_torch and serving tiny a3gc,
-ggru and TransPose cascades through StreamingCascade and a DIP net through
-DipStreamingSession on the CPU, and a served step through
-a3gc_tpu_torch.serve, .client and .cli, loads no jax, flax or a3gc_tpu
-module."""
+ggru and TransPose cascades through StreamingCascade and a DIP net (bi- and
+unidirectional) through DipStreamingSession on the CPU, a served step
+through a3gc_tpu_torch.serve, .client and .cli, a checkpoint written,
+discovered, restored, exported to a reference ``.tar`` and imported back
+(a3gc_tpu_torch.utils, .compat.torch_export, .compat.torch_import, ``cli
+convert-checkpoint``), ``forward_offline`` and ``pose_loss`` load no jax,
+flax or a3gc_tpu module. And the package data ships every kernel source and
+header."""
 
+import fnmatch
 import json
 import os
 import subprocess
 import sys
+import tomllib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,6 +55,12 @@ sessions.append(DipStreamingSession(init_pose_net(gen, dip), dip,
                                     ParametricModel(), window=4,
                                     stats=load_stats(), streams=2,
                                     device="cpu"))
+uni = PoseNetConfig(net=N.DIPConfig(n_hidden=8, bidirectional=False),
+                    rotsize=9)
+sessions.append(DipStreamingSession(init_pose_net(gen, uni), uni,
+                                    ParametricModel(), window=4,
+                                    stats=load_stats(), streams=2,
+                                    device="cpu"))
 for sess in sessions:
     pose = sess.step(rng.normal(size=(2, 4, 54)),
                      rng.normal(size=(2, 4, 18)))
@@ -74,6 +86,30 @@ with PoseClient(*srv.address, timeout=30.0, retry_s=2.0) as c:
     assert c.flush().shape == (4, 24, 3, 3)
     assert c.stats()["errors"] == 0
 srv.shutdown()
+# checkpoints: the port's format, the reference .tar both ways, the CLI
+import os, tempfile
+from a3gc_tpu_torch.compat import torch_export, torch_import
+from a3gc_tpu_torch.models.pipeline import forward_offline, pose_loss
+from a3gc_tpu_torch.utils import discover_latest, restore_params, save_params
+tmp = tempfile.mkdtemp()
+net = init_pose_net(gen, cfg.stage1, nira)
+path = save_params(net, tmp, 1, 3, finetuning=True)
+assert discover_latest(tmp, 1) == (path, 3)
+back = restore_params(path, init_pose_net(gen, cfg.stage1, nira))
+tar = os.path.join(tmp, "s1.tar")
+torch_export.save_torch_checkpoint(
+    tar, torch_export.graph_net_state_dict(back, "a3gc"))
+again = torch_import.graph_net_params_from_state_dict(
+    torch_import.load_torch_checkpoint(tar), "a3gc", cfg=cfg.stage1.net,
+    device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                             again.parameters()))
+a3gc_tpu_torch.cli.main(["convert-checkpoint", "--torch", tar, "--model",
+                         "a3gc", "--output", os.path.join(tmp, "c")])
+out = forward_offline(back, cfg.stage1, ParametricModel(),
+                      torch.zeros(1, 4, 15, 12))
+assert out.shape == (1, 4, 15, 3)
+assert float(pose_loss(out, out)) == 0.0
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))
@@ -87,3 +123,18 @@ def test_torch_port_imports_no_jax_or_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_torch_port_package_data_ships_every_kernel_source():
+    """An installed package builds its kernels from the sources it ships:
+    every file under ``ops/csrc`` (the ``.cu`` sources and the ``.cuh``
+    header they include) matches a package-data pattern of the port."""
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "a3gc_tpu_torch"]
+    csrc = os.path.join(REPO, "a3gc_tpu_torch", "ops", "csrc")
+    files = sorted(os.listdir(csrc))
+    assert any(f.endswith(".cuh") for f in files)
+    for name in files:
+        rel = "ops/csrc/" + name
+        assert any(fnmatch.fnmatch(rel, p) for p in patterns), rel

@@ -67,6 +67,51 @@ def test_torch_port_lstm_plan_regimes():
     assert waves.groups == 2 and -(-20 // waves.R) == 3
 
 
+@pytest.mark.parametrize("S", [1, 8, 12, 40])
+@pytest.mark.parametrize("H", [8, 64, 128, 256, 512])
+def test_torch_port_lstm_launch_plan_one_direction(H, S):
+    """D = 1 (the unidirectional DIP net): the split and shared memory of
+    D = 2, a grid of one layer; a cooperative grid holds up to sms // P
+    stream blocks at once where two directions hold sms // (2P), which
+    changes ``groups`` only past the serving shapes."""
+    one, two = (LS.launch_plan(S, H, H100_SMS, D=d) for d in (1, 2))
+    assert one.D == 1 and two.D == 2
+    assert one._replace(groups=0, D=0) == two._replace(groups=0, D=0)
+    n_blocks = -(-S // one.R)
+    if one.cooperative:
+        assert one.groups == min(n_blocks, H100_SMS // one.P)
+        assert one.ctas == one.P * one.groups <= H100_SMS
+    else:
+        assert one.groups == two.groups == n_blocks
+        assert one.ctas == two.ctas // 2
+    if S <= 12:                     # every serving shape: the same groups
+        assert one.groups == two.groups
+    if (H, S) == (512, 40):         # 5 blocks: 4 at once, against 2
+        assert (one.groups, two.groups) == (4, 2)
+    with pytest.raises(ValueError, match="D in"):
+        LS.launch_plan(S, H, H100_SMS, D=3)
+
+
+def test_torch_port_lstm_scan_inputs_layout_one_direction():
+    from a3gc_tpu_torch.models import nets as N
+    rng = np.random.default_rng(0)
+    S, H, T = 3, 32, 7
+    p = N.init_dip(torch.Generator().manual_seed(0),
+                   N.DIPConfig(n_hidden=H, bidirectional=False)).lstm[1]
+    assert LS.directions(p) == 1
+    x = torch.as_tensor(rng.normal(size=(S, T, H)).astype(np.float32))
+    st = tuple(torch.as_tensor(rng.normal(size=(S, H)).astype(np.float32))
+               for _ in range(2))
+    u, w_hh, h0, c0, nv = LS.scan_inputs(p, x, st, [T] * S)
+    for t, shape in ((u, (1, S, T, 4 * H)), (w_hh, (1, H, 4 * H)),
+                     (h0, (1, S, H)), (c0, (1, S, H))):
+        assert t.shape == shape and t.dtype == torch.float32
+        assert t.is_contiguous()
+    assert torch.equal(h0[0], st[0]) and torch.equal(w_hh[0], p.w_hh)
+    want = x @ p.w_ih + p.b_ih + p.b_hh
+    assert torch.allclose(u[0], want, atol=1e-5)
+
+
 @pytest.mark.parametrize("attention", [True, False])
 @pytest.mark.parametrize("H", [8, 32, 64, 128, 256])
 def test_torch_port_gcn_lstm_launch_plan(H, attention):

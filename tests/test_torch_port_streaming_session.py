@@ -1,5 +1,6 @@
 """The port's single-net ``StreamingSession`` (graph nets and the
-bidirectional DIP net) and ``streaming_outputs*`` against the JAX package on
+bi- and unidirectional DIP nets) and ``streaming_outputs*`` against the JAX
+package on
 the CPU: the script of windows, idle slots, resets and flushes of
 test_torch_port_streaming_buffered.py through both; ``emitted``, the
 emitted outputs, the flush tails and the carried state after every tick at
@@ -29,10 +30,12 @@ torch.set_num_threads(1)        # as in test_torch_port_streaming_buffered.py
 def _single_net(net):
     """(JAX PoseNetConfig, JAX params as numpy, port PoseNetConfig, port
     params, the feature shape of one frame)."""
-    if net == "dip":
-        jnet, params = jax_dip(60, 135, 8, seed=15)
+    if net in ("dip", "dip_uni"):
+        bi = net == "dip"
+        jnet, params = jax_dip(60, 135, 8, seed=15, bidirectional=bi)
+        tnet = TN.DIPConfig(n_hidden=8, bidirectional=bi)
         return (JPL.PoseNetConfig(net=jnet, rotsize=9), params,
-                TPL.PoseNetConfig(net=TN.DIPConfig(n_hidden=8), rotsize=9),
+                TPL.PoseNetConfig(net=tnet, rotsize=9),
                 dip_params_from_jax(params, device="cpu"), (60,))
     jnet, params = jax_graph_net(net, 12, 9, 8, seed=16)
     tnet = TN.GraphNetConfig(cell=net, units_in=12, units_out=9,
@@ -83,8 +86,26 @@ def test_torch_port_streaming_session_batch_alias_and_checks():
     after = state_leaves(sess._state)
     for b, a in zip(before, after):
         assert not a[:, 0].any() and np.array_equal(a[:, 1], b[:, 1])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TN.DIPConfig(bidirectional=False)
+    # the unidirectional DIP net's states are [S, H]: slot axis 0
+    _, _, ucfg, uparams, _ = _single_net("dip_uni")
+    uni = TS.StreamingSession(uparams, ucfg, window=W, streams=2,
+                              device="cpu")
+    assert uni._slot_axis == 0
+    uni.step(np.ones((2, W, 60), np.float32))
+    before = state_leaves(uni._state)
+    uni.reset(stream=0)
+    for b, a in zip(before, state_leaves(uni._state)):
+        assert a.shape == (2, 8) and b[0].any()
+        assert not a[0].any() and np.array_equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("K,P", [(0, 0), (1, 1)])
+def test_torch_port_uni_dip_streaming_session_matches_jax(K, P):
+    _, _, tcfg, tparams, feat = _single_net("dip_uni")
+    sess = TS.StreamingSession(tparams, tcfg, window=W, streams=3,
+                               lookahead=K, history=P, device="cpu")
+    got = _drive(sess, 3, (feat,), 42, lambda s: s._state, _net_step)
+    _assert_traces_close(got, _jax_net_trace("dip_uni", K, P, 3), TOL)
 
 
 @pytest.mark.parametrize("net", ["a3gc", "dip"])

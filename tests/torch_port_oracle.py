@@ -53,9 +53,10 @@ GRAPH_DIMS = ((12, 3, 3), (15, 3, 3), (15, 9, 9))      # units in, out, rotsize
 TP_DIMS = ((72, 15, 3), (87, 69, 3), (141, 135, 9))    # n_input, n_output, rot
 
 
-def jax_dip(n_input, n_output, hidden, seed):
+def jax_dip(n_input, n_output, hidden, seed, bidirectional=True):
     """(JAX DIPConfig on the XLA scan, perturbed numpy params)."""
-    cfg = JN.DIPConfig(n_input=n_input, n_output=n_output, n_hidden=hidden)
+    cfg = JN.DIPConfig(n_input=n_input, n_output=n_output, n_hidden=hidden,
+                       bidirectional=bidirectional)
     return cfg, perturbed(JN.init_dip(jax.random.PRNGKey(seed), cfg), seed)
 
 

@@ -19,9 +19,12 @@ lookahead/history context, per-slot ``active`` masks, ``reset`` and
 ``client.PoseClient`` and ``python -m a3gc_tpu_torch.cli serve``, on
 trained checkpoints (the reference's ``.tar`` files through
 ``compat.torch_import`` / ``compat.torch_export``, the port's own
-checkpoint directories through ``utils``). Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``; they
-raise when CUDA is asked for and absent.
+checkpoint directories through ``utils``); and evaluation: the SMPL body
+model with FK and skinning (``smpl``), the motion-error metrics
+(``metrics``), ``eval.CascadeEvaluator`` / ``eval.DipEvaluator`` and
+``python -m a3gc_tpu_torch.cli evaluate``. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; they raise when CUDA is asked
+for and absent.
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax`` or
 any module of ``a3gc_tpu``.

@@ -1,5 +1,5 @@
 r"""Command-line interface of the port (counterpart of ``a3gc_tpu/cli.py``):
-the ``serve`` and ``convert-checkpoint`` subcommands.
+the ``serve``, ``evaluate`` and ``convert-checkpoint`` subcommands.
 
 Usage:
     python -m a3gc_tpu_torch.cli serve --torch_checkpoints s1.tar s2.tar \
@@ -9,20 +9,24 @@ Usage:
     python -m a3gc_tpu_torch.cli serve --model dip --hu1 512 \
         --torch_checkpoints dip.tar              # the single DIP net
     python -m a3gc_tpu_torch.cli serve --device cpu ...
+    python -m a3gc_tpu_torch.cli evaluate --model a3gc --norm \
+        --smpl basicModel_m.pkl --datasets test.npz [--batch_streams 8 |
+        --streaming 60 --lookahead 1 --history 1 | --save_preds]
     python -m a3gc_tpu_torch.cli convert-checkpoint --torch s1.tar \
         --model a3gc --output runs/x/checkpoint_model1_finetuning_5
     python -m a3gc_tpu_torch.cli convert-checkpoint --to_torch DIR \
         --model a3gc --n_input 12 --n_output 3 --hu1 256 --output s1.tar
 
-The cascades (``--model a3gc | aagc | agc | ggru | tp``) are served from
-reference ``.tar`` checkpoints (``--torch_checkpoints``, one a stage), from
-the latest checkpoints of a directory (``--path``, ``--type``,
-``--mid1/2/3``) or, given neither, from freshly initialised weights
-(``torch.Generator``, seed i for stage i); ``--model dip`` from a
-checkpoint only. Every server has the shipped normalization stats and the
-IK-only body model. Serving a deployment artifact, a mesh of cards, the
-SMPL file and the other subcommands wait for later slices (see
-ROADMAP.md, Queue 1).
+The cascades (``--model a3gc | aagc | agc | ggru | tp``) run from reference
+``.tar`` checkpoints (``--torch_checkpoints``, one a stage), from the latest
+checkpoints of a directory (``--path``, ``--type``, ``--mid1/2/3``) or,
+given neither, from freshly initialised weights (``torch.Generator``, seed i
+for stage i); ``--model dip`` from a checkpoint only. The body model is the
+SMPL pickle of ``--smpl`` (default: ``models/basicModel_m_lbs_10_207_0_
+v1.1.0.pkl`` under ``--data_root``), or a synthetic one when that file is
+missing; the normalization stats those under ``--data_root``, else the
+shipped copies. A deployment artifact, a mesh of cards and the other
+subcommands wait for later slices (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -47,19 +51,18 @@ QUALITY_PRESETS = {
     "ultra": (120, 1, 2),
 }
 
-# flags of the JAX CLI's `serve` that the port parses and refuses: what
-# each waits for
+# flags of the JAX CLI that the port parses and refuses: what each waits
+# for
 _WAITS_FOR = {
     "artifact": "--artifact (serving a deployment artifact) waits for "
                 "ROADMAP Queue 1 item 13",
-    "mesh": "--mesh (slots sharded over several cards) waits for ROADMAP "
+    "mesh": "--mesh (streams sharded over several cards) waits for ROADMAP "
             "Queue 1 item 14",
-    "smpl": "--smpl (an SMPL body-model file) waits for ROADMAP Queue 1 "
-            "item 4; the port serves with its IK-only body model",
-    "data_root": "--data_root (the SMPL file and stats under a data root) "
-                 "waits for ROADMAP Queue 1 item 4; the port serves with "
-                 "its IK-only body model and shipped stats",
 }
+# where the JAX package's config looks under the data root
+_SMPL_MALE = "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
+_STATS_UNDER_ROOT = {False: "stats/all_train_stats.npz",
+                     True: "stats/all_sym_train_stats.npz"}
 # flags of the JAX CLI that steer JAX alone: accepted, noted, ignored
 _JAX_ONLY = ("profile", "debug_nans", "compilation_cache")
 
@@ -97,7 +100,10 @@ def _apply_quality(args):
             args.lookahead = K
         if getattr(args, "history", None) is None:
             args.history = P
-        if getattr(args, "window", None) is None:
+        if hasattr(args, "streaming"):          # evaluate: implies it
+            if not args.streaming:
+                args.streaming = W
+        elif getattr(args, "window", None) is None:
             args.window = W
     # no preset (or preset applied): unset K/P mean plain windowing
     for attr in ("lookahead", "history"):
@@ -127,9 +133,12 @@ def _add_common_model_flags(p):
     p.add_argument("--cda", action="store_true",
                    help="use contralateral-augmented (sym) stats")
     p.add_argument("--smpl", type=str, default=None,
-                   help="not ported yet: " + _WAITS_FOR["smpl"])
+                   help="SMPL pickle path (default: the data root's; a "
+                        "missing file falls back to a synthetic body "
+                        "model)")
     p.add_argument("--data_root", type=str, default=None,
-                   help="not ported yet: " + _WAITS_FOR["data_root"])
+                   help="where the SMPL file and the stats are looked up "
+                        "(default: $A3GC_DATA_ROOT, else ./data)")
     p.add_argument("--precision", choices=("highest", "default"),
                    default=None,
                    help="accepted; the port computes in fp32 whatever it "
@@ -137,9 +146,8 @@ def _add_common_model_flags(p):
     p.add_argument("--rotsize", type=int, default=9, choices=(3, 6, 9),
                    help="stage-3 rotation representation")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device the server runs on (default: the "
-                        "card; 'cpu' runs the plain versions of the "
-                        "kernels)")
+                   help="torch device to run on (default: the card; "
+                        "'cpu' runs the plain versions of the kernels)")
 
 
 def _stage_configs(args):
@@ -170,14 +178,47 @@ def _stage_configs(args):
     return None, False
 
 
+def _under_data_root(args, rel: str) -> str:
+    r"""``rel`` under ``--data_root`` ($A3GC_DATA_ROOT, else ./data), as the
+    JAX package's config resolves it."""
+    root = args.data_root or os.environ.get("A3GC_DATA_ROOT", "data")
+    return rel if os.path.isabs(rel) else os.path.join(root, rel)
+
+
 def _load_stats(args):
-    r"""The shipped copy of the reference's stats assets (sym with
-    ``--cda``), or None if the package was installed without them."""
+    r"""The stats under the data root, else the shipped copy of the
+    reference's stats assets (sym with ``--cda``), or None if the package
+    was installed without them."""
     from a3gc_tpu_torch.data import load_stats
-    name = "all_sym_train_stats.npz" if args.cda else "all_train_stats.npz"
+    under_root = _under_data_root(args, _STATS_UNDER_ROOT[bool(args.cda)])
+    if os.path.isfile(under_root):
+        return load_stats(under_root)
     shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "assets", "stats", name)
+                           "assets", "stats",
+                           os.path.basename(_STATS_UNDER_ROOT[bool(args.cda)]))
     return load_stats(shipped) if os.path.isfile(shipped) else None
+
+
+def _load_body_model(args, device):
+    r"""The SMPL pickle of ``--smpl`` (default: the data root's male model,
+    ``$A3GC_SMPL_MALE`` relative to it) on ``device``; when the file is
+    missing, the synthetic body model (the JAX CLI's fallback for smoke
+    runs), noted on stderr. The synthetic pickle is written into a
+    temporary directory of this process's own, so servers started together
+    do not race on one file."""
+    import tempfile
+
+    from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                     write_synthetic_smpl_pickle)
+    path = args.smpl or _under_data_root(
+        args, os.environ.get("A3GC_SMPL_MALE", _SMPL_MALE))
+    if os.path.isfile(path):
+        return load_parametric_model(path, device=device)
+    print(f"[a3gc_tpu_torch] SMPL pickle {path} not found — using the "
+          "synthetic body model", file=sys.stderr)
+    with tempfile.TemporaryDirectory() as tmp:
+        return load_parametric_model(write_synthetic_smpl_pickle(
+            os.path.join(tmp, "synthetic_smpl.pkl")), device=device)
 
 
 def _init_cascade_params(cascade, is_graph, device):
@@ -295,6 +336,11 @@ def _reloading(load):
     return reload_fn
 
 
+def _refuse_waiting_flags(args):
+    for attr, msg in _WAITS_FOR.items():
+        _require(not getattr(args, attr, None), msg)
+
+
 def _note_ignored_flags(args):
     r"""One note on stderr for the flags that mean something to the JAX
     CLI only."""
@@ -315,8 +361,7 @@ def cmd_serve(args):
     import json as _json
 
     _apply_quality(args)
-    for attr, msg in _WAITS_FOR.items():
-        _require(not getattr(args, attr), msg)
+    _refuse_waiting_flags(args)
     _note_ignored_flags(args)
 
     # NOTE: construction happens inside this helper so its frame (and the
@@ -338,11 +383,11 @@ def _build_server(args):
     frame by design — do not inline into cmd_serve)."""
     from a3gc_tpu_torch._device import resolve_device
     from a3gc_tpu_torch.serve import PoseServer
-    from a3gc_tpu_torch.smpl import ParametricModel
 
     args.window = args.window or 60
     args.streams = args.streams or 8
     device = resolve_device(args.device)
+    model = _load_body_model(args, device)
     if args.model == "dip":
         # the single DIP net behind the same batcher: raw IMU in, full
         # local poses out
@@ -354,7 +399,7 @@ def _build_server(args):
                  "(a3gc_tpu_torch/assets/stats)")
         cfg, params = _load_dip(args, device)
         session = DipStreamingSession(
-            params, cfg, ParametricModel(), window=args.window, stats=stats,
+            params, cfg, model, window=args.window, stats=stats,
             streams=args.streams, lookahead=args.lookahead,
             history=args.history, device=device)
         srv = PoseServer(None, None, None, host=args.host, port=args.port,
@@ -372,7 +417,7 @@ def _build_server(args):
     _require(stats is not None or not args.norm,
              "--norm needs the shipped stats assets "
              "(a3gc_tpu_torch/assets/stats)")
-    srv = PoseServer(params3, cascade, ParametricModel(),
+    srv = PoseServer(params3, cascade, model,
                      window=args.window, streams=args.streams, stats=stats,
                      normalize=args.norm, host=args.host, port=args.port,
                      max_wait_ms=args.max_wait_ms,
@@ -385,6 +430,133 @@ def _build_server(args):
                      reload_fn=_reloading(lambda: _load_cascade_params(
                          args, cascade, is_graph, device)))
     return srv, args.streams, args.window
+
+
+def _report_path(args, dataset, tag=""):
+    return os.path.join("evaluation_results",
+                        f"{args.model}_{os.path.basename(dataset)}{tag}.txt")
+
+
+def _streaming_tag(args):
+    return (f"stream{args.streaming}"
+            + (f"_K{args.lookahead}" if args.lookahead else "")
+            + (f"_P{args.history}" if args.history else ""))
+
+
+def cmd_evaluate(args):
+    r"""Evaluation on test sets (``--datasets``, npz files of ``preprocess
+    --split test``): the reference's 5-metric table per set, printed and
+    appended to ``evaluation_results/<model>_<set>.txt``. The reference's
+    per-sequence protocol by default; ``--batch_streams N`` folds N
+    sequences of a length bucket into one call; ``--streaming W`` (or
+    ``--quality``) feeds W-frame windows through the serving sessions;
+    ``--save_preds`` dumps per-sequence poses."""
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.data.factory.dipimu import load_test_sequences
+    from a3gc_tpu_torch.eval import CascadeEvaluator, evaluate_sequences
+    from a3gc_tpu_torch.metrics import PoseEvaluator
+    from a3gc_tpu_torch.utils import write_eval_report
+
+    _apply_quality(args)
+    _refuse_waiting_flags(args)
+    _note_ignored_flags(args)
+    _require(args.batch_streams >= 1, "--batch_streams must be >= 1")
+    for dataset in args.datasets:
+        _require(os.path.isfile(dataset), f"no test set {dataset}")
+    device = resolve_device(args.device)
+    model = _load_body_model(args, device)
+    if args.model == "dip":
+        return _evaluate_dip(args, model, device)
+
+    cascade, is_graph = _stage_configs(args)
+    params3 = _load_cascade_params(args, cascade, is_graph, device)
+    stats = _load_stats(args) if args.norm else None
+    _require(stats is not None or not args.norm,
+             "--norm needs the shipped stats assets "
+             "(a3gc_tpu_torch/assets/stats) or stats under --data_root")
+    if args.save_preds and args.batch_streams > 1:
+        print("[a3gc_tpu_torch] --save_preds dumps per-sequence predictions "
+              "and runs the per-sequence protocol; --batch_streams is "
+              "ignored", file=sys.stderr)
+    if (args.lookahead or args.history) and not args.streaming:
+        print("[a3gc_tpu_torch] --lookahead/--history only apply to "
+              "--streaming evaluation; ignored (offline evaluation always "
+              "sees the full sequence)", file=sys.stderr)
+    if args.streaming and args.save_preds:
+        print("[a3gc_tpu_torch] --save_preds runs the offline per-sequence "
+              "protocol; --streaming is ignored", file=sys.stderr)
+    for dataset in args.datasets:
+        sequences = load_test_sequences(dataset)
+        ev = CascadeEvaluator(params3, cascade, model, stats, args.norm,
+                              device=device)
+        if args.save_preds:
+            import pickle
+            from a3gc_tpu_torch.eval import reduced_to_full
+            ev.warmup([s["ori"].shape[0] for s in sequences])
+            mean, seconds, frames, preds = ev.evaluate(sequences,
+                                                       return_preds=True)
+            ds = "dip" if "dip" in dataset else "tc"
+            base = os.path.join("evaluation_results", "sequences", ds,
+                                args.model)
+            for sub in ("gt", "pred"):
+                os.makedirs(os.path.join(base, sub), exist_ok=True)
+            for i, (seq, pred) in enumerate(zip(sequences, preds)):
+                gt = reduced_to_full(seq["pose"].reshape(-1, 15, 3, 3))
+                for sub, arr in (("gt", gt), ("pred", pred)):
+                    with open(os.path.join(base, sub, f"{i:03d}.p"),
+                              "wb") as f:
+                        pickle.dump(arr, f)
+            write_eval_report(_report_path(args, dataset), dataset, seconds,
+                              mean, PoseEvaluator.METRIC_NAMES)
+        elif args.streaming:
+            mean, seconds, frames = ev.evaluate_streaming(
+                sequences, window=args.streaming, lookahead=args.lookahead,
+                history=args.history, batch_streams=args.batch_streams)
+            tag = _streaming_tag(args)
+            write_eval_report(_report_path(args, dataset, f"_{tag}"),
+                              f"{dataset} [{tag}]", seconds, mean,
+                              PoseEvaluator.METRIC_NAMES)
+        elif args.batch_streams > 1:
+            ev.warmup([s["ori"].shape[0] for s in sequences])
+            mean, seconds, frames = ev.evaluate_batched(
+                sequences, streams=args.batch_streams)
+            write_eval_report(_report_path(args, dataset), dataset, seconds,
+                              mean, PoseEvaluator.METRIC_NAMES)
+        else:
+            mean, seconds, frames = evaluate_sequences(
+                params3, cascade, model, sequences, stats=stats,
+                normalize=args.norm, report_path=_report_path(args, dataset),
+                dataset_name=dataset, device=device)
+        print(f"== {dataset}: {frames} frames in {seconds:.3f}s "
+              f"({frames / max(seconds, 1e-9):,.0f} frames/s)")
+        print(PoseEvaluator.format(mean))
+
+
+def _evaluate_dip(args, model, device):
+    r"""Single-net DIP evaluation, offline or (``--streaming``) through the
+    net's online mode; printed, as the JAX CLI does."""
+    from a3gc_tpu_torch.data.factory.dipimu import load_test_sequences
+    from a3gc_tpu_torch.eval import DipEvaluator
+    from a3gc_tpu_torch.metrics import PoseEvaluator
+
+    cfg, params = _load_dip(args, device)
+    stats = _load_stats(args)
+    _require(stats is not None,
+             "DIP evaluation needs normalization stats (the shipped stats "
+             "assets, or stats under --data_root)")
+    ev = DipEvaluator(params, cfg, model, stats, device=device)
+    for dataset in args.datasets:
+        sequences = load_test_sequences(dataset)
+        if args.streaming:
+            mean, seconds, frames = ev.evaluate_streaming(
+                sequences, window=args.streaming, lookahead=args.lookahead,
+                history=args.history, batch_streams=args.batch_streams)
+            print(f"== {dataset} [{_streaming_tag(args)}]: {frames} "
+                  f"frames in {seconds:.3f}s")
+        else:
+            mean, seconds, frames = ev.evaluate(sequences)
+            print(f"== {dataset}: {frames} frames in {seconds:.3f}s")
+        print(PoseEvaluator.format(mean))
 
 
 def cmd_convert(args):
@@ -440,8 +612,8 @@ def cmd_convert(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="a3gc_tpu_torch",
-        description="PyTorch/CUDA port of a3gc_tpu: pose serving and "
-                    "checkpoint conversion")
+        description="PyTorch/CUDA port of a3gc_tpu: pose serving, "
+                    "evaluation and checkpoint conversion")
     sub = p.add_subparsers(dest="command", required=True)
 
     sv = sub.add_parser("serve", help="dynamic-batching HTTP pose serving "
@@ -493,6 +665,43 @@ def build_parser():
     sv.add_argument("--mid3", type=int, default=-1)
     _add_quality_flag(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    e = sub.add_parser("evaluate", help="cascade evaluation on test sets")
+    _add_common_model_flags(e)
+    e.add_argument("--path", type=str, default="",
+                   help="directory of the port's checkpoints")
+    e.add_argument("--torch_checkpoints", nargs="+", default=None,
+                   help="reference .tar checkpoints (stages 1 2 3; just one "
+                        "for --model dip)")
+    e.add_argument("--type", choices=("pretrain", "finetuning"),
+                   default="finetuning")
+    e.add_argument("--mid1", type=int, default=-1)
+    e.add_argument("--mid2", type=int, default=-1)
+    e.add_argument("--mid3", type=int, default=-1)
+    e.add_argument("--datasets", nargs="+", required=True,
+                   help="test npz files (from preprocess --split test)")
+    e.add_argument("--save_preds", action="store_true",
+                   help="dump per-sequence gt/pred poses under "
+                        "evaluation_results/sequences")
+    e.add_argument("--batch_streams", type=int, default=1,
+                   help="evaluate N sequences of a length bucket per call "
+                        "of the cascade (1 = the reference's per-sequence "
+                        "protocol); with --streaming: N session slots")
+    e.add_argument("--mesh", action="store_true",
+                   help="not ported yet: " + _WAITS_FOR["mesh"])
+    _add_quality_flag(e)
+    e.add_argument("--streaming", type=int, default=0, metavar="W",
+                   help="evaluate through the online path: feed each "
+                        "sequence as W-frame windows with carried state "
+                        "(the cli serve code path) and score the emissions "
+                        "with the same 5-metric table")
+    e.add_argument("--lookahead", type=int, default=None, metavar="K",
+                   help="with --streaming: buffer K future windows before "
+                        "each emission (+K windows latency)")
+    e.add_argument("--history", type=int, default=None, metavar="P",
+                   help="with --streaming: re-run up to P past windows as "
+                        "leading context per emission (no added latency)")
+    e.set_defaults(fn=cmd_evaluate)
 
     c = sub.add_parser("convert-checkpoint",
                        help="reference .tar <-> a checkpoint directory of "

@@ -6,3 +6,7 @@ from a3gc_tpu_torch.utils.checkpoint import (  # noqa: F401
     save_params,
     write_params,
 )
+from a3gc_tpu_torch.utils.logging import (  # noqa: F401
+    JsonlLogger,
+    write_eval_report,
+)

@@ -78,8 +78,33 @@ Phases, each printing one JSON line:
                     (6, the S = 1 contract of the kernel), timed, and
                     against the plain path; offline_tp the same for the
                     TransPose cascade, offline_ggru for the G-GRU cascade;
+     evaluate     — ``CascadeEvaluator`` at A3GC full width on a synthetic
+                    test set (16 sequences, lengths from seed 0 in
+                    240-2400 frames, shipped stats, a synthetic SMPL pickle
+                    of 6890 vertices; stage 3's output layer biased to
+                    emit near rotations): per sequence (S = 1), batched at
+                    8 and 16 streams, streaming (W = 60, K = P = 1, 8
+                    slots); per protocol frames/s, the cascade / metrics
+                    split, launches, peak memory, the device's busy share;
+                    batched against per-sequence and, on two sequences cut
+                    to 300 frames, the kernel path against the plain path,
+                    within 1e-3 on the [5, 2] table;
+     evaluate_families — the G-GRU and TransPose cascades batched at S = 8
+                    on four of the sequences, against per-sequence;
+     evaluate_dip — ``DipEvaluator`` (hidden 512) offline and streaming
+                    (K = 1, 8 slots), against the plain path;
+     kernel_eval  — each kernel against its plain version at S = 1,
+                    T = 2048 and S = 8, T = 1024 with ragged n_valid, then
+                    timed at S = 1, T = 2048 and S = 16, T = 1024 (``lstm``
+                    beside cuDNN);
+     cli_evaluate — ``python -m a3gc_tpu_torch.cli evaluate --model a3gc
+                    --norm --smpl <pickle> --batch_streams 8 --datasets
+                    <npz>`` as a subprocess on the evaluate phase's params
+                    as ``.tar`` checkpoints; its report against the
+                    in-process table;
   5. kernels      — the ``{"kernels": [...]}`` line: launches on each
-                    kernel's serving paths, max |d| of phase 2, and per
+                    kernel's serving and evaluation paths, max |d| of the
+                    kernel phases, and per
                     layer shape of those paths (S = 8 and 1, T = 60; S = 8
                     at the buffered ticks' T = 180 and 120) the
                     launch plan (split, cluster or cooperative, CTAs,
@@ -88,7 +113,8 @@ Phases, each printing one JSON line:
                     (CUDA events) beside their bounds, and for ``lstm``
                     cuDNN's ``torch.nn.LSTM`` on the same weights, timed in
                     turns with the kernel (kernel, cuDNN, cuDNN, kernel).
-The line before the last is the card's name and power limit; the last is
+A line of the seconds each phase took precedes the kernels line. The line
+before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that line; so does a machine without CUDA or a directory without the
 package. Imports nothing of JAX or of the JAX package.
@@ -119,8 +145,20 @@ LIBRARIES = ("gcn_lstm", "ggru", "lstm")
 # whole-window valid lengths of a flush over a (P+K+1)·W = 180-frame context
 LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # launch-counted paths: the eight of the plain windows and the offline
-# calls, the five buffered and HTTP ones, and the checkpoint round trips
-N_PATHS = 14
+# calls, the five buffered and HTTP ones, the checkpoint round trips and the
+# three evaluation phases
+N_PATHS = 17
+# evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
+# in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
+EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
+EVAL_STREAMS = (8, 16)      # --batch_streams of the batched protocol
+EVAL_SHORT_T = 300          # the sequences held against the plain path
+TABLE_TOL = 1e-3            # the [5, 2] table: deg, cm, km/s^3, 100 m/s^3
+REPORT_TOL = 0.005 + TABLE_TOL      # the text report rounds to 2 decimals
+# (S, T) of the kernels held against their plain versions at evaluation
+# lengths (ragged n_valid), and of the timed rows (n_valid = T)
+EVAL_KERNEL_SHAPES = ((1, 2048), (8, 1024))
+EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
 
 
 def whole_windows(S, T):
@@ -136,6 +174,64 @@ def ragged(S, T=WINDOW):
 
 KERNEL_S = (1, 3, 8, 12)    # streams of the kernel phases: one and two
                             # stream blocks, a part-filled block
+
+
+def ragged_long(S, T):
+    """Per-stream valid lengths of an evaluation group: full, short and
+    empty streams; one stream: a little short of T."""
+    return [T, T - 24, T // 2, T, 0, 3 * T // 4, T, min(37, T)][:S] \
+        if S > 1 else [T - 48]
+
+
+def eval_sequences(seed=0):
+    """The synthetic test set in the schema of ``load_test_sequences``:
+    EVAL_N sequences with lengths from ``seed`` in [EVAL_MIN_T, EVAL_MAX_T],
+    random rotations in ori [T, 54] and pose [T, 135], acc [T, 18]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(EVAL_MIN_T, EVAL_MAX_T + 1, EVAL_N)
+    return [{"ori": random_rotations(rng, (T, 6)).reshape(T, 54),
+             "acc": rng.normal(scale=0.5, size=(T, 18)).astype(np.float32),
+             "pose": random_rotations(rng, (T, 15)).reshape(T, 135)}
+            for T in lengths]
+
+
+def near_rotation_outputs(net):
+    """Scale the output layer of a net that emits 3x3 rotations by 0.1 and
+    bias it by the identity, so that its random outputs lie near rotations
+    as a trained net's do. The raw 9D outputs of random weights are far
+    from rotations, and the metric table's global-angle rows compose them
+    down the kinematic tree: there a 1e-7 change of the poses moves the
+    SIP error by 0.1 deg, and no two paths could be held to 1e-3."""
+    import torch
+    out = net.linear_out if hasattr(net, "linear_out") else net.linear2
+    with torch.no_grad():
+        out.kernel.mul_(0.1)
+        eye = torch.eye(3, dtype=out.bias.dtype, device=out.bias.device)
+        out.bias.copy_(eye.flatten().repeat(out.bias.numel() // 9))
+    return net
+
+
+def n_groups_sizes(lengths):
+    """Sequences per length bucket of the batched protocol."""
+    from a3gc_tpu_torch.eval import bucket_length
+    buckets = {}
+    for T in lengths:
+        buckets[bucket_length(T)] = buckets.get(bucket_length(T), 0) + 1
+    return list(buckets.values())
+
+
+def n_groups(lengths, S):
+    """Calls of the batched protocol: groups of <= S per length bucket."""
+    return sum(-(-n // S) for n in n_groups_sizes(lengths))
+
+
+def report_table(path):
+    """The [5, 2] table of the last report in an evaluation report file."""
+    with open(path) as f:
+        lines = f.read().splitlines()[-5:]
+    return [[float(line.split(": ")[1].split(" (+/- ")[0]),
+             float(line.split("(+/- ")[1].rstrip(")"))] for line in lines]
 
 
 def emit(obj):
@@ -290,6 +386,7 @@ class Smoke:
         self.max_err = {}
         self.shapes = {name: [] for name in LIBRARIES}
         self.launches = {}          # path -> {kernel: launches}
+        self._eval = None           # the evaluation phases' data
 
     def check(self, ok, what):
         if not ok:
@@ -660,14 +757,31 @@ class Smoke:
     def profile_window(self, sess, inputs):
         """Device time by kernel over a few serving windows, and the
         device's busy share of the wall time."""
+        def run():
+            for ori_w, acc_w in inputs:
+                sess.step(ori_w, acc_w)
+        wall_us, rows = self.profile_device(run)
+        busy = sum(r[0] for r in rows)
+        if busy == 0:
+            return "not measured: the profiler recorded no device time"
+        n = len(inputs)
+        return {"windows": n, "wall_ms_per_window": wall_us / n / 1e3,
+                "device_ms_per_window": busy / n / 1e3,
+                "device_busy_share": busy / wall_us,
+                "top": [{"kernel": k[:80], "ms_per_window": us / n / 1e3,
+                         "calls_per_window": c / n}
+                        for us, k, c in rows[:8]]}
+
+    def profile_device(self, run):
+        """``run()`` under torch.profiler: (wall µs, [(device µs, kernel,
+        calls)] of the device-side kernel events, largest first)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for ori_w, acc_w in inputs:
-                sess.step(ori_w, acc_w)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         from torch.autograd import DeviceType
@@ -682,16 +796,7 @@ class Smoke:
             if dev_us > 0:
                 rows.append((dev_us, ev.key, ev.count))
         rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        if busy == 0:
-            return "not measured: the profiler recorded no device time"
-        n = len(inputs)
-        return {"windows": n, "wall_ms_per_window": wall_us / n / 1e3,
-                "device_ms_per_window": busy / n / 1e3,
-                "device_busy_share": busy / wall_us,
-                "top": [{"kernel": k[:80], "ms_per_window": us / n / 1e3,
-                         "calls_per_window": c / n}
-                        for us, k, c in rows[:8]]}
+        return wall_us, rows
 
     # -- 3b: the buffered sessions and the HTTP front end -----------------
     def phase_kernel_long(self):
@@ -1458,6 +1563,351 @@ class Smoke:
     def phase_offline_ggru(self):
         self.offline("offline_ggru", "ggru", "ggru", (N_NODES, 12))
 
+    # -- 4b: evaluation ------------------------------------------------------
+    def eval_data(self):
+        """The synthetic test set (also as the npz ``cli evaluate`` reads),
+        a synthetic SMPL pickle of EVAL_VERTICES vertices loaded onto the
+        card, the shipped stats; made once, in a temporary directory."""
+        if self._eval is None:
+            import tempfile
+            import numpy as np
+            from a3gc_tpu_torch.data import load_stats
+            from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                             write_synthetic_smpl_pickle)
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+            smpl = write_synthetic_smpl_pickle(
+                os.path.join(tmp, "smpl.pkl"), n_vertices=EVAL_VERTICES)
+            seqs = eval_sequences()
+            npz = os.path.join(tmp, "synthetic_test.npz")
+            np.savez(npz, **{f"seq{i}_{k}": v for i, s in enumerate(seqs)
+                             for k, v in s.items()})
+            self._eval = {"tmp": tmp, "smpl": smpl, "npz": npz,
+                          "seqs": seqs, "stats": load_stats(), "tables": {},
+                          "model": load_parametric_model(smpl,
+                                                         device=self.dev)}
+        return self._eval
+
+    def eval_cascade(self, kind, backend="auto"):
+        """A cascade of ``kind`` at full width from torch.Generator seed 0,
+        its stage 3 emitting near rotations; and its CascadeEvaluator."""
+        from a3gc_tpu_torch.eval import CascadeEvaluator
+        data = self.eval_data()
+        cfg = self.cascade(kind, backend)
+        params3 = self.params3(cfg)
+        near_rotation_outputs(params3[2])
+        return params3, CascadeEvaluator(
+            params3, cfg, data["model"], data["stats"], normalize=True,
+            device=self.dev)
+
+    def eval_mode(self, ev, run):
+        """One protocol, timed: (its [5, 2] table, a record of frames/s,
+        the cascade/metrics split, launches by kernel and peak memory)."""
+        import numpy as np
+        torch = self.torch
+        before = self.counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        mean, seconds, frames = run()[:3]
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        after = self.counts()
+        return mean, {
+            "frames": frames, "seconds": seconds,
+            "frames_per_s": frames / seconds,
+            "cascade_s": ev.split["cascade_s"],
+            "metrics_s": ev.split["metrics_s"],
+            "launches": {k: after[k] - before[k] for k in after},
+            "peak_memory_gib": peak / 2 ** 30,
+            "finite": bool(np.isfinite(mean).all()), "table": mean.tolist()}
+
+    def eval_profile(self, run, n_seqs):
+        """Device busy share and the top device kernels of ``run()``."""
+        try:
+            wall_us, rows = self.profile_device(run)
+        except Exception as e:     # a measurement aid, not a check
+            return f"not measured: the profiler raised {e!r}"
+        busy = sum(r[0] for r in rows)
+        if busy == 0:
+            return "not measured: the profiler recorded no device time"
+        return {"sequences": n_seqs, "wall_ms": wall_us / 1e3,
+                "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+                "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
+                        for us, k, c in rows[:10]]}
+
+    def short_sequences(self):
+        """The first two sequences cut to EVAL_SHORT_T frames."""
+        return [{k: v[:EVAL_SHORT_T] for k, v in s.items()}
+                for s in self.eval_data()["seqs"][:2]]
+
+    def check_launches(self, path, modes, want, kernel):
+        for name, n in want.items():
+            got = modes[name]["launches"]
+            self.check(got == {k: (n if k == kernel else 0) for k in got},
+                       f"{path} {name}: launches {got}, want {n} of {kernel}")
+
+    def phase_evaluate(self):
+        """CascadeEvaluator at A3GC full width on the synthetic test set:
+        per sequence (S = 1, each at its own length), batched at
+        --batch_streams 8 and 16 (groups of a length bucket padded to their
+        longest), and streaming (W = 60, K = P = 1, 8 slots)."""
+        import numpy as np
+        torch = self.torch
+        data = self.eval_data()
+        seqs = data["seqs"]
+        lengths = [int(s["ori"].shape[0]) for s in seqs]
+        t_phase = time.perf_counter()
+        _, ev = self.eval_cascade("a3gc")
+        ev.warmup(lengths)
+        phase_s = {"setup": time.perf_counter() - t_phase}
+        runs = {"per_sequence": lambda: ev.evaluate(seqs)}
+        for S in EVAL_STREAMS:
+            runs[f"batched_{S}"] = (
+                lambda S=S: ev.evaluate_batched(seqs, streams=S))
+        runs["streaming"] = lambda: ev.evaluate_streaming(
+            seqs, window=WINDOW, lookahead=1, history=1,
+            batch_streams=S_SERVE)
+        tables, modes = {}, {}
+        t0 = time.perf_counter()
+        self.zero_counts()                            # the main path starts
+        for name, run in runs.items():
+            tables[name], modes[name] = self.eval_mode(ev, run)
+        counts = self.counts()                        # the main path ended
+        self.launches["evaluate"] = counts
+        data["tables"].update(tables)
+        phase_s["protocols"] = time.perf_counter() - t0
+
+        want = {"per_sequence": 6 * len(seqs)}
+        want.update({f"batched_{S}": 6 * n_groups(lengths, S)
+                     for S in EVAL_STREAMS})
+        self.check_launches("evaluate", modes, want, "gcn_lstm")
+        self.check(modes["streaming"]["launches"]["gcn_lstm"] > 0
+                   and counts["ggru"] == counts["lstm"] == 0,
+                   f"evaluate launches {counts}")
+        self.check(all(m["finite"] for m in modes.values()),
+                   "evaluate: a table is not finite")
+        batched_err = {S: float(np.abs(tables[f"batched_{S}"]
+                                       - tables["per_sequence"]).max())
+                       for S in EVAL_STREAMS}
+        self.check(max(batched_err.values()) <= TABLE_TOL,
+                   f"evaluate batched vs per-sequence: {batched_err}")
+        # the kernel path against the plain path on two short sequences
+        t0 = time.perf_counter()
+        short = self.short_sequences()
+        _, plain = self.eval_cascade("a3gc", "eager")
+        plain_err = float(np.abs(ev.evaluate(short)[0]
+                                 - plain.evaluate(short)[0]).max())
+        self.check(plain_err <= TABLE_TOL,
+                   f"evaluate vs the plain path: {plain_err:.3e}")
+        phase_s["plain_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sub = seqs[:2]          # the profiler's host time grows with events
+        profiles = {
+            "per_sequence": lambda: ev.evaluate(sub),
+            f"batched_{EVAL_STREAMS[0]}": lambda: ev.evaluate_batched(
+                sub, streams=EVAL_STREAMS[0]),
+            "streaming": lambda: ev.evaluate_streaming(
+                sub, window=WINDOW, lookahead=1, history=1,
+                batch_streams=S_SERVE)}
+        for name, run in profiles.items():
+            modes[name]["profile"] = self.eval_profile(run, len(sub))
+        phase_s["profiles"] = time.perf_counter() - t0
+        emit({"phase": "evaluate", "sequences": len(seqs),
+              "lengths": lengths, "frames": sum(lengths),
+              "vertices": EVAL_VERTICES, "hidden": [s[0] for s in STAGES],
+              "modes": modes, "launches": counts,
+              "batched_vs_per_sequence_max_abs_err": batched_err,
+              "plain_path_sequences": [EVAL_SHORT_T] * len(short),
+              "vs_plain_path_max_abs_err": plain_err, "tol": TABLE_TOL,
+              "largest_group": max(n_groups_sizes(lengths)),
+              "phase_s": phase_s, "card": nvidia_smi()})
+
+    def phase_evaluate_families(self):
+        """The G-GRU and TransPose cascades at full width, batched at S = 8
+        on four of the sequences, against their per-sequence tables."""
+        import numpy as np
+        seqs = self.eval_data()["seqs"][:4]
+        lengths = [int(s["ori"].shape[0]) for s in seqs]
+        families = {"ggru": "ggru", "tp": "lstm"}
+        evs, tables, modes = {}, {}, {}
+        for kind in families:
+            evs[kind] = self.eval_cascade(kind)[1]
+            evs[kind].warmup(lengths)
+        self.zero_counts()                            # the main path starts
+        for kind, ev in evs.items():
+            tables[kind], modes[kind] = self.eval_mode(
+                ev, lambda ev=ev: ev.evaluate_batched(seqs, streams=S_SERVE))
+        counts = self.counts()                        # the main path ended
+        self.launches["evaluate_families"] = counts
+        errs = {}
+        for kind, kernel in families.items():
+            self.check_launches(f"evaluate_families {kind}",
+                                {kind: modes[kind]},
+                                {kind: 6 * n_groups(lengths, S_SERVE)},
+                                kernel)
+            errs[kind] = float(np.abs(evs[kind].evaluate(seqs)[0]
+                                      - tables[kind]).max())
+            self.check(modes[kind]["finite"] and errs[kind] <= TABLE_TOL,
+                       f"evaluate_families {kind}: batched vs per-sequence "
+                       f"{errs[kind]:.3e}")
+        emit({"phase": "evaluate_families", "streams": S_SERVE,
+              "lengths": lengths, "modes": modes, "launches": counts,
+              "batched_vs_per_sequence_max_abs_err": errs, "tol": TABLE_TOL,
+              "card": nvidia_smi()})
+
+    def phase_evaluate_dip(self):
+        """DipEvaluator (hidden 512) on the synthetic test set, offline per
+        sequence and streaming (W = 60, K = 1, 8 slots)."""
+        import numpy as np
+        from a3gc_tpu_torch.eval import DipEvaluator
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        data = self.eval_data()
+        seqs = data["seqs"]
+
+        def evaluator(backend):
+            cfg = self.dip_cfg(backend)
+            params = init_pose_net(self.torch.Generator().manual_seed(0),
+                                   cfg).to(self.dev)
+            return DipEvaluator(near_rotation_outputs(params), cfg,
+                                data["model"], data["stats"],
+                                device=self.dev)
+
+        ev = evaluator("auto")
+        short = self.short_sequences()
+        ev.evaluate(short[:1])                        # warm-up
+        runs = {"offline": lambda: ev.evaluate(seqs),
+                "streaming": lambda: ev.evaluate_streaming(
+                    seqs, window=WINDOW, lookahead=1, batch_streams=S_SERVE)}
+        tables, modes = {}, {}
+        self.zero_counts()                            # the main path starts
+        for name, run in runs.items():
+            tables[name], modes[name] = self.eval_mode(ev, run)
+        counts = self.counts()                        # the main path ended
+        self.launches["evaluate_dip"] = counts
+        self.check_launches("evaluate_dip", modes,
+                            {"offline": 2 * len(seqs)}, "lstm")
+        self.check(modes["streaming"]["launches"]["lstm"] > 0
+                   and all(m["finite"] for m in modes.values()),
+                   f"evaluate_dip: {counts}")
+        plain_err = float(np.abs(ev.evaluate(short)[0]
+                                 - evaluator("eager").evaluate(short)[0])
+                          .max())
+        self.check(plain_err <= TABLE_TOL,
+                   f"evaluate_dip vs the plain path: {plain_err:.3e}")
+        modes["offline"]["profile"] = self.eval_profile(
+            lambda: ev.evaluate(seqs[:2]), 2)
+        emit({"phase": "evaluate_dip", "hidden": DIP[0], "modes": modes,
+              "launches": counts, "vs_plain_path_max_abs_err": plain_err,
+              "tol": TABLE_TOL, "card": nvidia_smi()})
+
+    def phase_kernel_eval(self):
+        """Each kernel at evaluation lengths against its plain version
+        (S = 1, T = 2048 and S = 8, T = 1024, ragged n_valid), then timed at
+        S = 1, T = 2048 and S = 16, T = 1024 for the kernels line (the
+        plain version, ≈ 1-2 s a call there, is not timed again)."""
+        from a3gc_tpu_torch.ops import gcn_lstm as G
+        from a3gc_tpu_torch.ops import ggru as GG
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        gen = torch.Generator().manual_seed(9)
+        graph = [s[0] for s in STAGES]
+        cases = [("gcn_lstm", G.bi_gcn_lstm, G.bi_gcn_lstm_reference, graph,
+                  lambda H: self.cell(gen, "a3gc", H, H), True, 2,
+                  gcn_layer_work, "evaluate"),
+                 ("ggru", GG.bi_ggru, GG.bi_ggru_reference, graph,
+                  lambda H: self.cell(gen, "ggru", H, H), True, 1,
+                  ggru_layer_work, "evaluate_families"),
+                 ("lstm", LS.bi_lstm, LS.bi_lstm_reference,
+                  [s[0] for s in TP_STAGES] + [DIP[0]],
+                  lambda H: self.lstm_layer(gen, H, H), False, 2,
+                  lstm_layer_work, None)]
+        rows = []
+        for (name, kernel_fn, plain_fn, widths, make, nodes, n_state, work,
+             path) in cases:
+            for H in widths:
+                p = make(H)
+                for S, T in EVAL_KERNEL_SHAPES:
+                    nv = ragged_long(S, T)
+                    args = self.layer_inputs(gen, S, T, H, H, nv,
+                                             nodes=nodes, n_state=n_state)
+                    errs, ok = self.compare_layer(
+                        name, f"eval H={H} S={S} T={T}", kernel_fn,
+                        plain_fn, (p,) + args)
+                    rows.append({"kernel": name, "H": H, "F": H, "S": S,
+                                 "T": T, "n_valid": nv, "y": errs[0],
+                                 "state": max(errs[1:]), "ok": ok})
+                for S, T in EVAL_TIMED_SHAPES:
+                    x, st, nv = self.layer_inputs(gen, S, T, H, H, [T] * S,
+                                                  nodes=nodes,
+                                                  n_state=n_state)
+                    library = None
+                    if name == "lstm":
+                        with torch.no_grad():
+                            out = LS.bi_lstm(p, x, st)
+                        library = self.cudnn_lstm(p, x, st, kernel_out=out)
+                    self.time_layer(
+                        name, path or ("evaluate_dip" if H == DIP[0]
+                                       else "evaluate_families"),
+                        S, H, H, p, (x, st, nv), work, library=library,
+                        reps=3, plain_reps=0)
+        emit({"phase": "kernel_eval", "tol": KERNEL_TOL,
+              "max_abs_err": max(r["y"] for r in rows),
+              "max_abs_err_state": max(r["state"] for r in rows),
+              "n_cases": len(rows), "all_ok": all(r["ok"] for r in rows),
+              "cases": rows})
+
+    def phase_cli_evaluate(self):
+        """``python -m a3gc_tpu_torch.cli evaluate --model a3gc --norm --smpl
+        <pickle> --batch_streams 8 --datasets <npz>`` as a subprocess, on
+        the evaluate phase's params written as reference ``.tar``
+        checkpoints; its report against the in-process batched table."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch.compat import torch_export as TE
+        data = self.eval_data()
+        params3, _ = self.eval_cascade("a3gc")
+        cwd = tempfile.mkdtemp(prefix="chip_smoke_cli_eval_")
+        try:
+            tars = []
+            for i, p in enumerate(params3):
+                tars.append(os.path.join(cwd, f"s{i + 1}.tar"))
+                TE.save_torch_checkpoint(tars[-1],
+                                         TE.graph_net_state_dict(p, "a3gc"))
+            argv = ["evaluate", "--model", "a3gc", "--norm", "--smpl",
+                    data["smpl"], "--batch_streams", str(S_SERVE),
+                    "--datasets", data["npz"], "--torch_checkpoints"] + tars
+            env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv, cwd=cwd,
+                env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            report = os.path.join(
+                cwd, "evaluation_results",
+                f"a3gc_{os.path.basename(data['npz'])}.txt")
+            ok = proc.returncode == 0 and os.path.isfile(report)
+            self.check(ok, f"cli evaluate exited {proc.returncode}:\n"
+                       + proc.stderr[-3000:])
+            if not ok:
+                return
+            got = np.asarray(report_table(report))
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+        want = data["tables"][f"batched_{S_SERVE}"]
+        err = float(np.abs(got - want).max())
+        self.check(err <= REPORT_TOL,
+                   f"cli evaluate report vs in-process: {err:.3e}")
+        line = [l for l in proc.stdout.splitlines() if l.startswith("== ")]
+        emit({"phase": "cli_evaluate", "argv": argv[:6] + ["..."],
+              "wall_s": wall, "summary": line, "report_table": got.tolist(),
+              "report_max_abs_err_vs_in_process": err, "tol": REPORT_TOL,
+              "card": nvidia_smi()})
+
+    def cleanup(self):
+        if self._eval is not None:
+            import shutil
+            shutil.rmtree(self._eval["tmp"], ignore_errors=True)
+
     # -- 5 ---------------------------------------------------------------
     def plan_record(self, name, S, H, D=2):
         """The launch plan of a weight-stationary kernel at this shape, with
@@ -1486,7 +1936,7 @@ class Smoke:
         return rec
 
     def time_layer(self, name, path, S, F, H, layer, args, work,
-                   library=None):
+                   library=None, reps=20, plain_reps=3):
         mod = importlib.import_module(f"a3gc_tpu_torch.ops.{name}")
         torch = self.torch
         T = args[0].shape[1]
@@ -1501,9 +1951,11 @@ class Smoke:
             order = list(calls) + list(reversed(calls))
             times = {k: 0.0 for k in calls}
             for k in order:
-                times[k] += cuda_ms(calls[k], 20) / 2
+                times[k] += cuda_ms(calls[k], reps) / 2
             plain = getattr(mod, f"bi_{name}_reference")
-            plain_ms = cuda_ms(lambda: plain(layer, *args), 3, warmup=1)
+            plain_ms = (cuda_ms(lambda: plain(layer, *args), plain_reps,
+                                warmup=int(plain_reps > 1))
+                        if plain_reps else None)
         D = 2
         if name == "lstm":
             from a3gc_tpu_torch.ops import lstm as LS
@@ -1517,10 +1969,12 @@ class Smoke:
             "bound_ms": b_ms, "bound_by": b_by, "scan_bound_ms": sb_ms,
             "scan_bound_by": sb_by, "plan": self.plan_record(name, S, H, D)})
 
-    def cudnn_lstm(self, p, x, st):
+    def cudnn_lstm(self, p, x, st, kernel_out=None):
         """cuDNN's torch.nn.LSTM on the layer's weights (one direction or
         two, as the layer has), checked against the plain version at
-        n_valid = T; returns the call to time."""
+        n_valid = T (or against ``kernel_out``, the kernel's output there,
+        where the plain version is too slow to run again); returns the call
+        to time."""
         from a3gc_tpu_torch.ops import lstm as LS
         torch = self.torch
         D = LS.directions(p)
@@ -1539,12 +1993,14 @@ class Smoke:
             # torch.nn.LSTM's state is [D, S, H] either way
             cst = st if D == 2 else tuple(t[None] for t in st)
             got = mod(x, cst)
-            want = LS.bi_lstm_reference(p, x, st)
+            want = (LS.bi_lstm_reference(p, x, st) if kernel_out is None
+                    else kernel_out)
         torch.cuda.synchronize()
         err = max(float((a.reshape(b.shape) - b).abs().max())
                   for a, b in zip(leaves(got), leaves(want)))
         self.check(err <= KERNEL_TOL,
-                   f"cuDNN LSTM vs plain H={H} F={F} D={D}: {err:.3e}")
+                   f"cuDNN LSTM vs {'plain' if kernel_out is None else 'kernel'}"
+                   f" H={H} F={F} D={D} T={x.shape[1]}: {err:.3e}")
         return lambda: mod(x, cst)
 
     def phase_times(self):
@@ -1606,7 +2062,8 @@ class Smoke:
             "gcn_lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:92 (_kernel), "
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
                          "(_dirfused_kernel)",
-                         ("serving", "buffered", "http", "checkpoints"),
+                         ("serving", "buffered", "http", "checkpoints",
+                          "evaluate"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -1614,7 +2071,8 @@ class Smoke:
                          "no PyTorch call mixes a per-gate graph adjacency "
                          "and joint attention into an LSTM recurrence"),
             "ggru": ("a3gc_tpu/ops/pallas_gcn_lstm.py:412 (_ggru_kernel)",
-                     ("serving_ggru", "checkpoints"), ggru_layer_work,
+                     ("serving_ggru", "checkpoints", "evaluate_families"),
+                     ggru_layer_work,
                      "the six layer calls of one G-GRU serving window "
                      "(3 stages x rnn1/rnn2, S=8, T=60), bi_ggru including "
                      "its hoisted input projection",
@@ -1623,7 +2081,8 @@ class Smoke:
             "lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:580 (_lstm_kernel)",
                      ("serving_tp", "serving_dip", "buffered_dip",
                       "http_dip", "serving_dip_uni", "buffered_dip_uni",
-                      "checkpoints"), lstm_layer_work,
+                      "checkpoints", "evaluate_families", "evaluate_dip"),
+                     lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
                      "plus the two of one DIP serving window plus the two "
                      "of one unidirectional DIP serving window (D=1) (S=8, "
@@ -1693,15 +2152,26 @@ def main():
               smoke.phase_http, smoke.phase_http_dip, smoke.phase_cli_serve,
               smoke.phase_checkpoints, smoke.phase_cli_serve_checkpoints,
               smoke.phase_offline, smoke.phase_offline_tp,
-              smoke.phase_offline_ggru, smoke.phase_times)
-    for phase in phases:
-        try:
-            phase()
-        except Exception:
-            smoke.failures.append(f"{phase.__name__} raised:\n"
-                                  + traceback.format_exc())
-            if phase is smoke.phase_device:
-                break
+              smoke.phase_offline_ggru, smoke.phase_evaluate,
+              smoke.phase_evaluate_families, smoke.phase_evaluate_dip,
+              smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
+              smoke.phase_times)
+    try:
+        seconds = {}
+        for phase in phases:
+            t1 = time.perf_counter()
+            try:
+                phase()
+            except Exception:
+                smoke.failures.append(f"{phase.__name__} raised:\n"
+                                      + traceback.format_exc())
+                if phase is smoke.phase_device:
+                    break
+            finally:
+                seconds[phase.__name__[6:]] = time.perf_counter() - t1
+    finally:
+        smoke.cleanup()
+    emit({"phase_seconds": seconds})
     if all(smoke.shapes.values()) and len(smoke.launches) == N_PATHS:
         smoke.kernels_line()
     banned = sorted(m for m in sys.modules

@@ -556,3 +556,115 @@ def test_torch_port_checkpoint_round_trip_onto_card(family, tmp_path):
                 assert a.is_cuda and torch.equal(a, b)
             got, got_state = apply(other, net, x)
             assert torch.equal(got, want)
+
+
+def _rotations(rng, n):
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=1).reshape(n, 3, 3).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("third", [0.3, 1e-4, -0.2, -1e-4])
+def test_torch_port_project_to_rotation_on_card_equals_cpu(third):
+    """cuSOLVER gives U and V other signs than LAPACK; U·Vᵀ with the
+    determinant fix does not depend on them: 1e-5 on proper,
+    near-singular and reflected matrices, 100k of them in one batch."""
+    _need_card()
+    from a3gc_tpu_torch.ops import rotations as R
+    rng = np.random.default_rng(0)
+    n = 100_000
+    u, v = _rotations(rng, n), _rotations(rng, n)
+    m = np.einsum("nij,j,nkj->nik", u, np.array([1.0, 0.5, third],
+                                                np.float32), v)
+    m = torch.as_tensor(m.astype(np.float32))
+    cpu = R.project_to_rotation(m)
+    card = R.project_to_rotation(m.cuda()).cpu()
+    assert float((card - cpu).abs().max()) <= 1e-5
+    ang_cpu = R.angle_between(m, torch.as_tensor(_rotations(rng, n)))
+    assert torch.isfinite(ang_cpu).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [False, True])
+def test_torch_port_metrics_on_card_equal_cpu(mesh, tmp_path):
+    """FK, LBS and the [11, 2] table on the card against the CPU on the
+    same near-rotation poses, 1e-4 relative."""
+    _need_card()
+    from a3gc_tpu_torch.metrics import full_motion_metrics
+    from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                     write_synthetic_smpl_pickle)
+    path = write_synthetic_smpl_pickle(str(tmp_path / "smpl.pkl"),
+                                       n_vertices=6890)
+    rng = np.random.default_rng(1)
+    N = 600
+    pt = _rotations(rng, N * 24).reshape(N, 24, 3, 3)
+    pp = pt + 0.05 * rng.normal(size=pt.shape).astype(np.float32)
+    got = full_motion_metrics(load_parametric_model(path), pp, pt,
+                              n_valid=550, joint_mask=(1, 2, 16, 17),
+                              with_mesh=mesh)
+    want = full_motion_metrics(load_parametric_model(path, device="cpu"),
+                               pp, pt, n_valid=550,
+                               joint_mask=(1, 2, 16, 17), with_mesh=mesh)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a3gc", "ggru", "tp"])
+def test_torch_port_cascade_evaluator_on_card_matches_eager(kind, tmp_path):
+    """The three protocols through the kernels against the plain path on
+    the card, hidden 16, stage 3's outputs near rotations (biased to the
+    identity): 1e-3 on the [5, 2] table."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.eval import CascadeEvaluator
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                init_pose_net)
+    from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                     write_synthetic_smpl_pickle)
+    model = load_parametric_model(write_synthetic_smpl_pickle(
+        str(tmp_path / "smpl.pkl"), n_vertices=192))
+
+    def cfg(backend):
+        if kind == "tp":
+            return CascadeConfig(*(PoseNetConfig(net=N.DIPConfig(
+                n_input=ni, n_output=no, n_hidden=16, backend=backend),
+                rotsize=rot) for ni, no, rot in
+                ((72, 15, 3), (87, 69, 3), (141, 135, 9))))
+        return CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+            cell=kind, units_in=ui, units_out=uo, units_hidden=16,
+            backend=backend), rotsize=rot) for ui, uo, rot in
+            ((12, 3, 3), (15, 3, 3), (15, 9, 9))))
+
+    gen = torch.Generator().manual_seed(0)
+    params3 = tuple(init_pose_net(gen, c, load_adjacency_template()).cuda()
+                    for c in cfg("auto").stages)
+    out = (params3[2].linear2 if kind == "tp" else params3[2].linear_out)
+    with torch.no_grad():
+        out.kernel.mul_(0.1)
+        out.bias.copy_(torch.eye(3).flatten().repeat(
+            out.bias.numel() // 9).cuda())
+    rng = np.random.default_rng(2)
+    seqs = [{"ori": _rotations(rng, T * 6).reshape(T, 54),
+             "acc": rng.normal(scale=0.5, size=(T, 18)).astype(np.float32),
+             "pose": _rotations(rng, T * 15).reshape(T, 135)}
+            for T in (70, 130, 200)]
+    evs = {b: CascadeEvaluator(params3, cfg(b), model, load_stats(),
+                               normalize=True) for b in ("auto", "eager")}
+    for protocol, kw in (("evaluate", {}),
+                         ("evaluate_batched", {"streams": 2}),
+                         ("evaluate_streaming", {"window": 30,
+                                                 "lookahead": 1,
+                                                 "history": 1})):
+        got, want = (getattr(evs[b], protocol)(seqs, **kw)[0]
+                     for b in ("auto", "eager"))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3,
+                                   err_msg=protocol)

@@ -91,16 +91,99 @@ def test_torch_port_cli_shipped_stats_match_jax_cli():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--smpl", "smpl_male.pkl"], "item 4"),
-    (["--data_root", "data"], "item 4"),
-    (["--artifact", "bundle"], "item 13"),
-    (["--mesh"], "item 14"),
-    (["--model", "dip", "--data_root", "data"], "item 4"),
+    (["serve", "--artifact", "bundle"], "item 13"),
+    (["serve", "--mesh"], "item 14"),
+    (["evaluate", "--mesh", "--datasets", "test.npz"], "item 14"),
+    (["evaluate", "--model", "dip", "--batch_streams", "8", "--mesh",
+      "--datasets", "test.npz"], "item 14"),
 ])
 def test_torch_port_cli_refuses_flags_of_later_slices(argv, item):
     with pytest.raises(SystemExit) as ei:
-        TCLI.main(["serve", "--device", "cpu"] + argv)
+        TCLI.main(argv[:1] + ["--device", "cpu"] + argv[1:])
     assert "ROADMAP Queue 1 " + item in str(ei.value)
+
+
+@pytest.fixture(scope="module")
+def smpl_pickle(tmp_path_factory):
+    from a3gc_tpu.smpl import write_synthetic_smpl_pickle
+    return write_synthetic_smpl_pickle(
+        str(tmp_path_factory.mktemp("smpl") / "smpl.pkl"), n_vertices=96)
+
+
+def _data_root(tmp_path, smpl_pickle):
+    """A data root in the JAX config's layout: the male SMPL pickle and
+    stats that differ from the shipped ones."""
+    import shutil
+    root = tmp_path / "root"
+    (root / "models").mkdir(parents=True)
+    (root / "stats").mkdir()
+    shutil.copy(smpl_pickle, root / "models" / TCLI._SMPL_MALE.split("/")[1])
+    stats = {k: v * 1.5 for k, v in TCLI._load_stats(
+        TCLI.build_parser().parse_args(["serve"])).items()}
+    np.savez(root / "stats" / "all_train_stats.npz", **stats)
+    return str(root), stats
+
+
+def _same_model(ours, ref):
+    assert ours.parent == tuple(ref.parent)
+    for name in ("j_regressor", "skinning_weights", "posedirs", "shapedirs",
+                 "v_template", "joints_template"):
+        np.testing.assert_array_equal(getattr(ours, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+
+
+@pytest.mark.parametrize("case", ["smpl", "data_root", "missing_smpl",
+                                  "dip_data_root"])
+def test_torch_port_cli_serve_loads_body_model_and_stats(case, tmp_path,
+                                                         smpl_pickle,
+                                                         capsys):
+    """``--smpl`` and ``--data_root`` locate the SMPL file (and the stats)
+    as the JAX CLI's ``_load_body_model`` / ``_load_stats`` do; a missing
+    file falls back to the synthetic body model with a note; the server
+    built on them answers a step."""
+    import threading
+    from a3gc_tpu.smpl import load_parametric_model as jax_load
+    from a3gc_tpu.smpl import synthetic_smpl_data as jax_synthetic
+    root, stats = _data_root(tmp_path, smpl_pickle)
+    argv = {"smpl": ["--smpl", smpl_pickle],
+            "data_root": ["--data_root", root, "--norm"],
+            "missing_smpl": ["--smpl", str(tmp_path / "nope.pkl")],
+            "dip_data_root": ["--data_root", root, "--model", "dip"]}[case]
+    if case == "dip_data_root":
+        from a3gc_tpu_torch.compat import torch_export as TE
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        tar = str(tmp_path / "dip.tar")
+        args = TCLI.build_parser().parse_args(["serve", "--hu1", "8"])
+        TE.save_torch_checkpoint(tar, TE.dip_state_dict(init_pose_net(
+            torch.Generator().manual_seed(0), TCLI._dip_config(args))))
+        argv += ["--torch_checkpoints", tar]
+    args = TCLI.build_parser().parse_args(
+        ["serve", "--device", "cpu", "--port", "0", "--streams", "2",
+         "--window", "4", "--hu1", "8", "--hu2", "8", "--hu3", "8"] + argv)
+    TCLI._apply_quality(args)
+    model = TCLI._load_body_model(args, "cpu")
+    assert model.device == torch.device("cpu")
+    if case == "missing_smpl":
+        assert "synthetic body model" in capsys.readouterr().err
+        data = jax_synthetic()
+        np.testing.assert_array_equal(model.v_template.numpy(),
+                                      data["v_template"].astype(np.float32))
+        np.testing.assert_array_equal(model.j_regressor.numpy(),
+                                      data["J_regressor"].astype(np.float32))
+    else:
+        _same_model(model, jax_load(smpl_pickle))
+    if "data_root" in case:
+        got = TCLI._load_stats(args)
+        for k in stats:
+            np.testing.assert_array_equal(got[k], stats[k])
+    srv, streams, window = TCLI._build_server(args)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        with PoseClient(*srv.address[:2], timeout=30.0, retry_s=5.0) as c:
+            pose = c.step(*_windows(1, window, seed=3)[0])
+        assert pose.shape == (window, 24, 3, 3) and np.isfinite(pose).all()
+    finally:
+        srv.shutdown()
 
 
 @pytest.mark.parametrize("argv,noted", [
@@ -207,3 +290,167 @@ def test_torch_port_cli_exec_recycle_preserves_sessions(tmp_path):
         proc.wait()
         err = proc.stderr.read()
     assert "recycled: restored 2 live session(s)" in err, err
+
+
+def _subparser(build, name):
+    import argparse
+    sub = next(a for a in build()._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices[name]
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--quality", "balanced"], ["--quality", "max", "--streaming", "30"],
+    ["--streaming", "60", "--lookahead", "1", "--history", "0",
+     "--batch_streams", "4"],
+    ["--model", "tp", "--batch_streams", "8", "--save_preds", "--norm",
+     "--cda", "--rotsize", "6"],
+    ["--model", "dip", "--hu1", "512", "--torch_checkpoints", "dip.tar",
+     "--smpl", "m.pkl", "--data_root", "d", "--precision", "highest"],
+    ["--path", "runs/x", "--type", "pretrain", "--mid1", "3", "--mid2", "4",
+     "--mid3", "5", "--mesh", "--profile", "p", "--debug_nans",
+     "--compilation_cache", "c"],
+])
+def test_torch_port_cli_evaluate_flags_match_jax_cli(argv):
+    """Every flag of the JAX CLI's ``evaluate`` parses, with its default;
+    the quality presets resolve alike (a preset implies --streaming)."""
+    argv = argv + ["--datasets", "a.npz", "b.npz"]
+    ours = TCLI.build_parser().parse_args(["evaluate"] + argv)
+    ref = JCLI.build_parser().parse_args(["evaluate"] + argv)
+    assert ours.fn is TCLI.cmd_evaluate and ours.device == "cuda"
+    jax_flags = {a.dest for a in _subparser(JCLI.build_parser,
+                                            "evaluate")._actions} - {"help"}
+    our_flags = {a.dest for a in _subparser(TCLI.build_parser,
+                                            "evaluate")._actions} - {"help"}
+    assert jax_flags <= our_flags and our_flags - jax_flags == {"device"}
+    for flag in jax_flags:
+        assert getattr(ours, flag) == getattr(ref, flag), flag
+    TCLI._apply_quality(ours)
+    JCLI._apply_quality(ref)
+    for flag in ("streaming", "lookahead", "history"):
+        assert getattr(ours, flag) == getattr(ref, flag), flag
+
+
+def _test_set(path, lengths, seed):
+    from torch_port_oracle import eval_sequences
+    seqs = eval_sequences(lengths, seed=seed)
+    np.savez(path, **{f"seq{i}_{k}": v for i, s in enumerate(seqs)
+                      for k, v in s.items()})
+    return seqs
+
+
+def _report_table(path):
+    """The [5, 2] table of the last report in a report file."""
+    with open(path) as f:
+        lines = f.read().splitlines()[-5:]
+    return np.array([[float(line.split(": ")[1].split(" (+/- ")[0]),
+                      float(line.split("(+/- ")[1].rstrip(")"))]
+                     for line in lines])
+
+
+@pytest.mark.parametrize("mode", ["per_sequence", "batched", "streaming",
+                                  "save_preds"])
+def test_torch_port_cli_evaluate_writes_report(mode, tmp_path, smpl_pickle,
+                                               monkeypatch, capsys):
+    """``evaluate --device cpu`` end to end on a tiny test npz: the report
+    (and the prediction dumps) the JAX CLI writes, with the table of the
+    in-process evaluator on the same fresh init."""
+    import pickle
+    from a3gc_tpu_torch.eval import CascadeEvaluator
+    from a3gc_tpu_torch.smpl import load_parametric_model
+    data = str(tmp_path / "dip_test.npz")
+    seqs = _test_set(data, (40, 75, 50), seed=11)
+    extra = {"per_sequence": [], "batched": ["--batch_streams", "2"],
+             "streaming": ["--quality", "balanced", "--streaming", "20"],
+             "save_preds": ["--save_preds"]}[mode]
+    argv = ["evaluate", "--device", "cpu", "--hu1", "8", "--hu2", "8",
+            "--hu3", "8", "--norm", "--smpl", smpl_pickle,
+            "--datasets", data] + extra
+    monkeypatch.chdir(tmp_path)
+    TCLI.main(argv)
+    out = capsys.readouterr().out
+    assert f"== {data}: {sum(s['ori'].shape[0] for s in seqs)} frames" in out
+
+    args = TCLI.build_parser().parse_args(argv)
+    TCLI._apply_quality(args)
+    cascade, is_graph = TCLI._stage_configs(args)
+    ev = CascadeEvaluator(
+        TCLI._init_cascade_params(cascade, is_graph, "cpu"), cascade,
+        load_parametric_model(smpl_pickle, device="cpu"),
+        TCLI._load_stats(args), normalize=True, device="cpu")
+    if mode == "streaming":
+        want = ev.evaluate_streaming(seqs, window=20, lookahead=1,
+                                     history=1)[0]
+        report = tmp_path / "evaluation_results" / \
+            "a3gc_dip_test.npz_stream20_K1_P1.txt"
+    else:
+        # the same protocol in process: a fresh init's raw 9D outputs are far
+        # from rotations, where the global-angle rows move by 0.1 deg at a
+        # 1e-7 change of the poses, so another protocol's sums would not do
+        want = (ev.evaluate_batched(seqs, streams=2) if mode == "batched"
+                else ev.evaluate(seqs))[0]
+        report = tmp_path / "evaluation_results" / "a3gc_dip_test.npz.txt"
+    np.testing.assert_allclose(_report_table(report), want, rtol=0,
+                               atol=0.0051)
+    if mode == "save_preds":
+        base = tmp_path / "evaluation_results" / "sequences" / "dip" / "a3gc"
+        for i, seq in enumerate(seqs):
+            with open(base / "pred" / f"{i:03d}.p", "rb") as f:
+                pred = pickle.load(f)
+            with open(base / "gt" / f"{i:03d}.p", "rb") as f:
+                gt = pickle.load(f)
+            T = seq["ori"].shape[0]
+            assert pred.shape == gt.shape == (T, 24, 3, 3)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_torch_port_cli_evaluate_dip(streaming, tmp_path, smpl_pickle,
+                                     capsys):
+    from a3gc_tpu_torch.compat import torch_export as TE
+    from a3gc_tpu_torch.eval import DipEvaluator
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.smpl import load_parametric_model
+    data = str(tmp_path / "test.npz")
+    seqs = _test_set(data, (33, 61), seed=12)
+    args = TCLI.build_parser().parse_args(
+        ["evaluate", "--model", "dip", "--hu1", "8", "--datasets", data])
+    cfg = TCLI._dip_config(args)
+    params = init_pose_net(torch.Generator().manual_seed(5), cfg)
+    tar = str(tmp_path / "dip.tar")
+    TE.save_torch_checkpoint(tar, TE.dip_state_dict(params))
+    argv = ["evaluate", "--device", "cpu", "--model", "dip", "--hu1", "8",
+            "--smpl", smpl_pickle, "--torch_checkpoints", tar,
+            "--datasets", data] + (["--streaming", "16", "--lookahead", "1",
+                                    "--batch_streams", "2"]
+                                   if streaming else [])
+    TCLI.main(argv)
+    out = capsys.readouterr().out
+    ev = DipEvaluator(params, cfg,
+                      load_parametric_model(smpl_pickle, device="cpu"),
+                      TCLI._load_stats(args), device="cpu")
+    want = (ev.evaluate_streaming(seqs, window=16, lookahead=1,
+                                  batch_streams=2) if streaming
+            else ev.evaluate(seqs))[0]
+    assert ("[stream16_K1]" in out) == streaming and "94 frames" in out
+    got = np.array([[float(x) for x in line.split(": ")[1].replace(
+        "(+/- ", "").rstrip(")").split()]
+        for line in out.splitlines()[-5:]])
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.0051)
+
+
+def test_torch_port_cli_evaluate_refuses_missing_test_sets(tmp_path):
+    with pytest.raises(SystemExit, match="no test set"):
+        TCLI.main(["evaluate", "--device", "cpu", "--datasets",
+                   str(tmp_path / "none.npz")])
+
+
+def test_torch_port_cli_evaluate_runs_on_the_card_by_default(tmp_path):
+    """Without ``--device cpu`` the command asks for the card, and raises
+    on a machine without one rather than falling back to the CPU."""
+    data = str(tmp_path / "test.npz")
+    _test_set(data, (10,), seed=13)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TCLI.main(["evaluate", "--hu1", "8", "--hu2", "8", "--hu3", "8",
+                   "--datasets", data])

@@ -4,8 +4,10 @@ unidirectional) through DipStreamingSession on the CPU, a served step
 through a3gc_tpu_torch.serve, .client and .cli, a checkpoint written,
 discovered, restored, exported to a reference ``.tar`` and imported back
 (a3gc_tpu_torch.utils, .compat.torch_export, .compat.torch_import, ``cli
-convert-checkpoint``), ``forward_offline`` and ``pose_loss`` load no jax,
-flax or a3gc_tpu module. And the package data ships every kernel source and
+convert-checkpoint``), ``forward_offline`` and ``pose_loss``, and evaluation (a synthetic SMPL
+pickle loaded, the metrics, ``CascadeEvaluator`` in its three protocols,
+``DipEvaluator``, ``compare_models``, ``cli evaluate``) load no jax, flax or
+a3gc_tpu module. And the package data ships every kernel source and
 header."""
 
 import fnmatch
@@ -110,6 +112,41 @@ out = forward_offline(back, cfg.stage1, ParametricModel(),
                       torch.zeros(1, 4, 15, 12))
 assert out.shape == (1, 4, 15, 3)
 assert float(pose_loss(out, out)) == 0.0
+# evaluation: the body model, metrics, evaluators, worst frames, the CLI
+from a3gc_tpu_torch.eval import (CascadeEvaluator, DipEvaluator,
+                                 compare_models)
+from a3gc_tpu_torch.metrics import PoseEvaluator, full_motion_metrics
+from a3gc_tpu_torch.ops import kinematics, rotations
+from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                 write_synthetic_smpl_pickle)
+from a3gc_tpu_torch.utils import JsonlLogger, write_eval_report
+smpl = write_synthetic_smpl_pickle(os.path.join(tmp, "smpl.pkl"),
+                                   n_vertices=48)
+model = load_parametric_model(smpl, device="cpu")
+seqs = [{"ori": np.tile(np.eye(3, dtype=np.float32), (T, 6, 1, 1)
+                        ).reshape(T, 54),
+         "acc": rng.normal(size=(T, 18)).astype(np.float32),
+         "pose": np.tile(np.eye(3, dtype=np.float32), (T, 15, 1, 1)
+                         ).reshape(T, 135)} for T in (9, 14)]
+ev = CascadeEvaluator(tuple(init_pose_net(gen, c, nira) for c in cfg.stages),
+                      cfg, model, load_stats(), normalize=True, device="cpu")
+for table in (ev.evaluate(seqs)[0], ev.evaluate_batched(seqs, 2)[0],
+              ev.evaluate_streaming(seqs, window=4, lookahead=1)[0]):
+    assert table.shape == (5, 2) and np.isfinite(table).all()
+assert DipEvaluator(init_pose_net(gen, dip, nira), dip, model, load_stats(),
+                    device="cpu").evaluate(seqs)[0].shape == (5, 2)
+pose = np.tile(np.eye(3, dtype=np.float32), (8, 24, 1, 1))
+assert full_motion_metrics(model, pose, pose).shape == (11, 2)
+compare_models(model, [pose], [pose], [pose], k=1)
+npz = os.path.join(tmp, "test.npz")
+np.savez(npz, **{f"seq{i}_{k}": v for i, s in enumerate(seqs)
+                 for k, v in s.items()})
+os.chdir(tmp)
+a3gc_tpu_torch.cli.main(["evaluate", "--device", "cpu", "--hu1", "8",
+                         "--hu2", "8", "--hu3", "8", "--smpl", smpl,
+                         "--datasets", npz])
+assert os.path.isfile(os.path.join("evaluation_results",
+                                   "a3gc_test.npz.txt"))
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

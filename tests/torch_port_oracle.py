@@ -100,3 +100,26 @@ def state_leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [a for t in tree for a in state_leaves(t)]
     return [tree.numpy() if hasattr(tree, "numpy") else np.asarray(tree)]
+
+
+def random_rotations(rng, shape):
+    """Uniform random rotation matrices [*shape, 9] (normalized Gaussian
+    quaternions), fp32."""
+    q = rng.normal(size=shape + (4,))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = np.moveaxis(q, -1, 0)
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=-1).astype(np.float32)
+
+
+def eval_sequences(lengths, seed=0):
+    """Synthetic test sequences in the schema ``load_test_sequences`` reads:
+    ori [T, 54] and pose [T, 135] rotation matrices, acc [T, 18]."""
+    rng = np.random.default_rng(seed)
+    return [{"ori": random_rotations(rng, (T, 6)).reshape(T, 54),
+             "acc": rng.normal(scale=0.5, size=(T, 18)).astype(np.float32),
+             "pose": random_rotations(rng, (T, 15)).reshape(T, 135)}
+            for T in lengths]

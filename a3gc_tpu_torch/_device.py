@@ -34,8 +34,18 @@ def check_module_device(module: torch.nn.Module, device: torch.device,
                 f"them with .to({str(device)!r})")
 
 
-@lru_cache(maxsize=None)
 def index_tensor(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     r"""A cached int64 index tensor on ``device``, so that gathers and
-    scatters on the card do not copy a host index on every call."""
+    scatters on the card do not copy a host index on every call. Under
+    ``torch.export`` tracing the tensor is made anew and not cached: it is
+    a traced (fake) tensor there, which becomes a constant of the program
+    and must not outlive the trace."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=torch.long, device=device)
+    return _cached_index_tensor(values, device)
+
+
+@lru_cache(maxsize=None)
+def _cached_index_tensor(values: Tuple[int, ...],
+                         device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.long, device=device)

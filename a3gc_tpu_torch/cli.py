@@ -1,5 +1,6 @@
 r"""Command-line interface of the port (counterpart of ``a3gc_tpu/cli.py``):
-the ``serve``, ``evaluate`` and ``convert-checkpoint`` subcommands.
+the ``serve``, ``stream``, ``export``, ``evaluate`` and
+``convert-checkpoint`` subcommands.
 
 Usage:
     python -m a3gc_tpu_torch.cli serve --torch_checkpoints s1.tar s2.tar \
@@ -9,6 +10,12 @@ Usage:
     python -m a3gc_tpu_torch.cli serve --model dip --hu1 512 \
         --torch_checkpoints dip.tar              # the single DIP net
     python -m a3gc_tpu_torch.cli serve --device cpu ...
+    python -m a3gc_tpu_torch.cli export --norm --streams 1 8 --window 60 \
+        --lookahead 1 --history 1 --output exported/a3gc   # a bundle
+    python -m a3gc_tpu_torch.cli serve --artifact exported/a3gc \
+        --streams 8 --quality balanced           # no checkpoint needed
+    python -m a3gc_tpu_torch.cli stream --input test.npz [--artifact DIR |
+        --torch_checkpoints ...] [--streams 8 | --pipelined | --evaluate]
     python -m a3gc_tpu_torch.cli evaluate --model a3gc --norm \
         --smpl basicModel_m.pkl --datasets test.npz [--batch_streams 8 |
         --streaming 60 --lookahead 1 --history 1 | --save_preds]
@@ -25,8 +32,10 @@ for stage i); ``--model dip`` from a checkpoint only. The body model is the
 SMPL pickle of ``--smpl`` (default: ``models/basicModel_m_lbs_10_207_0_
 v1.1.0.pkl`` under ``--data_root``), or a synthetic one when that file is
 missing; the normalization stats those under ``--data_root``, else the
-shipped copies. A deployment artifact, a mesh of cards and the other
-subcommands wait for later slices (see ROADMAP.md, Queue 1).
+shipped copies. ``export`` writes a deployment artifact
+(:mod:`a3gc_tpu_torch.export`) that ``serve`` and ``stream`` run with
+``--artifact`` and nothing else. A mesh of cards and the other subcommands
+wait for later slices (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -54,8 +63,6 @@ QUALITY_PRESETS = {
 # flags of the JAX CLI that the port parses and refuses: what each waits
 # for
 _WAITS_FOR = {
-    "artifact": "--artifact (serving a deployment artifact) waits for "
-                "ROADMAP Queue 1 item 13",
     "mesh": "--mesh (streams sharded over several cards) waits for ROADMAP "
             "Queue 1 item 14",
 }
@@ -306,16 +313,22 @@ def _dip_config(args):
         rotsize=args.rotsize)
 
 
-def _load_dip(args, device):
+def _load_dip(args, device, allow_init=False):
     r"""The DIP net's config and params, from ``--torch_checkpoints`` (one
     ``.tar``) or ``--path`` discovery (stage 1, ``--mid1``); DIP serves a
-    trained checkpoint only."""
+    trained checkpoint only. ``allow_init`` (export) takes a fresh init,
+    ``torch.Generator`` seed 0, when neither is given."""
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
     from a3gc_tpu_torch.utils import discover_latest
 
     cfg = _dip_config(args)
     if args.torch_checkpoints:
         return cfg, _import_tar(args.torch_checkpoints[0], cfg, "dip",
                                 device)
+    if allow_init and not args.path:
+        import torch
+        return cfg, init_pose_net(torch.Generator().manual_seed(0),
+                                  cfg).to(device)
     _require(args.path, "--model dip serves a trained checkpoint: give "
                         "--torch_checkpoints DIP.tar or --path DIR")
     found = discover_latest(args.path, 1, phase=args.type,
@@ -353,6 +366,21 @@ def _note_ignored_flags(args):
               "compilation cache", file=sys.stderr)
 
 
+def _note_export_flags(args):
+    r"""One note on stderr for ``export --backend / --platforms``, which
+    choose how XLA lowers the JAX package's artifact: a port artifact always
+    holds the three kernel ops (the kernels on the card, their plain
+    versions on the CPU) and runs where it was exported, or where
+    ``load_exported(device=)`` moves it."""
+    given = [f"--backend {args.backend}"] if args.backend != "xla" else []
+    if args.platforms:
+        given.append("--platforms " + " ".join(args.platforms))
+    if given:
+        print(f"[a3gc_tpu_torch] ignoring {' '.join(given)}: a port "
+              "artifact is a torch.export program of the kernel ops, "
+              "exported on --device", file=sys.stderr)
+
+
 def cmd_serve(args):
     r"""Dynamic-batching HTTP pose serving (see a3gc_tpu_torch/serve.py):
     up to --streams concurrent clients share ONE multi-stream step;
@@ -384,9 +412,20 @@ def _build_server(args):
     from a3gc_tpu_torch._device import resolve_device
     from a3gc_tpu_torch.serve import PoseServer
 
+    device = resolve_device(args.device)
+    if args.artifact:
+        # serve straight from a deployment artifact: no checkpoint, stats
+        # or SMPL file (geometry from the manifest; for a bundle,
+        # --streams/--window select the geometry)
+        session = _artifact_session(args, device)
+        srv = PoseServer(None, None, None, host=args.host, port=args.port,
+                         max_wait_ms=args.max_wait_ms, session=session,
+                         lookahead=args.lookahead, history=args.history,
+                         recycle_rss_mb=args.recycle_rss_mb,
+                         allow_recycle=True)
+        return srv, session.streams, session.window
     args.window = args.window or 60
     args.streams = args.streams or 8
-    device = resolve_device(args.device)
     model = _load_body_model(args, device)
     if args.model == "dip":
         # the single DIP net behind the same batcher: raw IMU in, full
@@ -430,6 +469,377 @@ def _build_server(args):
                      reload_fn=_reloading(lambda: _load_cascade_params(
                          args, cascade, is_graph, device)))
     return srv, args.streams, args.window
+
+
+def _artifact_session(args, device):
+    r"""The session over ``--artifact``: an ``ArtifactSession`` on the
+    geometry ``--streams`` / ``--window`` select, or with ``--lookahead`` /
+    ``--history`` an ``ArtifactLookaheadSession`` over a bundle from
+    ``export --lookahead K --history P``. A missing or unreadable artifact
+    exits naming why."""
+    from a3gc_tpu_torch.export import (ArtifactLookaheadSession,
+                                       ArtifactSession, ExportedBundle,
+                                       load_exported)
+    _require(os.path.isdir(args.artifact),
+             f"no artifact directory {args.artifact}")
+    try:
+        if args.lookahead or args.history:
+            return ArtifactLookaheadSession(
+                ExportedBundle(args.artifact, device), streams=args.streams,
+                window=args.window, lookahead=args.lookahead,
+                history=args.history)
+        return ArtifactSession(load_exported(
+            args.artifact, streams=args.streams, window=args.window,
+            device=device))
+    except (KeyError, ValueError, FileNotFoundError) as e:
+        raise SystemExit(f"error: {args.artifact}: {e}")
+
+
+def cmd_stream(args):
+    r"""Online streaming inference: fixed-size IMU windows of the packed
+    test npz ``--input`` flow through a session with per-stage recurrent
+    state carried across windows (a live session on checkpoints, or
+    ``--artifact``). Writes the predicted poses (``--output``), prints ONE
+    JSON line of latency and throughput."""
+    import json as _json
+    import time as _time
+
+    import numpy as np
+
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.data.factory.dipimu import load_test_sequences
+    from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                               StreamingCascade)
+
+    _apply_quality(args)
+    _refuse_waiting_flags(args)
+    _note_ignored_flags(args)
+    _require(not (args.pipelined and (args.lookahead or args.history)),
+             "--pipelined does not compose with --lookahead/--history "
+             "(both buffer windows); drop one")
+    _require(not (args.evaluate and (args.streams or 1) > 1),
+             "--evaluate runs the per-sequence streaming path; drop "
+             "--streams")
+    _require(os.path.isfile(args.input), f"no input npz {args.input}")
+    device = resolve_device(args.device)
+    sequences = load_test_sequences(args.input)
+    model = None                    # loaded on demand for --evaluate
+    if args.artifact:
+        # geometry from the manifest (--streams/--window select within a
+        # bundle); no checkpoint, stats or model file needed
+        _require(not args.pipelined,
+                 "--pipelined drives the live session; artifacts use "
+                 "plain step()")
+        sess = _artifact_session(args, device)
+        if args.lookahead or args.history:
+            _require(sess.streams == 1,
+                     "artifact lookahead/history streaming is "
+                     "single-stream here; multi-client buffered serving "
+                     "is `serve --artifact --lookahead/--history`")
+        args.window, args.streams = sess.window, sess.streams
+        if sess.streams > 1:
+            _require(not args.evaluate,
+                     "--evaluate needs a single-stream session; select "
+                     "a streams=1 geometry from the bundle (--streams 1)")
+            return _stream_multi(args, sess, sequences)
+    else:
+        args.window = args.window or 60
+        args.streams = args.streams or 1
+        model = _load_body_model(args, device)
+        if args.model == "dip":
+            stats = _load_stats(args)
+            _require(stats is not None,
+                     "dip streaming needs the shipped stats assets "
+                     "(a3gc_tpu_torch/assets/stats)")
+            cfg, params = _load_dip(args, device)
+            sess = DipStreamingSession(
+                params, cfg, model, window=args.window, stats=stats,
+                streams=args.streams, lookahead=args.lookahead,
+                history=args.history, device=device)
+        else:
+            cascade, is_graph = _stage_configs(args)
+            params3 = _load_cascade_params(args, cascade, is_graph, device)
+            stats = _load_stats(args) if args.norm else None
+            _require(stats is not None or not args.norm,
+                     "--norm needs the shipped stats assets "
+                     "(a3gc_tpu_torch/assets/stats)")
+            sess = StreamingCascade(
+                params3, cascade, model, window=args.window, stats=stats,
+                normalize=args.norm, streams=args.streams,
+                lookahead=args.lookahead, history=args.history,
+                device=device)
+        if args.streams > 1:
+            return _stream_multi(args, sess, sequences)
+    W = args.window
+
+    # warm up (kernel builds, first launches) outside the timed region;
+    # buffered modes reach the steady-state emission at step P+K+1
+    for _ in range(args.lookahead + args.history + 1):
+        sess.step(sequences[0]["ori"][:W], sequences[0]["acc"][:W])
+    if args.lookahead:
+        sess.flush()
+    sess.reset()
+
+    latencies = []
+    outputs = []
+    for si, seq in enumerate(sequences):
+        sess.reset()
+        T = (seq["ori"].shape[0] // W) * W
+        poses = []
+        for t0 in range(0, T, W):
+            t = _time.perf_counter()
+            if args.pipelined:
+                pose = sess.step_async(seq["ori"][t0:t0 + W],
+                                       seq["acc"][t0:t0 + W])
+            else:
+                pose = sess.step(seq["ori"][t0:t0 + W],
+                                 seq["acc"][t0:t0 + W])
+            dt = _time.perf_counter() - t
+            # lagged modes: the first steps of a sequence only buffer (no
+            # device work); only emissions are latency samples
+            if pose is not None or not (args.pipelined or args.lookahead):
+                latencies.append(dt)
+            if pose is not None:
+                poses.append(pose)
+        if args.pipelined or args.lookahead:
+            t = _time.perf_counter()
+            tail = sess.flush()
+            latencies.append(_time.perf_counter() - t)
+            if tail is not None:
+                poses.append(tail)
+        if poses:
+            outputs.append((si, np.concatenate(poses)))
+
+    if args.output:
+        np.savez(args.output, **{f"pose_{i:03d}": p
+                                 for i, (_, p) in enumerate(outputs)})
+    stats_line = {
+        "window": W,
+        "pipelined": bool(args.pipelined),
+        "lookahead": int(args.lookahead),
+        "history": int(args.history),
+    }
+    if args.evaluate:
+        # the reference 5-metric table on the streamed emissions: the
+        # accuracy of this (window, K, P) configuration against the npz's
+        # ground truth
+        import torch
+
+        from a3gc_tpu_torch.eval import reduced_to_full
+        from a3gc_tpu_torch.metrics import PoseEvaluator
+
+        body = model if model is not None else _load_body_model(args, device)
+        pe = PoseEvaluator(body)
+        metrics, ev_frames = [], 0
+        for si, pred in outputs:
+            Tp = pred.shape[0]
+            gt = reduced_to_full(
+                sequences[si]["pose"][:Tp].reshape(Tp, 15, 3, 3))
+            metrics.append(pe(torch.as_tensor(pred, device=device),
+                              torch.as_tensor(gt, device=device))
+                           .cpu().numpy())
+            ev_frames += Tp
+        mean = np.stack(metrics).mean(axis=0)
+        print(PoseEvaluator.format(mean))
+        stats_line["evaluated_frames"] = ev_frames
+        stats_line["sip_deg"] = round(float(mean[0, 0]), 3)
+    lat = np.asarray(latencies) * 1e3
+    stats_line.update({
+        "windows": int(lat.size),
+        "latency_ms_mean": round(float(lat.mean()), 3),
+        "latency_ms_p50": round(float(np.percentile(lat, 50)), 3),
+        "latency_ms_p99": round(float(np.percentile(lat, 99)), 3),
+        "frames_per_sec": round(W / (lat.mean() / 1e3), 1),
+    })
+    print(_json.dumps(stats_line))
+
+
+def _stream_multi(args, sess, sequences):
+    r"""Multiplexed online serving: S independent clients share ONE
+    multi-stream step per window. Sequences are assigned to client slots
+    round-robin; a slot's state is reset when its sequence ends while the
+    other slots keep streaming. Prints ONE JSON line of aggregate latency
+    and throughput."""
+    import json as _json
+    import time as _time
+
+    import numpy as np
+
+    S, W = args.streams, args.window
+
+    def slot_feed(playlist):
+        for seq in playlist:
+            T = (seq["ori"].shape[0] // W) * W
+            for t0 in range(0, T, W):
+                yield (seq["ori"].reshape(-1, 54)[t0:t0 + W],
+                       seq["acc"].reshape(-1, 18)[t0:t0 + W], t0 == 0)
+
+    feeds = [slot_feed(sequences[i::S]) for i in range(S)]
+    zero_o, zero_a = np.zeros((W, 54), np.float32), np.zeros((W, 18),
+                                                             np.float32)
+
+    lookahead = getattr(args, "lookahead", 0)
+    history = getattr(args, "history", 0)
+    # warm up outside the timed region; buffered modes need P+K+1 steps to
+    # reach the steady-state emission, plus the flush
+    for _ in range(lookahead + history + 1):
+        sess.step(np.zeros((S, W, 54), np.float32),
+                  np.zeros((S, W, 18), np.float32))
+    if lookahead:
+        sess.flush()
+    sess.reset()
+
+    latencies, total_frames, ticks = [], 0, 0
+    live = [True] * S
+    started = [False] * S
+    while any(live):
+        ori = np.empty((S, W, 54), np.float32)
+        acc = np.empty((S, W, 18), np.float32)
+        act_vec = np.zeros(S, np.float32)
+        active = 0
+        for i in range(S):
+            nxt = next(feeds[i], None) if live[i] else None
+            if nxt is None:
+                live[i] = False
+                ori[i], acc[i] = zero_o, zero_a
+                continue
+            o, a, is_start = nxt
+            if is_start and started[i]:
+                sess.reset(stream=i)     # client i starts a new sequence
+            started[i] = True
+            ori[i], acc[i] = o, a
+            act_vec[i] = 1.0
+            active += 1
+        if active == 0:
+            break
+        t = _time.perf_counter()
+        if args.pipelined:
+            # submit-side latency; device execution overlaps the next
+            # window's host work (see StreamingCascade.step_async)
+            sess.step_async(ori, acc)
+            total_frames += active * W
+        elif lookahead or history:
+            # per-slot buffered emission: count only EMITTED frames
+            _, emitted = sess.step(ori, acc, active=act_vec)
+            total_frames += int(emitted.sum()) * W
+        else:
+            sess.step(ori, acc)
+            total_frames += active * W
+        latencies.append(_time.perf_counter() - t)
+        ticks += 1
+    if lookahead and ticks:
+        # drain each slot's buffered tail
+        t = _time.perf_counter()
+        tails = sess.flush()
+        latencies.append(_time.perf_counter() - t)
+        total_frames += sum(0 if tl is None else len(tl)
+                            for tl in (tails if isinstance(tails, list)
+                                       else [tails]))
+    if args.pipelined and ticks:
+        # drain the last in-flight window inside the timing, so that
+        # frames_per_sec counts only executed-and-fetched work
+        t = _time.perf_counter()
+        sess.flush()
+        latencies.append(_time.perf_counter() - t)
+
+    if ticks == 0:
+        print(_json.dumps({
+            "streams": S, "window": W, "windows": 0,
+            "error": f"no sequence reaches the {W}-frame window; "
+                     f"use a smaller --window"}))
+        return
+    lat = np.asarray(latencies) * 1e3
+    print(_json.dumps({
+        "streams": S,
+        "window": W,
+        "pipelined": bool(args.pipelined),   # latency = submit-side then
+        "lookahead": lookahead,
+        "history": history,
+        "windows": ticks,
+        "latency_ms_mean": round(float(lat.mean()), 3),
+        "latency_ms_p50": round(float(np.percentile(lat, 50)), 3),
+        "latency_ms_p99": round(float(np.percentile(lat, 99)), 3),
+        "frames_per_sec": round(total_frames / max(lat.sum() / 1e3, 1e-9),
+                                1),
+    }))
+
+
+def cmd_export(args):
+    r"""Deployment export: the windowed streaming program (normalize →
+    scatter → 3 stages → IK, carried state, per-slot masking; or the one
+    DIP net) as a ``torch.export`` artifact directory, with the
+    parameters, the stats and the body model's tree baked in. It runs with
+    torch and this package alone: no checkpoint, stats or SMPL file. Export
+    on the card (the default ``--device``) to serve there."""
+    _apply_quality(args)
+    _note_ignored_flags(args)
+    _note_export_flags(args)
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.export import (export_bundle,
+                                       export_streaming_cascade,
+                                       export_streaming_dip,
+                                       lookahead_geometries, save_exported)
+
+    device = resolve_device(args.device)
+    model = _load_body_model(args, device)
+    cascade, is_graph = _stage_configs(args)
+    if cascade is None:
+        # the single DIP net: stats are baked in unconditionally (the DIP
+        # input always normalizes)
+        stats = _load_stats(args)
+        _require(stats is not None,
+                 "dip export needs normalization stats (the shipped stats "
+                 "assets, or stats under --data_root)")
+        net_cfg, net_params = _load_dip(args, device, allow_init=True)
+    else:
+        net_cfg, net_params = cascade, _load_cascade_params(
+            args, cascade, is_graph, device)
+        stats = _load_stats(args) if args.norm else None
+        _require(stats is not None or not args.norm,
+                 "--norm needs the shipped stats assets "
+                 "(a3gc_tpu_torch/assets/stats)")
+
+    geometries = [(s, w) for s in args.streams for w in args.window]
+    if args.lookahead or args.history:
+        # lookahead/history serving needs the emission and flush window
+        # multiples; appended, so the bundle's first entry stays the
+        # user's first (streams, window), which select() defaults to
+        extra = [g for w in args.window
+                 for g in lookahead_geometries(args.streams, w,
+                                               args.lookahead,
+                                               args.history)]
+        seen = set(geometries)
+        for g in extra:     # window multiples of different --window
+            if g not in seen:   # values coincide
+                geometries.append(g)
+                seen.add(g)
+    if len(geometries) > 1:
+        export_bundle(args.output, net_params, net_cfg, model, geometries,
+                      stats=stats, normalize=args.norm)
+        total = sum(os.path.getsize(os.path.join(dp, f))
+                    for dp, _, fs in os.walk(args.output) for f in fs)
+        print(f"exported bundle of {len(geometries)} geometries "
+              f"{geometries} (device={device}) -> {args.output} "
+              f"({total:,} bytes)")
+        return
+
+    (streams, window), = geometries
+    if cascade is None:
+        ep, manifest = export_streaming_dip(
+            net_params, net_cfg, model, window=window, streams=streams,
+            stats=stats)
+    else:
+        ep, manifest = export_streaming_cascade(
+            net_params, net_cfg, model, window=window, streams=streams,
+            stats=stats, normalize=args.norm)
+    save_exported(args.output, ep, manifest)
+    sizes = {f: os.path.getsize(os.path.join(args.output, f))
+             for f in os.listdir(args.output)}
+    print(f"exported {manifest['family']} "
+          f"{'net' if cascade is None else 'cascade'} "
+          f"(window={manifest['window']}, streams={manifest['streams']}, "
+          f"device={manifest['device']}) -> {args.output} "
+          f"({sum(sizes.values()):,} bytes)")
 
 
 def _report_path(args, dataset, tag=""):
@@ -612,8 +1022,9 @@ def cmd_convert(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="a3gc_tpu_torch",
-        description="PyTorch/CUDA port of a3gc_tpu: pose serving, "
-                    "evaluation and checkpoint conversion")
+        description="PyTorch/CUDA port of a3gc_tpu: pose serving and "
+                    "streaming, deployment export, evaluation and "
+                    "checkpoint conversion")
     sub = p.add_subparsers(dest="command", required=True)
 
     sv = sub.add_parser("serve", help="dynamic-batching HTTP pose serving "
@@ -648,7 +1059,10 @@ def build_parser():
     sv.add_argument("--mesh", action="store_true",
                     help="not ported yet: " + _WAITS_FOR["mesh"])
     sv.add_argument("--artifact", type=str, default="",
-                    help="not ported yet: " + _WAITS_FOR["artifact"])
+                    help="serve a `cli export` deployment artifact "
+                         "(geometry from its manifest, --streams/--window "
+                         "select within a bundle; no checkpoint, stats or "
+                         "SMPL file)")
     sv.add_argument("--path", type=str, default="",
                     help="serve the latest checkpoints of this directory "
                          "(checkpoint_model{stage}_{type}_{epoch}, the "
@@ -665,6 +1079,96 @@ def build_parser():
     sv.add_argument("--mid3", type=int, default=-1)
     _add_quality_flag(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    st = sub.add_parser("stream", help="online streaming inference "
+                        "(windowed, carried recurrent state)")
+    _add_common_model_flags(st)
+    st.add_argument("--input", type=str, required=True,
+                    help="packed test npz (from preprocess)")
+    st.add_argument("--window", type=int, default=None,
+                    help="frames per streaming window (default 60 = 1 s "
+                         "at 60 fps; with --artifact: bundle geometry "
+                         "selector)")
+    st.add_argument("--output", type=str, default="",
+                    help="npz to write predicted pose sequences to")
+    st.add_argument("--pipelined", action="store_true",
+                    help="overlap device execution with the host round-trip "
+                         "(results lag one window; StreamingCascade."
+                         "step_async)")
+    st.add_argument("--lookahead", type=int, nargs="?", const=1,
+                    default=None, metavar="K",
+                    help="K-window lookahead (bare flag = 1): each emitted "
+                         "window's backward direction also sees the next K "
+                         "windows, at K windows of latency")
+    st.add_argument("--evaluate", action="store_true",
+                    help="after streaming, score the emissions against "
+                         "the npz ground truth with the reference 5-metric "
+                         "table")
+    st.add_argument("--history", type=int, nargs="?", const=1,
+                    default=None, metavar="P",
+                    help="P-window history (bare flag = 1): each emission "
+                         "re-runs up to P already-emitted past windows as "
+                         "leading context, at no added latency")
+    st.add_argument("--streams", type=int, default=None,
+                    help="multiplex N independent clients through one "
+                         "multi-stream step (per-client state and reset); "
+                         "aggregate stats printed (with --artifact: bundle "
+                         "geometry selector)")
+    st.add_argument("--mesh", action="store_true",
+                    help="not ported yet: " + _WAITS_FOR["mesh"])
+    st.add_argument("--artifact", type=str, default="",
+                    help="stream through a `cli export` deployment artifact "
+                         "(geometry from its manifest; ignores checkpoint, "
+                         "stats and model flags)")
+    st.add_argument("--path", type=str, default="")
+    st.add_argument("--torch_checkpoints", nargs="+", default=None)
+    st.add_argument("--type", choices=("pretrain", "finetuning"),
+                    default="finetuning")
+    st.add_argument("--mid1", type=int, default=-1)
+    st.add_argument("--mid2", type=int, default=-1)
+    st.add_argument("--mid3", type=int, default=-1)
+    _add_quality_flag(st)
+    st.set_defaults(fn=cmd_stream)
+
+    ex = sub.add_parser("export", help="deployment export: the streaming "
+                        "program as a torch.export artifact (params, stats "
+                        "and body tree baked in)")
+    _add_common_model_flags(ex)
+    ex.add_argument("--output", type=str, required=True,
+                    help="artifact directory to write")
+    ex.add_argument("--window", type=int, nargs="+", default=[60],
+                    help="window size(s); several values (or several "
+                         "--streams) produce a multi-geometry BUNDLE: one "
+                         "directory indexing a sub-artifact per "
+                         "(streams, window) pair")
+    ex.add_argument("--streams", type=int, nargs="+", default=[1],
+                    help="serving slots of the program (several values -> "
+                         "bundle)")
+    ex.add_argument("--lookahead", type=int, default=None, metavar="K",
+                    help="also export the window multiples a lookahead-K "
+                         "deployment needs ({W..(K+1)W} per stream count) "
+                         "so `serve/stream --artifact --lookahead K` can "
+                         "run buffered emissions from the bundle")
+    ex.add_argument("--history", type=int, default=None, metavar="P",
+                    help="also export the window multiples a history-P "
+                         "deployment needs ({W..(P+K+1)W} per stream "
+                         "count) for `serve/stream --artifact --history`")
+    ex.add_argument("--backend", choices=("xla", "pallas"), default="xla",
+                    help="accepted for the JAX CLI's command lines and "
+                         "ignored (how XLA lowers the JAX artifact); a port "
+                         "artifact holds the kernel ops")
+    ex.add_argument("--platforms", nargs="+", default=None,
+                    help="accepted and ignored (the JAX artifact's lowering "
+                         "platforms); the artifact runs on --device")
+    ex.add_argument("--path", type=str, default="")
+    ex.add_argument("--torch_checkpoints", nargs="+", default=None)
+    ex.add_argument("--type", choices=("pretrain", "finetuning"),
+                    default="finetuning")
+    ex.add_argument("--mid1", type=int, default=-1)
+    ex.add_argument("--mid2", type=int, default=-1)
+    ex.add_argument("--mid3", type=int, default=-1)
+    _add_quality_flag(ex)
+    ex.set_defaults(fn=cmd_export)
 
     e = sub.add_parser("evaluate", help="cascade evaluation on test sets")
     _add_common_model_flags(e)

@@ -135,9 +135,13 @@ def check_ones_prefix(frame_mask):
     ones-prefix (valid frames, then only padding), the form the layers can
     take as per-row lengths. Checked where the mask lies on the host (numpy,
     a list, a CPU tensor); a mask already on the card is taken as it is, so
-    that the sessions' own whole-row masks add no host sync."""
-    if frame_mask is None or (isinstance(frame_mask, torch.Tensor)
-                              and frame_mask.device.type != "cpu"):
+    that the sessions' own whole-row masks add no host sync, and so is a
+    mask being traced by ``torch.export``, which has no values (the
+    artifact sessions of :mod:`a3gc_tpu_torch.export` check theirs before
+    it enters the program)."""
+    if frame_mask is None or torch.compiler.is_compiling() or (
+            isinstance(frame_mask, torch.Tensor)
+            and frame_mask.device.type != "cpu"):
         return
     m = (frame_mask.detach().numpy() if isinstance(frame_mask, torch.Tensor)
          else np.asarray(frame_mask))

@@ -1,11 +1,15 @@
 r"""Build the port's CUDA sources with nvcc into a shared library with a
 plain C interface, and load it with ctypes.
 
-The library is built at first use into ``build/kernels/`` beside the
-package (a directory git ignores), named by a hash of the source, every
-header in ``csrc/`` and the flags, so that an edited source or header is
-never served by a stale build. Nothing
-here runs at import: the CPU-only test machines have no nvcc.
+The library is built at first use into :func:`build_dir`, named by a hash
+of the source, every header in ``csrc/`` and the flags
+(:func:`library_digest`), so that an edited source or header is never
+served by a stale build. The directory is ``$A3GC_TORCH_BUILD_DIR`` where
+that is set, else ``build/kernels/`` two directories above the package:
+the repository root in a checkout (``build/`` is git-ignored there),
+beside ``site-packages`` in an install, which had better set the
+variable. Nothing here runs at import: the CPU-only test machines have no
+nvcc.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import tempfile
 import threading
 import time
 
-__all__ = ["load_library", "library_digest", "NVCC_FLAGS"]
+__all__ = ["load_library", "library_digest", "build_dir", "NVCC_FLAGS"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -29,9 +33,18 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+BUILD_DIR_ENV = "A3GC_TORCH_BUILD_DIR"
+
 _lock = threading.Lock()      # guards _name_locks
 _name_locks = {}              # one lock per library: builds run in parallel
 _loaded = {}
+
+
+def build_dir() -> str:
+    r"""Where the kernel libraries are built and looked up:
+    ``$A3GC_TORCH_BUILD_DIR`` where it is set (read at each build, so a
+    caller may set it before the first launch), else ``BUILD_DIR``."""
+    return os.path.abspath(os.environ.get(BUILD_DIR_ENV) or BUILD_DIR)
 
 
 class BuiltLibrary:
@@ -80,13 +93,14 @@ def load_library(name: str) -> BuiltLibrary:
             return _loaded[name]
         src = os.path.join(_CSRC, name + ".cu")
         digest = library_digest(name)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        out = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir, f"{name}_{digest}.so")
         log_path = out + ".log"
         seconds = 0.0
         if not os.path.isfile(out):
             nvcc = _nvcc()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
             t0 = time.perf_counter()

@@ -10,9 +10,12 @@ the hidden units, keep their slice of the recurrent weights in shared
 memory (and registers) for the whole window, and exchange h and the
 attention sums through distributed shared memory each frame (``st.async``
 stores completing on the receiver's mbarriers).
-:func:`launch_plan` chooses C. On a CPU tensor it computes
-:func:`bi_gcn_lstm_reference`, the plain PyTorch version of the same
-function; on a CUDA tensor it launches the kernel or raises.
+:func:`launch_plan` chooses C. The launch is the CUDA implementation of
+the registered op ``a3gc_tpu_torch::gcn_lstm_scan``
+(:mod:`a3gc_tpu_torch.ops.library`), whose CPU implementation is
+:func:`scan_reference`, the plain PyTorch version of the same function: on
+a CPU tensor :func:`bi_gcn_lstm` computes it, on a CUDA tensor it launches
+the kernel or raises.
 
 The function, for x [S, T, N, F], state2 (h, c) each [2, S, N, H] and
 per-stream ``n_valid`` [S]:
@@ -32,6 +35,7 @@ the training slice (ROADMAP Queue 1 item 11).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -45,7 +49,8 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         n_valid_tensor as _n_valid)
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
-           "launch_plan", "max_active", "scan", "scan_inputs", "smem_bytes"]
+           "launch_plan", "max_active", "scan", "scan_inputs",
+           "scan_reference", "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
@@ -121,27 +126,40 @@ def launch_plan(N: int, H: int, attention: bool,
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
                           state2, n_valid=None):
     r"""The plain PyTorch version of :func:`bi_gcn_lstm` — the same function
-    on any device, built from the cells' hoisted step and the masked
-    bidirectional scan. The CPU path and the tests use it; on the card it
-    is what the kernel is held to."""
-    x = _f32(x)
-    h2, c2 = (_f32(s) for s in state2)
-    S, T, N, F = x.shape
-    H = params2.bias.shape[-1]
-    u = torch.matmul(x.reshape(1, S * T * N, F), params2.kernel[:, :F])
-    u = u.reshape(2, S, T, N, 4 * H).transpose(1, 2)           # [2,T,S,N,4H]
-    seq_stack = torch.stack((u[0], u[1].flip(0)))
-    nv = _n_valid(n_valid, S, T, x.device)
-    frame_mask = (torch.arange(T, device=x.device)[None] < nv[:, None])
+    on any device: :func:`scan_inputs`, then :func:`scan_reference`. The
+    tests use it; on the card it is what the kernel is held to."""
+    y, h, c = scan_reference(*scan_inputs(params2, x, state2, n_valid))
+    return y, (h, c)
+
+
+def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
+                   bias: torch.Tensor, attention: Optional[tuple],
+                   h0: torch.Tensor, c0: torch.Tensor,
+                   n_valid: torch.Tensor):
+    r"""The plain PyTorch version of :func:`scan`, on the same hoisted
+    inputs and any device: the cells' hoisted step in the masked
+    bidirectional scan. The CPU implementation of the registered op
+    (:mod:`a3gc_tpu_torch.ops.library`)."""
+    T = u.shape[2]
+    H = bias.shape[-1]
+    ut = u.transpose(1, 2)                                     # [2,T,S,N,4H]
+    seq_stack = torch.stack((ut[0], ut[1].flip(0)))
+    frame_mask = (torch.arange(T, device=u.device)[None]
+                  < n_valid[:, None])
+    att = None
+    if attention is not None:
+        w, wq, wh_att, u_att, bs, bu = attention
+        att = SimpleNamespace(w=w, wq=wq, wh=wh_att, u=u_att.reshape(2, H, 1),
+                              bs=bs, bu=bu)
+    cell = SimpleNamespace(adj=adj, bias=bias, attention=att)
 
     def step(p, u_t, st):
-        return C.gcn_lstm_step_hoisted(p, u_t, st,
-                                       hidden_kernel=p.kernel[:, F:])
+        return C.gcn_lstm_step_hoisted(p, u_t, st, hidden_kernel=wh)
 
-    hs, (h, c) = L.bi_rnn_precomputed(step, params2, seq_stack, (h2, c2),
+    hs, (h, c) = L.bi_rnn_precomputed(step, cell, seq_stack, (h0, c0),
                                       frame_mask=frame_mask)
     y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
-    return torch.tanh(y), (h, c)
+    return torch.tanh(y), h, c
 
 
 def _library():
@@ -210,16 +228,22 @@ def bi_gcn_lstm(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
                 n_valid=None):
     r"""Bidirectional graph-LSTM layer: x [S, T, N, F], state2 (h, c) each
     [2, S, N, H], ``n_valid`` None | int | [S] → (y [S, T, N, 2H], (h, c)).
-    CPU tensors take :func:`bi_gcn_lstm_reference`; CUDA tensors launch the
-    kernel (one launch, both directions) or raise."""
-    if not x.is_cuda:
-        return bi_gcn_lstm_reference(params2, x, state2, n_valid)
-    if torch.is_grad_enabled():
+    Hoists the input projection (:func:`scan_inputs`) and calls the
+    registered op ``a3gc_tpu_torch::gcn_lstm_scan``
+    (:mod:`a3gc_tpu_torch.ops.library`), as a loaded ``torch.export``
+    program does: on CUDA tensors it launches the kernel (one launch, both
+    directions) or raises, on CPU tensors it computes
+    :func:`scan_reference`."""
+    if x.is_cuda and torch.is_grad_enabled():
         raise RuntimeError(
             "bi_gcn_lstm: the CUDA kernel is forward-only; call it under "
             "torch.no_grad() or torch.inference_mode() (gradients come with "
             "the training slice, ROADMAP Queue 1 item 11)")
-    y, h, c = scan(*scan_inputs(params2, x, state2, n_valid))
+    from a3gc_tpu_torch.ops.library import gcn_lstm_scan
+    u, wh, adj, bias, att, h0, c0, nv = scan_inputs(params2, x, state2,
+                                                    n_valid)
+    y, h, c = gcn_lstm_scan(u, wh, adj, bias, *(att or (None,) * 6), h0, c0,
+                            nv)
     return y, (h, c)
 
 

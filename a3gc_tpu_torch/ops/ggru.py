@@ -19,9 +19,12 @@ which took 1.3-1.6× the time. The same function with its sums in another
 order: within 5e-7 of the plain version on an H100 (within 4e-6 at twice
 the initial recurrent weights, as a kernel in the cell's own order is).
 
-On a CPU tensor :func:`bi_ggru` computes :func:`bi_ggru_reference`, the
-plain PyTorch version of the same function (the JAX cell's op order); on a
-CUDA tensor it launches the kernel or raises.
+The launch is the CUDA implementation of the registered op
+``a3gc_tpu_torch::ggru_scan`` (:mod:`a3gc_tpu_torch.ops.library`), whose
+CPU implementation is :func:`scan_reference`, the plain PyTorch version of
+the same function (the JAX cell's op order): on a CPU tensor
+:func:`bi_ggru` computes it, on a CUDA tensor it launches the kernel or
+raises.
 
 The function, for x [S, T, N, F], h2 [2, S, N, H] and per-stream
 ``n_valid`` [S]:
@@ -39,6 +42,7 @@ The kernel is forward-only: a CUDA call with grad enabled raises.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -53,7 +57,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
 
 __all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "gate_pad",
            "launch_plan", "max_active", "one_wave", "scan", "scan_inputs",
-           "smem_bytes"]
+           "scan_reference", "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 THREADS = 256        # threads per CTA of ggru.cu
@@ -149,17 +153,26 @@ def _hoist(params2: C.GGRUCellParams, x: torch.Tensor) -> torch.Tensor:
 def bi_ggru_reference(params2: C.GGRUCellParams, x: torch.Tensor, h2,
                       n_valid=None):
     r"""The plain PyTorch version of :func:`bi_ggru` — the same function on
-    any device, built from the cell's hoisted step and the masked
-    bidirectional scan (the state as a 1-tuple). The CPU path and the tests
+    any device: :func:`scan_inputs`, then :func:`scan_reference`. The tests
     use it; on the card it is what the kernel is held to."""
-    x = f32(x)
-    S, T = x.shape[0], x.shape[1]
-    zi = _hoist(params2, x).transpose(1, 2)                   # [2,T,S,N,3H]
-    seq_stack = torch.stack((zi[0], zi[1].flip(0)))
-    nv = n_valid_tensor(n_valid, S, T, x.device)
-    frame_mask = torch.arange(T, device=x.device)[None] < nv[:, None]
-    hs, (h,) = L.bi_rnn_precomputed(C.ggru_step_hoisted, params2, seq_stack,
-                                    (f32(h2),), frame_mask=frame_mask)
+    return scan_reference(*scan_inputs(params2, x, h2, n_valid))
+
+
+def scan_reference(zi: torch.Tensor, gcn_kernel: torch.Tensor,
+                   adj: torch.Tensor, w_hid: torch.Tensor, h0: torch.Tensor,
+                   n_valid: torch.Tensor):
+    r"""The plain PyTorch version of :func:`scan`, on the same hoisted
+    inputs and any device: the cell's hoisted step (the JAX cell's op
+    order) in the masked bidirectional scan, the state as a 1-tuple. The
+    CPU implementation of the registered op
+    (:mod:`a3gc_tpu_torch.ops.library`)."""
+    T = zi.shape[2]
+    zt = zi.transpose(1, 2)                                   # [2,T,S,N,3H]
+    seq_stack = torch.stack((zt[0], zt[1].flip(0)))
+    frame_mask = torch.arange(T, device=zi.device)[None] < n_valid[:, None]
+    cell = SimpleNamespace(gcn_kernel=gcn_kernel, adj=adj, w_hid=w_hid)
+    hs, (h,) = L.bi_rnn_precomputed(C.ggru_step_hoisted, cell, seq_stack,
+                                    (h0,), frame_mask=frame_mask)
     y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
     return y, h
 
@@ -214,17 +227,19 @@ def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
 
 def bi_ggru(params2: C.GGRUCellParams, x: torch.Tensor, h2, n_valid=None):
     r"""Bidirectional G-GRU layer: x [S, T, N, F], h2 [2, S, N, H],
-    ``n_valid`` None | int | [S] → (y [S, T, N, 2H], h [2, S, N, H]). CPU
-    tensors take :func:`bi_ggru_reference`; CUDA tensors launch the kernel
-    (one launch, both directions) or raise."""
-    if not x.is_cuda:
-        return bi_ggru_reference(params2, x, h2, n_valid)
-    if torch.is_grad_enabled():
+    ``n_valid`` None | int | [S] → (y [S, T, N, 2H], h [2, S, N, H]).
+    Hoists the input projection (:func:`scan_inputs`) and calls the
+    registered op ``a3gc_tpu_torch::ggru_scan``
+    (:mod:`a3gc_tpu_torch.ops.library`): on CUDA tensors it launches the
+    kernel (one launch, both directions) or raises, on CPU tensors it
+    computes :func:`scan_reference`."""
+    if x.is_cuda and torch.is_grad_enabled():
         raise RuntimeError(
             "bi_ggru: the CUDA kernel is forward-only; call it under "
             "torch.no_grad() or torch.inference_mode() (gradients come with "
             "the training slice, ROADMAP Queue 1 item 11)")
-    return scan(*scan_inputs(params2, x, h2, n_valid))
+    from a3gc_tpu_torch.ops.library import ggru_scan
+    return ggru_scan(*scan_inputs(params2, x, h2, n_valid))
 
 
 def scan_inputs(params2: C.GGRUCellParams, x: torch.Tensor, h2,

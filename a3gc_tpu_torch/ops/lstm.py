@@ -11,9 +11,11 @@ that split the hidden units and keep their slice of W_hh in shared memory
 for the whole window, exchanging h each frame — a thread-block cluster
 through distributed shared memory, or, where a cluster cannot hold W_hh,
 a cooperative launch through L2. :func:`launch_plan` chooses the group.
-On a CPU tensor it computes :func:`bi_lstm_reference`, the plain PyTorch
-version of the same function; on a CUDA tensor it launches the kernel or
-raises.
+The launch is the CUDA implementation of the registered op
+``a3gc_tpu_torch::lstm_scan`` (:mod:`a3gc_tpu_torch.ops.library`), whose
+CPU implementation is :func:`scan_reference`, the plain PyTorch version of
+the same function: on a CPU tensor :func:`bi_lstm` computes it, on a CUDA
+tensor it launches the kernel or raises.
 
 The number of directions D is read from the parameters: direction-
 stacked ones (``w_hh`` [2, H, 4H], the biLSTM) give D = 2, unstacked ones
@@ -35,6 +37,7 @@ The kernel is forward-only: a CUDA call with grad enabled raises.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -49,7 +52,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
            "launch_plan", "lstm_step_hoisted", "max_active", "scan",
-           "scan_inputs", "smem_bytes"]
+           "scan_inputs", "scan_reference", "smem_bytes"]
 
 
 class LaunchPlan(NamedTuple):
@@ -164,26 +167,38 @@ def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
 def bi_lstm_reference(params: nn.Module, x: torch.Tensor, state,
                       n_valid=None):
     r"""The plain PyTorch version of :func:`bi_lstm` — the same function on
-    any device, built from the hoisted step and the masked scan. ``params``
+    any device: :func:`scan_inputs`, then :func:`scan_reference`. ``params``
     holds direction-stacked ``w_ih`` [2, F, 4H], ``w_hh`` [2, H, 4H],
     ``b_ih`` and ``b_hh`` [2, 4H] (the bidirectional scan), or the same
-    without the leading 2 (the unidirectional scan). The CPU path and the
-    tests use it; on the card it is what the kernel is held to."""
-    x = f32(x)
-    S, T = x.shape[0], x.shape[1]
-    u = _hoist(params, x)                                     # [D,S,T,4H]
-    nv = n_valid_tensor(n_valid, S, T, x.device)
-    frame_mask = torch.arange(T, device=x.device)[None] < nv[:, None]
-    state = tuple(f32(s) for s in state)
+    without the leading 2 (the unidirectional scan). The tests use it; on
+    the card it is what the kernel is held to."""
+    y, h, c = scan_reference(*scan_inputs(params, x, state, n_valid))
     if directions(params) == 1:
-        return L.uni_rnn(lstm_step_hoisted, params, u[0], state,
-                         frame_mask=frame_mask)
-    u = u.transpose(1, 2)                                     # [2,T,S,4H]
-    seq_stack = torch.stack((u[0], u[1].flip(0)))
-    hs, (h, c) = L.bi_rnn_precomputed(
-        lstm_step_hoisted, params, seq_stack, state, frame_mask=frame_mask)
-    y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
+        h, c = h[0], c[0]
     return y, (h, c)
+
+
+def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+                   c0: torch.Tensor, n_valid: torch.Tensor):
+    r"""The plain PyTorch version of :func:`scan`, on the same hoisted
+    inputs and any device: the hoisted step in the masked scan, one
+    direction (D = 1) or two. The CPU implementation of the registered op
+    (:mod:`a3gc_tpu_torch.ops.library`). Returns (y [S, T, D·H],
+    h [D, S, H], c [D, S, H])."""
+    D, T = u.shape[0], u.shape[2]
+    frame_mask = torch.arange(T, device=u.device)[None] < n_valid[:, None]
+    if D == 1:
+        y, (h, c) = L.uni_rnn(lstm_step_hoisted,
+                              SimpleNamespace(w_hh=w_hh[0]), u[0],
+                              (h0[0], c0[0]), frame_mask=frame_mask)
+        return y, h[None], c[None]
+    ut = u.transpose(1, 2)                                    # [2,T,S,4H]
+    seq_stack = torch.stack((ut[0], ut[1].flip(0)))
+    hs, (h, c) = L.bi_rnn_precomputed(
+        lstm_step_hoisted, SimpleNamespace(w_hh=w_hh), seq_stack, (h0, c0),
+        frame_mask=frame_mask)
+    y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
+    return y, h, c
 
 
 def _library():
@@ -252,17 +267,18 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
 def bi_lstm(params: nn.Module, x: torch.Tensor, state, n_valid=None):
     r"""Dense LSTM layer, D directions read from ``params``: x [S, T, F],
     state (h, c) each [2, S, H] (D = 2) or [S, H] (D = 1), ``n_valid`` None
-    | int | [S] → (y [S, T, D·H], (h, c)). CPU tensors take
-    :func:`bi_lstm_reference`; CUDA tensors launch the kernel (one launch,
-    every direction) or raise."""
-    if not x.is_cuda:
-        return bi_lstm_reference(params, x, state, n_valid)
-    if torch.is_grad_enabled():
+    | int | [S] → (y [S, T, D·H], (h, c)). Hoists the input projection
+    (:func:`scan_inputs`) and calls the registered op
+    ``a3gc_tpu_torch::lstm_scan`` (:mod:`a3gc_tpu_torch.ops.library`): on
+    CUDA tensors it launches the kernel (one launch, every direction) or
+    raises, on CPU tensors it computes :func:`scan_reference`."""
+    if x.is_cuda and torch.is_grad_enabled():
         raise RuntimeError(
             "bi_lstm: the CUDA kernel is forward-only; call it under "
             "torch.no_grad() or torch.inference_mode() (gradients come with "
             "the training slice, ROADMAP Queue 1 item 11)")
-    y, h, c = scan(*scan_inputs(params, x, state, n_valid))
+    from a3gc_tpu_torch.ops.library import lstm_scan
+    y, h, c = lstm_scan(*scan_inputs(params, x, state, n_valid))
     if directions(params) == 1:
         h, c = h[0], c[0]
     return y, (h, c)

@@ -74,6 +74,25 @@ Phases, each printing one JSON line:
                     newer epoch and ``POST /v1/reload``; cold starts and
                     the reload's time (their launches are the
                     subprocesses', not counted here);
+     export       — deployment artifacts (``a3gc_tpu_torch.export``) of
+                    every family at full width (S = 8, W = 60: A3GC, G-GRU,
+                    TransPose, DIP bi and uni) exported on the card, then
+                    loaded and stepped by a fresh process given only their
+                    directories (5 windows with a reset and an idle slot):
+                    launches per window counted there by the ops, poses and
+                    final states against the live sessions, ms per window
+                    of both, export seconds, bytes, load seconds;
+     export_bundle — A3GC and G-GRU bundles of (1, 60), (8, 60), (8, 120),
+                    (8, 180) through ``ArtifactLookaheadSession(lookahead=1,
+                    history=1)`` for 6 ticks with an idle slot and a reset
+                    plus ``flush``, and the S = 1 geometry through
+                    ``ArtifactSession``, against live sessions; ms per
+                    steady tick of both, in turns;
+     cli_export   — ``cli export`` of an A3GC K = P = 1 bundle (S = 1 and
+                    8), ``cli serve --artifact`` on it as ``cli_serve`` does
+                    (two clients, a recycle; ``cli_serve_artifact``), ``cli
+                    stream --artifact`` on a synthetic test npz against an
+                    in-process session; cold start, recycle pause;
   4. offline      — ``cascade_apply`` at batch 1, T = 300: launch counts
                     (6, the S = 1 contract of the kernel), timed, and
                     against the plain path; offline_tp the same for the
@@ -106,7 +125,8 @@ Phases, each printing one JSON line:
                     kernel's serving and evaluation paths, max |d| of the
                     kernel phases, and per
                     layer shape of those paths (S = 8 and 1, T = 60; S = 8
-                    at the buffered ticks' T = 180 and 120) the
+                    at the buffered ticks' T = 180 and 120, ``gcn_lstm``
+                    and ``ggru``) the
                     launch plan (split, cluster or cooperative, CTAs,
                     shared memory, groups the card holds at once), the
                     wrapper's, the kernel's and the plain version's times
@@ -145,9 +165,10 @@ LIBRARIES = ("gcn_lstm", "ggru", "lstm")
 # whole-window valid lengths of a flush over a (P+K+1)·W = 180-frame context
 LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # launch-counted paths: the eight of the plain windows and the offline
-# calls, the five buffered and HTTP ones, the checkpoint round trips and the
-# three evaluation phases
-N_PATHS = 17
+# calls, the five buffered and HTTP ones, the checkpoint round trips, the
+# three evaluation phases and the two of the deployment artifacts (export:
+# counted by the fresh process that steps them)
+N_PATHS = 19
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -159,6 +180,74 @@ REPORT_TOL = 0.005 + TABLE_TOL      # the text report rounds to 2 decimals
 # lengths (ragged n_valid), and of the timed rows (n_valid = T)
 EVAL_KERNEL_SHAPES = ((1, 2048), (8, 1024))
 EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
+
+# the export phase's fresh process: given the artifacts' parent directory
+# (holding in.npz: 5 windows of ori / acc) and the family names, load each
+# artifact onto the card, step it through the serving script of
+# ``Smoke.serve`` (a reset of slot 3 after window 1, slot 5 idle in window
+# 3) counting the ops' launches per window, write its poses and final
+# states to <family>_out.npz, time 30 more windows; one JSON line.
+EXPORT_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, os.getcwd())
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+cuda_init_s = time.perf_counter() - t0
+from a3gc_tpu_torch.export import ArtifactSession, load_exported
+from a3gc_tpu_torch.ops import gcn_lstm, ggru, lstm
+wrappers = {"gcn_lstm": gcn_lstm.bi_gcn_lstm, "ggru": ggru.bi_ggru,
+            "lstm": lstm.bi_lstm}
+root = sys.argv[1]
+data = np.load(os.path.join(root, "in.npz"))
+wins = list(zip(data["ori"], data["acc"]))
+S = wins[0][0].shape[0]
+idle = np.ones(S, np.float32)
+idle[5] = 0.0
+out = {}
+for name in sys.argv[2:]:
+    t0 = time.perf_counter()
+    sess = ArtifactSession(load_exported(os.path.join(root, name)))
+    load_s = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    per_window, poses = [], []
+    for i, (o, a) in enumerate(wins):
+        before = sum(w.launches for w in wrappers.values())
+        poses.append(sess.step(o, a, active=idle if i == 3 else None))
+        per_window.append(sum(w.launches for w in wrappers.values())
+                          - before)
+        if i == 1:
+            sess.reset(stream=3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    states = []
+
+    def flat(t):
+        if isinstance(t, (tuple, list)):
+            for x in t:
+                flat(x)
+        else:
+            states.append(t.cpu().numpy())
+    flat(sess._states)
+    np.savez(os.path.join(root, name + "_out.npz"), pose=np.stack(poses),
+             **{f"state{i}": a for i, a in enumerate(states)})
+    times = []
+    for k in range(33):
+        t0 = time.perf_counter()
+        sess.step(*wins[k % len(wins)])
+        times.append((time.perf_counter() - t0) * 1e3)
+    out[name] = {"load_s": load_s, "launches_per_window": per_window,
+                 "launches": launches,
+                 "ms_median": float(np.median(times[3:])),
+                 "ms_p90": float(np.percentile(times[3:], 90))}
+print(json.dumps({"cuda_init_s": cuda_init_s, "families": out,
+                  "banned": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in (
+                                       "jax", "jaxlib", "flax",
+                                       "a3gc_tpu"))}))
+"""
 
 
 def whole_windows(S, T):
@@ -1189,14 +1278,20 @@ class Smoke:
         return proc, ready
 
     def phase_cli_serve(self):
-        """The server as a user starts it, recycled under two clients."""
+        self.cli_serve("cli_serve", ["serve", "--port", "0", "--streams",
+                                     str(S_SERVE), "--norm", "--quality",
+                                     "balanced"])
+
+    def cli_serve(self, path, argv):
+        """The server as a user starts it (``argv``: a fresh init with
+        --norm and --quality balanced, or an artifact exported from one),
+        recycled under two clients, against in-process K = P = 1 sessions
+        on the fresh init's params."""
         import numpy as np
         from a3gc_tpu_torch import cli
         from a3gc_tpu_torch.client import PoseClient
         from a3gc_tpu_torch.eval.streaming import StreamingCascade
         from a3gc_tpu_torch.smpl import ParametricModel
-        argv = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
-                "--quality", "balanced"]
         proc, ready = self.spawn_server(argv)
         try:
             info, start_s, host, port = ready()
@@ -1226,7 +1321,7 @@ class Smoke:
                     answered.append(time.perf_counter())
                     want = ref.step(*feed[w])
                     self.check((got is None) == (want is None),
-                               f"cli_serve window {w}: warm-up differs")
+                               f"{path} window {w}: warm-up differs")
                     if got is not None and want is not None:
                         pose_err = max(pose_err,
                                        float(np.abs(got - want).max()))
@@ -1251,16 +1346,16 @@ class Smoke:
             proc.kill()
             proc.wait()
         err = proc.stderr.read()
-        self.check(alive, "cli_serve: the server exited:\n" + err[-2000:])
+        self.check(alive, f"{path}: the server exited:\n" + err[-2000:])
         self.check("recycled: restored 2 live session(s)" in err,
-                   "cli_serve: no restored generation:\n" + err[-2000:])
+                   f"{path}: no restored generation:\n" + err[-2000:])
         self.check(n_poses == 10 and pose_err <= PATH_TOL,
-                   f"cli_serve: {n_poses} poses, max|d| {pose_err:.3e} vs an "
+                   f"{path}: {n_poses} poses, max|d| {pose_err:.3e} vs an "
                    "uninterrupted session")
         self.check(after["errors"] == 0 and after["active_sessions"] == 2
                    and after["ticks"] < before["ticks"] + 3,
-                   f"cli_serve: /v1/stats after the recycle: {after}")
-        emit({"phase": "cli_serve", "argv": argv, "serving": info,
+                   f"{path}: /v1/stats after the recycle: {after}")
+        emit({"phase": path, "argv": argv, "serving": info,
               "start_s": start_s, "recycle_pause_s": pause_s,
               "pose_max_abs_err_vs_uninterrupted": pose_err,
               "poses_compared": n_poses, "stats_before": before,
@@ -1516,6 +1611,435 @@ class Smoke:
         emit({"phase": "cli_serve_checkpoints", "convert_s": convert_s,
               "servers_up_s": all_up_s, "servers": report,
               "card": nvidia_smi()})
+
+    # -- 3d: deployment artifacts ------------------------------------------
+    def export_families(self):
+        """(name, build) of every family the artifacts cover: ``build()``
+        -> (export(directory) -> seconds, live session, kernel, launches
+        per window, hidden), on params from torch.Generator seed 0."""
+        from a3gc_tpu_torch import export as X
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                                   StreamingCascade)
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.smpl import ParametricModel
+        model = ParametricModel()
+
+        def cascade(kind, kernel):
+            def build():
+                cfg = self.cascade(kind, "auto")
+                params3 = self.params3(cfg)
+
+                def export(d):
+                    t0 = time.perf_counter()
+                    X.save_exported(d, *X.export_streaming_cascade(
+                        params3, cfg, model, window=WINDOW, streams=S_SERVE,
+                        stats=load_stats(), normalize=True))
+                    return time.perf_counter() - t0
+                live = StreamingCascade(params3, cfg, model, window=WINDOW,
+                                        stats=load_stats(), normalize=True,
+                                        streams=S_SERVE, device=self.dev)
+                return export, live, kernel, 6, [
+                    s[0] for s in (TP_STAGES if kind == "tp" else STAGES)]
+            return build
+
+        def dip(bidirectional):
+            def build():
+                cfg = self.dip_cfg("auto", bidirectional)
+                params = init_pose_net(self.torch.Generator().manual_seed(0),
+                                       cfg).to(self.dev)
+
+                def export(d):
+                    t0 = time.perf_counter()
+                    X.save_exported(d, *X.export_streaming_dip(
+                        params, cfg, model, window=WINDOW, streams=S_SERVE,
+                        stats=load_stats()))
+                    return time.perf_counter() - t0
+                live = DipStreamingSession(params, cfg, model, window=WINDOW,
+                                           stats=load_stats(),
+                                           streams=S_SERVE, device=self.dev)
+                return export, live, "lstm", 2, [DIP[0]]
+            return build
+
+        return (("a3gc", cascade("a3gc", "gcn_lstm")),
+                ("ggru", cascade("ggru", "ggru")),
+                ("tp", cascade("tp", "lstm")), ("dip", dip(True)),
+                ("dip_uni", dip(False)))
+
+    def phase_export(self):
+        """Every family's artifact at full width (S = 8, W = 60) exported on
+        the card, then loaded and stepped by a fresh process given only the
+        directories (``EXPORT_CHILD``): 5 windows with a reset and an idle
+        slot, launches per window counted there by the ops, its poses and
+        final states against the live session on the same params and
+        windows, its ms per window beside the live session's; then loaded
+        in this process and timed in turns with the live session (the A3GC
+        artifact profiled as ``serving`` profiles the live one)."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch import export as X
+        torch = self.torch
+        S, W = S_SERVE, WINDOW
+        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        rng = np.random.default_rng(11)
+        wins = [self.windows(rng, S) for _ in range(5)]
+        np.savez(os.path.join(tmp, "in.npz"),
+                 ori=np.stack([o for o, _ in wins]),
+                 acc=np.stack([a for _, a in wins]))
+        idle = np.ones(S, np.float32)
+        idle[5] = 0.0
+        report, lives = {}, {}
+        try:
+            for name, build in self.export_families():
+                export, live, kernel, per_window, hidden = build()
+                d = os.path.join(tmp, name)
+                export_s = export(d)
+                poses = []
+                for w, (o, a) in enumerate(wins):
+                    active = idle if w == 3 else None
+                    poses.append(live.step(o, a, active=active))
+                    if w == 1:
+                        live.reset(stream=3)
+                # no step writes a state in place: this is the state after
+                # the 5 windows
+                lives[name] = (np.stack(poses), live._states, live)
+                torch.cuda.synchronize()
+                times = []
+                for k in range(33):
+                    t0 = time.perf_counter()
+                    live.step(*wins[k % 5])
+                    times.append((time.perf_counter() - t0) * 1e3)
+                report[name] = {
+                    "hidden": hidden, "kernel": kernel,
+                    "export_s": export_s,
+                    "bytes": sum(os.path.getsize(os.path.join(d, f))
+                                 for f in os.listdir(d)),
+                    "live_ms_per_window_median": float(np.median(times[3:])),
+                    "want_launches_per_window": per_window}
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", EXPORT_CHILD, tmp]
+                + [name for name, _ in self.export_families()], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            child_s = time.perf_counter() - t0
+            self.check(proc.returncode == 0,
+                       f"export child failed:\n{proc.stderr[-3000:]}")
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            self.check(child["banned"] == [],
+                       f"export child imported {child['banned']}")
+            total = {k: 0 for k in LIBRARIES}
+            for name, rec in report.items():
+                got = child["families"][name]
+                out = np.load(os.path.join(tmp, f"{name}_out.npz"))
+                want_poses, want_states, live = lives[name]
+                rows = np.ones((5, S), bool)
+                rows[3] = idle > 0
+                pose_err = float(np.abs(out["pose"][rows]
+                                        - want_poses[rows]).max())
+                state_err = max(float(np.abs(out[f"state{i}"]
+                                             - t.cpu().numpy()).max())
+                                for i, t in enumerate(leaves(want_states)))
+                finite = bool(np.isfinite(out["pose"][rows]).all())
+                rec.update(load_s=got["load_s"],
+                           launches_per_window=got["launches_per_window"],
+                           launches=got["launches"],
+                           ms_per_window_median=got["ms_median"],
+                           ms_per_window_p90=got["ms_p90"],
+                           pose_max_abs_err_vs_live=pose_err,
+                           state_max_abs_err_vs_live=state_err)
+                k = rec["kernel"]
+                self.check(finite and pose_err <= KERNEL_TOL
+                           and state_err <= KERNEL_TOL,
+                           f"export {name}: pose {pose_err:.3e} state "
+                           f"{state_err:.3e} vs the live session")
+                self.check(got["launches_per_window"]
+                           == [rec["want_launches_per_window"]] * 5
+                           and all(n == 0 for kk, n in got["launches"].items()
+                                   if kk != k),
+                           f"export {name}: launches {got['launches']}, per "
+                           f"window {got['launches_per_window']}")
+                for kk, n in got["launches"].items():
+                    total[kk] += n
+                # in this process too, in turns with the live session
+                # (live, artifact, artifact, live): the same card, clock
+                # and neighbours for both
+                sess = X.ArtifactSession(X.load_exported(
+                    os.path.join(tmp, name), device=self.dev))
+                times = {"artifact": [], "live": []}
+                for who in ("live", "artifact", "artifact", "live"):
+                    s_ = sess if who == "artifact" else live
+                    for k in range(12):
+                        t0 = time.perf_counter()
+                        s_.step(*wins[k % 5])
+                        times[who].append((time.perf_counter() - t0) * 1e3)
+                rec.update(
+                    in_process_ms_per_window_median=float(np.median(
+                        times["artifact"])),
+                    in_process_live_ms_per_window_median=float(np.median(
+                        times["live"])))
+                if name == "a3gc":
+                    try:
+                        rec["profile"] = self.profile_window(sess, wins[:3])
+                    except Exception as e:  # a measurement aid
+                        rec["profile"] = ("not measured: the profiler "
+                                          f"raised {e!r}")
+            self.launches["export"] = total
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        emit({"phase": "export", "streams": S, "window": W,
+              "cuda_init_s": child["cuda_init_s"], "child_s": child_s,
+              "families": report, "launches": self.launches["export"],
+              "card": nvidia_smi()})
+
+    def phase_export_bundle(self):
+        """A3GC and G-GRU bundles of (1, 60), (8, 60), (8, 120) and
+        (8, 180) through ``ArtifactLookaheadSession(lookahead=1,
+        history=1)`` for 6 ticks with an idle slot and a reset, plus
+        ``flush``, against ``StreamingCascade(lookahead=1, history=1)``;
+        the S = 1 geometry through ``ArtifactSession`` against a live
+        single-slot session; ms per steady tick of both."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch import export as X
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.smpl import ParametricModel
+        torch = self.torch
+        S, W, K, P = S_SERVE, WINDOW, 1, 1
+        cap = K + P + 1
+        geoms = [(1, W), (S, W), (S, 2 * W), (S, 3 * W)]
+        model = ParametricModel()
+        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        report = {}
+        self.zero_counts()                            # the main path starts
+        counted = {k: 0 for k in LIBRARIES}
+        try:
+            for kind, kernel in (("a3gc", "gcn_lstm"), ("ggru", "ggru")):
+                cfg = self.cascade(kind, "auto")
+                params3 = self.params3(cfg)
+                d = os.path.join(tmp, kind)
+                t0 = time.perf_counter()
+                X.export_bundle(d, params3, cfg, model, geoms,
+                                stats=load_stats(), normalize=True)
+                export_s = time.perf_counter() - t0
+                nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                             for dp, _, fs in os.walk(d) for f in fs)
+                t0 = time.perf_counter()
+                bundle = X.ExportedBundle(d, self.dev)
+                sess = X.ArtifactLookaheadSession(bundle, streams=S,
+                                                  window=W, lookahead=K,
+                                                  history=P)
+                load_s = time.perf_counter() - t0
+
+                def live_session(S_, k, p):
+                    return StreamingCascade(params3, cfg, model, window=W,
+                                            stats=load_stats(),
+                                            normalize=True, streams=S_,
+                                            lookahead=k, history=p,
+                                            device=self.dev)
+                live = live_session(S, K, P)
+                rng = np.random.default_rng(12)
+                idle = np.ones(S, np.float32)
+                idle[5] = 0.0
+                wrapper = self.wrappers[kernel]
+                fills = [0] * S
+                per_tick, want_per_tick, err = [], [], 0.0
+                emitted_ok = True
+                for tick in range(6):
+                    ori, acc = self.windows(rng, S)
+                    active = idle if tick == 3 else None
+                    act = np.ones(S, bool) if active is None else active > 0
+                    before = wrapper.launches
+                    pose, emitted = sess.step(ori, acc, active=active)
+                    per_tick.append(wrapper.launches - before)
+                    fills = [f + 1 if a else f for f, a in zip(fills, act)]
+                    want = np.array([a and f >= K + 1
+                                     for f, a in zip(fills, act)])
+                    groups = {f for f, e in zip(fills, want) if e}
+                    want_per_tick.append(6 * (len(groups) + (cap in groups)))
+                    fills = [f - 1 if (e and f == cap) else f
+                             for f, e in zip(fills, want)]
+                    counts = self.counts()
+                    ref_pose, ref_emitted = live.step(ori, acc,
+                                                      active=active)
+                    for k_, n in counts.items():      # the live twin's
+                        self.wrappers[k_].launches = n    # do not count
+                    emitted_ok &= bool((emitted == want).all()
+                                       and (ref_emitted == want).all())
+                    if want.any():
+                        err = max(err, float(np.abs(pose[want]
+                                                    - ref_pose[want]).max()))
+                    if tick == 2:
+                        sess.reset(stream=3)
+                        live.reset(stream=3)
+                        fills[3] = 0
+                state_err = tree_err(sess._states, live._states)
+                before = wrapper.launches
+                tails = sess.flush()
+                flush_launches = wrapper.launches - before
+                counts = self.counts()
+                ref_tails = live.flush()
+                for k_, n in counts.items():
+                    self.wrappers[k_].launches = n
+                tail_err = max([float(np.abs(a - b).max()) for a, b in
+                                zip(tails, ref_tails) if a is not None]
+                               or [0.0])
+                tails_ok = all((a is None) == (b is None)
+                               for a, b in zip(tails, ref_tails))
+                # the S = 1 geometry: plain windows, the kernels at S = 1
+                one = X.ArtifactSession(bundle.select(1, W))
+                ref1 = live_session(1, 0, 0)
+                before = wrapper.launches
+                one_err = 0.0
+                for _ in range(3):
+                    o, a = self.windows(rng, 1)
+                    got = one.step(o, a)
+                    counts = self.counts()
+                    want1 = ref1.step(o, a)
+                    for k_, n in counts.items():
+                        self.wrappers[k_].launches = n
+                    one_err = max(one_err, float(np.abs(got - want1).max()))
+                one_launches = wrapper.launches - before
+                for k_, n in self.counts().items():
+                    counted[k_] += n
+                self.zero_counts()
+                # steady ticks of both, in turns (artifact, live, live,
+                # artifact): every slot at capacity
+                for _ in range(cap + 1):
+                    o, a = self.windows(rng, S)
+                    sess.step(o, a)
+                    live.step(o, a)
+                inputs = [self.windows(rng, S) for _ in range(10)]
+                times = {"artifact": [], "live": []}
+                for who in ("artifact", "live", "live", "artifact"):
+                    s_ = sess if who == "artifact" else live
+                    torch.cuda.synchronize()
+                    for o, a in inputs:
+                        t0 = time.perf_counter()
+                        s_.step(o, a)
+                        times[who].append((time.perf_counter() - t0) * 1e3)
+                self.zero_counts()
+                self.check(per_tick == want_per_tick,
+                           f"export_bundle {kind}: launches per tick "
+                           f"{per_tick} != {want_per_tick}")
+                self.check(emitted_ok and tails_ok,
+                           f"export_bundle {kind}: emitted / tails differ")
+                self.check(max(err, state_err, tail_err, one_err)
+                           <= KERNEL_TOL,
+                           f"export_bundle {kind} vs live: pose {err:.3e} "
+                           f"state {state_err:.3e} flush {tail_err:.3e} "
+                           f"S=1 {one_err:.3e}")
+                self.check(flush_launches == 6 and one_launches == 18,
+                           f"export_bundle {kind}: flush {flush_launches}, "
+                           f"S=1 {one_launches} launches")
+                report[kind] = {
+                    "geometries": geoms, "export_s": export_s,
+                    "bytes": nbytes, "load_s": load_s,
+                    "launches_per_tick": per_tick,
+                    "flush_launches": flush_launches,
+                    "s1_launches_3_windows": one_launches,
+                    "pose_max_abs_err_vs_live": err,
+                    "state_max_abs_err_vs_live": state_err,
+                    "flush_max_abs_err_vs_live": tail_err,
+                    "s1_max_abs_err_vs_live": one_err,
+                    "ms_per_tick_median": float(np.median(
+                        times["artifact"])),
+                    "live_ms_per_tick_median": float(np.median(
+                        times["live"])),
+                    "timed_ticks": len(times["artifact"])}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.launches["export_bundle"] = counted      # the main path ended
+        emit({"phase": "export_bundle", "streams": S, "window": W,
+              "lookahead": K, "history": P, "bundles": report,
+              "launches": counted, "card": nvidia_smi()})
+
+    def phase_cli_export(self):
+        """``cli export`` of an A3GC bundle (S = 1 and 8, W = 60, K = P = 1)
+        as a user runs it; ``cli serve --artifact`` on it with two clients
+        and a recycle (as ``cli_serve``); ``cli stream --artifact`` on a
+        synthetic test npz against in-process K = P = 1 sessions."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.smpl import ParametricModel
+        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        art = os.path.join(tmp, "a3gc")
+        try:
+            argv = ["export", "--norm", "--streams", "1", str(S_SERVE),
+                    "--window", str(WINDOW), "--lookahead", "1",
+                    "--history", "1", "--output", art]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv,
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            export_wall_s = time.perf_counter() - t0
+            self.check(proc.returncode == 0 and "exported bundle of 6"
+                       in proc.stdout, f"cli export: {proc.stderr[-3000:]}")
+            nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(art) for f in fs)
+            self.cli_serve("cli_serve_artifact",
+                           ["serve", "--artifact", art, "--port", "0",
+                            "--streams", str(S_SERVE), "--quality",
+                            "balanced"])
+            rng = np.random.default_rng(13)
+            seqs = [{"ori": random_rotations(rng, (T, 6)).reshape(T, 54),
+                     "acc": rng.normal(scale=0.5, size=(T, 18))
+                     .astype(np.float32),
+                     "pose": random_rotations(rng, (T, 15)).reshape(T, 135)}
+                    for T in (300, 420, 610)]
+            npz = os.path.join(tmp, "test.npz")
+            np.savez(npz, **{f"seq{i}_{k}": s[k] for i, s in enumerate(seqs)
+                             for k in ("ori", "acc", "pose")})
+            out = os.path.join(tmp, "out.npz")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "a3gc_tpu_torch.cli", "stream",
+                 "--artifact", art, "--streams", "1", "--quality",
+                 "balanced", "--input", npz, "--output", out], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            stream_wall_s = time.perf_counter() - t0
+            self.check(proc.returncode == 0,
+                       f"cli stream --artifact: {proc.stderr[-3000:]}")
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            args = cli.build_parser().parse_args(["serve"])
+            cascade, is_graph = cli._stage_configs(args)
+            ref = StreamingCascade(
+                cli._init_cascade_params(cascade, is_graph, self.dev),
+                cascade, ParametricModel(), window=WINDOW,
+                stats=cli._load_stats(args), normalize=True, lookahead=1,
+                history=1, device=self.dev)
+            got = np.load(out)
+            err, n = 0.0, 0
+            for i, s in enumerate(seqs):
+                ref.reset()
+                T = s["ori"].shape[0] // WINDOW * WINDOW
+                poses = [ref.step(s["ori"][t:t + WINDOW],
+                                  s["acc"][t:t + WINDOW])
+                         for t in range(0, T, WINDOW)]
+                poses = [p for p in poses if p is not None] + [ref.flush()]
+                want = np.concatenate(poses)
+                g = got[f"pose_{i:03d}"]
+                self.check(g.shape == want.shape,
+                           f"cli stream pose_{i:03d}: {g.shape} != "
+                           f"{want.shape}")
+                if g.shape == want.shape:
+                    err = max(err, float(np.abs(g - want).max()))
+                    n += g.shape[0]
+            self.check(n == 1320 and err <= KERNEL_TOL,
+                       f"cli stream --artifact: {n} frames, max|d| "
+                       f"{err:.3e} vs in-process")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        emit({"phase": "cli_export", "argv": argv,
+              "export_wall_s": export_wall_s, "bytes": nbytes,
+              "stream_wall_s": stream_wall_s, "stream_line": line,
+              "stream_pose_max_abs_err_vs_in_process": err,
+              "stream_frames_compared": n, "card": nvidia_smi()})
 
     # -- 4 ---------------------------------------------------------------
     def offline(self, path, kind, kernel, feature_shape):
@@ -2038,6 +2562,16 @@ class Smoke:
                 x, st, nv = self.layer_inputs(gen, S, 180, F, H, [180] * S)
                 self.time_layer("gcn_lstm", "buffered", S, F, H, p,
                                 (x, st, nv), gcn_layer_work)
+        # the G-GRU bundle's K = P = 1 emission passes (T = 180 steady,
+        # 120 warming up)
+        for T in (180, 120):
+            for H, _, _, _ in STAGES:
+                for F in (H, 2 * H):
+                    p = self.cell(gen, "ggru", F, H)
+                    x, h, nv = self.layer_inputs(gen, S, T, F, H, [T] * S,
+                                                 n_state=1)
+                    self.time_layer("ggru", "export_bundle", S, F, H, p,
+                                    (x, h, nv), ggru_layer_work)
         H = DIP[0]
         for F in (H, 2 * H):
             p = self.lstm_layer(gen, F, H)
@@ -2063,7 +2597,7 @@ class Smoke:
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
                          "(_dirfused_kernel)",
                          ("serving", "buffered", "http", "checkpoints",
-                          "evaluate"),
+                          "evaluate", "export", "export_bundle"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -2071,7 +2605,8 @@ class Smoke:
                          "no PyTorch call mixes a per-gate graph adjacency "
                          "and joint attention into an LSTM recurrence"),
             "ggru": ("a3gc_tpu/ops/pallas_gcn_lstm.py:412 (_ggru_kernel)",
-                     ("serving_ggru", "checkpoints", "evaluate_families"),
+                     ("serving_ggru", "checkpoints", "evaluate_families",
+                      "export", "export_bundle"),
                      ggru_layer_work,
                      "the six layer calls of one G-GRU serving window "
                      "(3 stages x rnn1/rnn2, S=8, T=60), bi_ggru including "
@@ -2081,7 +2616,8 @@ class Smoke:
             "lstm": ("a3gc_tpu/ops/pallas_gcn_lstm.py:580 (_lstm_kernel)",
                      ("serving_tp", "serving_dip", "buffered_dip",
                       "http_dip", "serving_dip_uni", "buffered_dip_uni",
-                      "checkpoints", "evaluate_families", "evaluate_dip"),
+                      "checkpoints", "evaluate_families", "evaluate_dip",
+                      "export"),
                      lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
                      "plus the two of one DIP serving window plus the two "
@@ -2151,6 +2687,8 @@ def main():
               smoke.phase_buffered, smoke.phase_buffered_dip,
               smoke.phase_http, smoke.phase_http_dip, smoke.phase_cli_serve,
               smoke.phase_checkpoints, smoke.phase_cli_serve_checkpoints,
+              smoke.phase_export, smoke.phase_export_bundle,
+              smoke.phase_cli_export,
               smoke.phase_offline, smoke.phase_offline_tp,
               smoke.phase_offline_ggru, smoke.phase_evaluate,
               smoke.phase_evaluate_families, smoke.phase_evaluate_dip,

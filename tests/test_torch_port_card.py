@@ -668,3 +668,112 @@ def test_torch_port_cascade_evaluator_on_card_matches_eager(kind, tmp_path):
                      for b in ("auto", "eager"))
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3,
                                    err_msg=protocol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gcn_lstm", "gcn_lstm_aagc", "ggru",
+                                  "lstm", "lstm_uni"])
+def test_torch_port_ops_pass_opcheck_on_card(case):
+    """The registered ops (``ops/library.py``) on CUDA tensors: schema,
+    fake (output shapes) against the kernel's outputs, no autograd
+    registration, dispatch under ``torch.compile``'s AOT tracing."""
+    _need_card()
+    from a3gc_tpu_torch.ops import library as LIB
+    gen = torch.Generator().manual_seed(4)
+
+    def r(*shape):
+        return (0.3 * torch.randn(shape, generator=gen)).cuda()
+    nv = torch.tensor([60, 37, 0], dtype=torch.int32, device="cuda")
+    S, T, N, H = 3, 60, 15, 64
+    if case.startswith("gcn_lstm"):
+        att = ((r(2, H, H), r(2, H, H), r(2, H, H), r(2, H), r(2, H),
+                r(2, N)) if case == "gcn_lstm" else (None,) * 6)
+        op, args = LIB.gcn_lstm_scan, (r(2, S, T, N, 4 * H),
+                                       r(2, H, 4 * H), r(2, 4, N, N),
+                                       r(2, 4, H), *att, r(2, S, N, H),
+                                       r(2, S, N, H), nv)
+    elif case == "ggru":
+        op, args = LIB.ggru_scan, (r(2, S, T, N, 3 * H), r(2, H, H),
+                                   r(2, N, N), r(2, H, 3 * H),
+                                   r(2, S, N, H), nv)
+    else:
+        D = 2 if case == "lstm" else 1
+        op, args = LIB.lstm_scan, (r(D, S, T, 4 * H), r(D, H, 4 * H),
+                                   r(D, S, H), r(D, S, H), nv)
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["a3gc", "ggru", "tp", "dip_uni"])
+def test_torch_port_artifact_matches_live_session_on_card(family, tmp_path):
+    """An artifact exported on the card, loaded back, launches the kernels
+    (as many launches per window as the live session) and is bit-equal to
+    the live session over three windows with an idle slot and a reset."""
+    _need_card()
+    from a3gc_tpu_torch import export as X
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.eval.streaming import (DipStreamingSession,
+                                               StreamingCascade)
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                init_pose_net)
+    from a3gc_tpu_torch.ops import gcn_lstm, ggru, lstm
+    from a3gc_tpu_torch.smpl import ParametricModel
+    gen = torch.Generator().manual_seed(5)
+    S, W, H = 4, 30, 64
+    model, stats = ParametricModel(), load_stats()
+    if family == "dip_uni":
+        cfg = PoseNetConfig(net=N.DIPConfig(n_hidden=H,
+                                            bidirectional=False), rotsize=9)
+        params = init_pose_net(gen, cfg).cuda()
+        ep = X.export_streaming_dip(params, cfg, model, window=W, streams=S,
+                                    stats=stats)
+        live = DipStreamingSession(params, cfg, model, window=W,
+                                   stats=stats, streams=S)
+        wrapper, per_window = lstm.bi_lstm, 2
+    else:
+        def net(ui, uo, rot):
+            return PoseNetConfig(net=N.DIPConfig(
+                n_input=ui, n_output=uo, n_hidden=H) if family == "tp" else
+                N.GraphNetConfig(cell=family, units_in=ui, units_out=uo,
+                                 units_hidden=H), rotsize=rot)
+        dims = (((72, 15, 3), (87, 69, 3), (141, 135, 9)) if family == "tp"
+                else ((12, 3, 3), (15, 3, 3), (15, 9, 9)))
+        cfg = CascadeConfig(*(net(*d) for d in dims))
+        nira = load_adjacency_template()
+        params = tuple(init_pose_net(gen, c, nira).cuda()
+                       for c in cfg.stages)
+        ep = X.export_streaming_cascade(params, cfg, model, window=W,
+                                        streams=S, stats=stats,
+                                        normalize=True)
+        live = StreamingCascade(params, cfg, model, window=W, stats=stats,
+                                normalize=True, streams=S)
+        wrapper = {"a3gc": gcn_lstm.bi_gcn_lstm, "ggru": ggru.bi_ggru,
+                   "tp": lstm.bi_lstm}[family]
+        per_window = 6
+    X.save_exported(str(tmp_path / "art"), *ep)
+    sess = X.ArtifactSession(X.load_exported(str(tmp_path / "art")))
+    assert sess.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    idle = np.array([1, 1, 0, 1], np.float32)
+    for w in range(3):
+        ori = rng.normal(size=(S, W, 54)).astype(np.float32)
+        acc = rng.normal(size=(S, W, 18)).astype(np.float32)
+        active = idle if w == 1 else None
+        before = wrapper.launches
+        got = sess.step(ori, acc, active=active)
+        assert wrapper.launches - before == per_window
+        want = live.step(ori, acc, active=active)
+        rows = np.ones(S, bool) if active is None else active > 0
+        np.testing.assert_array_equal(got[rows], want[rows])
+        if w == 0:
+            sess.reset(stream=1)
+            live.reset(stream=1)
+    for a, b in zip(_leaves(sess._states), _leaves(live._states)):
+        assert torch.equal(a, b)
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]

@@ -91,7 +91,7 @@ def test_torch_port_cli_shipped_stats_match_jax_cli():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--artifact", "bundle"], "item 13"),
+    (["stream", "--mesh", "--input", "test.npz"], "item 14"),
     (["serve", "--mesh"], "item 14"),
     (["evaluate", "--mesh", "--datasets", "test.npz"], "item 14"),
     (["evaluate", "--model", "dip", "--batch_streams", "8", "--mesh",

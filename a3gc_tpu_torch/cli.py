@@ -1,8 +1,11 @@
 r"""Command-line interface of the port (counterpart of ``a3gc_tpu/cli.py``):
-the ``serve``, ``stream``, ``export``, ``evaluate`` and
-``convert-checkpoint`` subcommands.
+the ``train``, ``stats``, ``serve``, ``stream``, ``export``, ``evaluate``
+and ``convert-checkpoint`` subcommands.
 
 Usage:
+    python -m a3gc_tpu_torch.cli train --model a3gc -b 16 --norm \
+        --train_data train.npz --valid_data valid.npz   # on the card
+    python -m a3gc_tpu_torch.cli stats --inputs a.npz b.npz --output s.npz
     python -m a3gc_tpu_torch.cli serve --torch_checkpoints s1.tar s2.tar \
         s3.tar --norm --quality balanced         # on the card
     python -m a3gc_tpu_torch.cli serve --path runs/x --type finetuning \
@@ -34,13 +37,15 @@ v1.1.0.pkl`` under ``--data_root``), or a synthetic one when that file is
 missing; the normalization stats those under ``--data_root``, else the
 shipped copies. ``export`` writes a deployment artifact
 (:mod:`a3gc_tpu_torch.export`) that ``serve`` and ``stream`` run with
-``--artifact`` and nothing else. A mesh of cards and the other subcommands
-wait for later slices (see ROADMAP.md, Queue 1).
+``--artifact`` and nothing else. ``train`` writes checkpoint directories
+that ``--path`` discovers. A mesh of cards and the other subcommands wait
+for later slices (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -66,6 +71,9 @@ _WAITS_FOR = {
     "mesh": "--mesh (streams sharded over several cards) waits for ROADMAP "
             "Queue 1 item 14",
 }
+_TRAIN_WAITS_FOR = ("--mesh, --tp > 1 and --coordinator (training sharded "
+                    "over several cards or hosts) wait for ROADMAP Queue 1 "
+                    "item 14")
 # where the JAX package's config looks under the data root
 _SMPL_MALE = "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
 _STATS_UNDER_ROOT = {False: "stats/all_train_stats.npz",
@@ -379,6 +387,151 @@ def _note_export_flags(args):
         print(f"[a3gc_tpu_torch] ignoring {' '.join(given)}: a port "
               "artifact is a torch.export program of the kernel ops, "
               "exported on --device", file=sys.stderr)
+
+
+def cmd_train(args):
+    r"""Cascade training (DIP: one stage) on ``--train_data`` /
+    ``--valid_data`` (packed npz files): stages in order from
+    ``--start_at``, early stopping on the validation loss, a checkpoint
+    directory under ``--save_root/--name`` on every improvement, a
+    ``train_log.jsonl`` there. Validation runs through the Hopper kernels
+    on the card."""
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.data import pipeline as DP
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.train import (GracefulInterrupt, StageRunner,
+                                      run_cascade_training, seeded_generator)
+    from a3gc_tpu_torch.utils import (JsonlLogger, discover_latest,
+                                      restore_params, save_params)
+
+    _require(not (args.mesh or args.tp > 1 or args.coordinator),
+             _TRAIN_WAITS_FOR)
+    _note_ignored_flags(args)
+    tc = _train_config(args)
+    device = resolve_device(args.device)
+    train = DP.load_packed(args.train_data)
+    valid_fn = None
+    if args.fse:
+        from a3gc_tpu_torch.data.factory.dipimu import load_test_sequences
+        fse_sequences = load_test_sequences(args.valid_data)
+        valid = train      # the chunked path is unused under --fse
+        valid_fn = lambda runner: runner.eval_full_sequences(fse_sequences)
+    else:
+        valid = DP.load_packed(args.valid_data)
+    # ceil: the tail batch is kept (padded and weight-masked)
+    steps = max(-(-len(train[next(iter(train))]) // tc.batch_size), 1)
+    train_dev = valid_dev = None
+    if args.device_data:
+        train_dev = DP.put_device(train, device)
+        valid_dev = train_dev if valid is train else DP.put_device(valid,
+                                                                   device)
+    save_dir = os.path.join(args.save_root, args.name)
+    os.makedirs(save_dir, exist_ok=True)
+    log = JsonlLogger(os.path.join(save_dir, "train_log.jsonl"))
+
+    def train_sampler(salt):
+        return DP.Sampler(train, tc.batch_size, shuffle=True,
+                          seed=(tc.seed, salt), pad_remainder=True,
+                          device_data=train_dev)
+
+    def valid_sampler():
+        return DP.Sampler(valid, tc.batch_size, shuffle=False,
+                          pad_remainder=True, device_data=valid_dev)
+
+    def save(stage, epoch, params):
+        return save_params(params, save_dir, stage, epoch,
+                           finetuning=tc.finetuning)
+
+    if args.model == "dip":
+        return _train_dip(args, tc, steps, train_sampler, valid_sampler,
+                          save, log, device)
+
+    cascade, is_graph = _stage_configs(args)
+    stats = _load_stats(args) if args.norm else None
+    _require(stats is not None or not args.norm,
+             "--norm needs the shipped stats assets "
+             "(a3gc_tpu_torch/assets/stats) or stats under --data_root")
+    nira = load_adjacency_template() if is_graph else None
+    runners = {}
+    for stage, scfg in enumerate(cascade.stages, start=1):
+        params = init_pose_net(seeded_generator("cpu", tc.seed, stage), scfg,
+                               nira)
+        found = args.resume and discover_latest(args.resume, stage)
+        if found:
+            params = restore_params(found[0], params)
+            print(f"resumed stage {stage} from {found[0]}")
+        runners[stage] = StageRunner(stage, scfg, params, tc, steps,
+                                     stats=stats, graph=is_graph,
+                                     device=device)
+    # SIGTERM/SIGINT → checkpoint current params + clean exit (preemption)
+    with GracefulInterrupt() as gi:
+        run_cascade_training(runners, train_sampler, valid_sampler, tc,
+                             save_fn=save, log_fn=log, valid_fn=valid_fn,
+                             interrupt=gi)
+
+
+def _train_config(args):
+    from a3gc_tpu_torch.config import TrainConfig
+    _require(args.batch_size >= 1, "--batch_size must be >= 1")
+    _require(args.accum >= 1 and args.batch_size % args.accum == 0,
+             f"--accum {args.accum} must divide --batch_size "
+             f"{args.batch_size}")
+    _require(args.steps_per_dispatch <= 1 or args.device_data,
+             "--steps_per_dispatch needs --device_data (the steps gather "
+             "their batches from the device-resident corpus)")
+    return TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                       weight_decay=args.weight_decay,
+                       patience=args.patience, max_epochs=args.epochs,
+                       normalize=args.norm, cda=args.cda,
+                       finetuning=args.finetuning, start_stage=args.start_at,
+                       start_epoch=args.start_epoch, seed=args.seed,
+                       dtype=args.dtype, accum_steps=args.accum,
+                       steps_per_dispatch=args.steps_per_dispatch,
+                       eval_batch_size=args.eval_batch,
+                       keep_checkpoints=args.keep,
+                       min_save_delta=args.min_delta)
+
+
+def _train_dip(args, tc, steps, train_sampler, valid_sampler, save, log,
+               device):
+    r"""Single-stage DIP training: the cascade driver's loop on one
+    :class:`DIPRunner` (stage 1), normalized inputs."""
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.train import (DIPRunner, GracefulInterrupt,
+                                      run_cascade_training, seeded_generator)
+    from a3gc_tpu_torch.utils import discover_latest, restore_params
+
+    cfg = _dip_config(args)
+    params = init_pose_net(seeded_generator("cpu", tc.seed), cfg)
+    if args.resume:
+        found = discover_latest(args.resume, 1)
+        _require(found, f"no checkpoint found in {args.resume}")
+        params = restore_params(found[0], params)
+        print(f"resumed from {found[0]}")
+    stats = _load_stats(args)
+    _require(stats is not None,
+             "DIP training needs normalization stats (the shipped stats "
+             "assets, or stats under --data_root)")
+    runner = DIPRunner(cfg, params, tc, steps, stats, device=device)
+    with GracefulInterrupt() as gi:
+        run_cascade_training({1: runner}, train_sampler, valid_sampler,
+                             dataclasses.replace(tc, start_stage=1),
+                             save_fn=save, log_fn=log, interrupt=gi)
+
+
+def cmd_stats(args):
+    r"""Normalization statistics of packed npz files (every field, frames
+    pooled over sequences) → ``--output``."""
+    from a3gc_tpu_torch.data.pipeline import load_packed
+    from a3gc_tpu_torch.data.stats import compute_stats, save_stats
+
+    fields = {}
+    for path in args.inputs:
+        for k, v in load_packed(path).items():
+            fields.setdefault(k, []).append(v.reshape(-1, *v.shape[2:]))
+    save_stats(compute_stats(fields), args.output)
+    print("stats ->", args.output)
 
 
 def cmd_serve(args):
@@ -1026,6 +1179,83 @@ def build_parser():
                     "streaming, deployment export, evaluation and "
                     "checkpoint conversion")
     sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="3-stage cascade training (DIP: one "
+                                     "stage)")
+    _add_common_model_flags(t)
+    t.add_argument("-b", "--batch_size", type=int, required=True)
+    t.add_argument("--accum", type=int, default=1,
+                   help="microbatch gradient accumulation: split each "
+                        "batch into this many sequential microbatches "
+                        "(peak activation memory of one; one Adam update "
+                        "on the weighted-mean gradients)")
+    t.add_argument("--eval_batch", type=int, default=0,
+                   help="validation forward chunk size (0 = auto: "
+                        "min(batch_size, 128)); the loss is the exact "
+                        "size-weighted mean")
+    t.add_argument("--keep", type=int, default=0, metavar="N",
+                   help="checkpoint retention: keep only the newest N "
+                        "improvement checkpoints this run writes (0 = keep "
+                        "all); earlier runs' and interrupt checkpoints are "
+                        "never pruned")
+    t.add_argument("--min_delta", type=float, default=0.0,
+                   help="checkpoint retention: only write an improvement "
+                        "checkpoint when the valid loss beats the last "
+                        "saved one by more than this (early stopping is "
+                        "unaffected)")
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--weight-decay", "--wd", dest="weight_decay", type=float,
+                   default=0.0,
+                   help="L2 weight decay folded into the gradient, torch "
+                        "Adam style")
+    t.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="compute dtype of the forward/backward pass; "
+                        "bfloat16 keeps fp32 master params and casts "
+                        "params+inputs per step")
+    t.add_argument("--patience", type=int, default=3)
+    t.add_argument("--epochs", type=int, default=500)
+    t.add_argument("-f", "--finetuning", action="store_true")
+    t.add_argument("--fse", action="store_true",
+                   help="validate on full variable-length sequences "
+                        "(valid_data must be a test-style npz holding the "
+                        "stage targets)")
+    t.add_argument("--resume", type=str, default="",
+                   help="a directory of this port's checkpoints to resume "
+                        "each stage from (its latest epoch)")
+    t.add_argument("--start_at", type=int, default=1)
+    t.add_argument("--start_epoch", type=int, default=0)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--name", type=str, default="save_temp")
+    t.add_argument("--save_root", type=str, default="trained_models")
+    t.add_argument("--train_data", type=str, required=True)
+    t.add_argument("--valid_data", type=str, required=True)
+    t.add_argument("--device_data", action="store_true",
+                   help="upload the train+valid corpora to the card once "
+                        "and gather each batch there by index")
+    t.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="with --device_data: accepted for the JAX CLI's "
+                        "command lines; the port runs its steps one by one "
+                        "(the same parameter trajectory)")
+    t.add_argument("--mesh", action="store_true",
+                   help="not ported yet: " + _TRAIN_WAITS_FOR)
+    t.add_argument("--tp", type=int, default=1,
+                   help="not ported yet above 1: " + _TRAIN_WAITS_FOR)
+    t.add_argument("--coordinator", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="not ported yet: " + _TRAIN_WAITS_FOR)
+    t.add_argument("--num_processes", type=int, default=1,
+                   help="with --coordinator (not ported yet)")
+    t.add_argument("--process_id", type=int, default=0,
+                   help="with --coordinator (not ported yet)")
+    t.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("stats", help="normalization statistics")
+    s.add_argument("--inputs", nargs="+", required=True)
+    s.add_argument("--output", type=str, required=True)
+    s.add_argument("--compilation_cache", type=str, default=None,
+                   metavar="DIR", help="accepted and ignored")
+    s.set_defaults(fn=cmd_stats)
 
     sv = sub.add_parser("serve", help="dynamic-batching HTTP pose serving "
                         "(multi-stream, per-client state)")

@@ -1,6 +1,6 @@
-r"""The SMPL joint sets of the pipeline (a copy of ``a3gc_tpu/config.py``
-``JointSet``; the port keeps its own copy so it never imports the JAX
-package)."""
+r"""The SMPL joint sets of the pipeline and the trainer's hyperparameters
+(copies of ``a3gc_tpu/config.py`` ``JointSet`` and ``TrainConfig``; the
+port keeps its own so it never imports the JAX package)."""
 
 from __future__ import annotations
 
@@ -50,6 +50,42 @@ class JointSet:
     @property
     def n_ignored(self) -> int:
         return len(self.ignored)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyperparameters of the 3-stage trainer, with the JAX package's
+    defaults. The JAX config's ``mesh`` field waits for the port's
+    multi-card training (ROADMAP Queue 1 item 14)."""
+
+    batch_size: int = 32
+    lr: float = 1e-3
+    lr_decay: float = 0.8        # ExponentialLR gamma, stepped per epoch
+    weight_decay: float = 0.0    # L2 folded into the gradient (torch Adam)
+    max_epochs: int = 500
+    patience: int = 3            # early-stopping tolerance on val loss
+    hidden_units: Tuple[int, int, int] = (256, 64, 128)   # per cascade stage
+    seq_len: int = 300           # training chunk length
+    leaf_noise_std: float = 0.04   # teacher-forcing noise on leaf positions
+    full_noise_std: float = 0.025  # and on all positions
+    normalize: bool = False
+    cda: bool = False            # contralateral data augmentation (sym data)
+    finetuning: bool = False
+    start_stage: int = 1
+    start_epoch: int = 0
+    seed: int = 0
+    dtype: str = "float32"       # compute dtype ("float32" or "bfloat16")
+    accum_steps: int = 1         # microbatches per optimizer step (the
+                                 # peak activation memory of one)
+    steps_per_dispatch: int = 1  # parsed for the JAX CLI's command lines;
+                                 # the port runs its steps one by one (the
+                                 # same parameter trajectory)
+    keep_checkpoints: int = 0    # keep only the newest N improvement
+                                 # checkpoints this run writes (0 = all)
+    min_save_delta: float = 0.0  # write an improvement checkpoint only when
+                                 # the valid loss beats the last saved one by
+                                 # more than this (early stopping unchanged)
+    eval_batch_size: int = 0     # validation chunk; 0 = min(batch_size, 128)
 
 
 joint_set = JointSet()

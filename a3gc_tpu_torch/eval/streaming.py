@@ -12,7 +12,7 @@ in the JAX package and the reference — unless the session buffers context:
 already-emitted past windows (no latency) are run with every emission.
 
 Every session runs under ``torch.no_grad()`` whatever thread calls it (grad
-mode is thread-local, and the CUDA kernels are forward-only).
+mode is thread-local): serving records no autograd graph.
 """
 
 from __future__ import annotations

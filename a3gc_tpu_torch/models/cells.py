@@ -1,5 +1,5 @@
 r"""Graph-recurrent cells of the A3GC/AAGC/AGC family and the G-GRU cell
-(counterpart of ``a3gc_tpu/models/cells.py``), inference only.
+(counterpart of ``a3gc_tpu/models/cells.py``).
 
 Parameter containers are ``nn.Module``s whose parameters keep the JAX
 names and layouts:
@@ -13,7 +13,16 @@ names and layouts:
 
 The step functions below take direction-stacked parameters (leading axis
 D) and run both directions at once — the port's form of the JAX package's
-``vmap`` over the direction axis.
+``vmap`` over the direction axis. The hoisted steps serve inference (the
+plain versions of the kernels); the unhoisted ``gcn_lstm_step`` and
+``ggru_step`` serve training, where dropout falls on each frame's input and
+recurrent state.
+
+Dropout takes a ``torch.Generator`` (the mask is drawn where it is applied)
+or a precomputed bool keep-mask (:func:`keep_mask`): the training layers
+draw a window's masks before their loop, so that a step recomputed under
+``torch.utils.checkpoint`` applies the same mask (checkpointing restores
+the global RNG state, not an explicit generator's).
 """
 
 from __future__ import annotations
@@ -26,9 +35,10 @@ from torch import nn
 
 __all__ = [
     "GraphConvParams", "AttentionParams", "GCNLSTMCellParams",
-    "GGRUCellParams", "graph_conv", "gcn_lstm_gates",
-    "gcn_lstm_step_hoisted", "ggru_step_hoisted", "init_graph_conv",
-    "init_attention", "init_gcn_lstm_cell", "init_ggru_cell",
+    "GGRUCellParams", "keep_mask", "graph_conv", "gcn_lstm_gates",
+    "gcn_lstm_step", "gcn_lstm_step_hoisted", "ggru_step",
+    "ggru_step_hoisted", "init_graph_conv", "init_attention",
+    "init_gcn_lstm_cell", "init_ggru_cell",
 ]
 
 
@@ -87,8 +97,32 @@ class GGRUCellParams(nn.Module):
 # forward math
 # ---------------------------------------------------------------------------
 
-def graph_conv(p: GraphConvParams, x: torch.Tensor) -> torch.Tensor:
-    r"""AAGC projection ``adj · x · kernel + bias`` over [..., N, F]."""
+def keep_mask(rng: Optional[torch.Generator], shape, rate: float,
+              device) -> Optional[torch.Tensor]:
+    r"""A bool keep-mask of ``shape`` (each element kept with probability
+    1 − rate), drawn from ``rng`` on ``device`` (a generator lives on the
+    device of the tensors it fills); None when there is no rng or the rate
+    is 0."""
+    if rng is None or rate <= 0.0:
+        return None
+    return torch.rand(shape, generator=rng, device=device) < 1.0 - rate
+
+
+def _dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
+    r"""Inverted dropout; identity when ``rng`` is None or rate == 0.
+    ``rng``: a ``torch.Generator`` or a bool keep-mask of x's shape."""
+    if rng is None or rate <= 0.0:
+        return x
+    mask = rng if isinstance(rng, torch.Tensor) else keep_mask(
+        rng, x.shape, rate, x.device)
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def graph_conv(p: GraphConvParams, x: torch.Tensor, *,
+               dropout_rate: float = 0.0, rng=None) -> torch.Tensor:
+    r"""AAGC projection ``adj · x · kernel + bias`` over [..., N, F], after
+    dropout on x when ``rng`` is given."""
+    x = _dropout(x, dropout_rate, rng)
     y = torch.matmul(x, p.kernel)
     return torch.matmul(p.adj, y) + p.bias
 
@@ -141,6 +175,29 @@ def gcn_lstm_step_hoisted(p: GCNLSTMCellParams, u_t: torch.Tensor, state, *,
     h, c = state
     z = u_t + torch.matmul(h, hidden_kernel[:, None])
     return gcn_lstm_gates(p, z, (h, c))
+
+
+def gcn_lstm_step(p: GCNLSTMCellParams, x: torch.Tensor, state,
+                  x_mask=None, h_mask=None, *, dropout_rate: float = 0.0,
+                  recurrent_dropout_rate: float = 0.0):
+    r"""One frame of the AAGC/A3GC/AGC LSTM cell, direction-stacked, the
+    input projection inside: x [D, B, N, F], state (h, c) each [D, B, N, H];
+    dropout on x and on the h entering the gate product where keep-masks
+    are given. z = [x‖h]·W, one product on the fused kernel [D, F+H, 4H].
+    Returns the new state (hy, c'); the layer's output is tanh of hy."""
+    h, c = state
+    x = _dropout(x, dropout_rate, x_mask)
+    h_in = _dropout(h, recurrent_dropout_rate, h_mask)
+    z = torch.matmul(torch.cat((x, h_in), dim=-1), p.kernel[:, None])
+    return gcn_lstm_gates(p, z, (h, c))
+
+
+def ggru_step(p: GGRUCellParams, x: torch.Tensor, state):
+    r"""One frame of the G-GRU cell, direction-stacked, the input
+    projection inside: zi = x·W_in + b_in, then :func:`ggru_step_hoisted`.
+    x [D, B, N, F], state ``(h,)``. Returns ``(h',)``."""
+    zi = torch.matmul(x, p.w_in[:, None]) + p.b_in[:, None, None]
+    return ggru_step_hoisted(p, zi, state)
 
 
 def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,

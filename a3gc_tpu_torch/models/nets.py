@@ -1,5 +1,5 @@
 r"""Graph nets and the DIP LSTM net (counterpart of
-``a3gc_tpu/models/nets.py``), inference only.
+``a3gc_tpu/models/nets.py``).
 
 Graph-net topology:
     linear_in:  AAGC(in → H)  → ReLU
@@ -12,16 +12,28 @@ The graph-LSTM cells (a3gc/aagc/agc) run their recurrent layers through
 :func:`a3gc_tpu_torch.ops.ggru.bi_ggru`, and the DIP net (dense → ReLU →
 stacked bi- or unidirectional LSTM → dense) through
 :func:`a3gc_tpu_torch.ops.lstm.bi_lstm`: the Hopper kernels on a CUDA
-tensor, or their plain versions.
+tensor, or their plain versions; the kernels' gradients are their plain
+versions' (:mod:`a3gc_tpu_torch.ops.library`).
+
+Training (an ``rng``, a ``torch.Generator`` on the inputs' device, given):
+dropout is on, and the layers take the plain path, as in the JAX package.
+The graph cells step frame by frame with the input projection inside the
+step, dropout on each frame's input and on the recurrent h (keep-masks
+drawn for the whole window before the loop), the step rematerialized in
+the backward pass (``remat``); no kernel computes that per-frame dropout.
+The DIP net drops its input and runs the plain hoisted scan.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from a3gc_tpu_torch._device import check_module_device, resolve_device
 from a3gc_tpu_torch.models import cells as C
@@ -45,7 +57,10 @@ class GraphNetConfig:
 
     ``backend``: "auto" runs the recurrent layers through the CUDA kernel on
     CUDA tensors and through the plain version on CPU tensors; "eager"
-    always runs the plain version; "cuda" runs the kernel or raises."""
+    always runs the plain version; "cuda" runs the kernel or raises. The
+    dropout rates and ``remat`` (rematerialize the cell step in the
+    backward pass: the stored per-frame intermediates otherwise dominate
+    device memory) act only in training."""
 
     cell: str = "a3gc"
     units_in: int = 12
@@ -53,6 +68,10 @@ class GraphNetConfig:
     units_hidden: int = 256
     num_nodes: int = 15
     backend: str = "auto"
+    linear_dropout: float = 0.2
+    dropout: float = 0.3
+    recurrent_dropout: float = 0.3
+    remat: bool = True
 
     def __post_init__(self):
         if self.cell not in CELL_KINDS:
@@ -164,24 +183,73 @@ def _n_valid(frame_mask, dev):
         torch.int32)
 
 
+def _as_input(x, dev) -> torch.Tensor:
+    r"""x on ``dev``: a bf16 / fp16 tensor keeps its dtype (mixed-precision
+    training), anything else becomes fp32."""
+    if isinstance(x, torch.Tensor) and x.dtype in (torch.bfloat16,
+                                                   torch.float16):
+        return x.to(dev)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _layer_in_scan(cfg: GraphNetConfig, params2, x: torch.Tensor, state,
+                   frame_mask, rng):
+    r"""One bidirectional graph layer in training: the unhoisted cell step
+    in :func:`layers.bi_rnn`, with per-frame dropout on the input and on
+    the recurrent h (LSTM cells; the G-GRU cell has none) from keep-masks
+    drawn for the whole window, rematerialized in the backward pass when
+    ``cfg.remat``. Returns (y [B, T, N, 2H], state)."""
+    B, T, N, F = x.shape
+    if cfg.cell == "ggru":
+        step, extras, state = C.ggru_step, (), (state,)
+    else:
+        step = functools.partial(
+            C.gcn_lstm_step, dropout_rate=cfg.dropout,
+            recurrent_dropout_rate=cfg.recurrent_dropout)
+        H = cfg.units_hidden
+        extras = (C.keep_mask(rng, (2, T, B, N, F), cfg.dropout, x.device),
+                  C.keep_mask(rng, (2, T, B, N, H), cfg.recurrent_dropout,
+                              x.device))
+    if cfg.remat:
+        step = functools.partial(checkpoint, step, use_reentrant=False,
+                                 preserve_rng_state=False)
+    y, state = L.bi_rnn(step, params2, x, state, frame_mask=frame_mask,
+                        extras=extras)
+    if cfg.cell == "ggru":
+        return y, state[0]
+    return torch.tanh(y), state
+
+
 def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
-                    state=None, frame_mask=None, *, device="cuda"):
-    r"""Forward pass at inference. x [B, T, N, F_in] → ([B, T, N, F_out],
-    new state). ``frame_mask`` [B, T] marks valid frames; rows must be
-    ones-prefix (end padding, or a whole idle row), since the layers take
-    per-row lengths ``n_valid = Σ_t frame_mask``: a host mask that is not
-    raises ``ValueError`` (:func:`check_ones_prefix`). Outputs on masked
-    frames are undefined; the state carries through them."""
+                    state=None, frame_mask=None, *, device="cuda",
+                    rng: Optional[torch.Generator] = None):
+    r"""Forward pass. x [B, T, N, F_in] → ([B, T, N, F_out], new state).
+    ``frame_mask`` [B, T] marks valid frames; rows must be ones-prefix (end
+    padding, or a whole idle row), since the layers take per-row lengths
+    ``n_valid = Σ_t frame_mask``: a host mask that is not raises
+    ``ValueError`` (:func:`check_ones_prefix`). Outputs on masked frames
+    are undefined; the state carries through them. ``rng`` (training): a
+    ``torch.Generator`` on ``device``; dropout on, the layers stepped frame
+    by frame on the plain path (:func:`_layer_in_scan`)."""
     dev = resolve_device(device)
     check_module_device(params, dev)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = _as_input(x, dev)
     if state is None:
-        state = graph_net_zero_state(cfg, x.shape[0], dev)
+        state = graph_net_zero_state(cfg, x.shape[0], dev, x.dtype)
     n_valid = _n_valid(frame_mask, dev)
-    layer = _rnn_layer(cfg, x)
-    x = torch.relu(C.graph_conv(params.linear_in, x))
-    x, state = layer(params.rnn1, x, state, n_valid)
-    x, state = layer(params.rnn2, x, state, n_valid)
+    drop_rng = None if cfg.cell == "ggru" else rng
+    x = torch.relu(C.graph_conv(params.linear_in, x,
+                                dropout_rate=cfg.linear_dropout,
+                                rng=drop_rng))
+    if rng is None:
+        layer = _rnn_layer(cfg, x)
+        x, state = layer(params.rnn1, x, state, n_valid)
+        x, state = layer(params.rnn2, x, state, n_valid)
+    else:
+        mask = (None if n_valid is None else
+                torch.arange(x.shape[1], device=dev)[None] < n_valid[:, None])
+        for params2 in (params.rnn1, params.rnn2):
+            x, state = _layer_in_scan(cfg, params2, x, state, mask, drop_rng)
     return C.graph_conv(params.linear_out, x), state
 
 
@@ -212,7 +280,7 @@ class LSTMLayerParams(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class DIPConfig:
     r"""Static DIP-net hyperparameters. ``backend`` as in
-    :class:`GraphNetConfig`."""
+    :class:`GraphNetConfig`; ``dropout`` on the input, in training only."""
 
     n_input: int = 60
     n_output: int = 135
@@ -220,6 +288,7 @@ class DIPConfig:
     n_layers: int = 2
     bidirectional: bool = True
     backend: str = "auto"
+    dropout: float = 0.2
 
     def __post_init__(self):
         _check_backend(self.backend)
@@ -280,18 +349,24 @@ def dip_zero_state(cfg: DIPConfig, batch: int, device="cuda",
 
 
 def dip_apply(params: DIPParams, cfg: DIPConfig, x, state=None,
-              frame_mask=None, *, device="cuda"):
-    r"""DIP forward at inference: x [B, T, n_input] → ([B, T, n_output],
-    new state). ``frame_mask`` [B, T] as in :func:`graph_net_apply`: per
-    row, ones-prefix; outputs on masked frames are undefined and the state
-    carries through them."""
+              frame_mask=None, *, device="cuda",
+              rng: Optional[torch.Generator] = None):
+    r"""DIP forward: x [B, T, n_input] → ([B, T, n_output], new state).
+    ``frame_mask`` [B, T] as in :func:`graph_net_apply`: per row,
+    ones-prefix; outputs on masked frames are undefined and the state
+    carries through them. ``rng`` (training): dropout on the input, the
+    layers on the plain path."""
     dev = resolve_device(device)
     check_module_device(params, dev)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = _as_input(x, dev)
     if state is None:
-        state = dip_zero_state(cfg, x.shape[0], dev)
+        state = dip_zero_state(cfg, x.shape[0], dev, x.dtype)
     n_valid = _n_valid(frame_mask, dev)
-    layer = _pick(cfg.backend, x, LS.bi_lstm, LS.bi_lstm_reference)
+    if rng is None:
+        layer = _pick(cfg.backend, x, LS.bi_lstm, LS.bi_lstm_reference)
+    else:
+        x = C._dropout(x, cfg.dropout, rng)
+        layer = LS.bi_lstm_reference
     x = torch.relu(torch.matmul(x, params.linear1.kernel)
                    + params.linear1.bias)
     new_states = []

@@ -66,11 +66,12 @@ def init_pose_net(gen: torch.Generator, cfg: PoseNetConfig, adjacency=None):
 
 
 def pose_net_forward(params, cfg: PoseNetConfig, imu: torch.Tensor,
-                     state=None, frame_mask=None):
-    r"""Raw net forward on the device ``imu`` lies on."""
+                     state=None, frame_mask=None, rng=None):
+    r"""Raw net forward on the device ``imu`` lies on; ``rng`` (a
+    ``torch.Generator`` there) turns on dropout (training)."""
     apply = N.graph_net_apply if cfg.is_graph else N.dip_apply
     return apply(params, cfg.net, imu, state, frame_mask=frame_mask,
-                 device=imu.device)
+                 device=imu.device, rng=rng)
 
 
 def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,

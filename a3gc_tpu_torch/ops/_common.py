@@ -17,7 +17,7 @@ import functools
 import torch
 
 __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
-           "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
+           "like", "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
            "k_slices", "sm_count", "device_index", "kernel_library",
            "launch"]
 
@@ -55,6 +55,14 @@ def f32(t: torch.Tensor) -> torch.Tensor:
     r"""bf16/fp16 inputs are upcast at the boundary: the kernels are fp32
     inside."""
     return t if t.dtype == torch.float32 else t.float()
+
+
+def like(out, ref: torch.Tensor):
+    r"""``out`` (a tensor or a tuple of them) in the dtype of ``ref``: the
+    fp32 results of a layer given bf16 inputs go back as bf16."""
+    if isinstance(out, tuple):
+        return tuple(like(t, ref) for t in out)
+    return out if out.dtype == ref.dtype else out.to(ref.dtype)
 
 
 def n_valid_tensor(n_valid, S: int, T: int, device) -> torch.Tensor:

@@ -27,9 +27,9 @@ per-stream ``n_valid`` [S]:
     carried h (the Pallas kernels' output there);
   * returns (y, (h, c)) with the final states [2, S, N, H].
 
-The kernel is forward-only: a CUDA call with grad enabled raises. The
-``torch.autograd.Function`` whose backward reruns the plain path comes with
-the training slice (ROADMAP Queue 1 item 11).
+The kernel has no backward: the op's autograd formula reruns
+:func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
+the outputs come back in the dtypes of x and of the state.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         THREADS, check_aligned, check_f32,
                                         check_n_valid, f32 as _f32, k_slices,
-                                        kernel_library, launch,
+                                        kernel_library, launch, like,
                                         n_valid_tensor as _n_valid)
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
@@ -129,7 +129,7 @@ def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
     on any device: :func:`scan_inputs`, then :func:`scan_reference`. The
     tests use it; on the card it is what the kernel is held to."""
     y, h, c = scan_reference(*scan_inputs(params2, x, state2, n_valid))
-    return y, (h, c)
+    return like(y, x), like((h, c), state2[0])
 
 
 def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
@@ -234,17 +234,12 @@ def bi_gcn_lstm(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
     program does: on CUDA tensors it launches the kernel (one launch, both
     directions) or raises, on CPU tensors it computes
     :func:`scan_reference`."""
-    if x.is_cuda and torch.is_grad_enabled():
-        raise RuntimeError(
-            "bi_gcn_lstm: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() or torch.inference_mode() (gradients come with "
-            "the training slice, ROADMAP Queue 1 item 11)")
     from a3gc_tpu_torch.ops.library import gcn_lstm_scan
     u, wh, adj, bias, att, h0, c0, nv = scan_inputs(params2, x, state2,
                                                     n_valid)
     y, h, c = gcn_lstm_scan(u, wh, adj, bias, *(att or (None,) * 6), h0, c0,
                             nv)
-    return y, (h, c)
+    return like(y, x), like((h, c), state2[0])
 
 
 def scan_inputs(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,

@@ -36,7 +36,9 @@ The function, for x [S, T, N, F], h2 [2, S, N, H] and per-stream
     others the carried h (the Pallas kernel's output there);
   * returns (y, h) with the final state h [2, S, N, H].
 
-The kernel is forward-only: a CUDA call with grad enabled raises.
+The kernel has no backward: the op's autograd formula reruns
+:func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
+the outputs come back in the dtypes of x and of the state.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         check_aligned, check_f32,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
-                                        n_valid_tensor, sm_count)
+                                        like, n_valid_tensor, sm_count)
 
 __all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "gate_pad",
            "launch_plan", "max_active", "one_wave", "scan", "scan_inputs",
@@ -155,7 +157,8 @@ def bi_ggru_reference(params2: C.GGRUCellParams, x: torch.Tensor, h2,
     r"""The plain PyTorch version of :func:`bi_ggru` — the same function on
     any device: :func:`scan_inputs`, then :func:`scan_reference`. The tests
     use it; on the card it is what the kernel is held to."""
-    return scan_reference(*scan_inputs(params2, x, h2, n_valid))
+    y, h = scan_reference(*scan_inputs(params2, x, h2, n_valid))
+    return like(y, x), like(h, h2)
 
 
 def scan_reference(zi: torch.Tensor, gcn_kernel: torch.Tensor,
@@ -233,13 +236,9 @@ def bi_ggru(params2: C.GGRUCellParams, x: torch.Tensor, h2, n_valid=None):
     (:mod:`a3gc_tpu_torch.ops.library`): on CUDA tensors it launches the
     kernel (one launch, both directions) or raises, on CPU tensors it
     computes :func:`scan_reference`."""
-    if x.is_cuda and torch.is_grad_enabled():
-        raise RuntimeError(
-            "bi_ggru: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() or torch.inference_mode() (gradients come with "
-            "the training slice, ROADMAP Queue 1 item 11)")
     from a3gc_tpu_torch.ops.library import ggru_scan
-    return ggru_scan(*scan_inputs(params2, x, h2, n_valid))
+    y, h = ggru_scan(*scan_inputs(params2, x, h2, n_valid))
+    return like(y, x), like(h, h2)
 
 
 def scan_inputs(params2: C.GGRUCellParams, x: torch.Tensor, h2,

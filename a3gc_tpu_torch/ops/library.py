@@ -9,7 +9,13 @@ Each op has three implementations:
     query) and its launch counter — they run wherever the op runs, in the
     eager layers and in a loaded ``torch.export`` program alike;
   * CPU: the kernel's plain version on the same inputs (``scan_reference``);
-  * fake (``register_fake``): the output shapes only, for tracing.
+  * fake (``register_fake``): the output shapes only, for tracing;
+
+and one autograd formula (``register_autograd``): the kernels have no
+backward, so the backward reruns the plain version on the saved inputs,
+on their device, and differentiates that — the JAX package's
+``custom_jvp`` of its Pallas layers, which recomputes on the XLA scan. The
+integer ``n_valid`` and absent attention inputs get no gradient.
 
 No op writes its inputs (``mutates_args=()``): no launch writes its
 initial state. ``bi_gcn_lstm``, ``bi_ggru`` and ``bi_lstm`` call the ops,
@@ -52,13 +58,19 @@ def gcn_lstm_scan(u: Tensor, wh: Tensor, adj: Tensor, bias: Tensor,
     r"""One graph-LSTM layer call, both directions: the arguments of
     ``gcn_lstm.scan`` with the attention tuple spread (all six None for an
     AAGC cell). Returns (y [S, T, N, 2H], h, c [2, S, N, H])."""
-    att = _attention(att_w, att_wq, att_wh, att_u, att_bs, att_bu)
-    return _contiguous(*G.scan_reference(u, wh, adj, bias, att, h0, c0,
-                                         n_valid))
+    return _contiguous(*_gcn_lstm_plain(u, wh, adj, bias, att_w, att_wq,
+                                        att_wh, att_u, att_bs, att_bu, h0,
+                                        c0, n_valid))
 
 
 def _attention(*att):
     return None if att[0] is None else tuple(att)
+
+
+def _gcn_lstm_plain(u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs,
+                    att_bu, h0, c0, n_valid):
+    att = _attention(att_w, att_wq, att_wh, att_u, att_bs, att_bu)
+    return G.scan_reference(u, wh, adj, bias, att, h0, c0, n_valid)
 
 
 @gcn_lstm_scan.register_kernel("cuda")
@@ -123,3 +135,38 @@ def _lstm_fake(u, w_hh, h0, c0, n_valid):
     H = G4 // 4
     return (u.new_empty((S, T, D * H)), h0.new_empty((D, S, H)),
             h0.new_empty((D, S, H)))
+
+
+# -- autograd: the plain version's gradients ---------------------------------
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _plain_backward(plain):
+    r"""The backward of an op whose plain version is ``plain`` (same
+    arguments, same outputs): rerun ``plain`` under grad on detached copies
+    of the saved inputs that need a gradient and return
+    ``torch.autograd.grad`` with respect to them, None for the others."""
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        needs = [need and t is not None and t.is_floating_point()
+                 for need, t in zip(ctx.needs_input_grad, inputs)]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if need else t
+                      for t, need in zip(inputs, needs)]
+            outs = plain(*leaves)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t, n in zip(leaves, needs) if n],
+                [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if need else None for need in needs)
+    return backward
+
+
+gcn_lstm_scan.register_autograd(_plain_backward(_gcn_lstm_plain),
+                                setup_context=_save_inputs)
+ggru_scan.register_autograd(_plain_backward(GG.scan_reference),
+                            setup_context=_save_inputs)
+lstm_scan.register_autograd(_plain_backward(LS.scan_reference),
+                            setup_context=_save_inputs)

@@ -31,7 +31,9 @@ rows; the port keeps the per-row contract of the JAX XLA path):
   * y [S, T, D·H] is the carried h after each frame, forward ‖ backward;
   * returns (y, (h, c)) with the final states in the shape of the state.
 
-The kernel is forward-only: a CUDA call with grad enabled raises.
+The kernel has no backward: the op's autograd formula reruns
+:func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
+the outputs come back in the dtypes of x and of the state.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         THREADS, check_aligned, check_f32,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
-                                        n_valid_tensor, sm_count)
+                                        like, n_valid_tensor, sm_count)
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
            "launch_plan", "lstm_step_hoisted", "max_active", "scan",
@@ -175,7 +177,7 @@ def bi_lstm_reference(params: nn.Module, x: torch.Tensor, state,
     y, h, c = scan_reference(*scan_inputs(params, x, state, n_valid))
     if directions(params) == 1:
         h, c = h[0], c[0]
-    return y, (h, c)
+    return like(y, x), like((h, c), state[0])
 
 
 def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
@@ -272,16 +274,11 @@ def bi_lstm(params: nn.Module, x: torch.Tensor, state, n_valid=None):
     ``a3gc_tpu_torch::lstm_scan`` (:mod:`a3gc_tpu_torch.ops.library`): on
     CUDA tensors it launches the kernel (one launch, every direction) or
     raises, on CPU tensors it computes :func:`scan_reference`."""
-    if x.is_cuda and torch.is_grad_enabled():
-        raise RuntimeError(
-            "bi_lstm: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() or torch.inference_mode() (gradients come with "
-            "the training slice, ROADMAP Queue 1 item 11)")
     from a3gc_tpu_torch.ops.library import lstm_scan
     y, h, c = lstm_scan(*scan_inputs(params, x, state, n_valid))
     if directions(params) == 1:
         h, c = h[0], c[0]
-    return y, (h, c)
+    return like(y, x), like((h, c), state[0])
 
 
 def scan_inputs(params: nn.Module, x: torch.Tensor, state,

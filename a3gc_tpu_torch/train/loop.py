@@ -1,0 +1,545 @@
+r"""Training: the per-batch step, the per-stage epoch driver, early stopping
+(counterpart of ``a3gc_tpu/train/loop.py``).
+
+  * One step: assemble the batch on its device (normalization, graph
+    scatter, teacher-forcing noise), the forward pass with dropout, the
+    loss, backward, and the Adam update. The same step serves a host-fed
+    epoch and a device-resident corpus (``--device_data``: the batch is
+    gathered on the card by ``index_select``).
+  * Optimizer semantics of the reference's trainers: Adam with L2 weight
+    decay folded into the gradient (torch ``Adam``, not ``AdamW``) and a
+    per-epoch exponential decay of the learning rate, stepped per update
+    as a staircase; the AGC cells' shared adjacency is left out of the
+    optimizer (no update, no decay).
+  * Mixed precision: bf16 forward and backward on fp32 master parameters,
+    the loss in fp32.
+  * Randomness: one ``torch.Generator`` per step, on the step's device,
+    seeded from (seed, stage/epoch salt, step) through
+    ``np.random.SeedSequence``, so a resumed run repeats its draws. The
+    noise and the dropout masks are the JAX package's distributions, not
+    its bits.
+
+Stage input wiring:
+  stage 1: inputs = imu,                        target = leaf positions
+  stage 2: inputs = imu ‖ noisy leaf positions, target = all positions
+  stage 3: inputs = imu ‖ noisy all positions,  target = rotations
+Validation feeds clean positions, through the Hopper kernels on the card.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import inspect
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from a3gc_tpu_torch._device import resolve_device
+from a3gc_tpu_torch.config import TrainConfig
+from a3gc_tpu_torch.data import pipeline as DP
+from a3gc_tpu_torch.models.pipeline import (PoseNetConfig, pose_loss,
+                                            pose_net_forward)
+
+__all__ = [
+    "TrainState", "make_optimizer", "StageRunner", "DIPRunner",
+    "run_cascade_training", "stage_inputs_graph", "stage_inputs_flat",
+    "GracefulInterrupt", "CheckpointRetention", "seeded_generator",
+]
+
+
+class GracefulInterrupt:
+    r"""Cooperative SIGTERM/SIGINT stop for preemption-safe training.
+
+    Wrap training in this context manager and pass it to
+    :func:`run_cascade_training`: the first signal makes training stop at
+    the next step boundary, write a checkpoint of the CURRENT params
+    through the normal save path, log an ``"interrupted"`` event, and
+    return cleanly — ``--resume`` picks the run back up. A second signal
+    restores the previous handler and re-raises (escape hatch for a stuck
+    save).
+
+    Handlers only install in the main thread (signal-module rule);
+    elsewhere the instance is inert and ``triggered`` stays False.
+    """
+
+    def __init__(self, signums=None):
+        import signal
+        self.signums = tuple(signums or (signal.SIGTERM, signal.SIGINT))
+        self.triggered = False
+        self._prev = {}
+
+    def __call__(self) -> bool:
+        return self.triggered
+
+    def __enter__(self):
+        import signal
+        import threading
+        if threading.current_thread() is threading.main_thread():
+            for s in self.signums:
+                self._prev[s] = signal.signal(s, self._handle)
+        return self
+
+    def _handle(self, signum, frame):
+        import signal
+        if self.triggered:              # second signal: hard escape
+            signal.signal(signum, self._prev.get(signum, signal.SIG_DFL))
+            raise KeyboardInterrupt
+        self.triggered = True
+
+    def __exit__(self, *exc):
+        import signal
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        self._prev.clear()
+        return False
+
+
+@dataclasses.dataclass
+class TrainState:
+    r"""A stage's training state: the net (fp32 master parameters), its
+    optimizer and learning-rate schedule, and the updates taken."""
+    params: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def seeded_generator(device, *entropy) -> torch.Generator:
+    r"""A ``torch.Generator`` on ``device`` seeded from integers (or tuples
+    of them) through ``np.random.SeedSequence``: the training loops draw a
+    step's noise and dropout masks from ``seeded_generator(dev, seed, salt,
+    step)``."""
+    flat = []
+    for e in entropy:
+        flat.extend(e if isinstance(e, (tuple, list)) else (e,))
+    state = np.random.SeedSequence([int(e) for e in flat]).generate_state(
+        1, np.uint64)
+    dev = resolve_device(device)
+    return torch.Generator(device=dev).manual_seed(int(state[0]) >> 1)
+
+
+def _adjacency_frozen(params: nn.Module, cfg: Optional[PoseNetConfig]):
+    r"""The parameters left out of the optimizer: the AGC cells' shared
+    adjacency (``requires_grad=False`` in the reference)."""
+    if cfg is None or not (cfg.is_graph and cfg.net.cell == "agc"):
+        return []
+    return [params.rnn1.adj, params.rnn2.adj]
+
+
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int,
+                   params: nn.Module,
+                   stage_cfg: Optional[PoseNetConfig] = None):
+    r"""torch Adam (L2 weight decay into the gradient) over ``params`` but
+    the frozen adjacency, and a ``LambdaLR`` stepped once per update:
+    ``lr · lr_decay ** ((step + start_epoch·steps) // steps)``, the
+    staircase exponential decay per epoch, fast-forwarded by
+    ``start_epoch`` like the reference's resume path. Returns (optimizer,
+    scheduler)."""
+    frozen = {id(p) for p in _adjacency_frozen(params, stage_cfg)}
+    optimizer = torch.optim.Adam(
+        [p for p in params.parameters() if id(p) not in frozen],
+        lr=cfg.lr, weight_decay=cfg.weight_decay)
+    steps = max(steps_per_epoch, 1)
+    offset = cfg.start_epoch * steps
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: cfg.lr_decay ** ((step + offset) // steps))
+    return optimizer, scheduler
+
+
+def _cast_module(module: nn.Module, cast) -> nn.Module:
+    r"""A structural copy of ``module`` whose parameters are ``cast(p)``:
+    tensors computed from the originals, so gradients reach them. A copy,
+    not a temporary substitution, because a step rematerialized in the
+    backward pass reads the parameters again then."""
+    clone = copy.copy(module)
+    clone._parameters = {k: None if v is None else cast(v)
+                         for k, v in module._parameters.items()}
+    clone._modules = {k: None if m is None else _cast_module(m, cast)
+                      for k, m in module._modules.items()}
+    return clone
+
+
+def _make_caster(train_cfg: TrainConfig):
+    r"""``cast(tree)`` for the forward: identity in fp32; for bf16, bf16
+    casts of the fp32 leaves of a module (the master parameters stay fp32
+    and receive the gradients) or of a tensor. The optimizer update stays
+    fp32."""
+    if train_cfg.dtype != "bfloat16":
+        return lambda tree: tree
+
+    def bf16(t):
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+    def cast(tree):
+        if isinstance(tree, nn.Module):
+            return _cast_module(tree, bf16)
+        return bf16(tree)
+    return cast
+
+
+# ---------------------------------------------------------------------------
+# stage input wiring
+# ---------------------------------------------------------------------------
+
+def stage_inputs_graph(batch: DP.GraphBatch, stage: int, train: bool):
+    r"""Graph-model wiring: (inputs, target) of a stage."""
+    imu, leaf_in, full_in, leaf, full, smpl = batch
+    B, T = imu.shape[:2]
+    if stage == 1:
+        return imu, leaf
+    if stage == 2:
+        pos = leaf_in if train else leaf.reshape(B, T, 15, 3)
+        return torch.cat((imu, pos), dim=-1), full
+    pos = full_in if train else full.reshape(B, T, 15, 3)
+    return torch.cat((imu, pos), dim=-1), smpl
+
+
+def stage_inputs_flat(batch, stage: int, train: bool):
+    r"""Flat TransPose wiring: (inputs, target) of a stage."""
+    imu, leaf_in, full_in, leaf, full, smpl = batch
+    if stage == 1:
+        return imu, leaf
+    if stage == 2:
+        pos = leaf_in if train else leaf
+        return torch.cat((imu, pos), dim=-1), full
+    pos = full_in if train else full
+    return torch.cat((imu, pos), dim=-1), smpl
+
+
+# ---------------------------------------------------------------------------
+# runners
+# ---------------------------------------------------------------------------
+
+class _Runner:
+    r"""The step, epoch and validation loops shared by :class:`StageRunner`
+    and :class:`DIPRunner`; a subclass gives ``_batch(raw, rng, train) ->
+    (inputs, target)``."""
+
+    def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
+                 train_cfg: TrainConfig, steps_per_epoch: int,
+                 stats, device, freeze_cfg: Optional[PoseNetConfig]):
+        if train_cfg.accum_steps < 1 or \
+                train_cfg.batch_size % train_cfg.accum_steps:
+            raise ValueError(f"accum_steps={train_cfg.accum_steps} must "
+                             f"divide batch_size={train_cfg.batch_size}")
+        self.device = resolve_device(device)
+        self.stage_cfg = stage_cfg
+        self.cfg = train_cfg
+        self.stats = (None if stats is None else
+                      {k: torch.as_tensor(np.asarray(v, np.float32),
+                                          device=self.device)
+                       for k, v in stats.items()})
+        params = copy.deepcopy(params).to(self.device)     # private copy
+        optimizer, scheduler = make_optimizer(train_cfg, steps_per_epoch,
+                                              params, freeze_cfg)
+        self.state = TrainState(params, optimizer, scheduler)
+        self._cast = _make_caster(train_cfg)
+        self._eval_b = (train_cfg.eval_batch_size
+                        or min(train_cfg.batch_size, 128))
+        self.interrupt = None
+
+    def loss(self, params: nn.Module, raw: Dict[str, torch.Tensor],
+             rng: Optional[torch.Generator]) -> torch.Tensor:
+        r"""The stage's loss on a raw batch (tensors on the runner's
+        device): training with ``rng`` (noise and dropout drawn from it),
+        validation without (clean inputs, the kernels)."""
+        raw = dict(raw)
+        weight = raw.pop("_weight", None)   # padded tail batch (Sampler)
+        inputs, target = self._batch(raw, rng, rng is not None)
+        pred, _ = pose_net_forward(self._cast(params), self.stage_cfg,
+                                   self._cast(inputs), rng=rng)
+        return pose_loss(pred.reshape(target.shape).float(), target,
+                         sample_weight=weight)
+
+    def batch_at(self, sampler: DP.Sampler, take, weight=None
+                 ) -> Dict[str, torch.Tensor]:
+        r"""Rows ``take`` of the sampler's corpus on the runner's device:
+        gathered on the device from ``sampler.device_data``, else sliced on
+        the host and copied."""
+        dev = self.device
+        w = None if weight is None else torch.as_tensor(weight, device=dev)
+        if sampler.device_data is not None:
+            return DP.gather(sampler.device_data,
+                             torch.as_tensor(take, device=dev), w)
+        raw = {k: torch.as_tensor(v[take], device=dev)
+               for k, v in sampler.data.items()}
+        if w is not None:
+            raw["_weight"] = w
+        return raw
+
+    def train_step(self, raw: Dict[str, torch.Tensor],
+                   rng: torch.Generator) -> torch.Tensor:
+        r"""One optimizer update on a raw batch; returns its loss (a device
+        scalar). With ``accum_steps = k`` the batch splits into k
+        sequential microbatches whose gradients combine weighted by their
+        real samples: the weighted-mean gradient of the whole batch, at
+        the peak activation memory of one microbatch."""
+        st = self.state
+        st.params.zero_grad(set_to_none=True)
+        k = self.cfg.accum_steps
+        if k == 1:
+            loss = self.loss(st.params, raw, rng)
+            loss.backward()
+        else:
+            B = len(next(iter(raw.values())))
+            weights = raw.get("_weight")
+            total = float(k) if weights is None else weights.sum()
+            loss = 0.0
+            for i in range(k):
+                mb = {key: v[i * B // k:(i + 1) * B // k]
+                      for key, v in raw.items()}
+                w = 1.0 if weights is None else mb["_weight"].sum()
+                mb_loss = self.loss(st.params, mb, rng)
+                (mb_loss * (w / total)).backward()
+                loss = loss + mb_loss.detach() * w
+            loss = loss / total
+        st.optimizer.step()
+        st.scheduler.step()
+        st.step += 1
+        return loss.detach()
+
+    def train_epoch(self, sampler: DP.Sampler, seed=0) -> float:
+        r"""One epoch of steps; step i draws from ``seeded_generator(device,
+        seed, i)``. Losses stay on the device until the epoch ends. Stops
+        at a step boundary when ``self.interrupt()`` turns true."""
+        losses = []
+        for i, (take, w) in enumerate(sampler.iter_indices()):
+            if self.interrupt is not None and self.interrupt():
+                break
+            losses.append(self.train_step(
+                self.batch_at(sampler, take, w),
+                seeded_generator(self.device, seed, i)))
+        if not losses:
+            return 0.0
+        return float(torch.stack(losses).mean())
+
+    @torch.no_grad()
+    def eval_epoch(self, sampler: DP.Sampler) -> float:
+        r"""Validation pass in chunks of ``eval_batch_size`` (0: min(batch,
+        128)): the size-weighted mean of the chunks' losses. Padded tail
+        batches weight each chunk by its REAL sample count, so the result
+        is the mean over the dataset's native size."""
+        losses, weights = [], []
+        for take, w_all in sampler.iter_indices():
+            B = len(take)
+            for s in range(0, B, self._eval_b):
+                wc = None if w_all is None else w_all[s:s + self._eval_b]
+                n = (float(wc.sum()) if wc is not None
+                     else min(self._eval_b, B - s))
+                if n == 0:
+                    continue    # all-pad chunk: nothing real to score
+                losses.append(self.loss(
+                    self.state.params,
+                    self.batch_at(sampler, take[s:s + self._eval_b], wc),
+                    None))
+                weights.append(n)
+        if not losses:
+            return 0.0
+        w = torch.tensor(weights, dtype=torch.float32)
+        return float(torch.stack(losses).cpu() @ w / w.sum())
+
+
+class StageRunner(_Runner):
+    r"""Trains one cascade stage (graph or flat TransPose)."""
+
+    def __init__(self, stage: int, stage_cfg: PoseNetConfig,
+                 params: nn.Module, train_cfg: TrainConfig,
+                 steps_per_epoch: int, stats=None, graph: bool = True,
+                 device="cuda"):
+        super().__init__(stage_cfg, params, train_cfg, steps_per_epoch,
+                         stats if train_cfg.normalize else None, device,
+                         stage_cfg)
+        self.stage = stage
+        self.graph = graph
+        self._assemble = DP.graph_batch if graph else DP.flat_batch
+        self._wire = stage_inputs_graph if graph else stage_inputs_flat
+        self._noise_kw = ({"noise_std": train_cfg.full_noise_std} if graph
+                          else {"leaf_noise_std": train_cfg.leaf_noise_std,
+                                "full_noise_std": train_cfg.full_noise_std})
+        self._rotsize = stage_cfg.rotsize if stage == 3 else 9
+
+    def _batch(self, raw, rng, train):
+        batch = self._assemble(raw, self.stats, rng, rotsize=self._rotsize,
+                               **self._noise_kw)
+        return self._wire(batch, self.stage, train=train)
+
+    @torch.no_grad()
+    def eval_full_sequences(self, sequences, batch: int = None) -> float:
+        r"""Full-sequence validation (the reference's ``--fse``): each
+        variable-length sequence scored at its native length, the plain
+        mean over sequences. Sequences group by power-of-two bucket
+        length, ``batch`` rows a pass (default: the eval chunk size), each
+        group end-padded to its longest member with a frame mask; per
+        sequence the masked loss is exactly the native-length one."""
+        from a3gc_tpu_torch.eval.run import bucket_length
+
+        dev = self.device
+        groups = {}
+        for seq in sequences:
+            T = len(next(iter(seq.values())))
+            groups.setdefault(bucket_length(T), []).append((seq, T))
+        fb = batch or self._eval_b
+        total, count = 0.0, 0
+        for _, group in sorted(groups.items()):
+            for g0 in range(0, len(group), fb):
+                chunk = group[g0:g0 + fb]
+                n_valid = np.array([T for _, T in chunk])
+                L = int(n_valid.max())
+                raw = {}
+                for k, v in chunk[0][0].items():
+                    v = np.asarray(v)
+                    raw[k] = np.zeros((len(chunk), L) + v.shape[1:], v.dtype)
+                for i, (seq, T) in enumerate(chunk):
+                    for k, v in seq.items():
+                        raw[k][i, :T] = v
+                mask = np.arange(L)[None] < n_valid[:, None]
+                per_seq = self._per_sequence_loss(
+                    {k: torch.as_tensor(v, device=dev)
+                     for k, v in raw.items()}, mask)
+                total += float(per_seq.sum())
+                count += len(chunk)
+        return total / max(count, 1)
+
+    def _per_sequence_loss(self, raw, mask: np.ndarray) -> torch.Tensor:
+        r"""Per-row frame-masked loss [B]: pose_loss's masked mean, un-pooled
+        over the batch, on the fp32 master parameters."""
+        inputs, target = self._batch(raw, None, False)
+        pred, _ = pose_net_forward(self.state.params, self.stage_cfg,
+                                   inputs, frame_mask=mask)
+        err = torch.square(target - pred.reshape(target.shape)).sum(-1)
+        m = torch.as_tensor(mask, dtype=err.dtype, device=err.device)
+        w = m.reshape(m.shape + (1,) * (err.dim() - 2))
+        per_frame = err[0, 0].numel() if err.dim() > 2 else 1
+        denom = m.sum(dim=1) * per_frame
+        return ((err * w).sum(dim=tuple(range(1, err.dim())))
+                / torch.clamp(denom, min=1.0))
+
+
+class DIPRunner(_Runner):
+    r"""Single-stage DIP trainer: input the normalized 60-channel no-root
+    IMU vector, target the reduced pose."""
+
+    def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
+                 train_cfg: TrainConfig, steps_per_epoch: int, stats,
+                 device="cuda"):
+        super().__init__(stage_cfg, params, train_cfg, steps_per_epoch,
+                         stats, device, None)
+
+    def _batch(self, raw, rng, train):
+        return DP.dip_batch(raw, self.stats, rotsize=self.stage_cfg.rotsize)
+
+
+def _accepts_salt(fn) -> bool:
+    r"""Whether ``fn`` binds ONE positional argument (a ``lambda **kw`` or
+    keyword-only signature takes the zero-argument call)."""
+    try:
+        inspect.signature(fn).bind(0)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def run_cascade_training(
+        runners: Dict[int, StageRunner],
+        train_sampler_fn: Callable[..., DP.Sampler],
+        valid_sampler_fn: Callable[[], DP.Sampler],
+        cfg: TrainConfig,
+        save_fn: Optional[Callable[[int, int, nn.Module], object]] = None,
+        log_fn: Optional[Callable[[dict], None]] = None,
+        valid_fn: Optional[Callable[[StageRunner], float]] = None,
+        interrupt: Optional[Callable[[], bool]] = None):
+    r"""The 3-stage sequential driver with per-stage early stopping: stages
+    run in order from ``cfg.start_stage``; a stage stops after
+    ``cfg.patience`` epochs without validation improvement; a checkpoint is
+    written on every improvement (bounded by :class:`CheckpointRetention`).
+
+    ``train_sampler_fn`` is called with a per-(stage, epoch) salt so every
+    epoch gets a fresh shuffle order, deterministic given ``cfg.seed``
+    (zero-argument factories are accepted too); the epoch's steps draw
+    from ``(cfg.seed, salt, step)``. ``valid_fn`` replaces the chunked
+    validation (``--fse``). ``interrupt`` (a :class:`GracefulInterrupt` or
+    any nullary bool) stops at the next step boundary: the CURRENT params
+    are saved as a normal checkpoint, an ``"interrupted"`` event logged,
+    and the function returns."""
+    takes_salt = _accepts_salt(train_sampler_fn)
+    stopped = interrupt or (lambda: False)
+    for stage in sorted(runners):
+        if stage < cfg.start_stage:
+            continue
+        runner = runners[stage]
+        runner.interrupt = interrupt
+        best, tol = float("inf"), 0
+        retention = CheckpointRetention(cfg)
+        for epoch in range(cfg.start_epoch, cfg.max_epochs):
+            t0 = time.time()
+            salt = stage * 10000 + epoch
+            train_loss = runner.train_epoch(
+                train_sampler_fn(salt) if takes_salt else train_sampler_fn(),
+                (cfg.seed, salt))
+            if stopped():
+                if save_fn:
+                    save_fn(stage, epoch, runner.state.params)
+                if log_fn:
+                    log_fn({"stage": stage, "epoch": epoch,
+                            "event": "interrupted",
+                            "train_loss": train_loss,
+                            "seconds": time.time() - t0})
+                return runners
+            if valid_fn is not None:
+                valid_loss = valid_fn(runner)
+            else:
+                valid_loss = runner.eval_epoch(valid_sampler_fn())
+            if log_fn:
+                log_fn({"stage": stage, "epoch": epoch,
+                        "train_loss": train_loss, "valid_loss": valid_loss,
+                        "seconds": time.time() - t0})
+            if valid_loss < best:
+                best, tol = valid_loss, 0
+                if save_fn:
+                    retention.save(valid_loss, lambda: save_fn(
+                        stage, epoch, runner.state.params))
+            else:
+                tol += 1
+            if tol > cfg.patience:
+                break
+    return runners
+
+
+def _remove_checkpoint(path: str) -> None:
+    r"""Prune one checkpoint directory (retention policy). Only ever called
+    on paths the CURRENT run's save_fn returned."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
+class CheckpointRetention:
+    r"""Save-on-improvement disk bounding (``--keep N`` / ``--min_delta
+    D``): skip checkpoints whose improvement over the LAST SAVED loss is
+    below ``min_save_delta``, and prune improvement checkpoints THIS run
+    wrote beyond the newest ``keep_checkpoints``. Early stopping is
+    untouched, and interrupt checkpoints never pass through here. At the
+    defaults (min_delta 0, keep 0) every improvement is saved and kept."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.min_delta = cfg.min_save_delta
+        self.keep = cfg.keep_checkpoints
+        self.last_saved = float("inf")
+        self.written = []
+
+    def save(self, valid_loss: float, do_save) -> bool:
+        r"""``do_save: () -> path | None`` runs only when the min-delta gate
+        passes; returns whether a write happened."""
+        if not (valid_loss < self.last_saved - self.min_delta):
+            return False
+        path = do_save()
+        self.last_saved = valid_loss
+        if self.keep > 0 and isinstance(path, str):
+            self.written.append(path)
+            while len(self.written) > self.keep:
+                _remove_checkpoint(self.written.pop(0))
+        return True

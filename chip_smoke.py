@@ -121,9 +121,31 @@ Phases, each printing one JSON line:
                     <npz>`` as a subprocess on the evaluate phase's params
                     as ``.tar`` checkpoints; its report against the
                     in-process table;
-  5. kernels      — the ``{"kernels": [...]}`` line: launches on each
-                    kernel's serving and evaluation paths, max |d| of the
-                    kernel phases, and per
+  5. kernel_grad  — gradients through each kernel op (the kernel's forward,
+                    the plain version's backward) against autograd through
+                    its plain version, S = 8, T = 60, ragged n_valid:
+                    ``gcn_lstm`` and ``ggru`` at H = 256, 64, 128,
+                    ``lstm`` at H = 256 and 512, D = 2 and 1; max |d| over
+                    max |g| per leaf within 1e-5;
+     train        — ``python -m a3gc_tpu_torch.cli train --model a3gc -b 16
+                    --epochs 1 --hu1 256 --hu2 64 --hu3 128 --norm`` on a
+                    synthetic packed set (64 × 300 frames train, 16
+                    valid) in a child process that counts the kernel
+                    launches (validation, 2 a stage), then ``--model dip
+                    --hu1 512`` (``train_dip``): three stages (one) with
+                    finite losses in ``train_log.jsonl``, their checkpoints
+                    discoverable;
+     train_times  — training frames/s (B·T·steps over the seconds of the
+                    steps, fenced by ``torch.cuda.synchronize()``) of
+                    stages 1-3 of A3GC and stage 1 of G-GRU and TransPose,
+                    and of DIP at H = 512, at B = 16 and 32, T = 300, fp32
+                    and bf16, with peak memory and one validation chunk's
+                    time through the kernels; one step of A3GC stage 1 at
+                    B = 16 under torch.profiler (device busy, kernels);
+  6. kernels      — the ``{"kernels": [...]}`` line: launches on each
+                    kernel's serving, evaluation and training paths, max
+                    |d| of the kernel phases and of the gradient checks,
+                    and per
                     layer shape of those paths (S = 8 and 1, T = 60; S = 8
                     at the buffered ticks' T = 180 and 120, ``gcn_lstm``
                     and ``ggru``) the
@@ -166,9 +188,10 @@ LIBRARIES = ("gcn_lstm", "ggru", "lstm")
 LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # launch-counted paths: the eight of the plain windows and the offline
 # calls, the five buffered and HTTP ones, the checkpoint round trips, the
-# three evaluation phases and the two of the deployment artifacts (export:
-# counted by the fresh process that steps them)
-N_PATHS = 19
+# three evaluation phases, the two of the deployment artifacts (export:
+# counted by the fresh process that steps them) and the two of training
+# (counted by the cli train child process)
+N_PATHS = 21
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -180,6 +203,34 @@ REPORT_TOL = 0.005 + TABLE_TOL      # the text report rounds to 2 decimals
 # lengths (ragged n_valid), and of the timed rows (n_valid = T)
 EVAL_KERNEL_SHAPES = ((1, 2048), (8, 1024))
 EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
+# training: a synthetic packed corpus of TRAIN_SEQS (valid: VALID_SEQS)
+# sequences of TRAIN_T frames (the reference's chunk length), the
+# reference protocol's batch; timed at TRAIN_TIMED_B, TRAIN_TIMED_STEPS
+# steps (a warm-up step first at each net's first row)
+TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 64, 16, 300, 16
+TRAIN_TIMED_B = (16, 32)
+TRAIN_TIMED_STEPS = 1
+GRAD_TOL = 1e-5             # gradient max |d| over max |g| of each leaf
+
+# the train phase's child: ``python -m a3gc_tpu_torch.cli <argv>`` through
+# runpy, then one JSON line of the kernel launches it made (validation)
+TRAIN_CHILD = r"""
+import json, runpy, sys
+from a3gc_tpu_torch.ops import gcn_lstm, ggru, lstm
+sys.argv = ["a3gc_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("a3gc_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+print(json.dumps({"launches": {"gcn_lstm": gcn_lstm.bi_gcn_lstm.launches,
+                               "ggru": ggru.bi_ggru.launches,
+                               "lstm": lstm.bi_lstm.launches},
+                  "banned": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in (
+                                       "jax", "jaxlib", "flax",
+                                       "a3gc_tpu"))}))
+"""
 
 # the export phase's fresh process: given the artifacts' parent directory
 # (holding in.npz: 5 windows of ori / acc) and the family names, load each
@@ -473,6 +524,7 @@ class Smoke:
                          "ggru": ggru.bi_ggru, "lstm": lstm.bi_lstm}
         self.failures = []
         self.max_err = {}
+        self.max_grad_err = {}
         self.shapes = {name: [] for name in LIBRARIES}
         self.launches = {}          # path -> {kernel: launches}
         self._eval = None           # the evaluation phases' data
@@ -2427,6 +2479,262 @@ class Smoke:
               "report_max_abs_err_vs_in_process": err, "tol": REPORT_TOL,
               "card": nvidia_smi()})
 
+    # -- 5: training ---------------------------------------------------------
+    def phase_kernel_grad(self):
+        """Gradients of a scalar loss (random weights on every output) with
+        respect to the input, the initial state and every parameter,
+        through each kernel op (the kernel's forward, the plain version's
+        backward: ``ops/library.py``) against autograd through the plain
+        version, on the card at full width."""
+        from a3gc_tpu_torch.ops import gcn_lstm as G
+        from a3gc_tpu_torch.ops import ggru as GG
+        from a3gc_tpu_torch.ops import lstm as LS
+        torch = self.torch
+        gen = torch.Generator().manual_seed(5)
+        S, T = S_SERVE, WINDOW
+        cases = ([("gcn_lstm", H, 2) for H, _, _, _ in STAGES]
+                 + [("ggru", H, 2) for H, _, _, _ in STAGES]
+                 + [("lstm", H, D) for H in (TP_STAGES[0][0], DIP[0])
+                    for D in (2, 1)])
+        rows = []
+        for name, H, D in cases:
+            F = 2 * H if D == 2 else H
+            if name == "lstm":
+                p = self.lstm_layer(gen, F, H, D)
+                x, st, nv = self.layer_inputs(gen, S, T, F, H, ragged(S),
+                                              nodes=False, D=D)
+                fns = (LS.bi_lstm, LS.bi_lstm_reference)
+            else:
+                p = self.cell(gen, "a3gc" if name == "gcn_lstm" else "ggru",
+                              F, H)
+                x, st, nv = self.layer_inputs(
+                    gen, S, T, F, H, ragged(S),
+                    n_state=2 if name == "gcn_lstm" else 1)
+                fns = ((G.bi_gcn_lstm, G.bi_gcn_lstm_reference)
+                       if name == "gcn_lstm"
+                       else (GG.bi_ggru, GG.bi_ggru_reference))
+            grads, ms, weights = [], [], None
+            for fn in fns:
+                xx = x.detach().requires_grad_()
+                ss = tuple(t.detach().requires_grad_() for t in leaves(st))
+                state = ss if name != "ggru" else ss[0]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.enable_grad():
+                    out = leaves(fn(p, xx, state, nv))
+                    if weights is None:
+                        weights = [torch.randn(o.shape, generator=gen)
+                                   .to(self.dev) for o in out]
+                    loss = sum((o * w).sum() for o, w in zip(out, weights))
+                    grads.append(torch.autograd.grad(
+                        loss, [xx, *ss, *p.parameters()]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            err = max(float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(*grads))
+            finite = all(bool(torch.isfinite(g).all()) for g in grads[0])
+            self.max_grad_err[name] = max(self.max_grad_err.get(name, 0.0),
+                                          err)
+            self.check(err <= GRAD_TOL and finite,
+                       f"kernel_grad {name} H={H} D={D}: {err:.3e} "
+                       f"relative, finite={finite}")
+            rows.append({"kernel": name, "H": H, "F": F, "D": D, "S": S,
+                         "T": T, "max_rel_err": err, "finite": finite,
+                         "op_fwd_bwd_ms": ms[0], "plain_fwd_bwd_ms": ms[1]})
+        emit({"phase": "kernel_grad", "tol": GRAD_TOL, "cases": rows,
+              "card": nvidia_smi()})
+
+    def phase_train(self):
+        """``cli train`` of the A3GC cascade at full width and of DIP, each
+        in a child process that reports the kernel launches of its
+        validation passes."""
+        import shutil
+        import tempfile
+        import numpy as np
+        from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+        from a3gc_tpu_torch.utils import discover_latest
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            train = os.path.join(tmp, "train.npz")
+            valid = os.path.join(tmp, "valid.npz")
+            np.savez(train, **synthetic_packed_dataset(TRAIN_SEQS, TRAIN_T,
+                                                       seed=0))
+            np.savez(valid, **synthetic_packed_dataset(VALID_SEQS, TRAIN_T,
+                                                       seed=1))
+            env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            # validation: one chunk of VALID_SEQS a stage, one launch a
+            # layer call (two a net)
+            runs = (("train", ["--model", "a3gc"]
+                     + [f"--hu{i + 1}={s[0]}" for i, s in enumerate(STAGES)]
+                     + ["--norm"], 3, "gcn_lstm", 2),
+                    ("train_dip", ["--model", "dip", f"--hu1={DIP[0]}"], 1,
+                     "lstm", 2))
+            for path, argv, n_stages, kernel, per_stage in runs:
+                argv = (["train", "-b", str(TRAIN_B), "--epochs", "1",
+                         "--name", path, "--save_root", tmp, "--train_data",
+                         train, "--valid_data", valid] + argv)
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-c", TRAIN_CHILD] + argv, cwd=tmp,
+                    env=env, capture_output=True, text=True, timeout=900)
+                wall = time.perf_counter() - t0
+                self.check(proc.returncode == 0,
+                           f"{path}: cli train exited {proc.returncode}:\n"
+                           + proc.stderr[-3000:])
+                if proc.returncode != 0:
+                    continue
+                child = json.loads(proc.stdout.strip().splitlines()[-1])
+                counts = child["launches"]
+                self.launches[path] = counts
+                self.check(not child["banned"],
+                           f"{path} imported {child['banned']}")
+                self.check(counts == {k: (per_stage * n_stages
+                                          if k == kernel else 0)
+                                      for k in LIBRARIES},
+                           f"{path} launches {counts}, want "
+                           f"{per_stage * n_stages} of {kernel}")
+                with open(os.path.join(tmp, path, "train_log.jsonl")) as f:
+                    log = [json.loads(line) for line in f]
+                self.check([e["stage"] for e in log]
+                           == list(range(1, n_stages + 1)),
+                           f"{path} log stages {[e['stage'] for e in log]}")
+                finite = bool(np.isfinite([[e["train_loss"],
+                                            e["valid_loss"]]
+                                           for e in log]).all())
+                self.check(finite, f"{path} losses not finite: {log}")
+                found = [discover_latest(os.path.join(tmp, path), s)
+                         for s in range(1, n_stages + 1)]
+                self.check(all(found), f"{path} checkpoints {found}")
+                emit({"phase": path, "argv": argv[:5] + argv[13:],
+                      "batch": TRAIN_B, "frames": TRAIN_T,
+                      "train_sequences": TRAIN_SEQS,
+                      "valid_sequences": VALID_SEQS, "wall_s": wall,
+                      "launches": counts,
+                      "log": [{k: e[k] for k in ("stage", "epoch",
+                                                 "train_loss", "valid_loss",
+                                                 "seconds")} for e in log],
+                      "checkpoints": [os.path.basename(f[0]) for f in found
+                                      if f],
+                      "card": nvidia_smi()})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def train_runner(self, kind, stage, tc):
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.train import DIPRunner, StageRunner
+        gen = self.torch.Generator().manual_seed(stage)
+        if kind == "dip":
+            cfg = self.dip_cfg("auto")
+            return DIPRunner(cfg, init_pose_net(gen, cfg), tc, 1,
+                             load_stats(), device=self.dev)
+        from a3gc_tpu_torch.data import load_adjacency_template
+        cfg = self.cascade(kind, "auto").stages[stage - 1]
+        return StageRunner(stage, cfg,
+                           init_pose_net(gen, cfg, load_adjacency_template()),
+                           tc, 1, stats=load_stats(), graph=kind != "tp",
+                           device=self.dev)
+
+    def step_profile(self, runner, raw):
+        """One training step under torch.profiler (device activity only):
+        its wall time, the device's busy time and share, and the number of
+        device kernels it ran."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from a3gc_tpu_torch.train import seeded_generator
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.train_step(raw, seeded_generator(self.dev, 9))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us, kernels = 0.0, 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            busy_us += getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0))
+            kernels += ev.count
+        if busy_us == 0:
+            return "not measured: the profiler recorded no device time"
+        return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+                "device_busy_share": busy_us / wall_us,
+                "device_kernels": kernels}
+
+    def phase_train_times(self):
+        """Training frames/s at full width: TRAIN_TIMED_STEPS steps fenced
+        by synchronize() (after one warm-up step at each net's first row);
+        peak memory; one validation chunk of the same batch through the
+        kernels."""
+        import numpy as np
+        from a3gc_tpu_torch.config import TrainConfig
+        from a3gc_tpu_torch.data import pipeline as DP
+        from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+        from a3gc_tpu_torch.train import seeded_generator
+        torch = self.torch
+        data = DP.put_device(synthetic_packed_dataset(
+            max(TRAIN_TIMED_B), TRAIN_T, seed=2), self.dev)
+        rows = []
+        for kind, stage in (("a3gc", 1), ("a3gc", 2), ("a3gc", 3),
+                            ("ggru", 1), ("tp", 1), ("dip", 1)):
+            for dtype in ("float32", "bfloat16"):
+                for B in TRAIN_TIMED_B:
+                    tc = TrainConfig(batch_size=B, dtype=dtype,
+                                     normalize=True)
+                    runner = self.train_runner(kind, stage, tc)
+                    raw = DP.gather(data, torch.arange(B, device=self.dev))
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(self.dev)
+                    warm_s = None
+                    if dtype == "float32" and B == TRAIN_TIMED_B[0]:
+                        # the first step at a net's shapes (allocations,
+                        # library heuristics), untimed
+                        t0 = time.perf_counter()
+                        runner.train_step(raw, seeded_generator(self.dev, 0))
+                        torch.cuda.synchronize()
+                        warm_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    losses = [runner.train_step(
+                        raw, seeded_generator(self.dev, i + 1))
+                        for i in range(TRAIN_TIMED_STEPS)]
+                    torch.cuda.synchronize()
+                    step_s = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+                    peak = torch.cuda.max_memory_allocated(self.dev)
+                    losses = [float(v) for v in losses]
+                    self.check(bool(np.isfinite(losses).all()),
+                               f"train_times {kind} {stage} {dtype} B={B}: "
+                               f"losses {losses}")
+                    with torch.no_grad():
+                        params = runner.state.params
+                        valid_ms = cuda_ms(
+                            lambda: runner.loss(params, raw, None), 3,
+                            warmup=1)
+                    profile = None
+                    if (kind, stage, dtype, B) == ("a3gc", 1, "float32",
+                                                   TRAIN_B):
+                        try:
+                            profile = self.step_profile(runner, raw)
+                        except Exception as e:   # a measurement aid
+                            profile = (f"not measured: the profiler raised "
+                                       f"{e!r}")
+                    rows.append({
+                        "net": kind, "stage": stage, "dtype": dtype,
+                        "batch": B, "frames": TRAIN_T,
+                        "hidden": (DIP[0] if kind == "dip" else
+                                   (TP_STAGES if kind == "tp"
+                                    else STAGES)[stage - 1][0]),
+                        "step_s": step_s, "warmup_step_s": warm_s,
+                        "frames_per_s": B * TRAIN_T / step_s,
+                        "valid_chunk_ms": valid_ms,
+                        "peak_memory_gib": peak / 2 ** 30,
+                        "losses": losses, "profile": profile})
+                    del runner, raw
+        emit({"phase": "train_times", "steps": TRAIN_TIMED_STEPS,
+              "rows": rows, "card": nvidia_smi()})
+
     def cleanup(self):
         if self._eval is not None:
             import shutil
@@ -2597,7 +2905,7 @@ class Smoke:
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
                          "(_dirfused_kernel)",
                          ("serving", "buffered", "http", "checkpoints",
-                          "evaluate", "export", "export_bundle"),
+                          "evaluate", "export", "export_bundle", "train"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -2617,7 +2925,7 @@ class Smoke:
                      ("serving_tp", "serving_dip", "buffered_dip",
                       "http_dip", "serving_dip_uni", "buffered_dip_uni",
                       "checkpoints", "evaluate_families", "evaluate_dip",
-                      "export"),
+                      "export", "train_dip"),
                      lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
                      "plus the two of one DIP serving window plus the two "
@@ -2645,6 +2953,7 @@ class Smoke:
                 "launches_by_path": {p: self.launches[p][name]
                                      for p in paths},
                 "max_abs_err": self.max_err[name],
+                "grad_max_rel_err": self.max_grad_err.get(name),
                 "ms": sum(r["ms"] for r in main),
                 "plain_ms": sum(r["plain_ms"] for r in main),
                 "bound_ms": sum(r["bound_ms"] for r in main),
@@ -2693,7 +3002,8 @@ def main():
               smoke.phase_offline_ggru, smoke.phase_evaluate,
               smoke.phase_evaluate_families, smoke.phase_evaluate_dip,
               smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
-              smoke.phase_times)
+              smoke.phase_kernel_grad, smoke.phase_train,
+              smoke.phase_train_times, smoke.phase_times)
     try:
         seconds = {}
         for phase in phases:

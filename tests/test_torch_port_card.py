@@ -77,14 +77,24 @@ def test_torch_port_kernel_matches_plain_on_card(cell, H, S):
 
 @pytest.mark.cuda
 def test_torch_port_kernel_refuses_grad_on_card():
+    """The kernel no longer refuses grad mode: under grad it launches (one
+    launch, no plain forward) and the backward is the plain version's."""
     _need_card()
     from a3gc_tpu_torch.ops import gcn_lstm as G
     gen = torch.Generator().manual_seed(1)
     p = _cell(gen, "a3gc", 8, 8).cuda()
-    x = torch.zeros((1, 4, 15, 8), device="cuda")
+    x = torch.randn((1, 4, 15, 8), generator=gen).cuda().requires_grad_()
     st = tuple(torch.zeros((2, 1, 15, 8), device="cuda") for _ in range(2))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        G.bi_gcn_lstm(p, x, st)
+    G.bi_gcn_lstm.launches = 0
+    y, (h, c) = G.bi_gcn_lstm(p, x, st)
+    assert G.bi_gcn_lstm.launches == 1 and y.requires_grad
+    (y.sum() + c.sum()).backward()
+    assert G.bi_gcn_lstm.launches == 1
+    ref = x.detach().requires_grad_()
+    y, (h, c) = G.bi_gcn_lstm_reference(p, ref, st)
+    (y.sum() + c.sum()).backward()
+    assert (x.grad - ref.grad).abs().max().item() <= 1e-5 * max(
+        ref.grad.abs().max().item(), 1e-30)
 
 
 @pytest.mark.cuda
@@ -675,8 +685,8 @@ def test_torch_port_cascade_evaluator_on_card_matches_eager(kind, tmp_path):
                                   "lstm", "lstm_uni"])
 def test_torch_port_ops_pass_opcheck_on_card(case):
     """The registered ops (``ops/library.py``) on CUDA tensors: schema,
-    fake (output shapes) against the kernel's outputs, no autograd
-    registration, dispatch under ``torch.compile``'s AOT tracing."""
+    fake (output shapes) against the kernel's outputs, the autograd
+    registration (the plain version's backward), dispatch under ``torch.compile``'s AOT tracing."""
     _need_card()
     from a3gc_tpu_torch.ops import library as LIB
     gen = torch.Generator().manual_seed(4)
@@ -777,3 +787,131 @@ def _leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [t for sub in tree for t in _leaves(sub)]
     return [tree]
+
+
+def _grad_case(kernel, H, S, gen):
+    """(layer params, x, state, n_valid, op wrapper, plain version) of one
+    layer call at F = 2H (H for a unidirectional LSTM)."""
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    T, Nn = 60, 15
+    n_valid = torch.tensor(_ragged(S, T), device="cuda")
+    if kernel == "gcn_lstm":
+        p = _cell(gen, "a3gc", 2 * H, H).cuda()
+        x = torch.randn((S, T, Nn, 2 * H), generator=gen)
+        st = tuple(0.5 * torch.randn((2, S, Nn, H), generator=gen)
+                   for _ in range(2))
+        return p, x, st, n_valid, G.bi_gcn_lstm, G.bi_gcn_lstm_reference
+    if kernel == "ggru":
+        nira = load_adjacency_template()
+        p = L.stack_directions(C.init_ggru_cell(gen, 2 * H, H, nira),
+                               C.init_ggru_cell(gen, 2 * H, H, nira)).cuda()
+        x = torch.randn((S, T, Nn, 2 * H), generator=gen)
+        st = (0.5 * torch.randn((2, S, Nn, H), generator=gen),)
+        return p, x, st, n_valid, GG.bi_ggru, GG.bi_ggru_reference
+    D = 2 if kernel == "lstm" else 1
+    F = 2 * H if D == 2 else H
+    b = 1.0 / H ** 0.5
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen) * (2 * b) - b
+
+    def one():
+        return N.LSTMLayerParams(w_ih=u(F, 4 * H), w_hh=u(H, 4 * H),
+                                 b_ih=u(4 * H), b_hh=u(4 * H))
+    p = (L.stack_directions(one(), one()) if D == 2 else one()).cuda()
+    x = torch.randn((S, T, F), generator=gen)
+    st = tuple(0.5 * torch.randn((2,) * (D - 1) + (S, H), generator=gen)
+               for _ in range(2))
+    return p, x, st, n_valid, LS.bi_lstm, LS.bi_lstm_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("H", [64, 256])
+@pytest.mark.parametrize("kernel", ["gcn_lstm", "ggru", "lstm", "lstm_uni"])
+def test_torch_port_grad_through_ops_matches_plain_on_card(kernel, H, S):
+    """Gradients of a random linear loss of every output with respect to
+    x, the initial state and every parameter, through the op (the
+    kernel's forward, the plain backward) and through the plain version;
+    1e-5 relative to each leaf's max |g|."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    p, x, st, nv, op, plain = _grad_case(kernel, H, S, gen)
+    weights, grads = None, []
+    for fn in (op, plain):
+        xx = x.cuda().requires_grad_()
+        ss = [t.cuda().requires_grad_() for t in st]
+        out = _leaves(fn(p, xx, ss[0] if kernel == "ggru" else tuple(ss),
+                         nv))
+        if weights is None:
+            weights = [torch.randn(o.shape, generator=gen).cuda()
+                       for o in out]
+        loss = sum((o * w).sum() for o, w in zip(out, weights))
+        grads.append(torch.autograd.grad(loss, [xx, *ss, *p.parameters()]))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a3gc", "dip"])
+def test_torch_port_train_step_on_card_matches_cpu(kind):
+    """One full-width training step (A3GC stage 1 at H = 256, DIP at
+    H = 512; B = 4, T = 60; dropout and noise off, whose draws differ by
+    device) on the card and on the CPU: the loss within 1e-5, the
+    gradients within 1e-5 of each leaf's max |g|. The first Adam update,
+    lr·g / (|g| + eps), turns the rounding of a gradient near eps into up
+    to 2·lr of difference, so each device's update is held to that formula
+    on its own gradients (within 1e-7)."""
+    _need_card()
+    from a3gc_tpu_torch.config import TrainConfig
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig, init_pose_net
+    from a3gc_tpu_torch.train import DIPRunner, StageRunner, seeded_generator
+    tc = TrainConfig(batch_size=4, normalize=True, leaf_noise_std=0.0,
+                     full_noise_std=0.0)
+    if kind == "dip":
+        cfg = PoseNetConfig(net=N.DIPConfig(n_hidden=512, dropout=0.0))
+        params = init_pose_net(torch.Generator().manual_seed(0), cfg)
+    else:
+        cfg = PoseNetConfig(net=N.GraphNetConfig(
+            units_in=12, units_out=3, units_hidden=256, linear_dropout=0.0,
+            dropout=0.0, recurrent_dropout=0.0), rotsize=3)
+        params = init_pose_net(torch.Generator().manual_seed(0), cfg,
+                               load_adjacency_template())
+    raw = synthetic_packed_dataset(4, 60, seed=3)
+    results = []
+    for dev in ("cpu", "cuda"):
+        if kind == "dip":
+            r = DIPRunner(cfg, params, tc, 1, load_stats(), device=dev)
+        else:
+            r = StageRunner(1, cfg, params, tc, 1, stats=load_stats(),
+                            device=dev)
+        loss = r.train_step({k: torch.as_tensor(v, device=dev)
+                             for k, v in raw.items()},
+                            seeded_generator(dev, 0))
+        results.append((float(loss), {
+            n: (t.detach().cpu(), t.grad.cpu())
+            for n, t in r.state.params.named_parameters()}))
+    (l_cpu, p_cpu), (l_card, p_card) = results
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), (l_card, l_cpu)
+    before = dict(params.named_parameters())
+    errs = {}
+    for n, (t, g) in p_cpu.items():
+        t2, g2 = p_card[n]
+        adam = [(b - tc.lr * gg / (gg.abs() + 1e-8) - tt).abs().max().item()
+                for b, tt, gg in ((before[n].detach(), t, g),
+                                  (before[n].detach(), t2, g2))]
+        errs[n] = ((g2 - g).abs().max().item()
+                   / max(g.abs().max().item(), 1e-30), max(adam))
+    bad = {n: e for n, e in errs.items() if e[0] > 1e-5 or e[1] > 1e-7}
+    assert not bad, bad

@@ -6,9 +6,11 @@ discovered, restored, exported to a reference ``.tar`` and imported back
 (a3gc_tpu_torch.utils, .compat.torch_export, .compat.torch_import, ``cli
 convert-checkpoint``), ``forward_offline`` and ``pose_loss``, and evaluation (a synthetic SMPL
 pickle loaded, the metrics, ``CascadeEvaluator`` in its three protocols,
-``DipEvaluator``, ``compare_models``, ``cli evaluate``) load no jax, flax or
-a3gc_tpu module. And the package data ships every kernel source and
-header."""
+``DipEvaluator``, ``compare_models``, ``cli evaluate``), and training
+(``a3gc_tpu_torch.train``, the training feed, ``cli train`` of a cascade and
+of DIP, ``cli stats``) load no jax, flax or a3gc_tpu module. And the
+package data ships every kernel source and header, and the port has its
+console script."""
 
 import fnmatch
 import json
@@ -147,6 +149,19 @@ a3gc_tpu_torch.cli.main(["evaluate", "--device", "cpu", "--hu1", "8",
                          "--datasets", npz])
 assert os.path.isfile(os.path.join("evaluation_results",
                                    "a3gc_test.npz.txt"))
+# training: the feed, the trainers, cli train and cli stats
+import a3gc_tpu_torch.train
+from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+np.savez("train.npz", **synthetic_packed_dataset(4, 8))
+for model in ("a3gc", "dip"):
+    a3gc_tpu_torch.cli.main(["train", "--device", "cpu", "--model", model,
+                             "-b", "2", "--epochs", "1", "--hu1", "8",
+                             "--hu2", "8", "--hu3", "8", "--name", model,
+                             "--save_root", "runs", "--train_data",
+                             "train.npz", "--valid_data", "train.npz"])
+    assert discover_latest(os.path.join("runs", model), 1)
+a3gc_tpu_torch.cli.main(["stats", "--inputs", "train.npz", "--output",
+                         "stats.npz"])
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))
@@ -175,3 +190,10 @@ def test_torch_port_package_data_ships_every_kernel_source():
     for name in files:
         rel = "ops/csrc/" + name
         assert any(fnmatch.fnmatch(rel, p) for p in patterns), rel
+
+
+def test_torch_port_has_its_console_script():
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)["project"]
+    assert project["scripts"]["a3gc-tpu-torch"] == "a3gc_tpu_torch.cli:main"
+    assert project["scripts"]["a3gc-tpu"] == "a3gc_tpu.cli:main"

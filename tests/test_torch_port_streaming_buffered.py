@@ -435,7 +435,7 @@ def test_torch_port_buffered_flush_is_transactional():
 def test_torch_port_sessions_run_without_grad_on_any_thread():
     """Grad mode is thread-local: a session stepped from a fresh thread
     (where gradients are enabled by default) must still run under
-    no_grad, as the CUDA wrappers refuse to launch otherwise."""
+    no_grad: serving records no autograd graph."""
     import threading
 
     _, tcfg, params = cascades("a3gc")

@@ -3,6 +3,8 @@ JAX parameters made with jax.random and then perturbed with numpy, so every
 parameter (biases, attention biases, adjacency) is nonzero and both packages
 get the same arrays."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,3 +125,62 @@ def eval_sequences(lengths, seed=0):
              "acc": rng.normal(scale=0.5, size=(T, 18)).astype(np.float32),
              "pose": random_rotations(rng, (T, 15)).reshape(T, 135)}
             for T in lengths]
+
+
+def train_runners(kind, stage, hidden=8, seed=40, steps=2, **train_kw):
+    """The same stage's trainer in both packages, dropout and teacher-forcing
+    noise off, on perturbed JAX params: (JAX runner, port runner).
+    ``kind``: a graph cell name, "tp" (a TransPose stage) or "dip" (the DIP
+    net, stage ignored)."""
+    from a3gc_tpu.config import TrainConfig as JTC
+    from a3gc_tpu.data.stats import load_stats
+    from a3gc_tpu.models import pipeline as JPL
+    from a3gc_tpu.train.loop import DIPRunner as JDR, StageRunner as JSR
+    from a3gc_tpu_torch.compat.from_jax import (dip_params_from_jax,
+                                                graph_net_params_from_jax)
+    from a3gc_tpu_torch.config import TrainConfig as TTC
+    from a3gc_tpu_torch.models import nets as TN
+    from a3gc_tpu_torch.models import pipeline as TPL
+    from a3gc_tpu_torch.train import DIPRunner as TDR, StageRunner as TSR
+
+    stats = load_stats(os.path.join(os.path.dirname(JPL.__file__), "..",
+                                    "assets", "stats", "all_train_stats.npz"))
+    kw = dict(leaf_noise_std=0.0, full_noise_std=0.0, normalize=True,
+              **train_kw)
+    if kind in ("tp", "dip"):
+        ni, no, rot = TP_DIMS[stage - 1] if kind == "tp" else (60, 135, 9)
+        jnet = JN.DIPConfig(n_input=ni, n_output=no, n_hidden=hidden,
+                            dropout=0.0)
+        tnet = TN.DIPConfig(n_input=ni, n_output=no, n_hidden=hidden,
+                            dropout=0.0)
+    else:
+        ui, uo, rot = GRAPH_DIMS[stage - 1]
+        drop = dict(linear_dropout=0.0, dropout=0.0, recurrent_dropout=0.0)
+        jnet = JN.GraphNetConfig(cell=kind, units_in=ui, units_out=uo,
+                                 units_hidden=hidden, **drop)
+        tnet = TN.GraphNetConfig(cell=kind, units_in=ui, units_out=uo,
+                                 units_hidden=hidden, **drop)
+    jcfg = JPL.PoseNetConfig(net=jnet, rotsize=rot)
+    tcfg = TPL.PoseNetConfig(net=tnet, rotsize=rot)
+    params = perturbed(JPL.init_pose_net(jax.random.PRNGKey(stage), jcfg,
+                                         load_adjacency_template()),
+                       seed=seed + stage)
+    jstats = {k: jnp.asarray(v) for k, v in stats.items()}
+    if kind == "dip":
+        return (JDR(jcfg, to_jnp(params), JTC(**kw), steps, jstats),
+                TDR(tcfg, dip_params_from_jax(params, "cpu"), TTC(**kw),
+                    steps, stats, device="cpu"))
+    graph = kind != "tp"
+    tparams = (graph_net_params_from_jax(params, "cpu") if graph
+               else dip_params_from_jax(params, "cpu"))
+    return (JSR(stage, jcfg, to_jnp(params), JTC(**kw), steps,
+                stats=jstats, graph=graph),
+            TSR(stage, tcfg, tparams, TTC(**kw), steps, stats=stats,
+                graph=graph, device="cpu"))
+
+
+def jax_leaf(tree, name):
+    """The leaf of a JAX pytree at a torch parameter name, as numpy."""
+    for part in name.split("."):
+        tree = tree[int(part)] if part.isdigit() else getattr(tree, part)
+    return np.asarray(tree)

@@ -1,8 +1,13 @@
 r"""Command-line interface of the port (counterpart of ``a3gc_tpu/cli.py``):
-the ``train``, ``stats``, ``serve``, ``stream``, ``export``, ``evaluate``
-and ``convert-checkpoint`` subcommands.
+the ``preprocess``, ``stats``, ``train``, ``serve``, ``stream``,
+``export``, ``evaluate``, ``worst-frames``, ``convert-checkpoint`` and
+``convert-data`` subcommands.
 
 Usage:
+    python -m a3gc_tpu_torch.cli preprocess --dataset amass --split train \
+        --cda --data_root data --smpl basicModel_m.pkl --output amass.npz
+    python -m a3gc_tpu_torch.cli preprocess --dataset dipimu --split test \
+        --output dip_test.npz                    # FK on the card
     python -m a3gc_tpu_torch.cli train --model a3gc -b 16 --norm \
         --train_data train.npz --valid_data valid.npz   # on the card
     python -m a3gc_tpu_torch.cli stats --inputs a.npz b.npz --output s.npz
@@ -26,6 +31,10 @@ Usage:
         --model a3gc --output runs/x/checkpoint_model1_finetuning_5
     python -m a3gc_tpu_torch.cli convert-checkpoint --to_torch DIR \
         --model a3gc --n_input 12 --n_output 3 --hu1 256 --output s1.tar
+    python -m a3gc_tpu_torch.cli worst-frames --gt evaluation_results/\
+        sequences/dip/a3gc/gt --pred_a A/pred --pred_b B/pred [--render]
+    python -m a3gc_tpu_torch.cli convert-data --torch test.pt \
+        --output test.npz
 
 The cascades (``--model a3gc | aagc | agc | ggru | tp``) run from reference
 ``.tar`` checkpoints (``--torch_checkpoints``, one a stage), from the latest
@@ -38,8 +47,10 @@ missing; the normalization stats those under ``--data_root``, else the
 shipped copies. ``export`` writes a deployment artifact
 (:mod:`a3gc_tpu_torch.export`) that ``serve`` and ``stream`` run with
 ``--artifact`` and nothing else. ``train`` writes checkpoint directories
-that ``--path`` discovers. A mesh of cards and the other subcommands wait
-for later slices (see ROADMAP.md, Queue 1).
+that ``--path`` discovers. ``preprocess`` reads the raw corpora under
+``--data_root`` (``raw_datasets/AMASS``, ``raw_datasets/DIP_IMU``,
+``raw_datasets/TotalCapture/DIP_recalculate``), resolved when it runs. A
+mesh of cards waits for a later slice (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -152,8 +163,9 @@ def _add_common_model_flags(p):
                         "missing file falls back to a synthetic body "
                         "model)")
     p.add_argument("--data_root", type=str, default=None,
-                   help="where the SMPL file and the stats are looked up "
-                        "(default: $A3GC_DATA_ROOT, else ./data)")
+                   help="where the SMPL file, the stats and (preprocess) "
+                        "the raw corpora are looked up (default: "
+                        "$A3GC_DATA_ROOT, else ./data)")
     p.add_argument("--precision", choices=("highest", "default"),
                    default=None,
                    help="accepted; the port computes in fp32 whatever it "
@@ -193,11 +205,15 @@ def _stage_configs(args):
     return None, False
 
 
+def _data_root(args) -> str:
+    r"""``--data_root``, else $A3GC_DATA_ROOT, else ./data."""
+    return args.data_root or os.environ.get("A3GC_DATA_ROOT", "data")
+
+
 def _under_data_root(args, rel: str) -> str:
-    r"""``rel`` under ``--data_root`` ($A3GC_DATA_ROOT, else ./data), as the
-    JAX package's config resolves it."""
-    root = args.data_root or os.environ.get("A3GC_DATA_ROOT", "data")
-    return rel if os.path.isabs(rel) else os.path.join(root, rel)
+    r"""``rel`` under the data root, as the JAX package's config resolves
+    it."""
+    return rel if os.path.isabs(rel) else os.path.join(_data_root(args), rel)
 
 
 def _load_stats(args):
@@ -1122,6 +1138,76 @@ def _evaluate_dip(args, model, device):
         print(PoseEvaluator.format(mean))
 
 
+def cmd_preprocess(args):
+    r"""The data factory: the raw corpora under ``--data_root`` → a packed
+    training set (AMASS, DIP-IMU train/valid) or a test set (DIP-IMU test,
+    TotalCapture) at ``--output``, FK and skinning on ``--device``."""
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.config import Paths
+    from a3gc_tpu_torch.data.factory.amass import process_amass_split
+    from a3gc_tpu_torch.data.factory.dipimu import process_dipimu
+    from a3gc_tpu_torch.data.factory.totalcapture import process_totalcapture
+
+    _note_ignored_flags(args)
+    model = _load_body_model(args, resolve_device(args.device))
+    paths = Paths(data_root=_data_root(args))
+    if args.dataset == "amass":
+        chunks = process_amass_split(model, mode=args.split, sym=args.cda,
+                                     out_path=args.output, paths=paths)
+        print(f"amass {args.split}: {len(chunks)} chunks -> {args.output}")
+    elif args.dataset == "dipimu":
+        out = process_dipimu(model, split=args.split, sym=args.cda,
+                             out_path=args.output, paths=paths)
+        print(f"dipimu {args.split}: {len(out)} items -> {args.output}")
+    elif args.dataset == "totalcapture":
+        seqs = process_totalcapture(model, out_path=args.output, paths=paths)
+        print(f"totalcapture: {len(seqs)} sequences -> {args.output}")
+
+
+def cmd_worst_frames(args):
+    r"""Best/worst-frame comparison of two models' prediction dumps (the
+    ``NNN.p`` pickles of ``evaluate --save_preds``) against the ground
+    truth's: the selections printed, their poses under ``--output``
+    (``--render``: PNGs of the selected frames too)."""
+    import glob
+    import pickle
+
+    from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.eval import compare_models
+
+    _note_ignored_flags(args)
+    model = _load_body_model(args, resolve_device(args.device))
+
+    def load_dir(d):
+        out = []
+        for path in sorted(glob.glob(os.path.join(d, "*.p"))):
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    result = compare_models(model, load_dir(args.gt), load_dir(args.pred_a),
+                            load_dir(args.pred_b), k=args.k,
+                            min_separation=args.min_separation,
+                            out_dir=args.output, render=args.render)
+    for name, frames in result.items():
+        print(name, frames)
+
+
+def cmd_convert_data(args):
+    r"""A reference packed ``.pt`` dataset → npz (the layout detected:
+    stacked training chunks or per-sequence test lists)."""
+    import numpy as np
+
+    from a3gc_tpu_torch.compat.torch_data import convert_torch_dataset
+
+    path = convert_torch_dataset(args.torch, args.output)
+    with np.load(path) as z:
+        kind = "test (per-sequence)" if any(
+            k.startswith("seq") for k in z.files) else "train (packed)"
+        print(f"converted {args.torch} -> {path} [{kind}, "
+              f"{len(z.files)} arrays]")
+
+
 def cmd_convert(args):
     r"""Checkpoint conversion, both ways: ``--torch X.tar`` → a checkpoint
     directory of the port's format (``--output``); ``--to_torch DIR`` (the
@@ -1175,9 +1261,10 @@ def cmd_convert(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="a3gc_tpu_torch",
-        description="PyTorch/CUDA port of a3gc_tpu: pose serving and "
-                    "streaming, deployment export, evaluation and "
-                    "checkpoint conversion")
+        description="PyTorch/CUDA port of a3gc_tpu: data preparation, "
+                    "training, pose serving and streaming, deployment "
+                    "export, evaluation and checkpoint and dataset "
+                    "conversion")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="3-stage cascade training (DIP: one "
@@ -1437,6 +1524,33 @@ def build_parser():
                         "leading context per emission (no added latency)")
     e.set_defaults(fn=cmd_evaluate)
 
+    pp = sub.add_parser("preprocess", help="offline data factory: raw "
+                        "AMASS / DIP-IMU / TotalCapture under --data_root -> "
+                        "packed npz")
+    _add_common_model_flags(pp)
+    pp.add_argument("--dataset", choices=("amass", "dipimu", "totalcapture"),
+                    required=True)
+    pp.add_argument("--split", choices=("train", "valid", "test"),
+                    default="train")
+    pp.add_argument("--output", type=str, required=True)
+    pp.set_defaults(fn=cmd_preprocess)
+
+    w = sub.add_parser("worst-frames",
+                       help="best/worst-frame comparison of two models")
+    _add_common_model_flags(w)
+    w.add_argument("--gt", type=str, required=True,
+                   help="directory of ground-truth pose pickles")
+    w.add_argument("--pred_a", type=str, required=True)
+    w.add_argument("--pred_b", type=str, required=True)
+    w.add_argument("--k", type=int, default=10)
+    w.add_argument("--min_separation", type=int, default=300)
+    w.add_argument("--output", type=str, default="best_worst")
+    w.add_argument("--render", action="store_true",
+                   help="also rasterize each selected frame as a PNG "
+                        "(gt | A | B skeletons, built-in headless "
+                        "renderer; needs Pillow) next to the pickles")
+    w.set_defaults(fn=cmd_worst_frames)
+
     c = sub.add_parser("convert-checkpoint",
                        help="reference .tar <-> a checkpoint directory of "
                             "the port (both ways)")
@@ -1457,6 +1571,16 @@ def build_parser():
     c.add_argument("--compilation_cache", type=str, default=None,
                    metavar="DIR", help="accepted and ignored")
     c.set_defaults(fn=cmd_convert)
+
+    cd = sub.add_parser("convert-data",
+                        help="reference packed .pt dataset -> npz "
+                             "(train or test layout, auto-detected)")
+    cd.add_argument("--torch", type=str, required=True,
+                    help="reference transform_to_torch_data* output .pt")
+    cd.add_argument("--output", type=str, required=True)
+    cd.add_argument("--compilation_cache", type=str, default=None,
+                    metavar="DIR", help="accepted and ignored")
+    cd.set_defaults(fn=cmd_convert_data)
     return p
 
 

@@ -1,11 +1,72 @@
-r"""The SMPL joint sets of the pipeline and the trainer's hyperparameters
-(copies of ``a3gc_tpu/config.py`` ``JointSet`` and ``TrainConfig``; the
-port keeps its own so it never imports the JAX package)."""
+r"""Dataset locations, the SMPL joint sets of the pipeline, the data
+factory's constants and the trainer's hyperparameters (copies of
+``a3gc_tpu/config.py`` ``Paths``, ``JointSet``, ``ACC_SCALE``, the mirror
+permutations and ``TrainConfig``; the port keeps its own so it never
+imports the JAX package).
+
+Unlike the JAX package, the port keeps no module-level ``Paths``: a factory
+given ``paths=None`` builds ``Paths()`` when it is called, so the data root
+is ``$A3GC_DATA_ROOT`` as it stands then."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from typing import Optional, Sequence, Tuple
+
+
+def _env(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class Paths:
+    """Dataset and asset locations, relative to ``data_root`` unless
+    absolute. ``data_root`` defaults to ``$A3GC_DATA_ROOT``, else ``data``,
+    read when the instance is made."""
+
+    data_root: str = dataclasses.field(
+        default_factory=lambda: _env("A3GC_DATA_ROOT", "data")
+    )
+
+    # raw datasets
+    raw_dipimu_dir: str = "raw_datasets/DIP_IMU"
+    raw_totalcapture_dir: str = "raw_datasets/TotalCapture/DIP_recalculate"
+    raw_amass_dir: str = "raw_datasets/AMASS"
+
+    # preprocessed (stage 1 of the data factory)
+    dipimu_dir_pre: str = "preprocessed/dip-imu"
+    dipimu_dir_pre_sym: str = "preprocessed/dip-imu_sym"
+    totalcapture_dir_pre: str = "preprocessed/total_capture"
+    amass_dir_pre: str = "preprocessed/amass"
+    amass_dir_pre_sym: str = "preprocessed/amass_sym"
+
+    # processed (stage 2: normalized, chunked, packed)
+    dipimu_dir: str = "dip-imu"
+    dipimu_dir_sym: str = "dip-imu_sym"
+    totalcapture_dir: str = "total_capture"
+    amass_dir: str = "amass"
+    amass_dir_sym: str = "amass_sym"
+
+    # SMPL body models (official pickles; not redistributable)
+    male_smpl_file: str = dataclasses.field(
+        default_factory=lambda: _env(
+            "A3GC_SMPL_MALE", "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
+        )
+    )
+    female_smpl_file: str = dataclasses.field(
+        default_factory=lambda: _env(
+            "A3GC_SMPL_FEMALE", "models/basicModel_f_lbs_10_207_0_v1.1.0.pkl"
+        )
+    )
+
+    # normalization statistics (npz; see data/stats.py)
+    train_stats: str = "stats/all_train_stats.npz"
+    train_stats_sym: str = "stats/all_sym_train_stats.npz"
+
+    def resolve(self, rel: str) -> str:
+        """Join a config-relative path onto the data root."""
+        return rel if os.path.isabs(rel) else os.path.join(self.data_root, rel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +150,15 @@ class TrainConfig:
 
 
 joint_set = JointSet()
+
+# IMU acceleration normalizer of the packed sets
+ACC_SCALE = 30.0
+
+# contralateral mirroring permutations: SMPL joints, IMU orientations and
+# accelerations (left <-> right)
+SMPL_MIRROR: Sequence[int] = (
+    0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13, 15, 17, 16, 19, 18,
+    21, 20, 23, 22,
+)
+ORI_MIRROR: Sequence[int] = (1, 0, 3, 2, 4, 5)
+ACC_MIRROR: Sequence[int] = (1, 0, 3, 2, 4, 5)

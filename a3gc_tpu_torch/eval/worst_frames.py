@@ -66,14 +66,10 @@ def compare_models(model: ParametricModel,
     each selection's poses and errors, and the reference's 18-pickle layout
     ``{respect_our, respect_tp, respect_comp}/{worst, best}/{gt, tp,
     our}.p`` (model A is the reference's 'tp', model B its 'our'; 'comp'
-    ranks by err_A − err_B, worst = B improves most). ``render=True`` (PNGs
-    of the selected frames) waits for the viewer (ROADMAP Queue 1 item
-    15)."""
-    del render_size
-    if render:
-        raise NotImplementedError(
-            "rendering the selected frames needs the motion viewers "
-            "(smpl/viewer.py), not ported yet (ROADMAP Queue 1 item 15)")
+    ranks by err_A − err_B, worst = B improves most). ``render=True`` also
+    draws each selected frame as a PNG beside them, ``{rank:02d}_frame
+    {index}.png`` (gt | A | B skeletons, FK on the model's device), of
+    ``render_size`` pixels a side."""
     err_a = per_frame_errors(model, gts, preds_a)
     err_b = per_frame_errors(model, gts, preds_b)
     if err_a.shape != err_b.shape:
@@ -122,4 +118,15 @@ def compare_models(model: ParametricModel,
                            ("our.p", b_all)):
             with open(os.path.join(d, fname), "wb") as f:
                 pickle.dump(arr[frames], f)
+        if render:
+            for rank, fidx in enumerate(frames):
+                poses = model.as_tensor(np.stack(
+                    (gt_all[fidx], a_all[fidx], b_all[fidx])))  # [3,24,3,3]
+                _, joints = model.forward_kinematics(poses)
+                joints = joints.cpu().numpy()                   # [3,24,3]
+                model.view_joint(                               # gt | A | B
+                    [joints[0:1], joints[1:2], joints[2:3]],
+                    distance_between_subjects=0.9,
+                    out_path=os.path.join(d, f"{rank:02d}_frame{fidx}.png"),
+                    size=render_size)
     return result

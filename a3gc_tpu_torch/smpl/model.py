@@ -1,8 +1,8 @@
 r"""SMPL / MANO / SMPLH parametric body model (counterpart of
 ``a3gc_tpu/smpl/model.py``): the official pickle loaded once into fp32
 tensors on the model's device; forward kinematics with linear blend skinning
-and pose blendshapes, inverse kinematics, the zero pose, and the host-side
-exports.
+and pose blendshapes, inverse kinematics, the zero pose, the host-side
+exports and the motion viewers.
 
 ``ParametricModel()`` with no arrays holds only the SMPL kinematic tree:
 enough for inverse kinematics, which is all the serving sessions need.
@@ -11,6 +11,7 @@ Forward kinematics and skinning need a model from
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 from typing import Optional, Sequence
@@ -54,6 +55,7 @@ class ParametricModel:
                              f"{', '.join(_ARRAYS)} or none; got "
                              f"{', '.join(given)}")
         self.device = resolve_device(device) if given else None
+        self._dtype = torch.float32
         for k, v in arrays.items():
             setattr(self, k, None if v is None else torch.as_tensor(
                 v, dtype=torch.float32, device=self.device))
@@ -77,9 +79,20 @@ class ParametricModel:
                 "an SMPL file: load one with load_parametric_model")
 
     def as_tensor(self, x) -> torch.Tensor:
-        r"""``x`` as an fp32 tensor on the model's device (a tree-only model:
-        where ``x`` lies, numpy on the CPU)."""
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        r"""``x`` as a tensor of the model's dtype (fp32 but in a copy made
+        by :meth:`_astype`) on the model's device (a tree-only model: where
+        ``x`` lies, numpy on the CPU)."""
+        return torch.as_tensor(x, dtype=self._dtype, device=self.device)
+
+    def _astype(self, dtype: torch.dtype) -> "ParametricModel":
+        r"""A copy of this model that computes in ``dtype``: its arrays
+        cast, on the same device."""
+        out = copy.copy(self)
+        out._dtype = dtype
+        for k in _ARRAYS:
+            v = getattr(self, k)
+            setattr(out, k, None if v is None else v.to(dtype))
+        return out
 
     # ------------------------------------------------------------------
     # zero pose
@@ -207,20 +220,65 @@ class ParametricModel:
                     [",".join(["%.5f" % _ for _ in t]) for t in tran]))
 
     # ------------------------------------------------------------------
-    # viewers: the JAX package's smpl/viewer.py rasterizer is not ported
+    # motion viewers: the headless rasterizer of smpl/viewer.py writes an
+    # animated GIF or a PNG
     # ------------------------------------------------------------------
-    def view_joint(self, *args, **kwargs):
-        raise NotImplementedError(_VIEWER)
+    def view_joint(self, joint_list, fps=60, distance_between_subjects=0.8,
+                   out_path="motion_joints.gif", size=360):
+        r"""Render joint skeletons ([T, J, 3] each, numpy or tensors) side
+        by side, each moved so that its first frame's root is at the
+        origin. Returns the written path."""
+        from a3gc_tpu_torch.smpl.viewer import render_skeleton, save_animation
 
-    def view_mesh(self, *args, **kwargs):
-        raise NotImplementedError(_VIEWER)
+        J = self.n_joints
+        subjects = []
+        for i, j in enumerate(joint_list):
+            j = _host(j).reshape(-1, J, 3)
+            j = j - j[:1, :1]
+            j[:, :, 0] += distance_between_subjects * i
+            subjects.append(j)
+        frames = render_skeleton(subjects, self.parent, size=size)
+        return save_animation(frames, out_path, fps=fps)
 
-    def view_motion(self, *args, **kwargs):
-        raise NotImplementedError(_VIEWER)
+    def view_mesh(self, vertex_list, fps=60, distance_between_subjects=0.8,
+                  out_path="motion_mesh.gif", size=360):
+        r"""Render skinned meshes ([T, V, 3] each) side by side. Returns the
+        written path."""
+        from a3gc_tpu_torch.smpl.viewer import render_mesh, save_animation
+
+        subjects = []
+        for i, v in enumerate(vertex_list):
+            v = _host(v).reshape(-1, self.n_vertices, 3)
+            v[:, :, 0] += distance_between_subjects * i
+            subjects.append(v)
+        frames = render_mesh(subjects, np.asarray(self.faces), size=size)
+        return save_animation(frames, out_path, fps=fps)
+
+    def view_motion(self, pose_list, tran_list=None, fps=60,
+                    distance_between_subjects=0.8,
+                    out_path="motion.gif", size=360):
+        r"""FK + skinning of each local pose sequence ([T, J, 3, 3]; its
+        translation relative to its first frame) on the model's device, one
+        host copy of each mesh, then :meth:`view_mesh`."""
+        verts = []
+        for i, pose in enumerate(pose_list):
+            pose = self.as_tensor(pose).reshape(-1, self.n_joints, 3, 3)
+            tran = None
+            if tran_list is not None:
+                t = self.as_tensor(tran_list[i]).reshape(-1, 3)
+                tran = t - t[:1]
+            verts.append(self.forward_kinematics(
+                pose, tran=tran, calc_mesh=True)[2].cpu().numpy())
+        return self.view_mesh(
+            verts, fps, distance_between_subjects=distance_between_subjects,
+            out_path=out_path, size=size)
 
 
-_VIEWER = ("the motion viewers (smpl/viewer.py) are not ported yet (ROADMAP "
-           "Queue 1 item 15)")
+def _host(x) -> np.ndarray:
+    r"""A numpy copy of an array or a tensor on any device."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy().copy()
+    return np.array(x)
 
 
 def load_parametric_model(official_model_file: str,

@@ -121,6 +121,32 @@ Phases, each printing one JSON line:
                     <npz>`` as a subprocess on the evaluate phase's params
                     as ``.tar`` checkpoints; its report against the
                     in-process table;
+     preprocess   — the data factory on the card (``process_amass_split``
+                    with the mirror, ``process_dipimu`` train / valid /
+                    test, ``process_totalcapture``) on raw corpora written
+                    in their on-disk layouts at recording sizes (AMASS:
+                    four 120 fps sequences of 2,400-9,600 raw frames, one
+                    at 60 fps, one at 100 fps that is skipped; DIP-IMU: two
+                    subjects, 2,000-4,000 frames, NaN bursts; TotalCapture:
+                    three of 3,000-6,000 frames and one of the faulty
+                    3,560), a synthetic SMPL body of 6890 vertices with the
+                    real sensor masks: chunk counts and shapes, the packed
+                    AMASS chunks through ``StageRunner(1).eval_epoch``
+                    (A3GC H = 256, B = 16; 2 launches a batch) against the
+                    same pass on the plain path (the loss, the stage's
+                    outputs on one batch), one sequence per corpus cut to
+                    600 frames against the CPU,
+                    frames/s, the device part's frames/s, peak memory, the
+                    device's busy share over one AMASS sequence;
+     cli_data     — ``cli preprocess --dataset dipimu --split test`` as a
+                    subprocess against the factory in process; ``cli
+                    evaluate --save_preds`` on its npz with two parameter
+                    sets (children counting the launches), the first
+                    set's dumped poses against the plain path in process;
+                    ``cli worst-frames`` on their dumps against
+                    ``compare_models`` in process (the 18-pickle layout,
+                    the printed selections); ``cli convert-data`` on both
+                    reference layouts against ``np.load``;
   5. kernel_grad  — gradients through each kernel op (the kernel's forward,
                     the plain version's backward) against autograd through
                     its plain version, S = 8, T = 60, ragged n_valid:
@@ -129,7 +155,7 @@ Phases, each printing one JSON line:
                     max |g| per leaf within 1e-5;
      train        — ``python -m a3gc_tpu_torch.cli train --model a3gc -b 16
                     --epochs 1 --hu1 256 --hu2 64 --hu3 128 --norm`` on a
-                    synthetic packed set (64 × 300 frames train, 16
+                    synthetic packed set (32 × 300 frames train, 16
                     valid) in a child process that counts the kernel
                     launches (validation, 2 a stage), then ``--model dip
                     --hu1 512`` (``train_dip``): three stages (one) with
@@ -189,9 +215,10 @@ LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # launch-counted paths: the eight of the plain windows and the offline
 # calls, the five buffered and HTTP ones, the checkpoint round trips, the
 # three evaluation phases, the two of the deployment artifacts (export:
-# counted by the fresh process that steps them) and the two of training
-# (counted by the cli train child process)
-N_PATHS = 21
+# counted by the fresh process that steps them), the two of data
+# preparation (cli_data: counted by the cli evaluate child processes) and
+# the two of training (counted by the cli train child process)
+N_PATHS = 23
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -207,10 +234,38 @@ EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
 # sequences of TRAIN_T frames (the reference's chunk length), the
 # reference protocol's batch; timed at TRAIN_TIMED_B, TRAIN_TIMED_STEPS
 # steps (a warm-up step first at each net's first row)
-TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 64, 16, 300, 16
+TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 32, 16, 300, 16
 TRAIN_TIMED_B = (16, 32)
 TRAIN_TIMED_STEPS = 1
 GRAD_TOL = 1e-5             # gradient max |d| over max |g| of each leaf
+
+# data preparation: raw corpora in their on-disk layouts at the sizes of
+# recordings, processed on the card with a synthetic SMPL body of SMPL's
+# vertex count and the real sensor masks. AMASS: (dataset, subject, name,
+# raw frames, frame rate; 100 fps is skipped); DIP-IMU: (subject, motion,
+# frames, NaN bursts; s_01_05 is the valid split, s_09 a test subject);
+# TotalCapture: (name, frames; 3560 is the faulty length, dropped)
+PREP_AMASS = (("CMU", "01", "01_01", 2400, 120),
+              ("CMU", "02", "02_04", 4800, 120),
+              ("KIT", "3", "walking_run01", 7200, 120),
+              ("KIT", "5", "dance02", 9600, 120),
+              ("CMU", "07", "07_05", 3000, 60),
+              ("KIT", "9", "jump03", 3000, 100))
+PREP_DIP = (("s_01", "01", 3000, True), ("s_01", "05", 2000, True),
+            ("s_09", "01", 4000, True), ("s_09", "02", 2500, False))
+PREP_TC = (("s1_acting1", 3000), ("s2_freestyle1", 4500),
+           ("s3_walking2", 6000), ("s4_rom3", 3560))
+PREP_CUT = 600              # frames of the sequences held against the CPU
+PREP_B = 16                 # eval_epoch batch over the packed AMASS chunks
+# the factory's tolerances, card against CPU: normalized accelerations
+# (the finite difference scales the positions' rounding by up to
+# 3600 / 30); rotations, positions, poses
+PREP_TOL = {"acc": 1e-4}
+PREP_POS_TOL = 1e-5
+# stage 1 on the factory's chunks, the kernels against the plain path: its
+# outputs (two 300-frame graph layers and the readout) and the loss
+# (relative)
+STAGE_TOL = 1e-4
 
 # the train phase's child: ``python -m a3gc_tpu_torch.cli <argv>`` through
 # runpy, then one JSON line of the kernel launches it made (validation)
@@ -490,6 +545,74 @@ def random_rotations(rng, shape):
     ], axis=-1).astype(np.float32)
 
 
+def write_prep_corpora(paths, seed=0):
+    """The raw corpora of PREP_AMASS, PREP_DIP and PREP_TC under the data
+    root of ``paths`` (an ``a3gc_tpu_torch.config.Paths``), in their
+    layouts: AMASS ``<ds>/<ds>/<subject>/<name>_poses.npz`` (poses [T, 156]
+    of smooth motion: each angle a 0.3-1.5 Hz sinusoid about a random pose;
+    trans a random walk; betas [16]; mocap_framerate), DIP-IMU
+    ``<subject>/<motion>.pkl`` (imu_acc [T, 17, 3], imu_ori [T, 17, 3, 3],
+    gt [T, 72]), TotalCapture ``<name>.pkl`` (ori [T, 6, 3, 3], acc
+    [T + 2, 6, 3], gt [T, 72])."""
+    import pickle
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    amass = paths.resolve(paths.raw_amass_dir)
+    for ds, subject, name, T, fps in PREP_AMASS:
+        d = os.path.join(amass, ds, ds, subject)
+        os.makedirs(d, exist_ok=True)
+        base = rng.normal(scale=0.3, size=156)
+        freq = rng.uniform(0.3, 1.5, size=156)
+        phase = rng.uniform(0, 2 * np.pi, size=156)
+        t = np.arange(T)[:, None] / float(fps)
+        np.savez(os.path.join(d, f"{name}_poses.npz"),
+                 poses=base + 0.3 * np.sin(2 * np.pi * freq * t + phase),
+                 trans=np.cumsum(rng.normal(scale=0.005, size=(T, 3)), 0),
+                 betas=rng.normal(scale=0.5, size=16),
+                 mocap_framerate=np.array(float(fps)))
+
+    def gt(T):
+        return rng.normal(scale=0.3, size=(T, 72))
+
+    dip = paths.resolve(paths.raw_dipimu_dir)
+    for subject, motion, T, nans in PREP_DIP:
+        os.makedirs(os.path.join(dip, subject), exist_ok=True)
+        acc = rng.normal(size=(T, 17, 3))
+        ori = random_rotations(rng, (T, 17)).reshape(T, 17, 3, 3)
+        if nans:
+            acc[100:104, 7] = np.nan
+            ori[T // 2:T // 2 + 3, 11] = np.nan
+            acc[-9:-7, 2] = np.nan
+        with open(os.path.join(dip, subject, f"{motion}.pkl"), "wb") as f:
+            pickle.dump({"imu_acc": acc, "imu_ori": ori, "gt": gt(T)}, f)
+    tc = paths.resolve(paths.raw_totalcapture_dir)
+    os.makedirs(tc, exist_ok=True)
+    for name, T in PREP_TC:
+        with open(os.path.join(tc, f"{name}.pkl"), "wb") as f:
+            pickle.dump({"ori": random_rotations(rng, (T + 2, 6)).reshape(
+                T + 2, 6, 3, 3), "acc": rng.normal(size=(T + 2, 6, 3)),
+                "gt": gt(T)}, f)
+
+
+def factory_err(got, want):
+    """Per field the max |d| of two factory outputs (lists of dicts), and
+    whether every field is within PREP_TOL (else PREP_POS_TOL)."""
+    import numpy as np
+    if len(got) != len(want) or not want:
+        return {"items": [len(got), len(want)]}, False
+    errs = {}
+    for g, w in zip(got, want):
+        if sorted(g) != sorted(w):
+            return {"fields": [sorted(g), sorted(w)]}, False
+        for k in w:
+            if np.shape(g[k]) != np.shape(w[k]):
+                return {k: [np.shape(g[k]), np.shape(w[k])]}, False
+            errs[k] = max(errs.get(k, 0.0), float(np.abs(
+                np.asarray(g[k], np.float64) - w[k]).max()))
+    return errs, all(e <= PREP_TOL.get(k, PREP_POS_TOL)
+                     for k, e in errs.items())
+
+
 def leaves(tree):
     """The tensors of a nest of tuples/lists, in order."""
     if isinstance(tree, (tuple, list)):
@@ -528,6 +651,7 @@ class Smoke:
         self.shapes = {name: [] for name in LIBRARIES}
         self.launches = {}          # path -> {kernel: launches}
         self._eval = None           # the evaluation phases' data
+        self._prep = None           # the data preparation phases' data
 
     def check(self, ok, what):
         if not ok:
@@ -2479,6 +2603,466 @@ class Smoke:
               "report_max_abs_err_vs_in_process": err, "tol": REPORT_TOL,
               "card": nvidia_smi()})
 
+    # -- 4c: data preparation -----------------------------------------------
+    def prep_data(self):
+        """The raw corpora (``write_prep_corpora``) under a temporary data
+        root, a synthetic SMPL pickle of EVAL_VERTICES vertices, the body
+        model on the card and on the CPU; made once."""
+        if self._prep is None:
+            import tempfile
+            from a3gc_tpu_torch.config import Paths
+            from a3gc_tpu_torch.smpl import (load_parametric_model,
+                                             write_synthetic_smpl_pickle)
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+            paths = Paths(data_root=tmp)
+            t0 = time.perf_counter()
+            write_prep_corpora(paths)
+            smpl = write_synthetic_smpl_pickle(
+                os.path.join(tmp, "smpl.pkl"), n_vertices=EVAL_VERTICES)
+            self._prep = {"tmp": tmp, "paths": paths, "smpl": smpl,
+                          "write_s": time.perf_counter() - t0,
+                          "model": load_parametric_model(smpl,
+                                                         device=self.dev),
+                          "cpu_model": load_parametric_model(smpl,
+                                                             device="cpu")}
+        return self._prep
+
+    def phase_preprocess(self):
+        """The port's data factory on the card at the sizes of recordings:
+        ``process_amass_split(mode="train", sym=True)``, ``process_dipimu``
+        (train with the mirror, valid, test), ``process_totalcapture``;
+        the chunk counts and field shapes against the raw lengths; the
+        packed AMASS chunks through ``StageRunner(1).eval_epoch`` (A3GC
+        stage 1, H = 256, B = PREP_B; gcn_lstm launches counted, 2 a chunk
+        of PREP_B) against the same pass on the plain path (the loss, and
+        the stage's outputs on the first batch); one sequence per corpus
+        cut to PREP_CUT frames against the same call with the body model on
+        the CPU; per corpus frames/s, the device part's frames/s, peak
+        memory; the device's busy share over one AMASS sequence."""
+        import numpy as np
+        from a3gc_tpu_torch.config import TrainConfig
+        from a3gc_tpu_torch.data import (load_adjacency_template, load_stats,
+                                         pipeline as DP)
+        from a3gc_tpu_torch.data.factory import amass as FA
+        from a3gc_tpu_torch.data.factory import dipimu as FD
+        from a3gc_tpu_torch.data.factory import totalcapture as FT
+        from a3gc_tpu_torch.models.pipeline import (init_pose_net,
+                                                    pose_net_forward)
+        from a3gc_tpu_torch.ops import rotations as R
+        from a3gc_tpu_torch.train import StageRunner
+        torch = self.torch
+        data = self.prep_data()
+        paths, model, tmp = data["paths"], data["model"], data["tmp"]
+        rows = {}
+
+        def timed(name, run, raw_frames, frames):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rows[name] = {"seconds": sec, "raw_frames": raw_frames,
+                          "frames": frames,
+                          "raw_frames_per_s": raw_frames / sec,
+                          "frames_per_s": frames / sec,
+                          "peak_memory_gib":
+                              torch.cuda.max_memory_allocated(self.dev)
+                              / 2 ** 30}
+            return out
+
+        used = [(T, fps) for _, _, _, T, fps in PREP_AMASS
+                if fps in (120, 60, 59)]
+        amass_T = [T // 2 if fps == 120 else T for T, fps in used]
+        dip = {(s, m): T for s, m, T, _ in PREP_DIP}
+        out = {k: os.path.join(tmp, f"{k}.npz")
+               for k in ("amass", "dip_train", "dip_valid", "dip_test",
+                         "tc")}
+        self.zero_counts()                            # the main path starts
+        amass = timed("amass", lambda: FA.process_amass_split(
+            model, "train", sym=True, out_path=out["amass"], paths=paths),
+            sum(T for T, _ in used), 2 * sum(amass_T))
+        dip_train = timed("dipimu_train", lambda: FD.process_dipimu(
+            model, "train", sym=True, out_path=out["dip_train"],
+            paths=paths), dip["s_01", "01"], 2 * (dip["s_01", "01"] - 12))
+        dip_valid = timed("dipimu_valid", lambda: FD.process_dipimu(
+            model, "valid", out_path=out["dip_valid"], paths=paths),
+            dip["s_01", "05"], dip["s_01", "05"] - 12)
+        test_T = [dip["s_09", "01"], dip["s_09", "02"]]
+        dip_test = timed("dipimu_test", lambda: FD.process_dipimu(
+            model, "test", out_path=out["dip_test"], paths=paths),
+            sum(test_T), sum(T - 12 for T in test_T))
+        tc_T = [T for _, T in PREP_TC if T != FT.FAULTY_LENGTH]
+        tc = timed("totalcapture", lambda: FT.process_totalcapture(
+            model, out_path=out["tc"], paths=paths),
+            sum(T for _, T in PREP_TC), sum(tc_T))
+        # the packed AMASS chunks through the validation pass (the kernels)
+        packed = DP.load_packed(out["amass"])
+        cfg = self.cascade("a3gc", "auto").stage1
+        runner = StageRunner(1, cfg, init_pose_net(
+            torch.Generator().manual_seed(1), cfg,
+            load_adjacency_template()), TrainConfig(
+                batch_size=PREP_B, normalize=True), 1, stats=load_stats(),
+            device=self.dev)
+        sampler = DP.Sampler(packed, PREP_B, shuffle=False)
+        t0 = time.perf_counter()
+        valid_loss = runner.eval_epoch(sampler)
+        valid_s = time.perf_counter() - t0
+        counts = self.counts()                        # the main path ended
+        self.launches["preprocess"] = counts
+        n_chunks = len(packed["ori"])
+        want = 2 * (n_chunks // PREP_B)
+        self.check(counts == {k: (want if k == "gcn_lstm" else 0)
+                              for k in LIBRARIES},
+                   f"preprocess launches {counts}, want {want} gcn_lstm")
+        self.check(bool(np.isfinite(valid_loss)),
+                   f"preprocess eval_epoch loss {valid_loss}")
+        # the same pass on the plain path, and the stage's outputs on the
+        # first batch of PREP_B chunks through both
+        t0 = time.perf_counter()
+        plain = StageRunner(1, self.cascade("a3gc", "eager").stage1,
+                            runner.state.params, runner.cfg, 1,
+                            stats=load_stats(), device=self.dev)
+        plain_loss = plain.eval_epoch(sampler)
+        inputs, _ = runner._batch(runner.batch_at(
+            sampler, np.arange(PREP_B)), None, False)
+        with torch.no_grad():
+            outs = [pose_net_forward(r.state.params, r.stage_cfg, inputs)[0]
+                    for r in (runner, plain)]
+        vs_plain = {"outputs": float((outs[0] - outs[1]).abs().max()),
+                    "loss_rel": abs(valid_loss - plain_loss)
+                    / abs(plain_loss),
+                    "seconds": time.perf_counter() - t0}
+        self.check(vs_plain["outputs"] <= STAGE_TOL
+                   and vs_plain["loss_rel"] <= STAGE_TOL,
+                   f"preprocess stage 1 vs the plain path: {vs_plain}")
+
+        # counts and shapes against the raw lengths
+        shapes = {"ori": (54,), "acc": (18,), "pose": (135,),
+                  "full_pos": (24, 3), "leaf_pos": (5, 3)}
+        expect = {"amass": 2 * sum(T // 300 for T in amass_T),
+                  "dip_train": 2 * ((dip["s_01", "01"] - 12) // 300),
+                  "dip_valid": (dip["s_01", "05"] - 12) // 300}
+        for name, chunks in (("amass", amass), ("dip_train", dip_train),
+                             ("dip_valid", dip_valid)):
+            self.check(len(chunks) == expect[name],
+                       f"preprocess {name}: {len(chunks)} chunks, want "
+                       f"{expect[name]}")
+            with np.load(out[name]) as z:
+                got = {k: z[k].shape for k in z.files}
+            self.check(got == {k: (expect[name], 300) + v
+                               for k, v in shapes.items()},
+                       f"preprocess {name} npz shapes {got}")
+        for name, seqs, lengths in (("dip_test", dip_test,
+                                     [T - 12 for T in test_T]),
+                                    ("tc", tc, tc_T)):
+            got = [{k: v.shape for k, v in s.items()} for s in seqs]
+            self.check(got == [{k: (T,) + shapes[k]
+                                for k in ("ori", "acc", "pose")}
+                               for T in lengths],
+                       f"preprocess {name} shapes {got}")
+        finite = all(np.isfinite(v).all() for seqs in
+                     (amass, dip_train, dip_valid, dip_test, tc)
+                     for s in seqs for v in s.values())
+        self.check(finite, "preprocess: an output is not finite")
+
+        # the device part alone: AMASS FK + LBS at the sensor vertices,
+        # DIP-IMU FK of the joints, TotalCapture's rotation conversion
+        raws = list(FA.iter_amass_raw(paths.resolve(paths.raw_amass_dir),
+                                      FA.TRAIN_SPLIT))
+
+        model64 = model._astype(torch.float64)
+
+        def skin_all():
+            for r in raws:
+                pose = FA._body_pose_24(r["poses"])
+                p = R.axis_angle_to_rotation_matrix(model64.as_tensor(
+                    pose.reshape(-1, 3))).reshape(-1, 24, 3, 3)
+                FA._skin_sensors(model64, p, r["betas"], r["trans"],
+                                 FA.AMASS_VI_MASK)
+        dip_raw = next(FD.iter_dipimu_raw(paths.resolve(
+            paths.raw_dipimu_dir), "train"))
+        dip_p = R.axis_angle_to_rotation_matrix(model.as_tensor(
+            dip_raw["pose"].reshape(-1, 3))).reshape(-1, 24, 3, 3)
+        tc_raws = list(FT.iter_totalcapture_raw(paths.resolve(
+            paths.raw_totalcapture_dir)))
+        device_parts = (
+            ("amass", "FK + LBS at the sensor vertices, fp64", skin_all,
+             sum(amass_T)),
+            ("dipimu_train", "FK of the joints",
+             lambda: model.forward_kinematics(dip_p), dip_p.shape[0]),
+            ("totalcapture", "axis-angle to rotation matrix",
+             lambda: [R.axis_angle_to_rotation_matrix(model.as_tensor(
+                 r["pose"].reshape(-1, 3))) for r in tc_raws],
+             sum(r["pose"].shape[0] for r in tc_raws)))
+        for name, what, run, frames in device_parts:
+            run()                                     # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rows[name]["device_part"] = what
+            rows[name]["device_part_frames_per_s"] = frames / sec
+
+        # one sequence per corpus cut to PREP_CUT frames: the card against
+        # the CPU, every output field
+        cpu = data["cpu_model"]
+        cut_amass = [{k: (v[:PREP_CUT] if k in ("poses", "trans")
+                          else v) for k, v in raws[0].items()}]
+        cut_dip = [{k: (v[:PREP_CUT] if k != "id" else v)
+                    for k, v in dip_raw.items()}]
+        cut_tc = [{k: (v[:PREP_CUT] if k != "id" else v)
+                   for k, v in tc_raws[0].items()}]
+        vs_cpu = {}
+        for name, run in (
+                ("amass", lambda m: FA.process_amass_split(
+                    m, raw_iter=iter(cut_amass), sym=True)),
+                ("dipimu", lambda m: FD.process_dipimu(
+                    m, "train", sym=True, raw_iter=iter(cut_dip))),
+                ("totalcapture", lambda m: FT.process_totalcapture(
+                    m, raw_iter=iter(cut_tc)))):
+            err, ok = factory_err(run(model), run(cpu))
+            vs_cpu[name] = err
+            self.check(ok, f"preprocess {name} card vs CPU: {err}")
+
+        profile = self.eval_profile(lambda: FA.process_amass_split(
+            model, raw_iter=iter(raws[:1])), 1)
+        emit({"phase": "preprocess", "vertices": EVAL_VERTICES,
+              "vi_mask": list(FA.AMASS_VI_MASK),
+              "ji_mask": list(FA.AMASS_JI_MASK),
+              "write_raw_s": data["write_s"], "rows": rows,
+              "chunks": {k: len(v) for k, v in (
+                  ("amass", amass), ("dip_train", dip_train),
+                  ("dip_valid", dip_valid))},
+              "test_sequences": {"dip_test": len(dip_test),
+                                 "tc": len(tc)},
+              "eval_epoch": {"chunks": n_chunks, "batch": PREP_B,
+                             "hidden": STAGES[0][0], "loss": valid_loss,
+                             "seconds": valid_s},
+              "eval_epoch_vs_plain_path": vs_plain, "stage_tol": STAGE_TOL,
+              "launches": counts,
+              "vs_cpu_frames": PREP_CUT, "vs_cpu_max_abs_err": vs_cpu,
+              "tol": dict(PREP_TOL, other=PREP_POS_TOL),
+              "amass_profile": profile, "card": nvidia_smi()})
+
+    def phase_cli_data(self):
+        """The data subcommands as subprocesses on the card: ``cli
+        preprocess --dataset dipimu --split test`` against the factory in
+        process; ``cli evaluate --save_preds`` on its npz with two
+        parameter sets (``.tar`` checkpoints), in children that count the
+        kernel launches, while this process evaluates the first set on the
+        plain path, against which its dumped poses are held; ``cli
+        worst-frames`` on their dumps against
+        ``compare_models`` in process (the 18-pickle layout, the printed
+        selections); ``cli convert-data`` on both reference layouts against
+        ``np.load``. No phase renders (the card's machine has no Pillow)."""
+        import pickle
+        import numpy as np
+        from a3gc_tpu_torch.compat import torch_export as TE
+        from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+        from a3gc_tpu_torch.data.factory import dipimu as FD
+        from a3gc_tpu_torch.eval import CascadeEvaluator, compare_models
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        torch = self.torch
+        data = self.prep_data()
+        tmp = data["tmp"]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        cli = [sys.executable, "-m", "a3gc_tpu_torch.cli"]
+        walls = {}
+
+        def run_all(jobs, meanwhile=None):
+            """Start every (name, argv, cwd) at once, run ``meanwhile()``
+            here, wait for all."""
+            t0 = time.perf_counter()
+            procs = [(name, subprocess.Popen(
+                argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+                for name, argv, cwd in jobs]
+            done = {}
+            try:
+                if meanwhile is not None:
+                    meanwhile()
+            finally:
+                for name, proc in procs:
+                    try:
+                        out, err = proc.communicate(timeout=600)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        out, err = proc.communicate()
+                    done[name] = (proc.returncode, out, err)
+            for name, (rc, _, err) in done.items():
+                self.check(rc == 0, f"cli_data {name} exited {rc}:\n"
+                           + err[-3000:])
+            walls[" + ".join(n for n, _, _ in jobs)] = \
+                time.perf_counter() - t0
+            return done
+
+        test_npz = os.path.join(tmp, "cli_dip_test.npz")
+        done = run_all([("preprocess", cli + [
+            "preprocess", "--dataset", "dipimu", "--split", "test",
+            "--data_root", tmp, "--smpl", data["smpl"], "--output",
+            test_npz], tmp)])
+        if done["preprocess"][0] != 0:
+            return
+        want = FD.process_dipimu(data["model"], "test",
+                                 paths=data["paths"])
+        err, ok = factory_err(FD.load_test_sequences(test_npz), want)
+        self.check(ok, f"cli preprocess vs in-process: {err}")
+
+        # two parameter sets: seeds 0 and 7, stage 3 near rotations
+        cfg = self.cascade("a3gc", "auto")
+        runs, params = {}, {}
+        for tag, seed in (("a", 0), ("b", 7)):
+            gen = torch.Generator().manual_seed(seed)
+            params3 = [init_pose_net(gen, c, load_adjacency_template())
+                       for c in cfg.stages]
+            near_rotation_outputs(params3[2])
+            params[tag] = params3
+            cwd = os.path.join(tmp, f"eval_{tag}")
+            os.makedirs(cwd)
+            tars = []
+            for i, p in enumerate(params3):
+                tars.append(os.path.join(cwd, f"s{i + 1}.tar"))
+                TE.save_torch_checkpoint(tars[-1],
+                                         TE.graph_net_state_dict(p, "a3gc"))
+            runs[tag] = ([sys.executable, "-c", TRAIN_CHILD, "evaluate",
+                          "--model", "a3gc", "--norm", "--smpl",
+                          data["smpl"], "--save_preds", "--datasets",
+                          test_npz, "--torch_checkpoints"] + tars, cwd)
+        # the reference's packed layouts for convert-data
+        rng = np.random.default_rng(3)
+        N, T = 4, 300
+        stacked = {"ori": torch.as_tensor(random_rotations(
+                       rng, (N, T, 6))).reshape(N, T, 6, 3, 3),
+                   "acc": torch.as_tensor(rng.normal(size=(N, T, 6, 3))),
+                   "pose": torch.as_tensor(random_rotations(
+                       rng, (N, T, 15))).reshape(N, T, 15, 3, 3),
+                   "full_pos": torch.as_tensor(rng.normal(
+                       size=(N, T, 24, 3))),
+                   "leaf_pos": torch.as_tensor(rng.normal(
+                       size=(N, T, 5, 3)))}
+        lengths = (1200, 777)
+        lists = {"ori": [torch.as_tensor(random_rotations(rng, (n, 6)))
+                         for n in lengths],
+                 "acc": [torch.as_tensor(rng.normal(size=(n, 18)))
+                         for n in lengths],
+                 "pose": [torch.as_tensor(random_rotations(rng, (n, 15)))
+                          for n in lengths]}
+        jobs = [(f"evaluate_{t}", argv, cwd) for t, (argv, cwd)
+                in runs.items()]
+        for name, obj in (("stacked", stacked), ("lists", lists)):
+            pt = os.path.join(tmp, f"{name}.pt")
+            torch.save(obj, pt)
+            jobs.append((f"convert_{name}", cli + [
+                "convert-data", "--torch", pt, "--output",
+                os.path.join(tmp, f"{name}_converted.npz")], tmp))
+        # while the children run: model A's per-sequence predictions on the
+        # plain path, for its dumps
+        plain = {}
+
+        def plain_preds():
+            t0 = time.perf_counter()
+            ev = CascadeEvaluator(
+                tuple(p.to(self.dev) for p in params["a"]),
+                self.cascade("a3gc", "eager"), data["model"], load_stats(),
+                normalize=True, device=self.dev)
+            plain["preds"] = ev.evaluate(FD.load_test_sequences(test_npz),
+                                         return_preds=True)[3]
+            plain["seconds"] = time.perf_counter() - t0
+        done = run_all(jobs, plain_preds)
+        launches = {k: 0 for k in LIBRARIES}
+        n_seqs = len(want)
+        for tag in runs:
+            rc, out, _ = done[f"evaluate_{tag}"]
+            if rc != 0:
+                return
+            child = json.loads(out.strip().splitlines()[-1])
+            self.check(not child["banned"],
+                       f"cli evaluate imported {child['banned']}")
+            for k, v in child["launches"].items():
+                launches[k] += v
+        self.launches["cli_data"] = launches
+        # a warm-up sequence and each test sequence, 6 layer calls each
+        want_launches = 2 * 6 * (n_seqs + 1)
+        self.check(launches == {k: (want_launches if k == "gcn_lstm" else 0)
+                                for k in LIBRARIES},
+                   f"cli_data launches {launches}, want {want_launches}")
+        for name, obj in (("stacked", stacked), ("lists", lists)):
+            with np.load(os.path.join(tmp, f"{name}_converted.npz")) as z:
+                got = {k: z[k] for k in z.files}
+            if name == "stacked":
+                ref = {"ori": obj["ori"].reshape(N, T, 54),
+                       "acc": obj["acc"].reshape(N, T, 18),
+                       "pose": obj["pose"].reshape(N, T, 135),
+                       "full_pos": obj["full_pos"],
+                       "leaf_pos": obj["leaf_pos"]}
+            else:
+                ref = {f"seq{i}_{k}": v[i].reshape(n, -1)
+                       for k, v in obj.items()
+                       for i, n in enumerate(lengths)}
+            ok = (sorted(got) == sorted(ref) and all(
+                got[k].dtype == np.float32 and np.array_equal(
+                    got[k], ref[k].numpy().astype(np.float32))
+                for k in ref))
+            self.check(ok, f"cli convert-data {name}: "
+                       f"{sorted(got)} vs {sorted(ref)}")
+
+        # worst frames of model B against model A
+        dumps = {t: os.path.join(tmp, f"eval_{t}", "evaluation_results",
+                                 "sequences", "dip", "a3gc")
+                 for t in runs}
+        out_dir = os.path.join(tmp, "best_worst")
+        done = run_all([("worst_frames", cli + [
+            "worst-frames", "--smpl", data["smpl"], "--gt",
+            os.path.join(dumps["a"], "gt"), "--pred_a",
+            os.path.join(dumps["a"], "pred"), "--pred_b",
+            os.path.join(dumps["b"], "pred"), "--output", out_dir], tmp)])
+        if done["worst_frames"][0] != 0:
+            return
+        printed = {line.split(" ", 1)[0]: json.loads(line.split(" ", 1)[1])
+                   for line in done["worst_frames"][1].splitlines()
+                   if line.split(" ", 1)[0] in (
+                       "b_improves_most", "b_regresses_most", "a_worst",
+                       "a_best", "b_worst", "b_best")}
+
+        def load(d):
+            files = sorted(f for f in os.listdir(d) if f.endswith(".p"))
+            self.check(len(files) == n_seqs, f"dumps in {d}: {files}")
+            out = []
+            for f in files:
+                with open(os.path.join(d, f), "rb") as fh:
+                    out.append(pickle.load(fh))
+            return out
+
+        gts = load(os.path.join(dumps["a"], "gt"))
+        preds_a = load(os.path.join(dumps["a"], "pred"))
+        vs_plain = float(max(np.abs(g - w).max() for g, w in
+                             zip(preds_a, plain["preds"])))
+        self.check(len(preds_a) == len(plain["preds"])
+                   and vs_plain <= PATH_TOL,
+                   f"cli evaluate --save_preds vs the plain path: "
+                   f"{vs_plain:.3e}")
+        result = compare_models(data["model"], gts, preds_a,
+                                load(os.path.join(dumps["b"], "pred")))
+        self.check(printed == result,
+                   f"cli worst-frames {printed} vs in-process {result}")
+        layout = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                        for d, _, fs in os.walk(out_dir) for f in fs)
+        nested = [p for p in layout if os.sep in p]
+        self.check(len(layout) == 6 + 18 and len(nested) == 18,
+                   f"cli worst-frames layout {layout}")
+        emit({"phase": "cli_data", "test_sequences": n_seqs,
+              "test_frames": [int(s["ori"].shape[0]) for s in want],
+              "preprocess_vs_in_process_max_abs_err": err,
+              "evaluate_launches": launches,
+              "preds_a_vs_plain_path_max_abs_err": vs_plain,
+              "plain_path_s": plain["seconds"], "tol": PATH_TOL,
+              "worst_frames": result,
+              "worst_frames_files": len(layout), "wall_s": walls,
+              "card": nvidia_smi()})
+
     # -- 5: training ---------------------------------------------------------
     def phase_kernel_grad(self):
         """Gradients of a scalar loss (random weights on every output) with
@@ -2736,9 +3320,10 @@ class Smoke:
               "rows": rows, "card": nvidia_smi()})
 
     def cleanup(self):
-        if self._eval is not None:
-            import shutil
-            shutil.rmtree(self._eval["tmp"], ignore_errors=True)
+        import shutil
+        for data in (self._eval, self._prep):
+            if data is not None:
+                shutil.rmtree(data["tmp"], ignore_errors=True)
 
     # -- 5 ---------------------------------------------------------------
     def plan_record(self, name, S, H, D=2):
@@ -2905,7 +3490,8 @@ class Smoke:
                          "a3gc_tpu/ops/pallas_gcn_lstm.py:705 "
                          "(_dirfused_kernel)",
                          ("serving", "buffered", "http", "checkpoints",
-                          "evaluate", "export", "export_bundle", "train"),
+                          "evaluate", "export", "export_bundle",
+                          "preprocess", "cli_data", "train"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -3002,6 +3588,7 @@ def main():
               smoke.phase_offline_ggru, smoke.phase_evaluate,
               smoke.phase_evaluate_families, smoke.phase_evaluate_dip,
               smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
+              smoke.phase_preprocess, smoke.phase_cli_data,
               smoke.phase_kernel_grad, smoke.phase_train,
               smoke.phase_train_times, smoke.phase_times)
     try:

@@ -101,15 +101,26 @@ def test_torch_port_armature_matches_jax():
                 == {m: ref[m].value for m in ref.__members__})
 
 
-def test_torch_port_tree_only_model_refuses_fk():
+def test_torch_port_tree_only_model_refuses_fk(models, tmp_path):
+    """A tree-only model refuses FK and so the mesh viewer, and draws
+    skeletons (the tree is all ``view_joint`` needs) as the JAX model
+    does."""
     m = ParametricModel()
     assert m.device is None and m.n_joints == 24
     with pytest.raises(ValueError, match="load_parametric_model"):
         m.forward_kinematics(torch.eye(3).expand(1, 24, 3, 3))
     with pytest.raises(ValueError, match="all of"):
         ParametricModel(v_template=np.zeros((3, 3)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        m.view_motion([])
+    with pytest.raises(ValueError, match="load_parametric_model"):
+        m.view_motion([np.tile(np.eye(3, dtype=np.float32), (2, 24, 1, 1))])
+    joints = [np.random.default_rng(s).normal(size=(2, 24, 3)).astype(
+        np.float32) for s in (0, 1)]
+    ours = m.view_joint(joints, out_path=str(tmp_path / "ours.gif"),
+                        size=48)
+    ref = models[1].view_joint(joints, out_path=str(tmp_path / "ref.gif"),
+                               size=48)
+    with open(ours, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
 
 
 @pytest.mark.parametrize("with_shape", [False, True])

@@ -915,3 +915,123 @@ def test_torch_port_train_step_on_card_matches_cpu(kind):
                    / max(g.abs().max().item(), 1e-30), max(adam))
     bad = {n: e for n, e in errs.items() if e[0] > 1e-5 or e[1] > 1e-7}
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# data preparation: the factory's FK and skinning on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_corpora(tmp_path_factory):
+    """A data root with one raw sequence per corpus (AMASS 120 fps, 1200
+    raw frames; DIP-IMU s_01 of 600 frames with NaN bursts; TotalCapture of
+    600 frames) and a synthetic SMPL pickle of SMPL's 6890 vertices."""
+    from a3gc_tpu_torch.config import Paths
+    from a3gc_tpu_torch.smpl import write_synthetic_smpl_pickle
+    from torch_port_raw import (write_raw_amass, write_raw_dip,
+                                write_raw_totalcapture)
+    root = tmp_path_factory.mktemp("card_data")
+    paths = Paths(data_root=str(root))
+    write_raw_amass(paths.resolve(paths.raw_amass_dir),
+                    (("CMU", "01", "walk", 1200, 120),))
+    write_raw_dip(paths.resolve(paths.raw_dipimu_dir),
+                  (("s_01", "01", 600, "burst"),))
+    write_raw_totalcapture(paths.resolve(paths.raw_totalcapture_dir),
+                           (("s1_acting1", 600, 602),))
+    return paths, write_synthetic_smpl_pickle(str(root / "smpl.pkl"),
+                                              n_vertices=6890)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["amass", "amass_sym", "dipimu",
+                                    "dipimu_sym", "totalcapture"])
+def test_torch_port_factory_on_card_matches_cpu(card_corpora, corpus):
+    """Every field of the factory's output with the body model on the card
+    against the same call on the CPU: rotations, positions and poses within
+    1e-5, normalized accelerations within 1e-4 (the finite difference
+    scales the positions' rounding by up to 3600 / 30)."""
+    _need_card()
+    from a3gc_tpu_torch.data.factory import amass, dipimu, totalcapture
+    from a3gc_tpu_torch.smpl import load_parametric_model
+    from torch_port_raw import assert_factory_close
+    paths, smpl = card_corpora
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = load_parametric_model(smpl, device=dev)
+        if corpus.startswith("amass"):
+            out.append(amass.process_amass_split(
+                model, "train", sym=corpus.endswith("sym"), paths=paths))
+        elif corpus.startswith("dipimu"):
+            out.append(dipimu.process_dipimu(
+                model, "train", sym=corpus.endswith("sym"), paths=paths))
+        else:
+            out.append(totalcapture.process_totalcapture(model, paths=paths))
+    assert len(out[1]) > 0
+    assert_factory_close(out[1], out[0], corpus)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_port_chunked_skinning_on_card_equals_one_call(dtype):
+    """FK and 6890-vertex skinning of a 3000-frame sequence in one call and
+    in chunks of 2048 and 700 frames, in fp32 and in the fp64 of
+    ``synthesize_sequence``: the sensor vertices, joints and rotations
+    within the factory's 1e-5 (a chunk's batch may change the library's
+    blocking of the sums), and the CPU's within the same."""
+    _need_card()
+    from a3gc_tpu_torch.data.factory import amass
+    from a3gc_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+    from a3gc_tpu_torch.ops import rotations as R
+    data = synthetic_smpl_data(n_vertices=6890)
+    arrays = dict(j_regressor=data["J_regressor"],
+                  skinning_weights=data["weights"],
+                  posedirs=data["posedirs"], shapedirs=data["shapedirs"],
+                  v_template=data["v_template"], joints_template=data["J"],
+                  faces=data["f"])
+    rng = np.random.default_rng(0)
+    T = 3000
+    aa = rng.normal(scale=0.3, size=(T * 24, 3)).astype(np.float32)
+    shape = rng.normal(size=10).astype(np.float32)
+    trans = rng.normal(size=(T, 3)).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = ParametricModel(device=dev, **arrays)._astype(dtype)
+        rot = R.axis_angle_to_rotation_matrix(
+            model.as_tensor(aa)).reshape(T, 24, 3, 3)
+        for chunk in (T, 2048, 700):
+            outs[dev, chunk] = [t.cpu() for t in amass._skin_sensors(
+                model, rot, shape, trans, amass.AMASS_VI_MASK, chunk)]
+    whole = outs["cuda", T]
+    for key, got in outs.items():
+        for a, b in zip(got, whole):
+            assert (a - b).abs().max().item() <= 1e-5, key
+
+
+@pytest.mark.cuda
+def test_torch_port_view_motion_fk_on_card_matches_cpu(card_corpora,
+                                                       monkeypatch):
+    """``view_motion``'s FK and skinning on the card: the vertices it hands
+    to ``view_mesh`` (the rasterizer is host code, tested on the CPU)
+    against the CPU model's, within 1e-5."""
+    _need_card()
+    from a3gc_tpu_torch.smpl import ParametricModel, load_parametric_model
+    _, smpl = card_corpora
+    rng = np.random.default_rng(1)
+    T = 30
+    poses = [np.tile(np.eye(3, dtype=np.float32), (T, 24, 1, 1))
+             + 0.1 * rng.normal(size=(T, 24, 3, 3)).astype(np.float32)
+             for _ in range(2)]
+    trans = [np.cumsum(rng.normal(scale=0.05, size=(T, 3)), 0).astype(
+        np.float32) for _ in range(2)]
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(
+            ParametricModel, "view_mesh",
+            lambda self, verts, *a, dev=dev, **k: seen.setdefault(dev,
+                                                                  verts))
+        model = load_parametric_model(smpl, device=dev)
+        model.view_motion(poses, trans, out_path="unused.gif")
+    assert [v.shape for v in seen["cuda"]] == [(T, 6890, 3)] * 2
+    for a, b in zip(seen["cuda"], seen["cpu"]):
+        assert isinstance(a, np.ndarray)
+        assert np.abs(a - b).max() <= 1e-5

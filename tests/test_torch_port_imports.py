@@ -8,7 +8,9 @@ convert-checkpoint``), ``forward_offline`` and ``pose_loss``, and evaluation (a 
 pickle loaded, the metrics, ``CascadeEvaluator`` in its three protocols,
 ``DipEvaluator``, ``compare_models``, ``cli evaluate``), and training
 (``a3gc_tpu_torch.train``, the training feed, ``cli train`` of a cascade and
-of DIP, ``cli stats``) load no jax, flax or a3gc_tpu module. And the
+of DIP, ``cli stats``), and data preparation (``cli preprocess`` of a raw
+DIP-IMU tree, ``cli convert-data``, ``cli worst-frames --render``) load no
+jax, flax or a3gc_tpu module. And the
 package data ships every kernel source and header, and the port has its
 console script."""
 
@@ -162,6 +164,41 @@ for model in ("a3gc", "dip"):
     assert discover_latest(os.path.join("runs", model), 1)
 a3gc_tpu_torch.cli.main(["stats", "--inputs", "train.npz", "--output",
                          "stats.npz"])
+# data preparation: cli preprocess on a raw DIP-IMU tree, convert-data,
+# worst-frames --render
+import pickle
+def rotations(n):
+    q, r = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    return q * np.sign(np.linalg.det(q))[:, None, None]
+for subject in ("s_01", "s_09"):
+    os.makedirs(os.path.join("raw_datasets", "DIP_IMU", subject))
+    with open(os.path.join("raw_datasets", "DIP_IMU", subject, "01.pkl"),
+              "wb") as f:
+        pickle.dump({"imu_acc": rng.normal(size=(20, 17, 3)),
+                     "imu_ori": rotations(20 * 17).reshape(20, 17, 3, 3),
+                     "gt": rng.normal(scale=0.3, size=(20, 72))}, f)
+a3gc_tpu_torch.cli.main(["preprocess", "--device", "cpu", "--dataset",
+                         "dipimu", "--split", "test", "--data_root", ".",
+                         "--smpl", smpl, "--output", "dip_test.npz"])
+from a3gc_tpu_torch.data.factory.dipimu import load_test_sequences
+assert [s["ori"].shape for s in load_test_sequences("dip_test.npz")] == \
+    [(8, 54)]
+torch.save({k: torch.as_tensor(v) for k, v in
+            synthetic_packed_dataset(2, 8).items()}, "packed.pt")
+a3gc_tpu_torch.cli.main(["convert-data", "--torch", "packed.pt", "--output",
+                         "converted.npz"])
+for sub in ("gt", "a", "b"):
+    os.makedirs(os.path.join("dumps", sub))
+    with open(os.path.join("dumps", sub, "000.p"), "wb") as f:
+        pickle.dump(rotations(24 * 24).reshape(24, 24, 3, 3), f)
+a3gc_tpu_torch.cli.main(["worst-frames", "--device", "cpu", "--smpl", smpl,
+                         "--gt", "dumps/gt", "--pred_a", "dumps/a",
+                         "--pred_b", "dumps/b", "--k", "1", "--output",
+                         "best_worst", "--render"])
+assert os.path.isfile(os.path.join("best_worst", "respect_tp", "worst",
+                                   "gt.p"))
+assert any(f.endswith(".png") for f in os.listdir(
+    os.path.join("best_worst", "respect_tp", "worst")))
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

@@ -211,7 +211,7 @@ def test_torch_port_select_extreme_frames_matches_jax():
 
 def test_torch_port_compare_models_matches_jax(models, tmp_path):
     """The per-frame errors, every selection, the combined payloads and the
-    reference's 18-pickle layout; ``render=True`` waits for the viewer."""
+    reference's 18-pickle layout; ``render=True``'s PNGs."""
     ours, ref = models
     gt = _poses(700, 21)
     pred_a, pred_b = _poses(700, 21, noise=0.2), _poses(700, 22, noise=0.05)
@@ -237,8 +237,24 @@ def test_torch_port_compare_models_matches_jax(models, tmp_path):
                 _close(np.asarray(x[k]), np.asarray(y[k]))
         else:
             np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TW.compare_models(ours, gts, a, b, render=True)
+    # render=True: a PNG a selected frame (gt | A | B) beside the pickles,
+    # as JAX draws it; FK rounding may move an edge pixel (<= 0.1 %)
+    TW.compare_models(ours, gts, a, b, k=2, min_separation=100,
+                      out_dir=str(tmp_path / "ours_png"), render=True,
+                      render_size=64)
+    JW.compare_models(ref, gts, a, b, k=2, min_separation=100,
+                      out_dir=str(tmp_path / "ref_png"), render=True,
+                      render_size=64)
+    from PIL import Image
+    pngs = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "ref_png")
+                  for d, _, fs in os.walk(tmp_path / "ref_png") for f in fs
+                  if f.endswith(".png"))
+    assert len(pngs) == 12
+    for name in pngs:
+        x = np.asarray(Image.open(tmp_path / "ours_png" / name))
+        y = np.asarray(Image.open(tmp_path / "ref_png" / name))
+        assert x.shape == y.shape == (64, 64, 3)
+        assert (x != y).any(-1).mean() <= 1e-3, name
 
 
 def test_torch_port_eval_report_is_byte_equal_to_jax(tmp_path):

@@ -22,9 +22,11 @@ trained checkpoints (the reference's ``.tar`` files through
 checkpoint directories through ``utils``); and evaluation: the SMPL body
 model with FK and skinning (``smpl``), the motion-error metrics
 (``metrics``), ``eval.CascadeEvaluator`` / ``eval.DipEvaluator`` and
-``python -m a3gc_tpu_torch.cli evaluate``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; they raise when CUDA is asked
-for and absent.
+``python -m a3gc_tpu_torch.cli evaluate``; and, over several cards or
+processes, the data-parallel mesh of ``parallel`` (sharded serving,
+evaluation and training, ``cli train --coordinator``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; they raise when
+CUDA is asked for and absent.
 
 The package imports ``torch`` and numpy only — never ``jax``, ``flax`` or
 any module of ``a3gc_tpu``.

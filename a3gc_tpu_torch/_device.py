@@ -1,5 +1,5 @@
-r"""Device resolution and small device-resident index tensors shared by the
-port's modules."""
+r"""Device resolution, small device-resident index tensors and the random
+draws of a sharded training step, shared by the port's modules."""
 
 from __future__ import annotations
 
@@ -49,3 +49,32 @@ def index_tensor(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
 def _cached_index_tensor(values: Tuple[int, ...],
                          device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.long, device=device)
+
+
+class RowDraws:
+    r"""One data shard's view of a training step's generator. Every random
+    draw (teacher-forcing noise, dropout keep-masks) is made at the size of
+    the global batch and the shard keeps its own rows of it, so the shards
+    of a step split over devices draw exactly the numbers the unsharded
+    step draws. ``generator`` lies on the shard's device and starts in the
+    unsharded step's state; ``batch`` is the global batch size, ``start``
+    and ``length`` the shard's rows."""
+
+    def __init__(self, generator: torch.Generator, batch: int, start: int,
+                 length: int):
+        self.generator = generator
+        self.batch = batch
+        self.start = start
+        self.length = length
+
+
+def random_rows(fn, rng, shape, device, batch_axis: int = 0, **kw):
+    r"""``fn(shape, generator=rng, device=device, **kw)`` (``torch.rand``
+    or ``torch.randn``); for a :class:`RowDraws`, the draw at the global
+    batch size along ``batch_axis``, narrowed to the shard's rows."""
+    if not isinstance(rng, RowDraws):
+        return fn(shape, generator=rng, device=device, **kw)
+    full = list(shape)
+    full[batch_axis] = rng.batch
+    return fn(full, generator=rng.generator, device=device, **kw).narrow(
+        batch_axis, rng.start, rng.length)

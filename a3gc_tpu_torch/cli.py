@@ -10,6 +10,9 @@ Usage:
         --output dip_test.npz                    # FK on the card
     python -m a3gc_tpu_torch.cli train --model a3gc -b 16 --norm \
         --train_data train.npz --valid_data valid.npz   # on the card
+    python -m a3gc_tpu_torch.cli train ... --mesh    # every card, one process
+    python -m a3gc_tpu_torch.cli train ... --coordinator host0:29500 \
+        --num_processes 2 --process_id 0         # one process a card
     python -m a3gc_tpu_torch.cli stats --inputs a.npz b.npz --output s.npz
     python -m a3gc_tpu_torch.cli serve --torch_checkpoints s1.tar s2.tar \
         s3.tar --norm --quality balanced         # on the card
@@ -49,8 +52,11 @@ shipped copies. ``export`` writes a deployment artifact
 ``--artifact`` and nothing else. ``train`` writes checkpoint directories
 that ``--path`` discovers. ``preprocess`` reads the raw corpora under
 ``--data_root`` (``raw_datasets/AMASS``, ``raw_datasets/DIP_IMU``,
-``raw_datasets/TotalCapture/DIP_recalculate``), resolved when it runs. A
-mesh of cards waits for a later slice (see ROADMAP.md, Queue 1).
+``raw_datasets/TotalCapture/DIP_recalculate``), resolved when it runs.
+``--mesh`` splits the streams (``serve``, ``stream``, ``evaluate``) or the
+batch (``train``) over every visible card, or with ``--device cpu`` over one
+CPU shard; ``train --coordinator`` joins a multi-process run (``nccl`` on the
+cards, ``gloo`` on the CPU). ``--tp > 1`` waits for ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -76,15 +82,10 @@ QUALITY_PRESETS = {
     "ultra": (120, 1, 2),
 }
 
-# flags of the JAX CLI that the port parses and refuses: what each waits
-# for
-_WAITS_FOR = {
-    "mesh": "--mesh (streams sharded over several cards) waits for ROADMAP "
-            "Queue 1 item 14",
-}
-_TRAIN_WAITS_FOR = ("--mesh, --tp > 1 and --coordinator (training sharded "
-                    "over several cards or hosts) wait for ROADMAP Queue 1 "
-                    "item 14")
+# the flag of the JAX CLI that the port parses and refuses
+_TP_WAITS_FOR = ("--tp > 1 (tensor parallelism: hidden features sharded "
+                 "over a mesh 'model' axis) waits for ROADMAP Queue 1 "
+                 "item 14")
 # where the JAX package's config looks under the data root
 _SMPL_MALE = "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
 _STATS_UNDER_ROOT = {False: "stats/all_train_stats.npz",
@@ -373,9 +374,19 @@ def _reloading(load):
     return reload_fn
 
 
-def _refuse_waiting_flags(args):
-    for attr, msg in _WAITS_FOR.items():
-        _require(not getattr(args, attr, None), msg)
+def _mesh(args, device):
+    r"""The mesh of ``--mesh``: every visible card on the data axis (in a
+    multi-process run, this process's card), or with ``--device cpu`` one
+    CPU shard."""
+    from a3gc_tpu_torch.parallel import make_mesh
+    return make_mesh(devices=[device] if device.type == "cpu" else None)
+
+
+def _note_dip_mesh(args, what, fallback):
+    r"""The single-net DIP paths take no mesh, as in the JAX CLI."""
+    if getattr(args, "mesh", False):
+        print(f"[a3gc_tpu_torch] --mesh is not wired for the single-net dip "
+              f"{what}; {fallback}", file=sys.stderr)
 
 
 def _note_ignored_flags(args):
@@ -411,21 +422,53 @@ def cmd_train(args):
     ``--start_at``, early stopping on the validation loss, a checkpoint
     directory under ``--save_root/--name`` on every improvement, a
     ``train_log.jsonl`` there. Validation runs through the Hopper kernels
-    on the card."""
+    on the card. ``--mesh`` splits every batch over the cards;
+    ``--coordinator`` joins a multi-process run first (one process a card),
+    whose process 0 writes the log and the checkpoints."""
     from a3gc_tpu_torch._device import resolve_device
+    from a3gc_tpu_torch.parallel import multihost
+
+    _require(args.tp <= 1, _TP_WAITS_FOR)
+    if args.coordinator:
+        # join the process group before anything touches a device: the
+        # mesh then spans every process's card
+        _require(not args.fse,
+                 "--fse full-sequence validation is single-process; drop "
+                 "it for --coordinator runs")
+        pid, nproc = multihost.initialize_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
+        args.mesh = True        # the process-spanning mesh is the point
+        print(f"[multihost] process {pid}/{nproc} joined "
+              f"({args.coordinator})", flush=True)
+    try:
+        device = resolve_device(args.device)
+        _train(args, device, _mesh(args, device) if args.mesh else None)
+    finally:
+        if args.coordinator:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
+    r"""The body of :func:`cmd_train` on ``device`` (the mesh's first under
+    ``--mesh``)."""
     from a3gc_tpu_torch.data import load_adjacency_template
     from a3gc_tpu_torch.data import pipeline as DP
     from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.parallel import multihost
     from a3gc_tpu_torch.train import (GracefulInterrupt, StageRunner,
                                       run_cascade_training, seeded_generator)
     from a3gc_tpu_torch.utils import (JsonlLogger, discover_latest,
                                       restore_params, save_params)
 
-    _require(not (args.mesh or args.tp > 1 or args.coordinator),
-             _TRAIN_WAITS_FOR)
     _note_ignored_flags(args)
     tc = _train_config(args)
-    device = resolve_device(args.device)
+    if mesh is not None:
+        n = mesh.shape["data"]
+        _require(tc.batch_size % n == 0,
+                 f"--batch_size {tc.batch_size} must divide over the {n} "
+                 "shards of the mesh's data axis")
     train = DP.load_packed(args.train_data)
     valid_fn = None
     if args.fse:
@@ -439,12 +482,19 @@ def cmd_train(args):
     steps = max(-(-len(train[next(iter(train))]) // tc.batch_size), 1)
     train_dev = valid_dev = None
     if args.device_data:
-        train_dev = DP.put_device(train, device)
-        valid_dev = train_dev if valid is train else DP.put_device(valid,
-                                                                   device)
+        # under a mesh each device holds its block of rows and gathers its
+        # own batch rows (per-shard shuffling)
+        put = ((lambda d: DP.put_device_sharded(d, mesh)) if mesh is not None
+               else (lambda d: DP.put_device(d, device)))
+        train_dev = put(train)
+        valid_dev = train_dev if valid is train else put(valid)
     save_dir = os.path.join(args.save_root, args.name)
     os.makedirs(save_dir, exist_ok=True)
-    log = JsonlLogger(os.path.join(save_dir, "train_log.jsonl"))
+    # a multi-process run: process 0 owns the log, stdout and the
+    # checkpoint writes; the others wait for each write at a barrier
+    coord = multihost.is_coordinator()
+    log = JsonlLogger(os.path.join(save_dir, "train_log.jsonl")
+                      if coord else None, echo=coord)
 
     def train_sampler(salt):
         return DP.Sampler(train, tc.batch_size, shuffle=True,
@@ -456,12 +506,14 @@ def cmd_train(args):
                           pad_remainder=True, device_data=valid_dev)
 
     def save(stage, epoch, params):
-        return save_params(params, save_dir, stage, epoch,
-                           finetuning=tc.finetuning)
+        path = (save_params(params, save_dir, stage, epoch,
+                            finetuning=tc.finetuning) if coord else None)
+        multihost.barrier()
+        return path
 
     if args.model == "dip":
         return _train_dip(args, tc, steps, train_sampler, valid_sampler,
-                          save, log, device)
+                          save, log, device, mesh)
 
     cascade, is_graph = _stage_configs(args)
     stats = _load_stats(args) if args.norm else None
@@ -476,10 +528,11 @@ def cmd_train(args):
         found = args.resume and discover_latest(args.resume, stage)
         if found:
             params = restore_params(found[0], params)
-            print(f"resumed stage {stage} from {found[0]}")
+            if coord:
+                print(f"resumed stage {stage} from {found[0]}")
         runners[stage] = StageRunner(stage, scfg, params, tc, steps,
                                      stats=stats, graph=is_graph,
-                                     device=device)
+                                     device=device, mesh=mesh)
     # SIGTERM/SIGINT → checkpoint current params + clean exit (preemption)
     with GracefulInterrupt() as gi:
         run_cascade_training(runners, train_sampler, valid_sampler, tc,
@@ -510,10 +563,11 @@ def _train_config(args):
 
 
 def _train_dip(args, tc, steps, train_sampler, valid_sampler, save, log,
-               device):
+               device, mesh):
     r"""Single-stage DIP training: the cascade driver's loop on one
     :class:`DIPRunner` (stage 1), normalized inputs."""
     from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.parallel import is_coordinator
     from a3gc_tpu_torch.train import (DIPRunner, GracefulInterrupt,
                                       run_cascade_training, seeded_generator)
     from a3gc_tpu_torch.utils import discover_latest, restore_params
@@ -524,12 +578,14 @@ def _train_dip(args, tc, steps, train_sampler, valid_sampler, save, log,
         found = discover_latest(args.resume, 1)
         _require(found, f"no checkpoint found in {args.resume}")
         params = restore_params(found[0], params)
-        print(f"resumed from {found[0]}")
+        if is_coordinator():
+            print(f"resumed from {found[0]}")
     stats = _load_stats(args)
     _require(stats is not None,
              "DIP training needs normalization stats (the shipped stats "
              "assets, or stats under --data_root)")
-    runner = DIPRunner(cfg, params, tc, steps, stats, device=device)
+    runner = DIPRunner(cfg, params, tc, steps, stats, device=device,
+                       mesh=mesh)
     with GracefulInterrupt() as gi:
         run_cascade_training({1: runner}, train_sampler, valid_sampler,
                              dataclasses.replace(tc, start_stage=1),
@@ -558,7 +614,6 @@ def cmd_serve(args):
     import json as _json
 
     _apply_quality(args)
-    _refuse_waiting_flags(args)
     _note_ignored_flags(args)
 
     # NOTE: construction happens inside this helper so its frame (and the
@@ -601,6 +656,8 @@ def _build_server(args):
         # local poses out
         from a3gc_tpu_torch.eval.streaming import DipStreamingSession
 
+        _note_dip_mesh(args, "session (KB-scale net — scale out by "
+                             "replication)", "serving single-device")
         stats = _load_stats(args)
         _require(stats is not None,
                  "dip serving needs the shipped stats assets "
@@ -629,6 +686,7 @@ def _build_server(args):
                      window=args.window, streams=args.streams, stats=stats,
                      normalize=args.norm, host=args.host, port=args.port,
                      max_wait_ms=args.max_wait_ms,
+                     mesh=_mesh(args, device) if args.mesh else None,
                      lookahead=args.lookahead, history=args.history,
                      recycle_rss_mb=args.recycle_rss_mb,
                      allow_recycle=True, device=device,
@@ -681,7 +739,6 @@ def cmd_stream(args):
                                                StreamingCascade)
 
     _apply_quality(args)
-    _refuse_waiting_flags(args)
     _note_ignored_flags(args)
     _require(not (args.pipelined and (args.lookahead or args.history)),
              "--pipelined does not compose with --lookahead/--history "
@@ -716,6 +773,8 @@ def cmd_stream(args):
         args.streams = args.streams or 1
         model = _load_body_model(args, device)
         if args.model == "dip":
+            _note_dip_mesh(args, "session (KB-scale net — scale out by "
+                                 "replication)", "running single-device")
             stats = _load_stats(args)
             _require(stats is not None,
                      "dip streaming needs the shipped stats assets "
@@ -736,6 +795,7 @@ def cmd_stream(args):
                 params3, cascade, model, window=args.window, stats=stats,
                 normalize=args.norm, streams=args.streams,
                 lookahead=args.lookahead, history=args.history,
+                mesh=_mesh(args, device) if args.mesh else None,
                 device=device)
         if args.streams > 1:
             return _stream_multi(args, sess, sequences)
@@ -1037,7 +1097,6 @@ def cmd_evaluate(args):
     from a3gc_tpu_torch.utils import write_eval_report
 
     _apply_quality(args)
-    _refuse_waiting_flags(args)
     _note_ignored_flags(args)
     _require(args.batch_streams >= 1, "--batch_streams must be >= 1")
     for dataset in args.datasets:
@@ -1064,9 +1123,20 @@ def cmd_evaluate(args):
     if args.streaming and args.save_preds:
         print("[a3gc_tpu_torch] --save_preds runs the offline per-sequence "
               "protocol; --streaming is ignored", file=sys.stderr)
+    mesh = None
+    if args.mesh and not args.save_preds and (args.streaming
+                                              or args.batch_streams > 1):
+        # the streams (or the session's slots) split over the data axis
+        mesh = _mesh(args, device)
+        n = mesh.shape["data"]
+        _require(args.batch_streams % n == 0,
+                 f"--mesh shards the streams over the {n}-device data "
+                 f"axis: pass --batch_streams as a multiple of the device "
+                 f"count (e.g. --batch_streams {n})")
     for dataset in args.datasets:
         sequences = load_test_sequences(dataset)
         ev = CascadeEvaluator(params3, cascade, model, stats, args.norm,
+                              mesh=None if args.streaming else mesh,
                               device=device)
         if args.save_preds:
             import pickle
@@ -1090,7 +1160,8 @@ def cmd_evaluate(args):
         elif args.streaming:
             mean, seconds, frames = ev.evaluate_streaming(
                 sequences, window=args.streaming, lookahead=args.lookahead,
-                history=args.history, batch_streams=args.batch_streams)
+                history=args.history, batch_streams=args.batch_streams,
+                mesh=mesh)
             tag = _streaming_tag(args)
             write_eval_report(_report_path(args, dataset, f"_{tag}"),
                               f"{dataset} [{tag}]", seconds, mean,
@@ -1123,6 +1194,8 @@ def _evaluate_dip(args, model, device):
     _require(stats is not None,
              "DIP evaluation needs normalization stats (the shipped stats "
              "assets, or stats under --data_root)")
+    _note_dip_mesh(args, "evaluator (KB-scale net, single-chip "
+                         "dispatch-bound)", "running unsharded")
     ev = DipEvaluator(params, cfg, model, stats, device=device)
     for dataset in args.datasets:
         sequences = load_test_sequences(dataset)
@@ -1325,16 +1398,25 @@ def build_parser():
                         "command lines; the port runs its steps one by one "
                         "(the same parameter trajectory)")
     t.add_argument("--mesh", action="store_true",
-                   help="not ported yet: " + _TRAIN_WAITS_FOR)
+                   help="split every batch over all visible cards (with "
+                        "--device cpu: one CPU shard); with --device_data "
+                        "each card holds its block of the corpus rows")
     t.add_argument("--tp", type=int, default=1,
-                   help="not ported yet above 1: " + _TRAIN_WAITS_FOR)
+                   help="accepted at 1; above 1: " + _TP_WAITS_FOR)
     t.add_argument("--coordinator", type=str, default=None,
                    metavar="HOST:PORT",
-                   help="not ported yet: " + _TRAIN_WAITS_FOR)
+                   help="multi-process training: join the process group "
+                        "whose process 0 listens here (nccl on the cards, "
+                        "gloo with --device cpu); run the same command on "
+                        "every process with its own --process_id, one "
+                        "process a card. Implies --mesh; gradients sum over "
+                        "the processes; process 0 writes the log and the "
+                        "checkpoints")
     t.add_argument("--num_processes", type=int, default=1,
-                   help="with --coordinator (not ported yet)")
+                   help="processes of the run (with --coordinator)")
     t.add_argument("--process_id", type=int, default=0,
-                   help="with --coordinator (not ported yet)")
+                   help="this process's rank in [0, num_processes) (with "
+                        "--coordinator); it runs on card rank %% cards")
     t.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("stats", help="normalization statistics")
@@ -1374,7 +1456,9 @@ def build_parser():
                          "the sessions. POST /v1/recycle triggers one on "
                          "demand. 0 = off")
     sv.add_argument("--mesh", action="store_true",
-                    help="not ported yet: " + _WAITS_FOR["mesh"])
+                    help="split the --streams slots over all visible cards "
+                         "(with --device cpu: one CPU shard); --streams "
+                         "must divide")
     sv.add_argument("--artifact", type=str, default="",
                     help="serve a `cli export` deployment artifact "
                          "(geometry from its manifest, --streams/--window "
@@ -1432,7 +1516,8 @@ def build_parser():
                          "aggregate stats printed (with --artifact: bundle "
                          "geometry selector)")
     st.add_argument("--mesh", action="store_true",
-                    help="not ported yet: " + _WAITS_FOR["mesh"])
+                    help="split the --streams slots over all visible cards "
+                         "(with --device cpu: one CPU shard)")
     st.add_argument("--artifact", type=str, default="",
                     help="stream through a `cli export` deployment artifact "
                          "(geometry from its manifest; ignores checkpoint, "
@@ -1509,7 +1594,9 @@ def build_parser():
                         "of the cascade (1 = the reference's per-sequence "
                         "protocol); with --streaming: N session slots")
     e.add_argument("--mesh", action="store_true",
-                   help="not ported yet: " + _WAITS_FOR["mesh"])
+                   help="with --batch_streams / --streaming: split the "
+                        "streams over all visible cards (with --device "
+                        "cpu: one CPU shard)")
     _add_quality_flag(e)
     e.add_argument("--streaming", type=int, default=0, metavar="W",
                    help="evaluate through the online path: feed each "

@@ -1,8 +1,8 @@
 r"""Dataset locations, the SMPL joint sets of the pipeline, the data
 factory's constants and the trainer's hyperparameters (copies of
 ``a3gc_tpu/config.py`` ``Paths``, ``JointSet``, ``ACC_SCALE``, the mirror
-permutations and ``TrainConfig``; the port keeps its own so it never
-imports the JAX package).
+permutations, ``MeshConfig`` and ``TrainConfig``; the port keeps its own so
+it never imports the JAX package).
 
 Unlike the JAX package, the port keeps no module-level ``Paths``: a factory
 given ``paths=None`` builds ``Paths()`` when it is called, so the data root
@@ -114,10 +114,25 @@ class JointSet:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (:func:`a3gc_tpu_torch.parallel.make_mesh`):
+    ``data`` shards the batch or the serving slots over devices, ``model``
+    would shard hidden features (tensor parallelism, not ported). The
+    default, one device, is the single-device semantics."""
+
+    data: int = 1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Hyperparameters of the 3-stage trainer, with the JAX package's
-    defaults. The JAX config's ``mesh`` field waits for the port's
-    multi-card training (ROADMAP Queue 1 item 14)."""
+    defaults."""
 
     batch_size: int = 32
     lr: float = 1e-3
@@ -147,6 +162,7 @@ class TrainConfig:
                                  # the valid loss beats the last saved one by
                                  # more than this (early stopping unchanged)
     eval_batch_size: int = 0     # validation chunk; 0 = min(batch_size, 128)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 joint_set = JointSet()

@@ -12,25 +12,27 @@ Layout of a packed dataset (npz or dict of arrays):
   acc [N, T, 18]  ori [N, T, 54]  pose [N, T, 135]
   leaf_pos [N, T, 5, 3]  full_pos [N, T, 24, 3]
 
-The row-sharded corpora of the JAX package (``put_device_sharded``,
-``Sampler.iter_indices_sharded``) wait for the port's multi-card training
-(ROADMAP Queue 1 item 14).
+For mesh training, :func:`put_device_sharded` splits a corpus into one
+block of rows a device of the mesh, and :meth:`Sampler.iter_indices_sharded`
+draws each shard's batch rows from its own block.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from a3gc_tpu_torch._device import index_tensor
+from a3gc_tpu_torch._device import index_tensor, random_rows
 from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.ops import rotations as R
 
 __all__ = ["normalize_imu", "scatter_graph_inputs", "pose_to_r6d",
            "graph_batch", "flat_batch", "dip_batch", "GraphBatch",
-           "Sampler", "load_packed", "put_device", "gather"]
+           "Sampler", "load_packed", "put_device", "put_device_sharded",
+           "ShardedCorpus", "gather"]
 
 GraphBatch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                    torch.Tensor, torch.Tensor]
@@ -70,10 +72,11 @@ def _scatter_leaf(full_pos: torch.Tensor) -> torch.Tensor:
 
 
 def _noisy(x: torch.Tensor, std: float, rng) -> torch.Tensor:
-    r"""x + std·N(0, 1) drawn from the generator ``rng``; x without one."""
+    r"""x + std·N(0, 1) drawn from the generator ``rng`` (or a shard's
+    :class:`~a3gc_tpu_torch._device.RowDraws` of it); x without one."""
     if rng is None:
         return x
-    return x + std * torch.randn(x.shape, generator=rng, device=x.device,
+    return x + std * random_rows(torch.randn, rng, x.shape, x.device,
                                  dtype=x.dtype)
 
 
@@ -189,6 +192,49 @@ def gather(data: Dict[str, torch.Tensor], take: torch.Tensor,
     return raw
 
 
+@dataclasses.dataclass
+class ShardedCorpus:
+    r"""A packed corpus split over a mesh's ``data`` axis
+    (:func:`put_device_sharded`): ``shards[d]`` holds the ``rows`` rows of
+    this process's shard d on its device; the global corpus is ``n_data``
+    such blocks (the last ones end in padding)."""
+
+    shards: List[Dict[str, torch.Tensor]]
+    rows: int
+    n_data: int
+
+    def keys(self):
+        return self.shards[0].keys()
+
+
+def put_device_sharded(data: Dict[str, np.ndarray], mesh) -> ShardedCorpus:
+    r"""Split a packed corpus over the mesh's ``data`` axis for
+    device-resident mesh training: shard d's device holds rows
+    ``[d·R, (d+1)·R)`` with ``R = ceil(N/D)`` (so the corpus memory scales
+    with the mesh too), and a step gathers each shard's batch rows from its
+    own block (:meth:`Sampler.iter_indices_sharded`). The rows pad up to a
+    multiple of the axis by repeating row 0; pad rows are never drawn. A
+    process uploads only its own shards. Pair with ``Sampler(device_data=
+    <this>)`` under a mesh runner."""
+    d = mesh.shape["data"]
+    n = len(next(iter(data.values())))
+    rows = -(-n // d)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        lo = (mesh.first_shard + i) * rows
+        block = {}
+        for k, v in data.items():
+            v = np.asarray(v)
+            part = v[lo:lo + rows]
+            if len(part) < rows:
+                part = np.concatenate(
+                    [part, np.repeat(v[:1], rows - len(part), 0)])
+            block[k] = torch.as_tensor(np.ascontiguousarray(part),
+                                       device=dev)
+        shards.append(block)
+    return ShardedCorpus(shards, rows, d)
+
+
 class Sampler:
     r"""Epoch sampler over a packed dataset: shuffles sequence indices and
     yields raw [B, T, ...] numpy slices (``__iter__``) or the index stream
@@ -203,7 +249,9 @@ class Sampler:
 
     With ``device_data`` (a :func:`put_device` upload of the same packed
     dict) the training loops draw :meth:`iter_indices` and gather on the
-    device; the host arrays here are never sliced into batches.
+    device; the host arrays here are never sliced into batches. A
+    :func:`put_device_sharded` corpus goes with :meth:`iter_indices_sharded`
+    under a mesh runner.
     """
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int,
@@ -220,10 +268,12 @@ class Sampler:
         self._rng = np.random.default_rng(seed)
         self.n = len(next(iter(data.values())))
         if device_data is not None and (
-                set(device_data) != set(data)
-                or len(next(iter(device_data.values()))) != self.n):
-            raise ValueError("device_data must be put_device() of the same "
-                             "packed dict")
+                set(device_data.keys()) != set(data)
+                or (device_data.rows * device_data.n_data < self.n
+                    if isinstance(device_data, ShardedCorpus) else
+                    len(next(iter(device_data.values()))) != self.n)):
+            raise ValueError("device_data must be put_device() or "
+                             "put_device_sharded() of the same packed dict")
         if self.drop_remainder and self.n < batch_size:
             raise ValueError(
                 f"batch_size {batch_size} exceeds the dataset's "
@@ -258,6 +308,61 @@ class Sampler:
             w = np.zeros(self.batch_size, np.float32)
             w[:n_real] = 1.0
             yield take, w
+
+    def iter_indices_sharded(self, n_shards: int
+                             ) -> Iterator[Tuple[np.ndarray,
+                                                 Optional[np.ndarray]]]:
+        r"""The per-shard epoch index stream of a :func:`put_device_sharded`
+        corpus, the JAX package's bit for bit: each shard shuffles its own
+        rows and gives B/D rows to every batch (the distributed-sampler
+        pattern; not the batches of :meth:`iter_indices`). Yields
+        ``(local_idx [D, B/D]`` — row d holds row numbers within shard d —
+        ``, weight [D, B/D] | None)``; the batch is shard-major. With
+        ``pad_remainder`` every real row appears once an epoch with weight
+        1 and a short shard cycles its rows with weight 0; with
+        ``drop_remainder`` the epoch stops at the shortest shard's last full
+        contribution."""
+        d = n_shards
+        if self.batch_size % d:
+            raise ValueError(f"batch_size={self.batch_size} must divide "
+                             f"over {d} shards")
+        if not (self.pad_remainder or self.drop_remainder):
+            raise ValueError(
+                "sharded sampling needs pad_remainder (weighted tail) or "
+                "drop_remainder: a bare variable-size tail cannot shard")
+        b = self.batch_size // d
+        cap = -(-self.n // d)                  # shard row capacity
+        real = [min(cap, max(0, self.n - s * cap)) for s in range(d)]
+        perms = []
+        for s in range(d):
+            p = np.arange(real[s])
+            if self.shuffle:
+                self._rng.shuffle(p)
+            perms.append(p)
+        if self.drop_remainder:
+            steps = min(r // b for r in real)
+            if steps == 0:
+                raise ValueError(
+                    f"sharded epoch is empty: the shortest shard holds "
+                    f"fewer than batch_size/{d}={b} rows (shard rows "
+                    f"{real}); lower the batch size or use "
+                    f"pad_remainder=True")
+        else:
+            steps = max(-(-r // b) for r in real)
+        for t in range(steps):
+            idx = np.zeros((d, b), np.int64)
+            w = None if not self.pad_remainder else np.zeros((d, b),
+                                                             np.float32)
+            for s in range(d):
+                sl = perms[s][t * b:(t + 1) * b]
+                idx[s, :len(sl)] = sl
+                if w is None:
+                    continue       # drop_remainder: sl is always full
+                if len(sl) < b:    # cycle this shard's rows, weight 0
+                    idx[s, len(sl):] = (np.resize(perms[s], b - len(sl))
+                                        if len(perms[s]) else 0)
+                w[s, :len(sl)] = 1.0
+            yield idx, w
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         for take, w in self.iter_indices():

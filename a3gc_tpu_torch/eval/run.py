@@ -6,7 +6,8 @@ Three protocols, as in the JAX package:
   * ``evaluate``: the reference's, one sequence at batch 1;
   * ``evaluate_batched``: sequences grouped by :func:`bucket_length`, up to
     ``streams`` of a bucket folded into one call of the cascade, whose
-    kernels take a per-stream ``n_valid``;
+    kernels take a per-stream ``n_valid`` (with ``mesh=``, the streams
+    split over the mesh's devices);
   * ``evaluate_streaming``: each sequence fed window by window through the
     serving sessions, the emissions scored with the same metrics.
 
@@ -43,9 +44,6 @@ from a3gc_tpu_torch.smpl.model import ParametricModel
 
 __all__ = ["bucket_length", "prepare_graph_inputs", "reduced_to_full",
            "CascadeEvaluator", "DipEvaluator", "evaluate_sequences"]
-
-_MESH = ("mesh evaluation (streams sharded over several cards) is not "
-         "ported yet (ROADMAP Queue 1 item 14)")
 
 
 def bucket_length(n: int, minimum: int = 128) -> int:
@@ -127,19 +125,26 @@ class CascadeEvaluator(_Scorer):
     (each: ori [T, 54], acc [T, 18], pose [T, 135] reduced global rotation
     matrices) and reports the reference's 5-metric table. Runs on
     ``device`` ("cuda" unless the caller passes "cpu"), where ``params3``
-    and the body model must lie."""
+    and the body model must lie. ``mesh``: :meth:`evaluate_batched` splits
+    each group's streams over the mesh's ``data`` axis
+    (:func:`~a3gc_tpu_torch.parallel.cascade_apply_sharded`; a group is
+    padded with empty rows to a multiple of it); ``device`` is then the
+    mesh's first device."""
 
     def __init__(self, params3: Tuple, cfg: CascadeConfig,
                  model: ParametricModel,
                  stats: Optional[Dict[str, np.ndarray]] = None,
                  normalize: bool = False, fps: int = 60, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        self._init_scorer(model, fps, device)
+        from a3gc_tpu_torch.parallel.mesh import replicate
+        self.mesh = mesh
+        self._init_scorer(model, fps,
+                          device if mesh is None else mesh.devices[0])
         for p in params3:
             check_module_device(p, self.device)
         self.params3 = tuple(params3)
+        self._replicas = (None if mesh is None
+                          else replicate(self.params3, mesh))
         self.cfg = cfg
         self.stats = (None if not (normalize and stats is not None) else
                       {k: torch.as_tensor(v, dtype=torch.float32,
@@ -159,17 +164,31 @@ class CascadeEvaluator(_Scorer):
         :return: (metrics [S, 5, 2] numpy, poses [S, L, 24, 3, 3] on the
         device, seconds)."""
         S, L = ori.shape[:2]
+        rows = list(n_valid)
+        if self.mesh is not None:   # empty rows up to the data axis
+            pad = -S % self.mesh.shape["data"]
+            ori, acc = (np.concatenate([a, np.zeros((pad,) + a.shape[1:],
+                                                    np.float32)])
+                        for a in (ori, acc))
+            rows += [0] * pad
         t0 = time.perf_counter()
         dev = self.device
         imu = self._net_inputs(torch.as_tensor(ori, device=dev),
                                torch.as_tensor(acc, device=dev))
         mask = None
-        if any(n != L for n in n_valid):
+        if any(n != L for n in rows):
             mask = (np.arange(L)[None, :]
-                    < np.asarray(n_valid)[:, None]).astype(np.float32)
-        pose = cascade_apply(self.params3, self.cfg, self.model, imu,
-                             frame_mask=mask, device=dev).reshape(
-                                 S, L, 24, 3, 3)
+                    < np.asarray(rows)[:, None]).astype(np.float32)
+        if self.mesh is None:
+            pose = cascade_apply(self.params3, self.cfg, self.model, imu,
+                                 frame_mask=mask, device=dev)
+        else:
+            from a3gc_tpu_torch.parallel.serving import (
+                cascade_apply_replicas)
+            pose = cascade_apply_replicas(self._replicas, self.cfg,
+                                          self.model, imu, self.mesh,
+                                          frame_mask=mask)
+        pose = pose.reshape(len(rows), L, 24, 3, 3)
         out = self._score([pose[s, :n] for s, n in enumerate(n_valid)],
                           gts, t0)
         return out, pose, time.perf_counter() - t0
@@ -252,20 +271,19 @@ class CascadeEvaluator(_Scorer):
         slots, recycling a slot when its sequence ends. ``seconds`` counts
         the streaming loop only (its host copies fence it), as in the JAX
         package; ``split`` adds the metrics' share. One warm-up stream of
-        (P+K+2) windows walks every buffer fill level first.
+        (P+K+2) windows walks every buffer fill level first. ``mesh`` splits
+        the session's slots over its ``data`` axis (S must divide).
 
         :return: (mean metric [5, 2], total seconds, total frames[, list of
             [T, 24, 3, 3] predictions])."""
         from a3gc_tpu_torch.eval.streaming import (
             StreamingCascade, streaming_predictions_multi)
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self._reset_split()
         sc = StreamingCascade(
             self.params3, self.cfg, self.model, window=window,
             stats=self.stats, normalize=self.stats is not None,
             lookahead=lookahead, history=history, streams=batch_streams,
-            device=self.device)
+            mesh=mesh, device=self.device)
         wT = (history + lookahead + 2) * window
         zero = (np.zeros((wT, 54), np.float32), np.zeros((wT, 18), np.float32))
         streaming_predictions_multi(sc, [zero] * batch_streams)

@@ -13,6 +13,10 @@ already-emitted past windows (no latency) are run with every emission.
 
 Every session runs under ``torch.no_grad()`` whatever thread calls it (grad
 mode is thread-local): serving records no autograd graph.
+
+``StreamingCascade(mesh=)`` splits the S slots over a mesh's ``data`` axis
+(:func:`shard_window_step`): each device runs the whole window step, its own
+kernel launches included, on its S/D slots and carries their states.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from a3gc_tpu_torch.models.pipeline import (
 )
 
 __all__ = ["StreamingSession", "StreamingCascade", "DipStreamingSession",
-           "make_window_step", "make_dip_window_step",
+           "make_window_step", "make_dip_window_step", "shard_window_step",
            "streaming_predictions", "streaming_predictions_multi",
            "streaming_outputs", "streaming_outputs_multi"]
 
@@ -127,16 +131,25 @@ def make_window_step(cfg: CascadeConfig, model, stats=None):
     carries through unchanged and their pose rows are undefined); it may
     also be a per-frame ones-prefix mask [S, T_w] — used by the lookahead
     flush, where slots hold fewer buffered windows than the context length.
-    ``stats`` holds tensors on the inputs' device, or is None for no
-    normalization. pose is [S·T_w, 24, 3, 3]."""
+    ``stats`` holds tensors, or is None for no normalization; inputs on
+    another device use a copy there (the shards of a mesh). pose is
+    [S·T_w, 24, 3, 3]."""
     if cfg.stage3.rotsize not in (6, 9):
         raise ValueError(
             "streaming emits full local poses via IK; a rotsize-3 stage 3 "
             "outputs raw positions with no rotation to stream — train stage "
             "3 with --rotsize 9 or 6")
+    moved = {}
+
+    def _stats_on(dev):
+        if stats is None or next(iter(stats.values())).device == dev:
+            return stats
+        if dev not in moved:
+            moved[dev] = {k: v.to(dev) for k, v in stats.items()}
+        return moved[dev]
 
     def _step(params3, ori, acc, s1, s2, s3, active):
-        o, a = DPipe.normalize_imu(ori, acc, stats)
+        o, a = DPipe.normalize_imu(ori, acc, _stats_on(ori.device))
         if cfg.is_graph:
             imu = DPipe.scatter_graph_inputs(o, a)         # [S,T_w,15,12]
         else:
@@ -156,6 +169,42 @@ def make_window_step(cfg: CascadeConfig, model, stats=None):
         return pose, s1, s2, s3
 
     return _step
+
+
+def shard_window_step(step_fn, mesh, n_masks: int = 1):
+    r"""Split a window step over ``mesh['data']``: the online counterpart of
+    :func:`~a3gc_tpu_torch.parallel.serving.cascade_apply_sharded`.
+
+    ``step_fn(params, ori, acc, *states, *masks) -> (pose, *states)`` (a
+    :func:`make_window_step` step, or one that runs it twice) becomes
+    ``sharded(replicas, ori, acc, shard_states, *masks) -> (pose,
+    shard_states)``: the S slots split into one contiguous block a shard,
+    and shard d runs ``step_fn`` on its device with ``replicas[d]``
+    (:func:`~a3gc_tpu_torch.parallel.mesh.replicate`), its rows of the
+    inputs and of the ``n_masks`` per-slot masks, and ``shard_states[d]``,
+    the carried states of its slots, which stay on its device. The slots
+    are independent, so the shards need no collective: each shard's work is
+    queued before anything waits, and the poses [S·T_w, 24, 3, 3],
+    stream-major, come together on the mesh's first device. S must divide
+    over the data axis (``ValueError``)."""
+    from a3gc_tpu_torch.parallel.mesh import shard_rows
+    from a3gc_tpu_torch.parallel.serving import serving_shards
+
+    def sharded(replicas, ori, acc, shard_states, *masks):
+        if len(masks) != n_masks:
+            raise ValueError(f"expected {n_masks} mask(s), got {len(masks)}")
+        poses, states = [], []
+        for (rows, dev), params, st in zip(
+                serving_shards(mesh, ori.shape[0]), replicas, shard_states):
+            out = step_fn(params, shard_rows(ori, rows, dev),
+                          shard_rows(acc, rows, dev), *st,
+                          *(shard_rows(m, rows, dev) for m in masks))
+            poses.append(out[0])
+            states.append(tuple(out[1:]))
+        first = mesh.devices[0]
+        return torch.cat([p.to(first) for p in poses]), states
+
+    return sharded
 
 
 class StreamingSession:
@@ -348,8 +397,11 @@ class StreamingCascade:
     between them. Both give the same poses and states.
 
     Runs on ``device`` ("cuda" unless the caller passes "cpu"), where
-    ``params3`` must lie. ``mesh`` (slots sharded over several cards) is
-    not ported yet (ROADMAP Queue 1 item 14)."""
+    ``params3`` must lie. ``mesh`` (:func:`~a3gc_tpu_torch.parallel.
+    make_mesh`) splits the S slots over its ``data`` axis instead
+    (:func:`shard_window_step`; S must divide, else ``ValueError``): each
+    device carries its slots' states, ``device`` is then the mesh's first
+    device, where ``params3`` must lie and the poses come together."""
 
     def __init__(self, params3: Tuple, cfg: CascadeConfig, model,
                  window: int = 60,
@@ -369,11 +421,13 @@ class StreamingCascade:
         holds the three stages' params here, the one net's there. The
         buffer, dispatch and flush machinery below is generic over the
         length of the state tuple."""
+        self._mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving (slots sharded over several cards) is not "
-                "ported yet (ROADMAP Queue 1 item 14)")
-        self.device = resolve_device(device)
+            from a3gc_tpu_torch.parallel.serving import serving_shards
+            serving_shards(mesh, streams)       # S must divide
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
         for p in (params if isinstance(params, tuple) else (params,)):
             check_module_device(p, self.device)
         self.params3 = params
@@ -396,15 +450,38 @@ class StreamingCascade:
         self._pending = None        # step_async's result in flight
         self._staging = None        # run_windows / step_async buffers
 
+    @property
+    def params3(self):
+        r"""The hot-swappable parameters (the server's reload assigns them);
+        under a mesh, assigning them places a copy on each device."""
+        return self._params3
+
+    @params3.setter
+    def params3(self, params):
+        from a3gc_tpu_torch.parallel.mesh import replicate
+        self._params3 = params
+        self._replicas = (None if self._mesh is None
+                          else replicate(params, self._mesh))
+
     def _slot_axes(self):
         r"""The slot axis of each stage's state (see :func:`_slot_axis`)."""
         return tuple(_slot_axis(c) for c in self.cfg.stages)
 
     def _zero_states(self):
+        r"""Zero carried states: one tuple a stage; under a mesh, a list
+        of such tuples, one a shard, each on its device for its slots."""
         zero = (N.graph_net_zero_state if self.cfg.is_graph
                 else N.dip_zero_state)
-        return tuple(zero(c.net, self.streams, self.device)
-                     for c in self.cfg.stages)
+        if self._mesh is None:
+            return tuple(zero(c.net, self.streams, self.device)
+                         for c in self.cfg.stages)
+        s = self.streams // self._mesh.shape["data"]
+        return [tuple(zero(c.net, s, dev) for c in self.cfg.stages)
+                for dev in self._mesh.devices]
+
+    def _slot_zeroed(self, states, slot: int):
+        return tuple(_tree_map(lambda t, ax=ax: _zero_slot(t, slot, ax), st)
+                     for st, ax in zip(states, self._slot_axes()))
 
     def reset(self, stream: Optional[int] = None):
         r"""Clear carried states; ``stream=i`` zeroes only client i's slice:
@@ -418,23 +495,45 @@ class StreamingCascade:
             self._states = self._zero_states()
             for b in self._buffers:
                 b.clear()
+        elif self._mesh is None:
+            self._states = self._slot_zeroed(self._states, stream)
+            self._buffers[stream].clear()
         else:
-            self._states = tuple(
-                _tree_map(lambda t, ax=ax: _zero_slot(t, stream, ax), st)
-                for st, ax in zip(self._states, self._slot_axes()))
+            d, j = divmod(stream, self.streams // self._mesh.shape["data"])
+            self._states = list(self._states)
+            self._states[d] = self._slot_zeroed(self._states[d], j)
             self._buffers[stream].clear()
         self._pending = None
 
     def _to_dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
-    def _run(self, ori, acc, states, active):
+    def _fused_step(self, params, ori, acc, *rest):
+        r"""The at-capacity emission over the whole context and the state
+        advance through its oldest window, from the same carried states
+        and with no host fence between them: ``rest`` is ``(*states, em,
+        advf)``; returns ``(full pose, *advanced states)``."""
+        states, (em, advf) = rest[:-2], rest[-2:]
+        W = self.window
+        full = self._step_fn(params, ori, acc, *states, em)
+        adv = self._step_fn(params, ori[:, :W], acc[:, :W], *states, advf)
+        return (full[0],) + tuple(adv[1:])
+
+    def _run(self, ori, acc, states, *masks):
         r"""One call of the step function on device tensors (or numpy, which
-        is uploaded): ``(pose [S, T, 24, 3, 3], states)``."""
-        ori, acc, active = (self._to_dev(a) for a in (ori, acc, active))
-        out = self._step_fn(self.params3, ori, acc, *states, active)
-        pose = out[0].reshape((ori.shape[0], ori.shape[1]) + out[0].shape[1:])
-        return pose, tuple(out[1:])
+        is uploaded) with one mask (``active``), or of :meth:`_fused_step`
+        with two: ``(pose [S, T, 24, 3, 3], states)``. Under a mesh the
+        call is split over its shards (:func:`shard_window_step`)."""
+        S, T = ori.shape[0], ori.shape[1]
+        fn = self._step_fn if len(masks) == 1 else self._fused_step
+        if self._mesh is None:
+            out = fn(self.params3, self._to_dev(ori), self._to_dev(acc),
+                     *states, *(self._to_dev(m) for m in masks))
+            pose, states = out[0], tuple(out[1:])
+        else:
+            pose, states = shard_window_step(fn, self._mesh, len(masks))(
+                self._replicas, ori, acc, states, *masks)
+        return pose.reshape((S, T) + pose.shape[1:]), states
 
     def _dispatch(self, ori_window, acc_window, active=None) -> torch.Tensor:
         S = self.streams
@@ -638,14 +737,11 @@ class StreamingCascade:
         fused_pass = None
         if self.fused:
             def fused_pass(em, ctx, advf):
-                # at-capacity emission + oldest-window state advance from
-                # the same carried states, no host fence between them; the
-                # advance input is ctx[:, :W] sliced on the device (no
-                # second upload)
-                ctx_o, ctx_a = self._to_dev(ctx[0]), self._to_dev(ctx[1])
-                full, _ = self._run(ctx_o, ctx_a, states, em)
-                _, adv_states = self._run(ctx_o[:, :W], ctx_a[:, :W],
-                                          states, advf)
+                # at-capacity emission + oldest-window state advance in one
+                # call of the fused step (the advance input is ctx[:, :W]
+                # sliced on the device: no second upload)
+                full, adv_states = self._run(ctx[0], ctx[1], states, em,
+                                             advf)
 
                 def commit():   # emit_buffered calls it AFTER the fetch
                     self._states = adv_states

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from a3gc_tpu_torch._device import random_rows
+
 __all__ = [
     "GraphConvParams", "AttentionParams", "GCNLSTMCellParams",
     "GGRUCellParams", "keep_mask", "graph_conv", "gcn_lstm_gates",
@@ -98,14 +100,16 @@ class GGRUCellParams(nn.Module):
 # ---------------------------------------------------------------------------
 
 def keep_mask(rng: Optional[torch.Generator], shape, rate: float,
-              device) -> Optional[torch.Tensor]:
+              device, batch_axis: int = 0) -> Optional[torch.Tensor]:
     r"""A bool keep-mask of ``shape`` (each element kept with probability
     1 − rate), drawn from ``rng`` on ``device`` (a generator lives on the
-    device of the tensors it fills); None when there is no rng or the rate
-    is 0."""
+    device of the tensors it fills; a :class:`~a3gc_tpu_torch._device.
+    RowDraws` draws at the global batch along ``batch_axis`` and keeps its
+    shard's rows); None when there is no rng or the rate is 0."""
     if rng is None or rate <= 0.0:
         return None
-    return torch.rand(shape, generator=rng, device=device) < 1.0 - rate
+    return random_rows(torch.rand, rng, shape, device, batch_axis) \
+        < 1.0 - rate
 
 
 def _dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:

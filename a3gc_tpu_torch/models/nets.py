@@ -207,9 +207,10 @@ def _layer_in_scan(cfg: GraphNetConfig, params2, x: torch.Tensor, state,
             C.gcn_lstm_step, dropout_rate=cfg.dropout,
             recurrent_dropout_rate=cfg.recurrent_dropout)
         H = cfg.units_hidden
-        extras = (C.keep_mask(rng, (2, T, B, N, F), cfg.dropout, x.device),
+        extras = (C.keep_mask(rng, (2, T, B, N, F), cfg.dropout, x.device,
+                              batch_axis=2),
                   C.keep_mask(rng, (2, T, B, N, H), cfg.recurrent_dropout,
-                              x.device))
+                              x.device, batch_axis=2))
     if cfg.remat:
         step = functools.partial(checkpoint, step, use_reentrant=False,
                                  preserve_rng_state=False)

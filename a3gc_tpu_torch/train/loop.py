@@ -18,6 +18,16 @@ r"""Training: the per-batch step, the per-stage epoch driver, early stopping
     ``np.random.SeedSequence``, so a resumed run repeats its draws. The
     noise and the dropout masks are the JAX package's distributions, not
     its bits.
+  * Data parallelism (``mesh=``): the batch splits into one contiguous
+    block of rows a shard of the mesh's ``data`` axis; shard d runs the
+    loss on its device with its copy of the parameters and draws its noise
+    and masks at the global batch's size, keeping its rows
+    (:class:`~a3gc_tpu_torch._device.RowDraws`), so a mesh step follows the
+    single-device trajectory up to summation order. Each shard's loss is
+    weighted by its share of the batch's real samples (the padded tail
+    batch gives shards unequal weights), the gradients sum over the shards
+    and, in a multi-process run, over the processes in one all-reduce, and
+    every replica takes the same Adam step.
 
 Stage input wiring:
   stage 1: inputs = imu,                        target = leaf positions
@@ -38,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from a3gc_tpu_torch._device import resolve_device
+from a3gc_tpu_torch._device import RowDraws, resolve_device
 from a3gc_tpu_torch.config import TrainConfig
 from a3gc_tpu_torch.data import pipeline as DP
 from a3gc_tpu_torch.models.pipeline import (PoseNetConfig, pose_loss,
@@ -120,6 +130,23 @@ def seeded_generator(device, *entropy) -> torch.Generator:
         1, np.uint64)
     dev = resolve_device(device)
     return torch.Generator(device=dev).manual_seed(int(state[0]) >> 1)
+
+
+def _generator_like(gen: torch.Generator, device) -> torch.Generator:
+    r"""A generator on ``device`` in ``gen``'s state (a shard's copy of a
+    step's generator; the devices of one mesh are of one type)."""
+    out = torch.Generator(device=device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _mesh_eval_chunk(eval_b: int, mesh) -> int:
+    r"""The validation chunk rounded down to a multiple of the mesh's data
+    axis (at least one row a shard), so that every chunk splits evenly."""
+    if mesh is None:
+        return eval_b
+    d = mesh.shape["data"]
+    return max(d, eval_b // d * d)
 
 
 def _adjacency_frozen(params: nn.Module, cfg: Optional[PoseNetConfig]):
@@ -217,15 +244,26 @@ def stage_inputs_flat(batch, stage: int, train: bool):
 class _Runner:
     r"""The step, epoch and validation loops shared by :class:`StageRunner`
     and :class:`DIPRunner`; a subclass gives ``_batch(raw, rng, train) ->
-    (inputs, target)``."""
+    (inputs, target)``. With a ``mesh`` the runner's device is the mesh's
+    first; it holds the master parameters and the optimizer, and every
+    other device of the mesh a copy refreshed after each update."""
 
     def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
                  train_cfg: TrainConfig, steps_per_epoch: int,
-                 stats, device, freeze_cfg: Optional[PoseNetConfig]):
+                 stats, device, freeze_cfg: Optional[PoseNetConfig],
+                 mesh=None):
         if train_cfg.accum_steps < 1 or \
                 train_cfg.batch_size % train_cfg.accum_steps:
             raise ValueError(f"accum_steps={train_cfg.accum_steps} must "
                              f"divide batch_size={train_cfg.batch_size}")
+        self.mesh = mesh
+        if mesh is not None:
+            d = mesh.shape["data"]
+            if train_cfg.batch_size % d:
+                raise ValueError(
+                    f"batch_size={train_cfg.batch_size} must divide evenly "
+                    f"over the mesh data axis ({d} devices)")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.stage_cfg = stage_cfg
         self.cfg = train_cfg
@@ -233,14 +271,29 @@ class _Runner:
                       {k: torch.as_tensor(np.asarray(v, np.float32),
                                           device=self.device)
                        for k, v in stats.items()})
+        self._stats_moved = {}
         params = copy.deepcopy(params).to(self.device)     # private copy
         optimizer, scheduler = make_optimizer(train_cfg, steps_per_epoch,
                                               params, freeze_cfg)
         self.state = TrainState(params, optimizer, scheduler)
+        self._replicas = None
+        if mesh is not None:
+            from a3gc_tpu_torch.parallel.mesh import replicate
+            self._replicas = replicate(params, mesh)
         self._cast = _make_caster(train_cfg)
-        self._eval_b = (train_cfg.eval_batch_size
-                        or min(train_cfg.batch_size, 128))
+        self._eval_b = _mesh_eval_chunk(
+            train_cfg.eval_batch_size or min(train_cfg.batch_size, 128),
+            mesh)
         self.interrupt = None
+
+    def _stats_on(self, device: torch.device):
+        r"""The normalization stats on ``device`` (a shard's)."""
+        if self.stats is None or device == self.device:
+            return self.stats
+        if device not in self._stats_moved:
+            self._stats_moved[device] = {k: v.to(device)
+                                         for k, v in self.stats.items()}
+        return self._stats_moved[device]
 
     def loss(self, params: nn.Module, raw: Dict[str, torch.Tensor],
              rng: Optional[torch.Generator]) -> torch.Tensor:
@@ -277,7 +330,12 @@ class _Runner:
         scalar). With ``accum_steps = k`` the batch splits into k
         sequential microbatches whose gradients combine weighted by their
         real samples: the weighted-mean gradient of the whole batch, at
-        the peak activation memory of one microbatch."""
+        the peak activation memory of one microbatch. Under a mesh ``raw``
+        is the global batch (host arrays or tensors): each microbatch splits
+        over the shards (:meth:`_mesh_update`), and ``rng`` lies on the
+        mesh's first device."""
+        if self.mesh is not None:
+            return self._mesh_update(self._micro(raw), rng)
         st = self.state
         st.params.zero_grad(set_to_none=True)
         k = self.cfg.accum_steps
@@ -302,17 +360,223 @@ class _Runner:
         st.step += 1
         return loss.detach()
 
+    # -- data parallelism over a mesh ------------------------------------
+
+    def _check_corpus(self, sampler: DP.Sampler) -> bool:
+        r"""Whether the sampler's corpus is a :func:`~a3gc_tpu_torch.data.
+        pipeline.put_device_sharded` one; a mesh runner takes it or a host
+        corpus, a runner without a mesh takes no sharded one."""
+        sharded = isinstance(sampler.device_data, DP.ShardedCorpus)
+        if self.mesh is not None and sampler.device_data is not None \
+                and not sharded:
+            raise ValueError(
+                "a mesh runner needs a put_device_sharded(...) corpus "
+                "(row-sharded over the 'data' axis), or none")
+        if self.mesh is None and sharded:
+            raise ValueError("a put_device_sharded(...) corpus needs a mesh "
+                             "runner")
+        return sharded
+
+    def _micro(self, raw, k: Optional[int] = None) -> list:
+        r"""A global batch (host arrays or tensors, ``_weight`` optional) as
+        its ``k`` (default ``accum_steps``) microbatches, each ``(shards,
+        weight)``: one raw batch a shard of this process on its device, and
+        the microbatch's global weights (host, or None)."""
+        from a3gc_tpu_torch.parallel.mesh import shard_batch
+        k = k or self.cfg.accum_steps
+        B = len(next(iter(raw.values())))
+        w = raw.get("_weight")
+        if isinstance(w, torch.Tensor):
+            w = w.cpu().numpy()
+        out = []
+        for i in range(k):
+            rows = slice(i * B // k, (i + 1) * B // k)
+            out.append((shard_batch({key: v[rows] for key, v in raw.items()},
+                                    self.mesh),
+                        None if w is None else np.asarray(w[rows],
+                                                          np.float32)))
+        return out
+
+    def _micro_corpus(self, corpus, idx: np.ndarray,
+                      weight: Optional[np.ndarray], k: int) -> list:
+        r"""Microbatches of one step of a sharded corpus: ``idx`` / ``weight``
+        [D, b] from :meth:`~a3gc_tpu_torch.data.pipeline.Sampler.
+        iter_indices_sharded`; microbatch m takes columns [m·b/k,
+        (m+1)·b/k) of every shard (shard-major), each shard gathering from
+        its own block on its device."""
+        b = idx.shape[1]
+        first = self.mesh.first_shard
+        out = []
+        for m in range(k):
+            cols = slice(m * b // k, (m + 1) * b // k)
+            shards = []
+            for i, (block, dev) in enumerate(zip(corpus.shards,
+                                                 self.mesh.devices)):
+                w = (None if weight is None else torch.as_tensor(
+                    weight[first + i, cols], device=dev))
+                shards.append(DP.gather(block, torch.as_tensor(
+                    idx[first + i, cols], device=dev), w))
+            out.append((shards, None if weight is None
+                        else np.ascontiguousarray(weight[:, cols]).reshape(
+                            -1)))
+        return out
+
+    def _shard_terms(self, shards, weight: Optional[np.ndarray],
+                     gens=None) -> list:
+        r"""Each local shard's loss times its share of the global batch's
+        real samples (``weight`` [B] host, or None: rows count equally):
+        their sum over every shard is the loss of the whole batch.
+        ``gens``: one generator a shard (training), or None."""
+        D = self.mesh.shape["data"]
+        b = len(next(iter(shards[0].values())))
+        B = b * D
+        total = None if weight is None else np.float32(weight.sum())
+        terms = []
+        for i, raw in enumerate(shards):
+            g = self.mesh.first_shard + i
+            if weight is None:
+                share = np.float32(b) / np.float32(B)
+            else:
+                part = np.float32(weight[g * b:(g + 1) * b].sum())
+                share = part / total if total else np.float32(0.0)
+            rng = None if gens is None else RowDraws(gens[i], B, g * b, b)
+            terms.append(self.loss(self._replicas[i], raw, rng)
+                         * float(share))
+        return terms
+
+    def _local_sum(self, terms) -> torch.Tensor:
+        r"""The detached sum of per-shard terms on the runner's device."""
+        out = terms[0].detach().to(self.device)
+        for t in terms[1:]:
+            out = out + t.detach().to(self.device)
+        return out
+
+    def _other_replicas(self) -> list:
+        r"""The parameter copies on the mesh's devices other than the
+        runner's, one a device."""
+        seen, out = {self.device}, []
+        for dev, rep in zip(self.mesh.devices, self._replicas):
+            if dev not in seen:
+                seen.add(dev)
+                out.append(rep)
+        return out
+
+    def _mesh_update(self, micro, rng: torch.Generator) -> torch.Tensor:
+        r"""One optimizer update over microbatches split into shards
+        (:meth:`_micro`, :meth:`_micro_corpus`): the shards' weighted
+        losses back-propagate into their replicas, the gradients sum onto
+        the master parameters and over the processes (one all-reduce, with
+        the loss), then the Adam step and the refresh of the replicas.
+        Returns the global batch's loss."""
+        from a3gc_tpu_torch.parallel.multihost import all_reduce_sum
+        st = self.state
+        gens = [_generator_like(rng, dev) for dev in self.mesh.devices]
+        others = self._other_replicas()
+        for p in [st.params] + others:
+            p.zero_grad(set_to_none=True)
+        k = len(micro)
+        wm = [None if w is None else np.float32(w.sum()) for _, w in micro]
+        total = (np.float32(k) if wm[0] is None
+                 else np.float32(sum(wm, np.float32(0.0))))
+        loss = None
+        for (shards, w), w_mb in zip(micro, wm):
+            terms = self._shard_terms(shards, w, gens)
+            if k > 1:
+                scale = float((np.float32(1.0) if w_mb is None else w_mb)
+                              / total)
+                torch.autograd.backward([t * scale for t in terms])
+                mb = self._local_sum(terms) * float(
+                    1.0 if w_mb is None else w_mb)
+            else:
+                torch.autograd.backward(terms)
+                mb = self._local_sum(terms)
+            loss = mb if loss is None else loss + mb
+        if k > 1:
+            loss = loss / float(total)
+        master = list(st.params.parameters())
+        for rep in others:
+            for p, q in zip(master, rep.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(self.device)
+                    p.grad = g if p.grad is None else p.grad.add_(g)
+        all_reduce_sum([p.grad for p in master if p.grad is not None]
+                       + [loss])
+        st.optimizer.step()
+        st.scheduler.step()
+        st.step += 1
+        with torch.no_grad():
+            for rep in others:
+                for q, p in zip(rep.parameters(), master):
+                    q.copy_(p)
+        return loss
+
+    def _host_batch(self, sampler: DP.Sampler, take, weight=None):
+        r"""Rows ``take`` of the sampler's host corpus as host arrays (a
+        mesh step copies each shard's rows straight to its device)."""
+        raw = {k: v[take] for k, v in sampler.data.items()}
+        if weight is not None:
+            raw["_weight"] = weight
+        return raw
+
+    def _mesh_steps(self, sampler: DP.Sampler):
+        r"""The epoch's microbatched steps under a mesh."""
+        if not self._check_corpus(sampler):
+            for take, w in sampler.iter_indices():
+                yield self._micro(self._host_batch(sampler, take, w))
+            return
+        d, k = self.mesh.shape["data"], self.cfg.accum_steps
+        if self.cfg.batch_size % (d * k):
+            raise ValueError(
+                f"batch_size={self.cfg.batch_size} must divide evenly over "
+                f"data axis x accum_steps ({d} x {k})")
+        for idx, w in sampler.iter_indices_sharded(d):
+            yield self._micro_corpus(sampler.device_data, idx, w, k)
+
+    def _mesh_eval_chunks(self, sampler: DP.Sampler):
+        r"""Validation chunks under a mesh: ``(shards, weight, n)``, n the
+        chunk's real samples (all-pad chunks skipped)."""
+        if not self._check_corpus(sampler):
+            for take, w_all in sampler.iter_indices():
+                for s in range(0, len(take), self._eval_b):
+                    tk = take[s:s + self._eval_b]
+                    wc = None if w_all is None else w_all[s:s + self._eval_b]
+                    n = float(wc.sum()) if wc is not None else len(tk)
+                    if n:
+                        (shards, w), = self._micro(
+                            self._host_batch(sampler, tk, wc), 1)
+                        yield shards, w, n
+            return
+        d = self.mesh.shape["data"]
+        ebl = max(1, self._eval_b // d)        # rows a shard a chunk
+        for idx, w_all in sampler.iter_indices_sharded(d):
+            for s in range(0, idx.shape[1], ebl):
+                tk = idx[:, s:s + ebl]
+                wc = None if w_all is None else w_all[:, s:s + ebl]
+                n = float(wc.sum()) if wc is not None else tk.size
+                if n:
+                    (shards, w), = self._micro_corpus(
+                        sampler.device_data, tk, wc, 1)
+                    yield shards, w, n
+
+    # -- epochs ----------------------------------------------------------
+
     def train_epoch(self, sampler: DP.Sampler, seed=0) -> float:
         r"""One epoch of steps; step i draws from ``seeded_generator(device,
         seed, i)``. Losses stay on the device until the epoch ends. Stops
         at a step boundary when ``self.interrupt()`` turns true."""
         losses = []
-        for i, (take, w) in enumerate(sampler.iter_indices()):
+        if self.mesh is not None:
+            steps = ((micro, self._mesh_update)
+                     for micro in self._mesh_steps(sampler))
+        else:
+            self._check_corpus(sampler)
+            steps = ((self.batch_at(sampler, take, w), self.train_step)
+                     for take, w in sampler.iter_indices())
+        for i, (batch, update) in enumerate(steps):
             if self.interrupt is not None and self.interrupt():
                 break
-            losses.append(self.train_step(
-                self.batch_at(sampler, take, w),
-                seeded_generator(self.device, seed, i)))
+            losses.append(update(batch,
+                                 seeded_generator(self.device, seed, i)))
         if not losses:
             return 0.0
         return float(torch.stack(losses).mean())
@@ -322,7 +586,12 @@ class _Runner:
         r"""Validation pass in chunks of ``eval_batch_size`` (0: min(batch,
         128)): the size-weighted mean of the chunks' losses. Padded tail
         batches weight each chunk by its REAL sample count, so the result
-        is the mean over the dataset's native size."""
+        is the mean over the dataset's native size. Under a mesh each
+        chunk splits over the shards, and the chunks' losses sum over the
+        processes, so every process sees the same loss."""
+        if self.mesh is not None:
+            return self._mesh_eval_epoch(sampler)
+        self._check_corpus(sampler)
         losses, weights = [], []
         for take, w_all in sampler.iter_indices():
             B = len(take)
@@ -342,6 +611,19 @@ class _Runner:
         w = torch.tensor(weights, dtype=torch.float32)
         return float(torch.stack(losses).cpu() @ w / w.sum())
 
+    def _mesh_eval_epoch(self, sampler: DP.Sampler) -> float:
+        from a3gc_tpu_torch.parallel.multihost import all_reduce_sum
+        losses, weights = [], []
+        for shards, wc, n in self._mesh_eval_chunks(sampler):
+            losses.append(self._local_sum(self._shard_terms(shards, wc)))
+            weights.append(n)
+        if not losses:
+            return 0.0
+        stacked = torch.stack(losses)
+        all_reduce_sum([stacked])
+        w = torch.tensor(weights, dtype=torch.float32)
+        return float(stacked.cpu() @ w / w.sum())
+
 
 class StageRunner(_Runner):
     r"""Trains one cascade stage (graph or flat TransPose)."""
@@ -349,10 +631,10 @@ class StageRunner(_Runner):
     def __init__(self, stage: int, stage_cfg: PoseNetConfig,
                  params: nn.Module, train_cfg: TrainConfig,
                  steps_per_epoch: int, stats=None, graph: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(stage_cfg, params, train_cfg, steps_per_epoch,
                          stats if train_cfg.normalize else None, device,
-                         stage_cfg)
+                         stage_cfg, mesh)
         self.stage = stage
         self.graph = graph
         self._assemble = DP.graph_batch if graph else DP.flat_batch
@@ -363,8 +645,8 @@ class StageRunner(_Runner):
         self._rotsize = stage_cfg.rotsize if stage == 3 else 9
 
     def _batch(self, raw, rng, train):
-        batch = self._assemble(raw, self.stats, rng, rotsize=self._rotsize,
-                               **self._noise_kw)
+        batch = self._assemble(raw, self._stats_on(raw["ori"].device), rng,
+                               rotsize=self._rotsize, **self._noise_kw)
         return self._wire(batch, self.stage, train=train)
 
     @torch.no_grad()
@@ -374,42 +656,65 @@ class StageRunner(_Runner):
         mean over sequences. Sequences group by power-of-two bucket
         length, ``batch`` rows a pass (default: the eval chunk size), each
         group end-padded to its longest member with a frame mask; per
-        sequence the masked loss is exactly the native-length one."""
+        sequence the masked loss is exactly the native-length one. Under a
+        mesh (one process) a pass takes a multiple of the data axis of
+        rows, padded with empty ones, and splits over the shards."""
         from a3gc_tpu_torch.eval.run import bucket_length
+        from a3gc_tpu_torch.parallel.mesh import batch_sharding
 
         dev = self.device
+        d = 1 if self.mesh is None else self.mesh.shape["data"]
+        if self.mesh is not None and self.mesh.process_count > 1:
+            raise ValueError("full-sequence validation runs in one process")
         groups = {}
         for seq in sequences:
             T = len(next(iter(seq.values())))
             groups.setdefault(bucket_length(T), []).append((seq, T))
         fb = batch or self._eval_b
+        fb = max(d, fb // d * d)            # mesh-divisible pass rows
         total, count = 0.0, 0
         for _, group in sorted(groups.items()):
             for g0 in range(0, len(group), fb):
                 chunk = group[g0:g0 + fb]
-                n_valid = np.array([T for _, T in chunk])
+                n_valid = np.array([T for _, T in chunk]
+                                   + [0] * (-len(chunk) % d))
                 L = int(n_valid.max())
                 raw = {}
                 for k, v in chunk[0][0].items():
                     v = np.asarray(v)
-                    raw[k] = np.zeros((len(chunk), L) + v.shape[1:], v.dtype)
+                    raw[k] = np.zeros((len(n_valid), L) + v.shape[1:],
+                                      v.dtype)
                 for i, (seq, T) in enumerate(chunk):
                     for k, v in seq.items():
                         raw[k][i, :T] = v
                 mask = np.arange(L)[None] < n_valid[:, None]
-                per_seq = self._per_sequence_loss(
-                    {k: torch.as_tensor(v, device=dev)
-                     for k, v in raw.items()}, mask)
-                total += float(per_seq.sum())
+                if self.mesh is None:
+                    per_seq = self._per_sequence_loss(
+                        {k: torch.as_tensor(v, device=dev)
+                         for k, v in raw.items()}, mask)
+                else:
+                    per_seq = torch.cat([
+                        self._per_sequence_loss(
+                            {k: torch.as_tensor(v[rows], device=sd)
+                             for k, v in raw.items()}, mask[rows],
+                            params).to(dev)
+                        for rows, sd, params in zip(
+                            batch_sharding(self.mesh, len(n_valid)),
+                            self.mesh.devices, self._replicas)])
+                total += float(per_seq[:len(chunk)].sum())
                 count += len(chunk)
         return total / max(count, 1)
 
-    def _per_sequence_loss(self, raw, mask: np.ndarray) -> torch.Tensor:
+    def _per_sequence_loss(self, raw, mask: np.ndarray,
+                           params: Optional[nn.Module] = None
+                           ) -> torch.Tensor:
         r"""Per-row frame-masked loss [B]: pose_loss's masked mean, un-pooled
-        over the batch, on the fp32 master parameters."""
+        over the batch, on the fp32 master parameters (or ``params``, a
+        shard's copy)."""
         inputs, target = self._batch(raw, None, False)
-        pred, _ = pose_net_forward(self.state.params, self.stage_cfg,
-                                   inputs, frame_mask=mask)
+        pred, _ = pose_net_forward(
+            self.state.params if params is None else params, self.stage_cfg,
+            inputs, frame_mask=mask)
         err = torch.square(target - pred.reshape(target.shape)).sum(-1)
         m = torch.as_tensor(mask, dtype=err.dtype, device=err.device)
         w = m.reshape(m.shape + (1,) * (err.dim() - 2))
@@ -425,12 +730,13 @@ class DIPRunner(_Runner):
 
     def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
                  train_cfg: TrainConfig, steps_per_epoch: int, stats,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         super().__init__(stage_cfg, params, train_cfg, steps_per_epoch,
-                         stats, device, None)
+                         stats, device, None, mesh)
 
     def _batch(self, raw, rng, train):
-        return DP.dip_batch(raw, self.stats, rotsize=self.stage_cfg.rotsize)
+        return DP.dip_batch(raw, self._stats_on(raw["ori"].device),
+                            rotsize=self.stage_cfg.rotsize)
 
 
 def _accepts_salt(fn) -> bool:
@@ -464,14 +770,22 @@ def run_cascade_training(
     validation (``--fse``). ``interrupt`` (a :class:`GracefulInterrupt` or
     any nullary bool) stops at the next step boundary: the CURRENT params
     are saved as a normal checkpoint, an ``"interrupted"`` event logged,
-    and the function returns."""
+    and the function returns. In a multi-process run the flag is read at
+    epoch boundaries only, OR-ed over the processes
+    (:func:`~a3gc_tpu_torch.parallel.multihost.interrupt_checker`), so
+    every process stops at the same one; its runners need a mesh."""
+    from a3gc_tpu_torch.parallel.multihost import (interrupt_checker,
+                                                   process_count)
     takes_salt = _accepts_salt(train_sampler_fn)
-    stopped = interrupt or (lambda: False)
+    multihost = process_count() > 1
+    # validated up front: a mesh-less runner cannot sync the stop flag
+    stopped = {stage: interrupt_checker(interrupt, r.mesh)
+               for stage, r in runners.items()}
     for stage in sorted(runners):
         if stage < cfg.start_stage:
             continue
         runner = runners[stage]
-        runner.interrupt = interrupt
+        runner.interrupt = None if multihost else interrupt
         best, tol = float("inf"), 0
         retention = CheckpointRetention(cfg)
         for epoch in range(cfg.start_epoch, cfg.max_epochs):
@@ -480,7 +794,7 @@ def run_cascade_training(
             train_loss = runner.train_epoch(
                 train_sampler_fn(salt) if takes_salt else train_sampler_fn(),
                 (cfg.seed, salt))
-            if stopped():
+            if stopped[stage]():
                 if save_fn:
                     save_fn(stage, epoch, runner.state.params)
                 if log_fn:

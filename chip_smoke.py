@@ -112,6 +112,20 @@ Phases, each printing one JSON line:
                     on four of the sequences, against per-sequence;
      evaluate_dip — ``DipEvaluator`` (hidden 512) offline and streaming
                     (K = 1, 8 slots), against the plain path;
+     mesh         — the data-parallel entry points (``a3gc_tpu_torch.
+                    parallel``) at A3GC full width on a one-card mesh and
+                    on the card listed twice (two shards in turn):
+                    ``cascade_apply_sharded`` at S = 8, T = 300 (bit-equal
+                    on one card, within 1e-3 on two, 6 launches a shard),
+                    a 2-shard ``StreamingCascade(lookahead=1, history=1)``
+                    (6 ticks, an idle slot, a reset, ``flush``) and
+                    ``CascadeEvaluator.evaluate_batched`` at 8 streams
+                    against unsharded twins, ``PoseServer(mesh=)`` with two
+                    clients and ``/v1/recycle`` refused; ms per steady
+                    tick sharded and unsharded, in turns; three ``cli
+                    train`` children at once (16 x 300 frames, B = 8): no
+                    mesh, ``--mesh``, ``--coordinator`` (NCCL, one
+                    process), their losses and checkpoints bit-equal;
      kernel_eval  — each kernel against its plain version at S = 1,
                     T = 2048 and S = 8, T = 1024 with ragged n_valid, then
                     timed at S = 1, T = 2048 and S = 16, T = 1024 (``lstm``
@@ -155,7 +169,7 @@ Phases, each printing one JSON line:
                     max |g| per leaf within 1e-5;
      train        — ``python -m a3gc_tpu_torch.cli train --model a3gc -b 16
                     --epochs 1 --hu1 256 --hu2 64 --hu3 128 --norm`` on a
-                    synthetic packed set (32 × 300 frames train, 16
+                    synthetic packed set (16 × 300 frames train, 16
                     valid) in a child process that counts the kernel
                     launches (validation, 2 a stage), then ``--model dip
                     --hu1 512`` (``train_dip``): three stages (one) with
@@ -164,9 +178,10 @@ Phases, each printing one JSON line:
      train_times  — training frames/s (B·T·steps over the seconds of the
                     steps, fenced by ``torch.cuda.synchronize()``) of
                     stages 1-3 of A3GC and stage 1 of G-GRU and TransPose,
-                    and of DIP at H = 512, at B = 16 and 32, T = 300, fp32
-                    and bf16, with peak memory and one validation chunk's
-                    time through the kernels; one step of A3GC stage 1 at
+                    and of DIP at H = 512, at B = 16, T = 300, fp32 (and
+                    bf16 for A3GC stage 1 and DIP), with peak memory and
+                    one validation chunk's time through the kernels; one
+                    step of A3GC stage 1 at
                     B = 16 under torch.profiler (device busy, kernels);
   6. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving, evaluation and training paths, max
@@ -216,9 +231,9 @@ LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # calls, the five buffered and HTTP ones, the checkpoint round trips, the
 # three evaluation phases, the two of the deployment artifacts (export:
 # counted by the fresh process that steps them), the two of data
-# preparation (cli_data: counted by the cli evaluate child processes) and
-# the two of training (counted by the cli train child process)
-N_PATHS = 23
+# preparation (cli_data: counted by the cli evaluate child processes), the
+# two of training (counted by the cli train child process) and the mesh
+N_PATHS = 24
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -234,10 +249,15 @@ EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
 # sequences of TRAIN_T frames (the reference's chunk length), the
 # reference protocol's batch; timed at TRAIN_TIMED_B, TRAIN_TIMED_STEPS
 # steps (a warm-up step first at each net's first row)
-TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 32, 16, 300, 16
-TRAIN_TIMED_B = (16, 32)
+TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 16, 16, 300, 16
+TRAIN_TIMED_B = (16,)       # one batch size: a depth cut for the time
+# the nets timed in bf16 too (the others in fp32 only: a depth cut)
+TRAIN_BF16_NETS = (("a3gc", 1), ("dip", 1))
 TRAIN_TIMED_STEPS = 1
 GRAD_TOL = 1e-5             # gradient max |d| over max |g| of each leaf
+# the mesh phase's three cli train children: one epoch of MESH_TRAIN_SEQS
+# (valid: MESH_VALID_SEQS, one validation chunk a stage) at MESH_TRAIN_B
+MESH_TRAIN_SEQS, MESH_VALID_SEQS, MESH_TRAIN_B = 16, 8, 8
 
 # data preparation: raw corpora in their on-disk layouts at the sizes of
 # recordings, processed on the card with a synthetic SMPL body of SMPL's
@@ -630,6 +650,23 @@ def tree_err(a, b):
     """max |a - b| over two nests of tensors of one structure."""
     return max(float((x - y).abs().max())
                for x, y in zip(leaves(a), leaves(b)))
+
+
+def merged_states(shards, axis=1):
+    """The per-shard carried states of a mesh session as one nest, each
+    leaf concatenated over the shards along the slot axis."""
+    import torch
+    if isinstance(shards[0], (tuple, list)):
+        return tuple(merged_states([s[i] for s in shards], axis)
+                     for i in range(len(shards[0])))
+    return torch.cat(shards, dim=axis)
+
+
+def flat_tensors(tree):
+    """The tensors of a checkpoint's nested dicts, in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in flat_tensors(tree[k])]
+    return [tree] if hasattr(tree, "shape") else []
 
 
 def percentile(values, q):
@@ -2498,6 +2535,337 @@ class Smoke:
               "launches": counts, "vs_plain_path_max_abs_err": plain_err,
               "tol": TABLE_TOL, "card": nvidia_smi()})
 
+    # -- the mesh ----------------------------------------------------------
+    def mesh_train_start(self, tmp):
+        """The three ``cli train`` children of the mesh phase, started at
+        once: A3GC at full width, B = MESH_TRAIN_B, one epoch of
+        MESH_TRAIN_SEQS x TRAIN_T frames, without a mesh, with ``--mesh``
+        and with ``--coordinator`` (NCCL, one process)."""
+        import socket
+        import numpy as np
+        from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+        train = os.path.join(tmp, "train.npz")
+        valid = os.path.join(tmp, "valid.npz")
+        np.savez(train, **synthetic_packed_dataset(MESH_TRAIN_SEQS, TRAIN_T,
+                                                   seed=0))
+        np.savez(valid, **synthetic_packed_dataset(MESH_VALID_SEQS, TRAIN_T,
+                                                   seed=1))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        runs = {"single": [], "mesh": ["--mesh"],
+                "coordinator": ["--coordinator", f"127.0.0.1:{port}",
+                                "--num_processes", "1", "--process_id",
+                                "0"]}
+        procs = {}
+        for name, extra in runs.items():
+            argv = (["train", "--model", "a3gc", "-b", str(MESH_TRAIN_B),
+                     "--epochs", "1", "--norm", "--name", name,
+                     "--save_root", tmp, "--train_data", train,
+                     "--valid_data", valid]
+                    + [f"--hu{i + 1}={s[0]}" for i, s in enumerate(STAGES)]
+                    + extra)
+            procs[name] = (extra, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-c", TRAIN_CHILD] + argv, cwd=tmp,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        return procs
+
+    def mesh_train_finish(self, tmp, procs):
+        """Wait for the children; their logs' losses and their final
+        checkpoints must be bit-equal. Returns the phase's training record
+        and the mesh children's launches."""
+        import numpy as np
+        from a3gc_tpu_torch.utils import discover_latest
+        torch = self.torch
+        record, logs, launches = {}, {}, []
+        for name, (extra, t0, proc) in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            wall = time.perf_counter() - t0
+            self.check(proc.returncode == 0,
+                       f"mesh train {name} exited {proc.returncode}:\n"
+                       + err[-3000:])
+            if proc.returncode != 0:
+                continue
+            child = json.loads(out.strip().splitlines()[-1])
+            self.check(not child["banned"],
+                       f"mesh train {name} imported {child['banned']}")
+            self.check(child["launches"] == {k: (6 if k == "gcn_lstm" else 0)
+                                             for k in LIBRARIES},
+                       f"mesh train {name} launches {child['launches']}, "
+                       "want 6 of gcn_lstm (one validation chunk a stage)")
+            if name != "single":
+                launches.append(child["launches"])
+            with open(os.path.join(tmp, name, "train_log.jsonl")) as f:
+                logs[name] = [(e["stage"], e["epoch"], e["train_loss"],
+                               e["valid_loss"]) for e in map(json.loads, f)]
+            record[name] = {"flags": extra, "collected_after_s": wall,
+                            "losses": logs[name]}
+        if len(logs) == 3:
+            same_logs = logs["mesh"] == logs["single"] == logs["coordinator"]
+            self.check(same_logs and len(logs["single"]) == 3 and bool(
+                np.isfinite([l[2:] for l in logs["single"]]).all()),
+                f"mesh train logs differ or are not finite: {logs}")
+            same_ckpt = True
+            for stage in (1, 2, 3):
+                found = [discover_latest(os.path.join(tmp, n), stage)
+                         for n in ("single", "mesh", "coordinator")]
+                self.check(all(found), f"mesh train stage {stage}: {found}")
+                if all(found):
+                    ps = [torch.load(os.path.join(f[0], "params.pt"),
+                                     map_location="cpu") for f in found]
+                    same_ckpt &= all(
+                        all(torch.equal(x, y) for x, y in zip(
+                            flat_tensors(ps[0]), flat_tensors(p)))
+                        for p in ps[1:])
+            self.check(same_ckpt, "mesh train checkpoints differ")
+            record["bit_equal"] = {"logs": same_logs,
+                                   "checkpoints": same_ckpt}
+        return record, launches
+
+    def phase_mesh(self):
+        """The data-parallel entry points on the card at A3GC full width:
+        ``cascade_apply_sharded`` at S = 8, T = 300 (ragged) on a one-card
+        mesh (bit-equal to ``cascade_apply``) and on the card listed twice
+        (two shards in turn, within PATH_TOL), 6 launches a shard; a
+        2-shard ``StreamingCascade(lookahead=1, history=1)`` for 6 ticks
+        with an idle slot and a reset, then ``flush``, against the
+        unsharded session, ms per steady tick of both in turns; a 2-shard
+        ``CascadeEvaluator.evaluate_batched`` at 8 streams on four of the
+        test sequences against the unsharded table; an in-process
+        ``PoseServer(mesh=)`` with two clients against single-slot
+        sessions, ``/v1/recycle`` refused; three ``cli train`` children
+        (no mesh, ``--mesh``, ``--coordinator``) bit-equal."""
+        import shutil
+        import tempfile
+        import threading
+        import numpy as np
+        from a3gc_tpu_torch.client import PoseClient, ServerError
+        from a3gc_tpu_torch.data import load_stats
+        from a3gc_tpu_torch.eval import CascadeEvaluator
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.models.pipeline import cascade_apply
+        from a3gc_tpu_torch.parallel import cascade_apply_sharded, make_mesh
+        from a3gc_tpu_torch.serve import PoseServer
+        from a3gc_tpu_torch.smpl import ParametricModel
+        torch = self.torch
+        S, W, K, P = S_SERVE, WINDOW, 1, 1
+        one, two = make_mesh(), make_mesh(devices=[self.dev, self.dev])
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        procs = self.mesh_train_start(tmp)
+        try:
+            cfg = self.cascade("a3gc", "auto")
+            params3 = self.params3(cfg)
+            model = ParametricModel()
+            rng = np.random.default_rng(7)
+            T = 300
+            imu = torch.as_tensor(rng.normal(size=(S, T, N_NODES, 12))
+                                  .astype(np.float32), device=self.dev)
+            n_valid = np.array(ragged_long(S, T))
+            mask = (np.arange(T)[None] < n_valid[:, None]).astype(np.float32)
+            valid = torch.as_tensor(mask.reshape(-1) > 0, device=self.dev)
+            ref = cascade_apply(params3, cfg, model, imu, frame_mask=mask,
+                                device=self.dev)
+
+            def stats_session(mesh, streams=S):
+                return StreamingCascade(
+                    params3, cfg, model, window=W, stats=load_stats(),
+                    normalize=True, streams=streams, lookahead=K, history=P,
+                    mesh=mesh, device=self.dev)
+
+            sharded, single = stats_session(two), stats_session(None)
+            seqs = self.eval_data()["seqs"][:4]
+            lengths = [int(s["ori"].shape[0]) for s in seqs]
+            ev_params, ev = self.eval_cascade("a3gc")
+            data = self.eval_data()
+            ev_two = CascadeEvaluator(ev_params, cfg, data["model"],
+                                      data["stats"], normalize=True,
+                                      mesh=two)
+            for e in (ev, ev_two):
+                e.warmup(lengths)
+
+            self.zero_counts()                        # the main path starts
+            got_one = cascade_apply_sharded(params3, cfg, model, imu, one,
+                                            frame_mask=mask)
+            offline_one = self.counts()["gcn_lstm"]
+            got_two = cascade_apply_sharded(params3, cfg, model, imu, two,
+                                            frame_mask=mask)
+            offline_two = self.counts()["gcn_lstm"] - offline_one
+            idle = np.ones(S, np.float32)
+            idle[5] = 0.0
+            ticks, before = [], self.counts()["gcn_lstm"]
+            wins = [self.windows(rng, S) for _ in range(6)]
+            for t, (o, a) in enumerate(wins):
+                ticks.append(sharded.step(o, a, active=idle if t == 3
+                                          else None))
+                if t == 2:
+                    sharded.reset(stream=3)
+            tails = sharded.flush()
+            session_launches = self.counts()["gcn_lstm"] - before
+            before = self.counts()["gcn_lstm"]
+            table_two = ev_two.evaluate_batched(seqs, streams=S)[0]
+            eval_launches = self.counts()["gcn_lstm"] - before
+            before = self.counts()["gcn_lstm"]
+            srv = PoseServer(params3, cfg, model, window=W, streams=S,
+                             stats=load_stats(), normalize=True, port=0,
+                             mesh=two, lookahead=K, history=P,
+                             max_wait_ms=5.0, allow_recycle=True)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            feeds = [[self.windows(rng, 1) for _ in range(6)]
+                     for _ in range(2)]
+            served, refusal = {}, None
+            try:
+                def client(i):
+                    out = []
+                    with PoseClient(*srv.address[:2], binary=True,
+                                    timeout=60.0, retry_s=10.0) as c:
+                        for o, a in feeds[i]:
+                            pose = c.step(o, a)
+                            if pose is not None:
+                                out.append(pose)
+                        tail = c.flush()
+                        if tail is not None:
+                            out.append(tail)
+                    served[i] = np.concatenate(out)
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(2)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                try:
+                    PoseClient(*srv.address[:2], timeout=60.0).recycle()
+                except ServerError as e:
+                    refusal = (e.status, str(e))
+            finally:
+                srv.shutdown()
+            http_launches = self.counts()["gcn_lstm"] - before
+            counts = self.counts()                    # the main path ended
+
+            # the comparisons: the unsharded twins' launches do not count
+            err_two = float((got_two - ref).abs().reshape(S * T, -1)[valid]
+                            .max())
+            one_equal = bool(torch.equal(got_one, ref))
+            ref_ticks, ref_launches = [], self.counts()["gcn_lstm"]
+            for t, (o, a) in enumerate(wins):
+                ref_ticks.append(single.step(o, a, active=idle if t == 3
+                                             else None))
+                if t == 2:
+                    single.reset(stream=3)
+            ref_tails = single.flush()
+            single_launches = self.counts()["gcn_lstm"] - ref_launches
+            pose_err, emitted_ok = 0.0, True
+            for (p2, e2), (p1, e1) in zip(ticks, ref_ticks):
+                emitted_ok &= bool((e2 == e1).all())
+                if e1.any():
+                    pose_err = max(pose_err,
+                                   float(np.abs(p2[e1] - p1[e1]).max()))
+            for a, b in zip(tails, ref_tails):
+                emitted_ok &= (a is None) == (b is None)
+                if a is not None and b is not None:
+                    pose_err = max(pose_err, float(np.abs(a - b).max()))
+            state_err = tree_err(merged_states(sharded._states),
+                                 single._states)
+            table_one = ev.evaluate_batched(seqs, streams=S)[0]
+            table_err = float(np.abs(table_two - table_one).max())
+            http_err = 0.0
+            for i, feed in enumerate(feeds):
+                ref_sess = stats_session(None, streams=1)
+                want = [p for p in (ref_sess.step(o, a) for o, a in feed)
+                        if p is not None]
+                tail = ref_sess.flush()
+                if tail is not None:
+                    want.append(tail)
+                want = np.concatenate(want)
+                ok = i in served and served[i].shape == want.shape
+                self.check(ok, f"mesh http client {i}: "
+                           f"{served.get(i, np.zeros(0)).shape} vs "
+                           f"{want.shape}")
+                if ok:
+                    http_err = max(http_err,
+                                   float(np.abs(served[i] - want).max()))
+            for k, n in counts.items():               # the twins' launches
+                self.wrappers[k].launches = n         # do not count
+
+            # steady ticks of both sessions, in turns
+            for sess in (sharded, single):
+                for _ in range(K + P + 2):
+                    sess.step(*self.windows(rng, S))
+            times = {"two_shards": [], "unsharded": []}
+            order = [("two_shards", sharded), ("unsharded", single),
+                     ("unsharded", single), ("two_shards", sharded)]
+            inputs = [self.windows(rng, S) for _ in range(5)]
+            torch.cuda.synchronize()
+            for o, a in inputs:
+                for name, sess in order:
+                    t0 = time.perf_counter()
+                    sess.step(o, a)
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            for k, n in counts.items():
+                self.wrappers[k].launches = n
+        finally:
+            train, child_launches = self.mesh_train_finish(tmp, procs)
+            shutil.rmtree(tmp, ignore_errors=True)
+        for c in child_launches:
+            counts = {k: counts[k] + c[k] for k in counts}
+        self.launches["mesh"] = counts
+        groups = n_groups(lengths, S)
+        self.check(one_equal, "mesh: one-card cascade_apply_sharded is not "
+                   "bit-equal to cascade_apply")
+        self.check(err_two <= PATH_TOL and bool(torch.isfinite(got_two)
+                                                .all()),
+                   f"mesh: 2-shard cascade vs unsharded {err_two:.3e}")
+        self.check(offline_one == 6 and offline_two == 12,
+                   f"mesh: offline launches {offline_one} / {offline_two}, "
+                   "want 6 a shard")
+        self.check(emitted_ok and pose_err <= PATH_TOL
+                   and state_err <= PATH_TOL,
+                   f"mesh session vs unsharded: pose {pose_err:.3e}, state "
+                   f"{state_err:.3e}, emitted ok={emitted_ok}")
+        self.check(session_launches == 2 * single_launches,
+                   f"mesh session launches {session_launches}, want twice "
+                   f"the unsharded session's {single_launches}")
+        self.check(table_err <= TABLE_TOL and eval_launches == 12 * groups,
+                   f"mesh evaluation: table {table_err:.3e}, launches "
+                   f"{eval_launches} (want {12 * groups})")
+        self.check(http_err <= PATH_TOL and http_launches > 0,
+                   f"mesh http: {http_err:.3e}, {http_launches} launches")
+        self.check(refusal is not None and refusal[0] == 501
+                   and "--mesh" in refusal[1],
+                   f"mesh: /v1/recycle not refused: {refusal}")
+        self.check(all(n == 0 for k, n in counts.items() if k != "gcn_lstm"),
+                   f"mesh launched other kernels: {counts}")
+        emit({"phase": "mesh", "devices": [str(d) for d in two.devices],
+              "offline": {"streams": S, "frames": T,
+                          "n_valid": n_valid.tolist(),
+                          "one_card_bit_equal": one_equal,
+                          "two_shards_max_abs_err": err_two,
+                          "two_shards_exactly_equal": err_two == 0.0,
+                          "launches_one_card": offline_one,
+                          "launches_two_shards": offline_two},
+              "session": {"lookahead": K, "history": P,
+                          "pose_max_abs_err": pose_err,
+                          "state_max_abs_err": state_err,
+                          "launches": session_launches,
+                          "unsharded_launches": single_launches,
+                          "ms_per_steady_tick_median": {
+                              k: float(np.median(v))
+                              for k, v in times.items()},
+                          "timed_ticks": len(times["unsharded"])},
+              "evaluation": {"streams": S, "lengths": lengths,
+                             "table_max_abs_err": table_err,
+                             "launches": eval_launches, "groups": groups},
+              "http": {"clients": 2, "pose_max_abs_err": http_err,
+                       "launches": http_launches, "recycle": refusal},
+              "train": train, "launches": counts, "tol": PATH_TOL,
+              "card": nvidia_smi()})
+
     def phase_kernel_eval(self):
         """Each kernel at evaluation lengths against its plain version
         (S = 1, T = 2048 and S = 8, T = 1024, ragged n_valid), then timed at
@@ -3264,7 +3632,8 @@ class Smoke:
         rows = []
         for kind, stage in (("a3gc", 1), ("a3gc", 2), ("a3gc", 3),
                             ("ggru", 1), ("tp", 1), ("dip", 1)):
-            for dtype in ("float32", "bfloat16"):
+            for dtype in (("float32", "bfloat16") if (kind, stage) in
+                          TRAIN_BF16_NETS else ("float32",)):
                 for B in TRAIN_TIMED_B:
                     tc = TrainConfig(batch_size=B, dtype=dtype,
                                      normalize=True)
@@ -3491,7 +3860,7 @@ class Smoke:
                          "(_dirfused_kernel)",
                          ("serving", "buffered", "http", "checkpoints",
                           "evaluate", "export", "export_bundle",
-                          "preprocess", "cli_data", "train"),
+                          "preprocess", "cli_data", "train", "mesh"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -3587,7 +3956,7 @@ def main():
               smoke.phase_offline, smoke.phase_offline_tp,
               smoke.phase_offline_ggru, smoke.phase_evaluate,
               smoke.phase_evaluate_families, smoke.phase_evaluate_dip,
-              smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
+              smoke.phase_mesh, smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
               smoke.phase_preprocess, smoke.phase_cli_data,
               smoke.phase_kernel_grad, smoke.phase_train,
               smoke.phase_train_times, smoke.phase_times)

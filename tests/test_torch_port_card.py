@@ -1035,3 +1035,90 @@ def test_torch_port_view_motion_fk_on_card_matches_cpu(card_corpora,
     for a, b in zip(seen["cuda"], seen["cpu"]):
         assert isinstance(a, np.ndarray)
         assert np.abs(a - b).max() <= 1e-5
+
+
+def _mesh_cascade(hidden=32):
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import CascadeConfig, PoseNetConfig
+    cfg = CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+        units_in=ui, units_out=uo, units_hidden=hidden), rotsize=rot)
+        for ui, uo, rot in ((12, 3, 3), (15, 3, 3), (15, 9, 9))))
+    gen = torch.Generator().manual_seed(5)
+    nira = load_adjacency_template()
+    return cfg, tuple(N.init_graph_net(gen, c.net, nira).cuda()
+                      for c in cfg.stages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_torch_port_sharded_cascade_on_card(shards):
+    """``cascade_apply_sharded`` on the card (one shard: ``make_mesh()``;
+    two: the card listed twice) against ``cascade_apply``, S = 4, ragged:
+    bit-equal on one shard, 1e-5 over valid frames on two; 6 launches a
+    shard."""
+    _need_card()
+    from a3gc_tpu_torch.models.pipeline import cascade_apply
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.parallel import cascade_apply_sharded, make_mesh
+    from a3gc_tpu_torch.smpl import ParametricModel
+    cfg, params3 = _mesh_cascade()
+    rng = np.random.default_rng(6)
+    S, T = 4, 90
+    imu = torch.as_tensor(rng.normal(size=(S, T, 15, 12)).astype(np.float32),
+                          device="cuda")
+    mask = (np.arange(T)[None] < np.array([T, 61, 0, 37])[:, None]).astype(
+        np.float32)
+    want = cascade_apply(params3, cfg, ParametricModel(), imu,
+                         frame_mask=mask)
+    mesh = make_mesh() if shards == 1 else make_mesh(devices=["cuda:0"] * 2)
+    G.bi_gcn_lstm.launches = 0
+    got = cascade_apply_sharded(params3, cfg, ParametricModel(), imu, mesh,
+                                frame_mask=mask)
+    assert G.bi_gcn_lstm.launches == 6 * shards
+    valid = torch.as_tensor(mask.reshape(-1) > 0, device="cuda")
+    if shards == 1:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want)[valid].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_torch_port_mesh_session_on_card(shards):
+    """A ``StreamingCascade(mesh=, lookahead=1, history=1)`` on the card
+    against the unsharded session over 5 ticks with an idle slot and a
+    reset, then ``flush``: bit-equal on one shard, 1e-5 on two."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_stats
+    from a3gc_tpu_torch.eval.streaming import StreamingCascade
+    from a3gc_tpu_torch.parallel import make_mesh
+    from a3gc_tpu_torch.smpl import ParametricModel
+    cfg, params3 = _mesh_cascade()
+    S, W = 4, 20
+    mesh = make_mesh() if shards == 1 else make_mesh(devices=["cuda:0"] * 2)
+
+    def session(m):
+        return StreamingCascade(params3, cfg, ParametricModel(), window=W,
+                                stats=load_stats(), normalize=True,
+                                streams=S, lookahead=1, history=1, mesh=m)
+    meshed, single = session(mesh), session(None)
+    rng = np.random.default_rng(7)
+    idle = np.array([1, 0, 1, 1], np.float32)
+    tol = 0.0 if shards == 1 else 1e-5
+    for t in range(5):
+        ori = rng.normal(size=(S, W, 54)).astype(np.float32)
+        acc = rng.normal(size=(S, W, 18)).astype(np.float32)
+        act = idle if t == 2 else None
+        (got, em), (want, em_want) = (s.step(ori, acc, active=act)
+                                      for s in (meshed, single))
+        assert (em == em_want).all()
+        if em.any():
+            assert np.abs(got[em] - want[em]).max() <= tol
+        if t == 1:
+            meshed.reset(stream=3)
+            single.reset(stream=3)
+    for a, b in zip(meshed.flush(), single.flush()):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.abs(a - b).max() <= tol

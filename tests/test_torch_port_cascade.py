@@ -113,9 +113,21 @@ def test_torch_port_streaming_cascade_matches_jax(jax_model):
 def test_torch_port_streaming_rejects_unported_modes():
     _, tcfg, params = _cascades(9)
     p3 = cascade_params_from_jax(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        StreamingCascade(p3, tcfg, ParametricModel(), mesh=object(),
-                         device="cpu")
+    # mesh= is ported: on a one-device mesh the session is the unsharded
+    # one bit for bit, and a slot count the data axis cannot divide raises
+    from a3gc_tpu_torch.parallel import make_mesh
+    rng = np.random.default_rng(5)
+    ori = rng.normal(size=(2, 4, 54)).astype(np.float32)
+    acc = rng.normal(size=(2, 4, 18)).astype(np.float32)
+    meshed = StreamingCascade(p3, tcfg, ParametricModel(), window=4,
+                              streams=2, mesh=make_mesh(devices=["cpu"]))
+    single = StreamingCascade(p3, tcfg, ParametricModel(), window=4,
+                              streams=2, device="cpu")
+    np.testing.assert_array_equal(meshed.step(ori, acc),
+                                  single.step(ori, acc))
+    with pytest.raises(ValueError, match="must divide"):
+        StreamingCascade(p3, tcfg, ParametricModel(), window=4, streams=3,
+                         mesh=make_mesh(devices=["cpu"] * 2))
     # lookahead/history, flush, step_async and run_windows are ported: a
     # buffered session builds, and a plain one has nothing to flush
     sess = StreamingCascade(p3, tcfg, ParametricModel(), lookahead=1,

@@ -12,6 +12,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -90,17 +91,89 @@ def test_torch_port_cli_shipped_stats_match_jax_cli():
             np.testing.assert_array_equal(ours[k], ref[k])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["stream", "--mesh", "--input", "test.npz"], "item 14"),
-    (["serve", "--mesh"], "item 14"),
-    (["evaluate", "--mesh", "--datasets", "test.npz"], "item 14"),
+def _cli_run(argv, cwd, capsys):
+    """``cli <argv>`` in process from ``cwd``: (stdout, stderr)."""
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        TCLI.main(argv)
+    finally:
+        os.chdir(old)
+    return capsys.readouterr()
+
+
+@pytest.mark.parametrize("argv,note", [
+    (["stream", "--mesh", "--input", "test.npz"], None),
+    (["serve", "--mesh", "--streams", "2"], None),
+    (["evaluate", "--mesh", "--batch_streams", "2", "--datasets",
+      "test.npz"], None),
     (["evaluate", "--model", "dip", "--batch_streams", "8", "--mesh",
-      "--datasets", "test.npz"], "item 14"),
+      "--datasets", "test.npz"], "not wired for the single-net dip "
+                                 "evaluator"),
 ])
-def test_torch_port_cli_refuses_flags_of_later_slices(argv, item):
-    with pytest.raises(SystemExit) as ei:
-        TCLI.main(argv[:1] + ["--device", "cpu"] + argv[1:])
-    assert "ROADMAP Queue 1 " + item in str(ei.value)
+def test_torch_port_cli_refuses_flags_of_later_slices(argv, note, tmp_path,
+                                                      smpl_pickle, capsys,
+                                                      monkeypatch):
+    """``--mesh`` (ported from the later slice it once waited for) runs
+    with ``--device cpu`` on a one-device mesh, and every output equals
+    the same run without it; the DIP paths note that the mesh is not wired
+    and run unsharded, as the JAX CLI does."""
+    from a3gc_tpu_torch.models.pipeline import init_pose_net
+    from a3gc_tpu_torch.utils import save_params
+    from torch_port_oracle import eval_sequences
+    np.savez(tmp_path / "test.npz", **{
+        f"seq{i}_{k}": v for i, s in enumerate(eval_sequences([70, 50],
+                                                              seed=6))
+        for k, v in s.items()})
+    common = ["--device", "cpu", "--smpl", smpl_pickle, "--hu1", "8",
+              "--hu2", "8", "--hu3", "8", "--norm"]
+    if "dip" in argv:
+        args = TCLI.build_parser().parse_args(["serve", "--model", "dip",
+                                               "--hu1", "8"])
+        save_params(init_pose_net(torch.Generator().manual_seed(0),
+                                  TCLI._dip_config(args)),
+                    str(tmp_path / "dip"), 1, 0)
+        common += ["--path", str(tmp_path / "dip"), "--type", "pretrain"]
+    from a3gc_tpu_torch.metrics import PoseEvaluator
+    tables = []
+    monkeypatch.setattr(PoseEvaluator, "format", staticmethod(
+        lambda errors: tables.append(np.asarray(errors)) or ""))
+    rng = np.random.default_rng(4)
+    outs = []
+    for mesh in (True, False):
+        run = [str(tmp_path / a) if a == "test.npz" else a
+               for a in argv if mesh or a != "--mesh"]
+        run = run[:1] + common + run[1:]
+        if run[0] == "serve":
+            args = TCLI.build_parser().parse_args(run + ["--port", "0"])
+            TCLI._apply_quality(args)
+            srv, streams, window = TCLI._build_server(args)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            try:
+                sess = srv.batcher.sess
+                assert (sess._mesh is not None) == mesh
+                wins = [(rng.normal(size=(streams, window, 54)),
+                         rng.normal(size=(streams, window, 18)))
+                        for _ in range(3)]
+                outs.append([sess.step(o, a) for o, a in wins])
+                rng = np.random.default_rng(4)
+            finally:
+                srv.shutdown()
+        elif run[0] == "stream":
+            out = str(tmp_path / f"poses_{mesh}.npz")
+            _cli_run(run + ["--output", out], tmp_path, capsys)
+            with np.load(out) as z:
+                outs.append([z[k] for k in sorted(z.files)])
+        else:
+            cwd = tmp_path / f"eval_{mesh}"
+            cwd.mkdir()
+            printed = _cli_run(run, cwd, capsys)
+            assert (note in printed.err) == mesh if note else True
+            outs.append(tables[:])
+            tables.clear()
+    assert len(outs[0]) == len(outs[1]) > 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 @pytest.fixture(scope="module")

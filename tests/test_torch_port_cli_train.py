@@ -3,8 +3,9 @@ of the JAX CLI's ``train`` parses with its default; a run writes a
 three-stage ``train_log.jsonl`` and checkpoint directories that ``cli
 evaluate --path`` reads; ``--model dip``, ``--resume``, the device-resident
 corpus, ``--fse``; a SIGTERM checkpoints and a resumed run picks it up;
-the flags that wait for multi-card training exit naming ROADMAP Queue 1
-item 14; ``--device cuda`` without a card raises."""
+``--mesh`` and ``--coordinator`` on one CPU shard equal a run without
+them, ``--tp 2`` exits naming ROADMAP Queue 1 item 14; ``--device cuda``
+without a card raises."""
 
 import json
 import os
@@ -123,10 +124,36 @@ def test_torch_port_cli_train_dip_resume_and_device_data(data, tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--mesh"], ["--tp", "2"], ["--coordinator", "localhost:1234"]])
 def test_torch_port_cli_train_refuses_multi_card(data, extra, tmp_path):
-    with pytest.raises(SystemExit) as ei:
-        TCLI.main(["train", "--device", "cpu", "-b", "4", "--save_root",
-                   str(tmp_path)] + data + extra)
-    assert "ROADMAP Queue 1 item 14" in str(ei.value)
+    """``--tp 2`` (tensor parallelism) exits naming ROADMAP Queue 1 item
+    14. ``--mesh`` (a one-device CPU mesh) and ``--coordinator`` (a
+    one-process gloo group on a free port of this host) run since the mesh
+    was ported: their logs and checkpoints equal a run without them."""
+    import socket
+    base = ["train", "--device", "cpu", "-b", "4", "--epochs", "1",
+            "--save_root", str(tmp_path)] + SMALL + data
+    if "--tp" in extra:
+        with pytest.raises(SystemExit) as ei:
+            TCLI.main(base + extra)
+        assert "ROADMAP Queue 1 item 14" in str(ei.value)
+        return
+    if "--coordinator" in extra:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            extra = ["--coordinator", f"127.0.0.1:{sock.getsockname()[1]}",
+                     "--num_processes", "1", "--process_id", "0"]
+    TCLI.main(base + ["--name", "plain"])
+    TCLI.main(base + ["--name", "meshed"] + extra)
+    keys = ("stage", "epoch", "train_loss", "valid_loss")
+    logs = [[tuple(e[k] for k in keys) for e in _log(str(tmp_path), name)]
+            for name in ("plain", "meshed")]
+    assert logs[0] == logs[1] and len(logs[0]) == 3
+    for stage in (1, 2, 3):
+        a, b = (torch.load(os.path.join(discover_latest(
+            os.path.join(tmp_path, name), stage)[0], "params.pt"))
+            ["state_dict"] for name in ("plain", "meshed"))
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
 
 
 def test_torch_port_cli_train_guards(data, tmp_path):

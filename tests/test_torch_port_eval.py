@@ -143,12 +143,21 @@ def test_torch_port_evaluate_sequences_writes_the_report(setup,
 
 
 def test_torch_port_evaluators_refuse_mesh_and_a_model_elsewhere(setup):
+    """``mesh=`` (since the mesh was ported: a one-device mesh) gives the
+    unsharded evaluator's tables bit for bit; a body model on another
+    device and zero streams are refused."""
+    from a3gc_tpu_torch.parallel import make_mesh
     ours, _, seqs = setup
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TR.CascadeEvaluator(ours.params3, ours.cfg, ours.model, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ours.evaluate_streaming(seqs, window=W, mesh=object())
+    one = make_mesh(devices=["cpu"])
+    meshed = TR.CascadeEvaluator(ours.params3, ours.cfg, ours.model,
+                                 load_stats(), normalize=True, mesh=one,
+                                 device="cpu")
+    np.testing.assert_array_equal(meshed.evaluate_batched(seqs, 2)[0],
+                                  ours.evaluate_batched(seqs, 2)[0])
+    np.testing.assert_array_equal(
+        ours.evaluate_streaming(seqs, window=W, batch_streams=2,
+                                mesh=one)[0],
+        ours.evaluate_streaming(seqs, window=W, batch_streams=2)[0])
     with pytest.raises(ValueError, match="load_parametric_model"):
         TR.CascadeEvaluator(ours.params3, ours.cfg, ParametricModel(),
                             device="cpu")

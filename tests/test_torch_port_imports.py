@@ -9,7 +9,9 @@ pickle loaded, the metrics, ``CascadeEvaluator`` in its three protocols,
 ``DipEvaluator``, ``compare_models``, ``cli evaluate``), and training
 (``a3gc_tpu_torch.train``, the training feed, ``cli train`` of a cascade and
 of DIP, ``cli stats``), and data preparation (``cli preprocess`` of a raw
-DIP-IMU tree, ``cli convert-data``, ``cli worst-frames --render``) load no
+DIP-IMU tree, ``cli convert-data``, ``cli worst-frames --render``), and the
+mesh (``a3gc_tpu_torch.parallel``: its mesh, serving and multihost modules,
+a sharded cascade, a mesh session and a mesh training step) load no
 jax, flax or a3gc_tpu module. And the
 package data ships every kernel source and header, and the port has its
 console script."""
@@ -199,6 +201,26 @@ assert os.path.isfile(os.path.join("best_worst", "respect_tp", "worst",
                                    "gt.p"))
 assert any(f.endswith(".png") for f in os.listdir(
     os.path.join("best_worst", "respect_tp", "worst")))
+# the mesh: a3gc_tpu_torch.parallel (mesh, serving, multihost) on two
+# CPU shards: the sharded cascade, a mesh session, a mesh training step
+import a3gc_tpu_torch.parallel.multihost
+from a3gc_tpu_torch.parallel import (cascade_apply_sharded, fetch_replicated,
+                                     make_mesh)
+mesh = make_mesh(devices=["cpu", "cpu"])
+p3 = tuple(init_pose_net(gen, c, nira) for c in cfg.stages)
+assert cascade_apply_sharded(p3, cfg, ParametricModel(),
+                             torch.zeros(2, 4, 15, 12),
+                             mesh).shape == (8, 24, 3, 3)
+meshed = StreamingCascade(p3, cfg, ParametricModel(), window=4, streams=2,
+                          mesh=mesh)
+assert meshed.step(rng.normal(size=(2, 4, 54)),
+                   rng.normal(size=(2, 4, 18))).shape == (2, 4, 24, 3, 3)
+runner = a3gc_tpu_torch.train.StageRunner(
+    1, cfg.stage1, p3[0], a3gc_tpu_torch.config.TrainConfig(batch_size=2),
+    1, device="cpu", mesh=mesh)
+runner.train_step(synthetic_packed_dataset(2, 4),
+                  a3gc_tpu_torch.train.seeded_generator("cpu", 0))
+assert fetch_replicated(runner.state.params)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

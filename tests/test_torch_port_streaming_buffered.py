@@ -234,11 +234,15 @@ def test_torch_port_pipelined_entry_points_refuse_buffered_sessions():
         sess.step_async(*zeros)
     with pytest.raises(ValueError, match="run_windows"):
         sess.run_windows(zeros[0][None], zeros[1][None])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TS.StreamingCascade(p3, tcfg, ParametricModel(), mesh=object(),
-                            device="cpu")
-    assert "shard_window_step" not in TS.__all__
-    assert sorted(TS.__all__ + ["shard_window_step"]) == sorted(JS.__all__)
+    # mesh= (ported): a one-device mesh steps as the unsharded session
+    from a3gc_tpu_torch.parallel import make_mesh
+    meshed = TS.StreamingCascade(p3, tcfg, ParametricModel(), window=W,
+                                 lookahead=1, mesh=make_mesh(devices=["cpu"]))
+    for _ in range(2):
+        got, want = meshed.step(*zeros), sess.step(*zeros)
+    np.testing.assert_array_equal(got, want)
+    assert "shard_window_step" in TS.__all__
+    assert sorted(TS.__all__) == sorted(JS.__all__)
 
 
 # -- the numpy sequence helpers -----------------------------------------------

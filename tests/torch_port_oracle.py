@@ -127,11 +127,13 @@ def eval_sequences(lengths, seed=0):
             for T in lengths]
 
 
-def train_runners(kind, stage, hidden=8, seed=40, steps=2, **train_kw):
+def train_runners(kind, stage, hidden=8, seed=40, steps=2, mesh=None,
+                  jax_mesh=None, **train_kw):
     """The same stage's trainer in both packages, dropout and teacher-forcing
     noise off, on perturbed JAX params: (JAX runner, port runner).
     ``kind``: a graph cell name, "tp" (a TransPose stage) or "dip" (the DIP
-    net, stage ignored)."""
+    net, stage ignored). ``mesh`` / ``jax_mesh``: the port's and the JAX
+    runner's meshes."""
     from a3gc_tpu.config import TrainConfig as JTC
     from a3gc_tpu.data.stats import load_stats
     from a3gc_tpu.models import pipeline as JPL
@@ -167,16 +169,17 @@ def train_runners(kind, stage, hidden=8, seed=40, steps=2, **train_kw):
                        seed=seed + stage)
     jstats = {k: jnp.asarray(v) for k, v in stats.items()}
     if kind == "dip":
-        return (JDR(jcfg, to_jnp(params), JTC(**kw), steps, jstats),
+        return (JDR(jcfg, to_jnp(params), JTC(**kw), steps, jstats,
+                    mesh=jax_mesh),
                 TDR(tcfg, dip_params_from_jax(params, "cpu"), TTC(**kw),
-                    steps, stats, device="cpu"))
+                    steps, stats, device="cpu", mesh=mesh))
     graph = kind != "tp"
     tparams = (graph_net_params_from_jax(params, "cpu") if graph
                else dip_params_from_jax(params, "cpu"))
     return (JSR(stage, jcfg, to_jnp(params), JTC(**kw), steps,
-                stats=jstats, graph=graph),
+                stats=jstats, graph=graph, mesh=jax_mesh),
             TSR(stage, tcfg, tparams, TTC(**kw), steps, stats=stats,
-                graph=graph, device="cpu"))
+                graph=graph, device="cpu", mesh=mesh))
 
 
 def jax_leaf(tree, name):

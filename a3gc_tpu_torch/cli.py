@@ -56,7 +56,8 @@ that ``--path`` discovers. ``preprocess`` reads the raw corpora under
 ``--mesh`` splits the streams (``serve``, ``stream``, ``evaluate``) or the
 batch (``train``) over every visible card, or with ``--device cpu`` over one
 CPU shard; ``train --coordinator`` joins a multi-process run (``nccl`` on the
-cards, ``gloo`` on the CPU). ``--tp > 1`` waits for ROADMAP Queue 1 item 14.
+cards, ``gloo`` on the CPU); ``train --tp N`` splits the wide parameters
+over model groups of N devices (tensor parallelism, implies ``--mesh``).
 """
 
 from __future__ import annotations
@@ -82,10 +83,6 @@ QUALITY_PRESETS = {
     "ultra": (120, 1, 2),
 }
 
-# the flag of the JAX CLI that the port parses and refuses
-_TP_WAITS_FOR = ("--tp > 1 (tensor parallelism: hidden features sharded "
-                 "over a mesh 'model' axis) waits for ROADMAP Queue 1 "
-                 "item 14")
 # where the JAX package's config looks under the data root
 _SMPL_MALE = "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
 _STATS_UNDER_ROOT = {False: "stats/all_train_stats.npz",
@@ -375,11 +372,19 @@ def _reloading(load):
 
 
 def _mesh(args, device):
-    r"""The mesh of ``--mesh``: every visible card on the data axis (in a
-    multi-process run, this process's card), or with ``--device cpu`` one
-    CPU shard."""
+    r"""The mesh of ``--mesh``: every visible card (in a multi-process run,
+    this process's card), or with ``--device cpu`` one CPU device, on the
+    data axis; ``train --tp N`` groups them in runs of N on the model axis,
+    which N must divide (the devices of every process counted)."""
+    from a3gc_tpu_torch.config import MeshConfig
     from a3gc_tpu_torch.parallel import make_mesh
-    return make_mesh(devices=[device] if device.type == "cpu" else None)
+    from a3gc_tpu_torch.parallel.mesh import local_devices
+    from a3gc_tpu_torch.parallel.multihost import process_count
+    devices = [device] if device.type == "cpu" else local_devices()
+    n = len(devices) * process_count()
+    tp = getattr(args, "tp", 1)
+    _require(tp >= 1 and n % tp == 0, f"--tp {tp} must divide {n} devices")
+    return make_mesh(MeshConfig(data=n // tp, model=tp), devices)
 
 
 def _note_dip_mesh(args, what, fallback):
@@ -422,13 +427,16 @@ def cmd_train(args):
     ``--start_at``, early stopping on the validation loss, a checkpoint
     directory under ``--save_root/--name`` on every improvement, a
     ``train_log.jsonl`` there. Validation runs through the Hopper kernels
-    on the card. ``--mesh`` splits every batch over the cards;
+    on the card. ``--mesh`` splits every batch over the cards; ``--tp N``
+    (implies ``--mesh``) splits the wide parameters of a stage over model
+    groups of N cards (a DIP net's stay replicated, as in JAX);
     ``--coordinator`` joins a multi-process run first (one process a card),
     whose process 0 writes the log and the checkpoints."""
     from a3gc_tpu_torch._device import resolve_device
     from a3gc_tpu_torch.parallel import multihost
 
-    _require(args.tp <= 1, _TP_WAITS_FOR)
+    if args.tp > 1:
+        args.mesh = True
     if args.coordinator:
         # join the process group before anything touches a device: the
         # mesh then spans every process's card
@@ -1402,7 +1410,10 @@ def build_parser():
                         "--device cpu: one CPU shard); with --device_data "
                         "each card holds its block of the corpus rows")
     t.add_argument("--tp", type=int, default=1,
-                   help="accepted at 1; above 1: " + _TP_WAITS_FOR)
+                   help="tensor-parallel size: devices per model replica; "
+                        "the last axis of the wide parameters is split over "
+                        "the mesh 'model' axis (implies --mesh; DIP nets "
+                        "stay replicated)")
     t.add_argument("--coordinator", type=str, default=None,
                    metavar="HOST:PORT",
                    help="multi-process training: join the process group "

@@ -117,8 +117,9 @@ class JointSet:
 class MeshConfig:
     """Device-mesh layout (:func:`a3gc_tpu_torch.parallel.make_mesh`):
     ``data`` shards the batch or the serving slots over devices, ``model``
-    would shard hidden features (tensor parallelism, not ported). The
-    default, one device, is the single-device semantics."""
+    the last axis of a stage's wide parameters over the devices of a model
+    group (tensor parallelism, in training). The default, one device, is
+    the single-device semantics."""
 
     data: int = 1
     model: int = 1

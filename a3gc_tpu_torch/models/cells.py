@@ -23,6 +23,12 @@ or a precomputed bool keep-mask (:func:`keep_mask`): the training layers
 draw a window's masks before their loop, so that a step recomputed under
 ``torch.utils.checkpoint`` applies the same mask (checkpointing restores
 the global RNG state, not an explicit generator's).
+
+The steps read a parameter through :mod:`a3gc_tpu_torch.parallel.tensor`
+(``TP.matmul`` where it is a product's right operand, ``TP.full``
+elsewhere), so that under tensor parallelism a split parameter's products
+run column-parallel over its blocks; on a plain tensor both are the plain
+operation.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 
 from a3gc_tpu_torch._device import random_rows
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = [
     "GraphConvParams", "AttentionParams", "GCNLSTMCellParams",
@@ -127,8 +134,8 @@ def graph_conv(p: GraphConvParams, x: torch.Tensor, *,
     r"""AAGC projection ``adj · x · kernel + bias`` over [..., N, F], after
     dropout on x when ``rng`` is given."""
     x = _dropout(x, dropout_rate, rng)
-    y = torch.matmul(x, p.kernel)
-    return torch.matmul(p.adj, y) + p.bias
+    y = TP.matmul(x, p.kernel)
+    return torch.matmul(p.adj, y) + TP.full(p.bias)
 
 
 def _attention_gate(ap: AttentionParams, hy: torch.Tensor) -> torch.Tensor:
@@ -137,11 +144,11 @@ def _attention_gate(ap: AttentionParams, hy: torch.Tensor) -> torch.Tensor:
     q = ReLU(Σ_nodes hy·W);  a = σ(tanh(hy·Wh + q·Wq + bs)·u + bu)
 
     hy [D, B, N, H] → [D, B, N, 1]."""
-    q = torch.relu(torch.sum(torch.matmul(hy, ap.w[:, None]), dim=2,
+    q = torch.relu(torch.sum(TP.matmul(hy, ap.w, stacked=True), dim=2,
                              keepdim=True))                       # [D,B,1,H]
-    s = torch.tanh(torch.matmul(hy, ap.wh[:, None])
-                   + torch.matmul(q, ap.wq[:, None])
-                   + ap.bs[:, None, None, :])                     # [D,B,N,H]
+    s = torch.tanh(TP.matmul(hy, ap.wh, stacked=True)
+                   + TP.matmul(q, ap.wq, stacked=True)
+                   + TP.full(ap.bs)[:, None, None, :])            # [D,B,N,H]
     a = torch.matmul(s, ap.u[:, None])[..., 0] + ap.bu[:, None, :]
     return torch.sigmoid(a)[..., None]
 
@@ -155,10 +162,11 @@ def gcn_lstm_gates(p: GCNLSTMCellParams, z: torch.Tensor,
     the post-attention hy, c' the pre-attention cell."""
     h, c = state
     D, B, N = z.shape[0], z.shape[1], z.shape[2]
-    H = p.bias.shape[-1]
+    bias = TP.full(p.bias)
+    H = bias.shape[-1]
     y = z.reshape(D, B, N, 4, H)
     mixed = torch.einsum("dknm,dbmkh->dbnkh", p.adj, y)
-    gates = mixed + p.bias[:, None, None]                          # [D,B,N,4,H]
+    gates = mixed + bias[:, None, None]                            # [D,B,N,4,H]
     i = torch.sigmoid(gates[..., 0, :])
     f = torch.sigmoid(gates[..., 1, :])
     g = torch.tanh(gates[..., 2, :])
@@ -192,7 +200,7 @@ def gcn_lstm_step(p: GCNLSTMCellParams, x: torch.Tensor, state,
     h, c = state
     x = _dropout(x, dropout_rate, x_mask)
     h_in = _dropout(h, recurrent_dropout_rate, h_mask)
-    z = torch.matmul(torch.cat((x, h_in), dim=-1), p.kernel[:, None])
+    z = TP.matmul(torch.cat((x, h_in), dim=-1), p.kernel, stacked=True)
     return gcn_lstm_gates(p, z, (h, c))
 
 
@@ -200,7 +208,7 @@ def ggru_step(p: GGRUCellParams, x: torch.Tensor, state):
     r"""One frame of the G-GRU cell, direction-stacked, the input
     projection inside: zi = x·W_in + b_in, then :func:`ggru_step_hoisted`.
     x [D, B, N, F], state ``(h,)``. Returns ``(h',)``."""
-    zi = torch.matmul(x, p.w_in[:, None]) + p.b_in[:, None, None]
+    zi = TP.matmul(x, p.w_in, stacked=True) + TP.full(p.b_in)[:, None, None]
     return ggru_step_hoisted(p, zi, state)
 
 
@@ -213,9 +221,9 @@ def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,
     Returns the new state ``(h',)``; the layer's output is h'."""
     (h,) = state
     H = h.shape[-1]
-    msg = torch.matmul(h, p.gcn_kernel[:, None])
+    msg = TP.matmul(h, p.gcn_kernel, stacked=True)
     msg = torch.einsum("dnm,dbmh->dbnh", p.adj, msg)
-    zh = torch.matmul(msg, p.w_hid[:, None])
+    zh = TP.matmul(msg, p.w_hid, stacked=True)
     r = torch.sigmoid(zi[..., 0:H] + zh[..., 0:H])
     u = torch.sigmoid(zi[..., H:2 * H] + zh[..., H:2 * H])
     cand = torch.tanh(zi[..., 2 * H:] + r * zh[..., 2 * H:])

@@ -41,6 +41,7 @@ from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["GraphNetConfig", "GraphNetParams", "init_graph_net",
            "graph_net_zero_state", "graph_net_apply", "DenseParams",
@@ -368,11 +369,11 @@ def dip_apply(params: DIPParams, cfg: DIPConfig, x, state=None,
     else:
         x = C._dropout(x, cfg.dropout, rng)
         layer = LS.bi_lstm_reference
-    x = torch.relu(torch.matmul(x, params.linear1.kernel)
-                   + params.linear1.bias)
+    x = torch.relu(TP.matmul(x, params.linear1.kernel)
+                   + TP.full(params.linear1.bias))
     new_states = []
     for layer_params, layer_state in zip(params.lstm, state):
         x, fin = layer(layer_params, x, layer_state, n_valid)
         new_states.append(fin)
-    y = torch.matmul(x, params.linear2.kernel) + params.linear2.bias
+    y = TP.matmul(x, params.linear2.kernel) + TP.full(params.linear2.bias)
     return y, tuple(new_states)

@@ -32,7 +32,9 @@ rows; the port keeps the per-row contract of the JAX XLA path):
   * returns (y, (h, c)) with the final states in the shape of the state.
 
 The kernel has no backward: the op's autograd formula reruns
-:func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
+:func:`scan_reference` on the saved inputs. The plain path reads the
+weights through :mod:`a3gc_tpu_torch.parallel.tensor`, so that TransPose
+training under tensor parallelism runs its products column-parallel. The kernel is fp32 inside;
 the outputs come back in the dtypes of x and of the state.
 """
 
@@ -51,6 +53,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
                                         like, n_valid_tensor, sm_count)
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
            "launch_plan", "lstm_step_hoisted", "max_active", "scan",
@@ -137,7 +140,7 @@ def launch_plan(S: int, H: int, sms: int = 132,
 def directions(params: nn.Module) -> int:
     r"""D of a layer's parameters: 2 when direction-stacked (``w_hh``
     [2, H, 4H]), 1 when not (``w_hh`` [H, 4H])."""
-    return 2 if params.w_hh.dim() == 3 else 1
+    return 2 if TP.full(params.w_hh).dim() == 3 else 1
 
 
 def _hoist(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -145,9 +148,10 @@ def _hoist(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     [D, S, T, 4H]."""
     S, T, F = x.shape
     D = directions(params)
-    w_ih = f32(params.w_ih).reshape(D, F, -1)
-    bias = (f32(params.b_ih) + f32(params.b_hh)).reshape(D, 1, -1)
-    u = torch.matmul(x.reshape(1, S * T, F), w_ih) + bias
+    w_ih = TP.blockwise(params.w_ih, lambda w: f32(w).reshape(D, F, -1))
+    bias = (f32(TP.full(params.b_ih))
+            + f32(TP.full(params.b_hh))).reshape(D, 1, -1)
+    u = TP.matmul(x.reshape(1, S * T, F), w_ih) + bias
     return u.reshape(D, S, T, -1)
 
 
@@ -157,7 +161,7 @@ def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
     gates i, f, g, o. Returns the new state (h', c')."""
     h, c = state
     H = h.shape[-1]
-    z = u_t + torch.matmul(h, p.w_hh)
+    z = u_t + TP.matmul(h, p.w_hh)
     i = torch.sigmoid(z[..., 0:H])
     f = torch.sigmoid(z[..., H:2 * H])
     g = torch.tanh(z[..., 2 * H:3 * H])
@@ -191,7 +195,8 @@ def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     frame_mask = torch.arange(T, device=u.device)[None] < n_valid[:, None]
     if D == 1:
         y, (h, c) = L.uni_rnn(lstm_step_hoisted,
-                              SimpleNamespace(w_hh=w_hh[0]), u[0],
+                              SimpleNamespace(w_hh=TP.blockwise(
+                                  w_hh, lambda w: w[0])), u[0],
                               (h0[0], c0[0]), frame_mask=frame_mask)
         return y, h[None], c[None]
     ut = u.transpose(1, 2)                                    # [2,T,S,4H]
@@ -290,9 +295,10 @@ def scan_inputs(params: nn.Module, x: torch.Tensor, state,
     x = f32(x)
     S, T = x.shape[0], x.shape[1]
     D = directions(params)
-    H = params.w_hh.shape[-2]
+    H = TP.full(params.w_hh).shape[-2]
     h0, c0 = (f32(s).reshape(D, S, H).contiguous() for s in state)
-    w_hh = f32(params.w_hh).reshape(D, H, 4 * H).contiguous()
+    w_hh = TP.blockwise(params.w_hh,
+                        lambda w: f32(w).reshape(D, H, -1).contiguous())
     return (_hoist(params, x), w_hh, h0, c0,
             n_valid_tensor(n_valid, S, T, x.device))
 

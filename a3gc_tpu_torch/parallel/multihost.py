@@ -8,7 +8,11 @@ the mesh machinery spans them:
     files and seed give the same sampler order) and runs its own rows;
   * a step reduces the shards' weighted gradient and loss sums over the
     processes with one all-reduce, so every replica takes the same Adam
-    step and every process sees the same losses (and early-stops alike).
+    step and every process sees the same losses (and early-stops alike);
+  * with tensor parallelism over processes (a model group of M processes,
+    one device each), :func:`model_groups` makes the subgroups: the
+    products all-gather over the group, and the step's all-reduce runs over
+    the processes of one member index (the data axis) only.
 
 The group uses ``nccl`` when the process's device is a card and ``gloo``
 when it is the CPU; a failed initialisation raises. Process r runs on card
@@ -27,7 +31,7 @@ import torch
 
 __all__ = ["initialize_multihost", "is_coordinator", "process_index",
            "process_count", "process_device", "fetch_replicated", "any_flag",
-           "all_reduce_sum", "barrier", "interrupt_checker"]
+           "all_reduce_sum", "barrier", "interrupt_checker", "model_groups"]
 
 
 def initialize_multihost(coordinator: str, num_processes: int,
@@ -96,16 +100,43 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> None:
-    r"""Sum each tensor over the processes, in place, with one all-reduce
-    of their concatenation on this process's device (a no-op in a
-    single-process run). Every process must call with the same shapes."""
-    if process_count() == 1 or not tensors:
+def model_groups(model: int):
+    r"""The ``torch.distributed`` subgroups of model groups that span
+    processes, ``model`` consecutive processes a group: (the group holding
+    this process, the processes of this process's member index: its data
+    axis). Every process creates every subgroup, in the same order, so all
+    must call together (:func:`~a3gc_tpu_torch.parallel.mesh.make_mesh`
+    does, on every process)."""
+    import torch.distributed as dist
+    n, rank = process_count(), process_index()
+    mine = {}
+    for g in range(n // model):
+        ranks = list(range(g * model, (g + 1) * model))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine["model"] = group
+    for j in range(model):
+        ranks = list(range(j, n, model))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine["data"] = group
+    return mine["model"], mine["data"]
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:
+    r"""Sum each tensor over the processes (of ``group``, default all), in
+    place, with one all-reduce of their concatenation on this process's
+    device (a no-op when there is one process). Every process of the group
+    must call with the same shapes."""
+    if not tensors:
         return
     import torch.distributed as dist
+    if process_count() == 1 or (group is not None
+                                and dist.get_world_size(group) == 1):
+        return
     dev = process_device()
     flat = torch.cat([t.reshape(-1).to(dev, torch.float32) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -138,8 +169,9 @@ def fetch_replicated(tree, mesh=None):
     r"""A host numpy copy of a replicated tree (a module as its named
     parameters, a tensor, or a dict / tuple / list of them). The port
     replicates every parameter and optimizer leaf, so this process's copy
-    is the global value; compare the copies of two processes to check that
-    their replicas agree."""
+    is the global value (under tensor parallelism, a runner's
+    ``state.params``, gathered over the model group, is); compare the copies
+    of two processes to check that their replicas agree."""
     del mesh
     if isinstance(tree, torch.nn.Module):
         return {k: v.detach().cpu().numpy()

@@ -28,6 +28,18 @@ r"""Training: the per-batch step, the per-stage epoch driver, early stopping
     batch gives shards unequal weights), the gradients sum over the shards
     and, in a multi-process run, over the processes in one all-reduce, and
     every replica takes the same Adam step.
+  * Tensor parallelism (a mesh with ``model > 1``, a :class:`StageRunner`):
+    the master parameters are the blocks of
+    :func:`~a3gc_tpu_torch.parallel.mesh.shard_params` on the first model
+    group, so Adam keeps per-block moments (exact: Adam and the folded L2
+    decay are elementwise); a step runs each shard's loss on the lead with
+    the products column-parallel over its group
+    (:mod:`a3gc_tpu_torch.parallel.tensor`), draws the lead's masks and
+    noise, and sums the gradients over the ``data`` axis only. Validation
+    gathers the blocks once a pass and runs the kernels on whole weights;
+    ``state.params`` is the gathered module. A :class:`DIPRunner` keeps
+    replicated parameters, as JAX does, and runs data-parallel over the
+    groups' leads.
 
 Stage input wiring:
   stage 1: inputs = imu,                        target = leaf positions
@@ -53,6 +65,7 @@ from a3gc_tpu_torch.config import TrainConfig
 from a3gc_tpu_torch.data import pipeline as DP
 from a3gc_tpu_torch.models.pipeline import (PoseNetConfig, pose_loss,
                                             pose_net_forward)
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = [
     "TrainState", "make_optimizer", "StageRunner", "DIPRunner",
@@ -110,12 +123,21 @@ class GracefulInterrupt:
 
 @dataclasses.dataclass
 class TrainState:
-    r"""A stage's training state: the net (fp32 master parameters), its
-    optimizer and learning-rate schedule, and the updates taken."""
-    params: nn.Module
+    r"""A stage's training state: the fp32 master parameters (the net, or
+    under tensor parallelism the list of its blocks, one module a member of
+    the first model group), the optimizer and learning-rate schedule, the
+    updates taken, and ``gather`` (tensor parallelism: the whole net from
+    the blocks). ``params`` is the net, gathered at each read under tensor
+    parallelism (a collective when the group spans processes)."""
+    master: object
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    gather: Optional[Callable[[], nn.Module]] = None
+
+    @property
+    def params(self) -> nn.Module:
+        return self.master if self.gather is None else self.gather()
 
 
 def seeded_generator(device, *entropy) -> torch.Generator:
@@ -157,18 +179,18 @@ def _adjacency_frozen(params: nn.Module, cfg: Optional[PoseNetConfig]):
     return [params.rnn1.adj, params.rnn2.adj]
 
 
-def make_optimizer(cfg: TrainConfig, steps_per_epoch: int,
-                   params: nn.Module,
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, params,
                    stage_cfg: Optional[PoseNetConfig] = None):
-    r"""torch Adam (L2 weight decay into the gradient) over ``params`` but
-    the frozen adjacency, and a ``LambdaLR`` stepped once per update:
-    ``lr · lr_decay ** ((step + start_epoch·steps) // steps)``, the
-    staircase exponential decay per epoch, fast-forwarded by
-    ``start_epoch`` like the reference's resume path. Returns (optimizer,
-    scheduler)."""
-    frozen = {id(p) for p in _adjacency_frozen(params, stage_cfg)}
+    r"""torch Adam (L2 weight decay into the gradient) over ``params`` (a
+    module, or a list of modules: the blocks of a model group) but the
+    frozen adjacency, and a ``LambdaLR`` stepped once per update: ``lr ·
+    lr_decay ** ((step + start_epoch·steps) // steps)``, the staircase
+    exponential decay per epoch, fast-forwarded by ``start_epoch`` like the
+    reference's resume path. Returns (optimizer, scheduler)."""
+    modules = params if isinstance(params, (list, tuple)) else [params]
+    frozen = {id(p) for m in modules for p in _adjacency_frozen(m, stage_cfg)}
     optimizer = torch.optim.Adam(
-        [p for p in params.parameters() if id(p) not in frozen],
+        [p for m in modules for p in m.parameters() if id(p) not in frozen],
         lr=cfg.lr, weight_decay=cfg.weight_decay)
     steps = max(steps_per_epoch, 1)
     offset = cfg.start_epoch * steps
@@ -178,16 +200,12 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int,
 
 
 def _cast_module(module: nn.Module, cast) -> nn.Module:
-    r"""A structural copy of ``module`` whose parameters are ``cast(p)``:
-    tensors computed from the originals, so gradients reach them. A copy,
-    not a temporary substitution, because a step rematerialized in the
-    backward pass reads the parameters again then."""
-    clone = copy.copy(module)
-    clone._parameters = {k: None if v is None else cast(v)
-                         for k, v in module._parameters.items()}
-    clone._modules = {k: None if m is None else _cast_module(m, cast)
-                      for k, m in module._modules.items()}
-    return clone
+    r"""A structural copy of ``module`` whose parameters are ``cast(p)``
+    (each block of a tensor-parallel view's split parameter): tensors
+    computed from the originals, so gradients reach them. A copy, not a
+    temporary substitution, because a step rematerialized in the backward
+    pass reads the parameters again then."""
+    return TP.map_parameters(module, lambda _, v: TP.blockwise(v, cast))
 
 
 def _make_caster(train_cfg: TrainConfig):
@@ -246,12 +264,14 @@ class _Runner:
     and :class:`DIPRunner`; a subclass gives ``_batch(raw, rng, train) ->
     (inputs, target)``. With a ``mesh`` the runner's device is the mesh's
     first; it holds the master parameters and the optimizer, and every
-    other device of the mesh a copy refreshed after each update."""
+    other device of the mesh a copy refreshed after each update. With
+    ``shard`` and a mesh whose ``model`` axis is above 1, the parameters
+    are split over each model group (tensor parallelism)."""
 
     def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
                  train_cfg: TrainConfig, steps_per_epoch: int,
                  stats, device, freeze_cfg: Optional[PoseNetConfig],
-                 mesh=None):
+                 mesh=None, shard: bool = False):
         if train_cfg.accum_steps < 1 or \
                 train_cfg.batch_size % train_cfg.accum_steps:
             raise ValueError(f"accum_steps={train_cfg.accum_steps} must "
@@ -273,13 +293,21 @@ class _Runner:
                        for k, v in stats.items()})
         self._stats_moved = {}
         params = copy.deepcopy(params).to(self.device)     # private copy
+        self._split = None      # the names of the split parameters (TP)
+        master = [params]
+        if shard and mesh is not None and mesh.shape["model"] > 1:
+            from a3gc_tpu_torch.parallel.mesh import shard_params, split_names
+            self._split = split_names(params, mesh)
+            master = shard_params(params, mesh)
         optimizer, scheduler = make_optimizer(train_cfg, steps_per_epoch,
-                                              params, freeze_cfg)
-        self.state = TrainState(params, optimizer, scheduler)
-        self._replicas = None
-        if mesh is not None:
-            from a3gc_tpu_torch.parallel.mesh import replicate
-            self._replicas = replicate(params, mesh)
+                                              master, freeze_cfg)
+        if self._split is None:
+            self.state = TrainState(params, optimizer, scheduler)
+        else:
+            self.state = TrainState(master, optimizer, scheduler,
+                                    gather=self._gather)
+        self._members, self._copies = (None, []) if mesh is None \
+            else self._place(master)
         self._cast = _make_caster(train_cfg)
         self._eval_b = _mesh_eval_chunk(
             train_cfg.eval_batch_size or min(train_cfg.batch_size, 128),
@@ -421,12 +449,58 @@ class _Runner:
                             -1)))
         return out
 
+    def _place(self, master: list):
+        r"""The members of each local data shard's model group on their
+        devices (one module a member; without tensor parallelism one
+        replica, on the shard's device), and the copies other than the
+        master's as (member index, module): one a member index and device,
+        shared by the shards on that device."""
+        groups = (self.mesh.model_devices if self._split is not None
+                  else [(dev,) for dev in self.mesh.devices])
+        home = {(k, dev): m for k, (dev, m) in enumerate(zip(groups[0],
+                                                             master))}
+        members, copies = [], []
+        for group in groups:
+            row = []
+            for k, dev in enumerate(group):
+                if (k, dev) not in home:
+                    home[(k, dev)] = copy.deepcopy(master[k]).to(dev)
+                    copies.append((k, home[(k, dev)]))
+                row.append(home[(k, dev)])
+            members.append(row)
+        return members, copies
+
+    def _train_params(self, i: int):
+        r"""What local shard ``i``'s training loss reads: its replica, or
+        under tensor parallelism the column view of its group's blocks
+        (made anew for each backward pass: the view's gathers are part of
+        the graph)."""
+        members = self._members[i]
+        if self._split is None:
+            return members[0]
+        return TP.column_view(members, self._split, self.mesh.model_group)
+
+    def _gather(self) -> nn.Module:
+        r"""The whole net from the master blocks, on the runner's device."""
+        return TP.gather_module(self.state.master, self._split,
+                                self.mesh.model_group)
+
+    def _eval_params(self) -> list:
+        r"""One whole net a local shard, on its device, for validation: the
+        replicas, or under tensor parallelism the blocks gathered once and
+        copied to each shard's device (the kernels take whole weights)."""
+        if self._split is None:
+            return [m[0] for m in self._members]
+        from a3gc_tpu_torch.parallel.mesh import replicate
+        return replicate(self._gather(), self.mesh)
+
     def _shard_terms(self, shards, weight: Optional[np.ndarray],
-                     gens=None) -> list:
+                     params: list, gens=None) -> list:
         r"""Each local shard's loss times its share of the global batch's
         real samples (``weight`` [B] host, or None: rows count equally):
         their sum over every shard is the loss of the whole batch.
-        ``gens``: one generator a shard (training), or None."""
+        ``params``: what each shard reads; ``gens``: one generator a shard
+        (training), or None."""
         D = self.mesh.shape["data"]
         b = len(next(iter(shards[0].values())))
         B = b * D
@@ -440,8 +514,7 @@ class _Runner:
                 part = np.float32(weight[g * b:(g + 1) * b].sum())
                 share = part / total if total else np.float32(0.0)
             rng = None if gens is None else RowDraws(gens[i], B, g * b, b)
-            terms.append(self.loss(self._replicas[i], raw, rng)
-                         * float(share))
+            terms.append(self.loss(params[i], raw, rng) * float(share))
         return terms
 
     def _local_sum(self, terms) -> torch.Tensor:
@@ -451,36 +524,28 @@ class _Runner:
             out = out + t.detach().to(self.device)
         return out
 
-    def _other_replicas(self) -> list:
-        r"""The parameter copies on the mesh's devices other than the
-        runner's, one a device."""
-        seen, out = {self.device}, []
-        for dev, rep in zip(self.mesh.devices, self._replicas):
-            if dev not in seen:
-                seen.add(dev)
-                out.append(rep)
-        return out
-
     def _mesh_update(self, micro, rng: torch.Generator) -> torch.Tensor:
         r"""One optimizer update over microbatches split into shards
         (:meth:`_micro`, :meth:`_micro_corpus`): the shards' weighted
-        losses back-propagate into their replicas, the gradients sum onto
-        the master parameters and over the processes (one all-reduce, with
-        the loss), then the Adam step and the refresh of the replicas.
-        Returns the global batch's loss."""
+        losses back-propagate into their replicas (or blocks), the
+        gradients sum onto the master parameters and over the processes of
+        the data axis (one all-reduce, with the loss), then the Adam step
+        and the refresh of the copies. Returns the global batch's loss."""
         from a3gc_tpu_torch.parallel.multihost import all_reduce_sum
         st = self.state
         gens = [_generator_like(rng, dev) for dev in self.mesh.devices]
-        others = self._other_replicas()
-        for p in [st.params] + others:
-            p.zero_grad(set_to_none=True)
+        master = self._members[0]
+        for m in master + [c for _, c in self._copies]:
+            m.zero_grad(set_to_none=True)
         k = len(micro)
         wm = [None if w is None else np.float32(w.sum()) for _, w in micro]
         total = (np.float32(k) if wm[0] is None
                  else np.float32(sum(wm, np.float32(0.0))))
         loss = None
         for (shards, w), w_mb in zip(micro, wm):
-            terms = self._shard_terms(shards, w, gens)
+            params = [self._train_params(i)
+                      for i in range(len(self.mesh.devices))]
+            terms = self._shard_terms(shards, w, params, gens)
             if k > 1:
                 scale = float((np.float32(1.0) if w_mb is None else w_mb)
                               / total)
@@ -493,20 +558,20 @@ class _Runner:
             loss = mb if loss is None else loss + mb
         if k > 1:
             loss = loss / float(total)
-        master = list(st.params.parameters())
-        for rep in others:
-            for p, q in zip(master, rep.parameters()):
+        for j, rep in self._copies:
+            for p, q in zip(master[j].parameters(), rep.parameters()):
                 if q.grad is not None:
-                    g = q.grad.to(self.device)
+                    g = q.grad.to(p.device)
                     p.grad = g if p.grad is None else p.grad.add_(g)
-        all_reduce_sum([p.grad for p in master if p.grad is not None]
-                       + [loss])
+        all_reduce_sum([p.grad for m in master for p in m.parameters()
+                        if p.grad is not None] + [loss],
+                       group=self.mesh.data_group)
         st.optimizer.step()
         st.scheduler.step()
         st.step += 1
         with torch.no_grad():
-            for rep in others:
-                for q, p in zip(rep.parameters(), master):
+            for j, rep in self._copies:
+                for q, p in zip(rep.parameters(), master[j].parameters()):
                     q.copy_(p)
         return loss
 
@@ -614,19 +679,23 @@ class _Runner:
     def _mesh_eval_epoch(self, sampler: DP.Sampler) -> float:
         from a3gc_tpu_torch.parallel.multihost import all_reduce_sum
         losses, weights = [], []
+        params = self._eval_params()
         for shards, wc, n in self._mesh_eval_chunks(sampler):
-            losses.append(self._local_sum(self._shard_terms(shards, wc)))
+            losses.append(self._local_sum(self._shard_terms(shards, wc,
+                                                            params)))
             weights.append(n)
         if not losses:
             return 0.0
         stacked = torch.stack(losses)
-        all_reduce_sum([stacked])
+        all_reduce_sum([stacked], group=self.mesh.data_group)
         w = torch.tensor(weights, dtype=torch.float32)
         return float(stacked.cpu() @ w / w.sum())
 
 
 class StageRunner(_Runner):
-    r"""Trains one cascade stage (graph or flat TransPose)."""
+    r"""Trains one cascade stage (graph or flat TransPose); on a mesh with
+    ``model > 1``, tensor-parallel (the parameters ``param_sharding`` splits
+    held as blocks over each model group)."""
 
     def __init__(self, stage: int, stage_cfg: PoseNetConfig,
                  params: nn.Module, train_cfg: TrainConfig,
@@ -634,7 +703,7 @@ class StageRunner(_Runner):
                  device="cuda", mesh=None):
         super().__init__(stage_cfg, params, train_cfg, steps_per_epoch,
                          stats if train_cfg.normalize else None, device,
-                         stage_cfg, mesh)
+                         stage_cfg, mesh, shard=True)
         self.stage = stage
         self.graph = graph
         self._assemble = DP.graph_batch if graph else DP.flat_batch
@@ -672,6 +741,7 @@ class StageRunner(_Runner):
             groups.setdefault(bucket_length(T), []).append((seq, T))
         fb = batch or self._eval_b
         fb = max(d, fb // d * d)            # mesh-divisible pass rows
+        eval_params = None if self.mesh is None else self._eval_params()
         total, count = 0.0, 0
         for _, group in sorted(groups.items()):
             for g0 in range(0, len(group), fb):
@@ -700,7 +770,7 @@ class StageRunner(_Runner):
                             params).to(dev)
                         for rows, sd, params in zip(
                             batch_sharding(self.mesh, len(n_valid)),
-                            self.mesh.devices, self._replicas)])
+                            self.mesh.devices, eval_params)])
                 total += float(per_seq[:len(chunk)].sum())
                 count += len(chunk)
         return total / max(count, 1)
@@ -726,7 +796,9 @@ class StageRunner(_Runner):
 
 class DIPRunner(_Runner):
     r"""Single-stage DIP trainer: input the normalized 60-channel no-root
-    IMU vector, target the reduced pose."""
+    IMU vector, target the reduced pose. On a mesh with ``model > 1`` its
+    parameters stay replicated (JAX's DIP runner does not shard them):
+    data-parallel over the model groups' leads."""
 
     def __init__(self, stage_cfg: PoseNetConfig, params: nn.Module,
                  train_cfg: TrainConfig, steps_per_epoch: int, stats,

@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
                     against unsharded twins, ``PoseServer(mesh=)`` with two
                     clients and ``/v1/recycle`` refused; ms per steady
                     tick sharded and unsharded, in turns; three ``cli
-                    train`` children at once (16 x 300 frames, B = 8): no
+                    train`` children at once (8 x 300 frames, B = 8): no
                     mesh, ``--mesh``, ``--coordinator`` (NCCL, one
                     process), their losses and checkpoints bit-equal;
      kernel_eval  — each kernel against its plain version at S = 1,
@@ -171,10 +171,10 @@ Phases, each printing one JSON line:
                     --epochs 1 --hu1 256 --hu2 64 --hu3 128 --norm`` on a
                     synthetic packed set (16 × 300 frames train, 16
                     valid) in a child process that counts the kernel
-                    launches (validation, 2 a stage), then ``--model dip
-                    --hu1 512`` (``train_dip``): three stages (one) with
-                    finite losses in ``train_log.jsonl``, their checkpoints
-                    discoverable;
+                    launches (validation, 2 a stage), and at once ``--model
+                    dip --hu1 512`` (``train_dip``): three stages (one)
+                    with finite losses in ``train_log.jsonl``, their
+                    checkpoints discoverable;
      train_times  — training frames/s (B·T·steps over the seconds of the
                     steps, fenced by ``torch.cuda.synchronize()``) of
                     stages 1-3 of A3GC and stage 1 of G-GRU and TransPose,
@@ -183,6 +183,19 @@ Phases, each printing one JSON line:
                     one validation chunk's time through the kernels; one
                     step of A3GC stage 1 at
                     B = 16 under torch.profiler (device busy, kernels);
+     tp           — tensor parallelism (``a3gc_tpu_torch.parallel``
+                    ``param_sharding`` / ``shard_params``): TP
+                    ``StageRunner``s on a model group of two (the card
+                    listed twice, the members in turn) and on a (2, 2)
+                    mesh against unsharded twins, A3GC stage 1 at H = 256,
+                    B = 8, T = 300, default dropout and noise: losses and
+                    parameters within 1e-4, gradients within 1e-5, ms per
+                    step in turns; G-GRU and TransPose stage 1 a step
+                    each; DIP on the model = 2 mesh bit-equal; validation
+                    (16 x 300) through the kernels on the gathered weights
+                    against the unsharded and plain paths; a 60-frame step
+                    of each under torch.profiler; ``cli train --tp 2``
+                    exits with JAX's message on one card;
   6. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving, evaluation and training paths, max
                     |d| of the kernel phases and of the gradient checks,
@@ -232,8 +245,9 @@ LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # three evaluation phases, the two of the deployment artifacts (export:
 # counted by the fresh process that steps them), the two of data
 # preparation (cli_data: counted by the cli evaluate child processes), the
-# two of training (counted by the cli train child process) and the mesh
-N_PATHS = 24
+# two of training (counted by the cli train child process), the mesh and
+# tensor parallelism
+N_PATHS = 25
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -255,9 +269,15 @@ TRAIN_TIMED_B = (16,)       # one batch size: a depth cut for the time
 TRAIN_BF16_NETS = (("a3gc", 1), ("dip", 1))
 TRAIN_TIMED_STEPS = 1
 GRAD_TOL = 1e-5             # gradient max |d| over max |g| of each leaf
+# the tp phase: tensor-parallel runners on a model group of two (the card
+# listed twice) against unsharded ones, TPAR_SEQS x TRAIN_T frames (two
+# validation chunks of TPAR_B), steps at B = TPAR_B; one step profiled at
+# TPAR_PROFILE_T frames
+TPAR_SEQS, TPAR_B, TPAR_PROFILE_T = 16, 8, 60
 # the mesh phase's three cli train children: one epoch of MESH_TRAIN_SEQS
 # (valid: MESH_VALID_SEQS, one validation chunk a stage) at MESH_TRAIN_B
-MESH_TRAIN_SEQS, MESH_VALID_SEQS, MESH_TRAIN_B = 16, 8, 8
+# (8: one step a stage; 16 until the tp phase came, a cut for the time)
+MESH_TRAIN_SEQS, MESH_VALID_SEQS, MESH_TRAIN_B = 8, 8, 8
 
 # data preparation: raw corpora in their on-disk layouts at the sizes of
 # recordings, processed on the card with a synthetic SMPL body of SMPL's
@@ -3500,9 +3520,10 @@ class Smoke:
     def phase_train(self):
         """``cli train`` of the A3GC cascade at full width and of DIP, each
         in a child process that reports the kernel launches of its
-        validation passes."""
+        validation passes; the two children run at once."""
         import shutil
         import tempfile
+        from concurrent.futures import ThreadPoolExecutor
         import numpy as np
         from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
         from a3gc_tpu_torch.utils import discover_latest
@@ -3523,21 +3544,37 @@ class Smoke:
                      + ["--norm"], 3, "gcn_lstm", 2),
                     ("train_dip", ["--model", "dip", f"--hu1={DIP[0]}"], 1,
                      "lstm", 2))
+            # both children at once (a cut for the script's time: they
+            # used to run one after the other)
+            procs = []
             for path, argv, n_stages, kernel, per_stage in runs:
                 argv = (["train", "-b", str(TRAIN_B), "--epochs", "1",
                          "--name", path, "--save_root", tmp, "--train_data",
                          train, "--valid_data", valid] + argv)
-                t0 = time.perf_counter()
-                proc = subprocess.run(
+                procs.append((argv, time.perf_counter(), subprocess.Popen(
                     [sys.executable, "-c", TRAIN_CHILD] + argv, cwd=tmp,
-                    env=env, capture_output=True, text=True, timeout=900)
-                wall = time.perf_counter() - t0
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+
+            def collect(item):
+                _, t0, proc = item
+                try:
+                    out, err = proc.communicate(timeout=900)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    out, err = proc.communicate()
+                return out, err, time.perf_counter() - t0
+
+            with ThreadPoolExecutor(len(procs)) as pool:
+                done = list(pool.map(collect, procs))
+            for (path, _, n_stages, kernel, per_stage), (argv, _, proc), \
+                    (out, err, wall) in zip(runs, procs, done):
                 self.check(proc.returncode == 0,
                            f"{path}: cli train exited {proc.returncode}:\n"
-                           + proc.stderr[-3000:])
+                           + err[-3000:])
                 if proc.returncode != 0:
                     continue
-                child = json.loads(proc.stdout.strip().splitlines()[-1])
+                child = json.loads(out.strip().splitlines()[-1])
                 counts = child["launches"]
                 self.launches[path] = counts
                 self.check(not child["banned"],
@@ -3687,6 +3724,257 @@ class Smoke:
                     del runner, raw
         emit({"phase": "train_times", "steps": TRAIN_TIMED_STEPS,
               "rows": rows, "card": nvidia_smi()})
+
+    def phase_tp(self):
+        """Tensor parallelism on the card: a model group of two
+        (``make_mesh(MeshConfig(data=1, model=2), devices=[dev, dev])``, its
+        members in turn) and a (2, 2) mesh over the card listed four times.
+        A3GC stage 1 at H = 256, B = TPAR_B, T = TRAIN_T, the default
+        dropout and noise: two steps of a TP ``StageRunner`` against an
+        unsharded one on the same parameters and per-step generators, in
+        turns (TP, unsharded, unsharded, TP), the loss and every parameter
+        within STAGE_TOL (relative; a leaf's norm, its largest element
+        reported), the first step's gradients within GRAD_TOL (largest
+        element); one step on (2, 2) likewise, first and untimed; ``eval_epoch`` over
+        TPAR_SEQS sequences through ``gcn_lstm.cu`` on the gathered weights
+        against the unsharded runner's kernel path (after the (1, 2)
+        runner's two steps) and the plain path on the same weights (both
+        runners), timed in turns. G-GRU and TransPose stage 1
+        (``ggru.cu``, ``lstm.cu``): a step and a validation each, held the
+        same way. DIP on the ``model = 2`` mesh (replicated parameters,
+        data = 1): a step bit-equal to the unsharded runner, and its
+        validation. The device kernels of a TPAR_PROFILE_T-frame A3GC step
+        from torch.profiler, TP and unsharded. ``cli train --tp 2`` on one
+        card exits with JAX's message (on several: ``--mesh --tp 2``
+        runs an epoch)."""
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.config import MeshConfig, TrainConfig
+        from a3gc_tpu_torch.data import (load_adjacency_template,
+                                         load_stats)
+        from a3gc_tpu_torch.data import pipeline as DP
+        from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+        from a3gc_tpu_torch.models.pipeline import init_pose_net
+        from a3gc_tpu_torch.parallel import make_mesh
+        from a3gc_tpu_torch.train import (DIPRunner, StageRunner,
+                                          seeded_generator)
+        torch = self.torch
+        m12 = make_mesh(MeshConfig(data=1, model=2), devices=[self.dev] * 2)
+        m22 = make_mesh(MeshConfig(data=2, model=2), devices=[self.dev] * 4)
+        tc = TrainConfig(batch_size=TPAR_B, normalize=True)
+        host = synthetic_packed_dataset(TPAR_SEQS, TRAIN_T, seed=4)
+        data = DP.put_device(host, self.dev)
+        batches = [DP.gather(data, torch.arange(i * TPAR_B, (i + 1) * TPAR_B,
+                                                device=self.dev))
+                   for i in range(2)]
+
+        def runner(kind, mesh=None, backend="auto", params=None):
+            gen = torch.Generator().manual_seed(1)
+            if kind == "dip":
+                cfg = self.dip_cfg(backend)
+                if params is None:
+                    params = init_pose_net(gen, cfg)
+                return DIPRunner(cfg, params, tc, 1, load_stats(),
+                                 device=self.dev, mesh=mesh)
+            cfg = self.cascade(kind, backend).stages[0]
+            if params is None:
+                params = init_pose_net(gen, cfg, load_adjacency_template())
+            return StageRunner(1, cfg, params, tc, 1, stats=load_stats(),
+                               graph=kind != "tp", device=self.dev,
+                               mesh=mesh)
+
+        def step(r, i, times=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(r.train_step(batches[i],
+                                      seeded_generator(self.dev, 4, i)))
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+
+        def param_err(tp, single, norm=True):
+            # norm: each leaf's |a - b| / |b| (Frobenius); else its largest
+            # element's. One Adam step moves an entry whose gradient is
+            # near eps by lr·dg/eps, so a 1e-7 gradient difference can move
+            # single entries by 1e-4 of the leaf's largest while the leaf
+            # as a whole agrees to 1e-7.
+            want = dict(single.state.params.named_parameters())
+            return max((float(torch.linalg.vector_norm(p - want[n]))
+                        / float(torch.linalg.vector_norm(want[n]))) if norm
+                       else rel(p.detach(), want[n].detach())
+                       for n, p in tp.state.params.named_parameters())
+
+        def grad_err(tp, single):
+            named = [dict(m.named_parameters()) for m in tp.state.master]
+            err = 0.0
+            for n, p in single.state.params.named_parameters():
+                g = (torch.cat([m[n].grad for m in named], -1)
+                     if n in tp._split else named[0][n].grad)
+                err = max(err, rel(g, p.grad))
+            return err
+
+        report, evals, times = {}, {}, {"tp": [], "unsharded": []}
+        self.zero_counts()                            # the main path starts
+        # A3GC stage 1: steps in turns, then (2, 2), then validation
+        tp, single, tp22 = (runner("a3gc", m) for m in (m12, None, m22))
+        loss22 = step(tp22, 0)                # untimed: the first TP step
+        losses = {"tp": [step(tp, 0, times["tp"])],
+                  "unsharded": [step(single, 0, times["unsharded"])]}
+        grad0 = grad_err(tp, single)
+        err22 = (abs(loss22 - losses["unsharded"][0])
+                 / abs(losses["unsharded"][0]), param_err(tp22, single),
+                 param_err(tp22, single, norm=False))
+        losses["unsharded"].append(step(single, 1, times["unsharded"]))
+        losses["tp"].append(step(tp, 1, times["tp"]))
+        valid = DP.Sampler(host, TPAR_B, shuffle=False)
+        evals["a3gc"] = tp.eval_epoch(valid)
+        evals["a3gc_2x2"] = tp22.eval_epoch(valid)
+        family = {}
+        for kind in ("ggru", "tp"):
+            t, u = runner(kind, m12), runner(kind)
+            lt, lu = step(t, 0), step(u, 0)
+            family[kind] = (t, u, lt, lu, grad_err(t, u))
+            evals[kind] = t.eval_epoch(valid)
+        dip_tp, dip = runner("dip", m12), runner("dip")
+        dip_losses = (step(dip_tp, 0), step(dip, 0))
+        evals["dip"] = dip_tp.eval_epoch(valid)
+        counts = self.counts()                        # the main path ended
+
+        # the comparisons: the unsharded runners' launches do not count
+        want = {"a3gc": single.eval_epoch(valid)}
+        plain = runner("a3gc", backend="eager", params=tp.state.params)
+        want_plain = {"a3gc": plain.eval_epoch(valid), "a3gc_2x2": runner(
+            "a3gc", backend="eager",
+            params=tp22.state.params).eval_epoch(valid)}
+        eval_ms = {"tp": [], "unsharded": []}
+        for name, r in (("tp", tp), ("unsharded", single),
+                        ("unsharded", single), ("tp", tp)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.eval_epoch(valid)
+            torch.cuda.synchronize()
+            eval_ms[name].append((time.perf_counter() - t0) * 1e3)
+        for kind, (t, u, lt, lu, g) in family.items():
+            want[kind] = u.eval_epoch(valid)
+            want_plain[kind] = runner(kind, backend="eager",
+                                      params=t.state.params).eval_epoch(valid)
+            rep = {"loss_rel_err": abs(lt - lu) / abs(lu),
+                   "param_rel_err": param_err(t, u),
+                   "param_max_element_rel_err": param_err(t, u, norm=False),
+                   "grad_rel_err": g, "split": len(t._split)}
+            report[kind] = rep
+            self.check(rep["loss_rel_err"] <= STAGE_TOL
+                       and rep["param_rel_err"] <= STAGE_TOL
+                       and g <= GRAD_TOL,
+                       f"tp {kind}: {rep}")
+        want["dip"] = dip.eval_epoch(valid)
+        for k, n in counts.items():                   # the twins' launches
+            self.wrappers[k].launches = n             # do not count
+
+        prof = {}
+        for name, r in (("tp", tp), ("unsharded", single)):
+            raw = {k: v[:, :TPAR_PROFILE_T] for k, v in batches[0].items()}
+            try:
+                prof[name] = self.step_profile(r, raw)
+            except Exception as e:                    # a measurement aid
+                prof[name] = f"not measured: the profiler raised {e!r}"
+        # the command line: --tp 2 on this machine's cards
+        n_cards = torch.cuda.device_count()
+        argv = ["train", "--tp", "2", "-b", str(TPAR_B), "--train_data",
+                "missing.npz", "--valid_data", "missing.npz"]
+        cli_out = None
+        if n_cards % 2:
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                cli_out = str(e)
+            self.check(cli_out is not None and
+                       f"--tp 2 must divide {n_cards} devices" in cli_out,
+                       f"tp: cli train --tp 2 on {n_cards} card(s): "
+                       f"{cli_out}")
+        else:
+            import shutil
+            import tempfile
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+            try:
+                paths = []
+                for name, n in (("train", 2 * TPAR_B), ("valid", TPAR_B)):
+                    paths.append(os.path.join(tmp, name + ".npz"))
+                    np.savez(paths[-1], **synthetic_packed_dataset(
+                        n, TRAIN_T, seed=5))
+                cli.main(["train", "--mesh", "--tp", "2", "-b",
+                          str(2 * TPAR_B), "--epochs", "1", "--norm",
+                          "--train_data", paths[0], "--valid_data", paths[1],
+                          "--save_root", tmp, "--name", "tp"])
+                with open(os.path.join(tmp, "tp", "train_log.jsonl")) as f:
+                    cli_out = [json.loads(line) for line in f]
+                self.check(len(cli_out) == 3 and all(
+                    np.isfinite(e["valid_loss"]) for e in cli_out),
+                    f"tp: cli train --mesh --tp 2: {cli_out}")
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            for k, n in counts.items():
+                self.wrappers[k].launches = n
+        self.launches["tp"] = counts
+
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            losses["tp"], losses["unsharded"]))
+        a3gc_err = param_err(tp, single)
+        self.check(loss_err <= STAGE_TOL and a3gc_err <= STAGE_TOL
+                   and grad0 <= GRAD_TOL,
+                   f"tp a3gc: loss {loss_err:.3e}, params {a3gc_err:.3e}, "
+                   f"gradients {grad0:.3e}")
+        self.check(max(err22[:2]) <= STAGE_TOL,
+                   f"tp a3gc (2, 2): loss / params {err22}")
+        dip_equal = dip_losses[0] == dip_losses[1] and all(
+            torch.equal(a, b) for a, b in zip(dip_tp.state.params.parameters(),
+                                              dip.state.params.parameters()))
+        self.check(dip_tp._split is None and dip_equal,
+                   "tp dip: the model = 2 step is not bit-equal to the "
+                   "unsharded one")
+        eval_err = {k: abs(v - want[k]) / abs(want[k]) for k, v in
+                    evals.items() if k in want}
+        plain_err = {k: abs(evals[k] - v) / abs(v)
+                     for k, v in want_plain.items()}
+        self.check(all(np.isfinite(v) for v in evals.values())
+                   and max(eval_err.values()) <= STAGE_TOL
+                   and max(plain_err.values()) <= STAGE_TOL,
+                   f"tp validation: vs unsharded {eval_err}, vs plain "
+                   f"{plain_err}")
+        # a two-layer net's validation pass: 2 launches a chunk of TPAR_B
+        # (on (2, 2) a chunk splits over two shards: twice that)
+        per_pass = 2 * (TPAR_SEQS // TPAR_B)
+        want_counts = {"gcn_lstm": 3 * per_pass, "ggru": per_pass,
+                       "lstm": 2 * per_pass}
+        self.check(counts == want_counts,
+                   f"tp launches {counts}, want {want_counts}")
+        emit({"phase": "tp", "mesh": repr(m12), "mesh_2x2": repr(m22),
+              "batch": TPAR_B, "frames": TRAIN_T, "sequences": TPAR_SEQS,
+              "a3gc": {"hidden": STAGES[0][0], "split": len(tp._split),
+                       "losses": losses, "loss_rel_err": loss_err,
+                       "param_rel_err": a3gc_err,
+                       "param_max_element_rel_err": param_err(
+                           tp, single, norm=False),
+                       "grad_rel_err": grad0,
+                       "mesh_2x2_loss_param_rel_err": err22,
+                       "ms_per_step": times,
+                       "ms_per_step_ratio": float(np.mean(times["tp"])
+                                                  / np.mean(times[
+                                                      "unsharded"])),
+                       "eval_ms": eval_ms,
+                       "eval_ms_ratio": float(np.mean(eval_ms["tp"])
+                                              / np.mean(eval_ms[
+                                                  "unsharded"])),
+                       "profile_frames": TPAR_PROFILE_T, "profile": prof},
+              "families": report, "dip_bit_equal": dip_equal,
+              "valid_loss": evals, "valid_rel_err_vs_unsharded": eval_err,
+              "valid_rel_err_vs_plain": plain_err, "cli": cli_out,
+              "launches": counts, "tol": STAGE_TOL, "card": nvidia_smi()})
 
     def cleanup(self):
         import shutil
@@ -3860,7 +4148,8 @@ class Smoke:
                          "(_dirfused_kernel)",
                          ("serving", "buffered", "http", "checkpoints",
                           "evaluate", "export", "export_bundle",
-                          "preprocess", "cli_data", "train", "mesh"),
+                          "preprocess", "cli_data", "train", "mesh",
+                          "tp"),
                          gcn_layer_work,
                          "the six layer calls of one A3GC serving window "
                          "(3 stages x rnn1/rnn2, S=8, T=60), bi_gcn_lstm "
@@ -3869,7 +4158,7 @@ class Smoke:
                          "and joint attention into an LSTM recurrence"),
             "ggru": ("a3gc_tpu/ops/pallas_gcn_lstm.py:412 (_ggru_kernel)",
                      ("serving_ggru", "checkpoints", "evaluate_families",
-                      "export", "export_bundle"),
+                      "export", "export_bundle", "tp"),
                      ggru_layer_work,
                      "the six layer calls of one G-GRU serving window "
                      "(3 stages x rnn1/rnn2, S=8, T=60), bi_ggru including "
@@ -3880,7 +4169,7 @@ class Smoke:
                      ("serving_tp", "serving_dip", "buffered_dip",
                       "http_dip", "serving_dip_uni", "buffered_dip_uni",
                       "checkpoints", "evaluate_families", "evaluate_dip",
-                      "export", "train_dip"),
+                      "export", "train_dip", "tp"),
                      lstm_layer_work,
                      "the six layer calls of one TransPose serving window "
                      "plus the two of one DIP serving window plus the two "
@@ -3959,7 +4248,7 @@ def main():
               smoke.phase_mesh, smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
               smoke.phase_preprocess, smoke.phase_cli_data,
               smoke.phase_kernel_grad, smoke.phase_train,
-              smoke.phase_train_times, smoke.phase_times)
+              smoke.phase_train_times, smoke.phase_tp, smoke.phase_times)
     try:
         seconds = {}
         for phase in phases:

@@ -1122,3 +1122,49 @@ def test_torch_port_mesh_session_on_card(shards):
         assert (a is None) == (b is None)
         if a is not None:
             assert np.abs(a - b).max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["a3gc", "ggru"])
+def test_torch_port_tp_step_on_card(cell):
+    """A tensor-parallel ``StageRunner`` on ``[cuda:0, cuda:0]`` (a model
+    group of two, its members in turn) at hidden 64: one step with the
+    default dropout and noise within 2e-6 of the unsharded runner, its
+    parameters within 1e-5; validation through the kernel on the gathered
+    weights within 1e-5, with 2 launches a chunk."""
+    _need_card()
+    from a3gc_tpu_torch.config import MeshConfig, TrainConfig
+    from a3gc_tpu_torch.data import load_adjacency_template, load_stats
+    from a3gc_tpu_torch.data import pipeline as DP
+    from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import PoseNetConfig, init_pose_net
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.parallel import make_mesh
+    from a3gc_tpu_torch.train import StageRunner, seeded_generator
+    cfg = PoseNetConfig(net=N.GraphNetConfig(cell=cell, units_in=12,
+                                             units_out=3, units_hidden=64),
+                        rotsize=3)
+    params = init_pose_net(torch.Generator().manual_seed(0), cfg,
+                           load_adjacency_template())
+    tc = TrainConfig(batch_size=4, eval_batch_size=4, normalize=True)
+    mesh = make_mesh(MeshConfig(data=1, model=2), devices=["cuda:0"] * 2)
+    tp, single = (StageRunner(1, cfg, params, tc, 1, stats=load_stats(),
+                              device="cuda", mesh=m) for m in (mesh, None))
+    data = synthetic_packed_dataset(8, 30, seed=1)
+    raw = {k: v[:4] for k, v in data.items()}
+    loss = tp.train_step(raw, seeded_generator("cuda", 0))
+    want = single.train_step({k: torch.as_tensor(v, device="cuda")
+                              for k, v in raw.items()},
+                             seeded_generator("cuda", 0))
+    assert abs(float(loss) - float(want)) <= 2e-6 * abs(float(want))
+    for (name, a), b in zip(tp.state.params.named_parameters(),
+                            single.state.params.parameters()):
+        assert float((a - b).abs().max()) <= 1e-5, name
+    wrapper = GG.bi_ggru if cell == "ggru" else G.bi_gcn_lstm
+    wrapper.launches = 0
+    got = tp.eval_epoch(DP.Sampler(data, 4, shuffle=False))
+    assert wrapper.launches == 4
+    ref = single.eval_epoch(DP.Sampler(data, 4, shuffle=False))
+    assert abs(got - ref) <= 1e-5 * abs(ref)

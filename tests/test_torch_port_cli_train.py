@@ -4,8 +4,8 @@ three-stage ``train_log.jsonl`` and checkpoint directories that ``cli
 evaluate --path`` reads; ``--model dip``, ``--resume``, the device-resident
 corpus, ``--fse``; a SIGTERM checkpoints and a resumed run picks it up;
 ``--mesh`` and ``--coordinator`` on one CPU shard equal a run without
-them, ``--tp 2`` exits naming ROADMAP Queue 1 item 14; ``--device cuda``
-without a card raises."""
+them, ``--tp 2`` on one CPU device exits with the JAX CLI's "must divide"
+message; ``--device cuda`` without a card raises."""
 
 import json
 import os
@@ -124,8 +124,9 @@ def test_torch_port_cli_train_dip_resume_and_device_data(data, tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--mesh"], ["--tp", "2"], ["--coordinator", "localhost:1234"]])
 def test_torch_port_cli_train_refuses_multi_card(data, extra, tmp_path):
-    """``--tp 2`` (tensor parallelism) exits naming ROADMAP Queue 1 item
-    14. ``--mesh`` (a one-device CPU mesh) and ``--coordinator`` (a
+    """``--tp 2`` (tensor parallelism) over the one CPU device of a
+    single-process run exits with the JAX CLI's ``--tp 2 must divide 1
+    devices``. ``--mesh`` (a one-device CPU mesh) and ``--coordinator`` (a
     one-process gloo group on a free port of this host) run since the mesh
     was ported: their logs and checkpoints equal a run without them."""
     import socket
@@ -134,7 +135,7 @@ def test_torch_port_cli_train_refuses_multi_card(data, extra, tmp_path):
     if "--tp" in extra:
         with pytest.raises(SystemExit) as ei:
             TCLI.main(base + extra)
-        assert "ROADMAP Queue 1 item 14" in str(ei.value)
+        assert "--tp 2 must divide 1 devices" in str(ei.value)
         return
     if "--coordinator" in extra:
         with socket.socket() as sock:

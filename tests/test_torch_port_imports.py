@@ -10,11 +10,13 @@ pickle loaded, the metrics, ``CascadeEvaluator`` in its three protocols,
 (``a3gc_tpu_torch.train``, the training feed, ``cli train`` of a cascade and
 of DIP, ``cli stats``), and data preparation (``cli preprocess`` of a raw
 DIP-IMU tree, ``cli convert-data``, ``cli worst-frames --render``), and the
-mesh (``a3gc_tpu_torch.parallel``: its mesh, serving and multihost modules,
-a sharded cascade, a mesh session and a mesh training step) load no
-jax, flax or a3gc_tpu module. And the
-package data ships every kernel source and header, and the port has its
-console script."""
+mesh (``a3gc_tpu_torch.parallel``: its mesh, serving, multihost and tensor
+modules, every export of the JAX package's ``parallel`` but the JAX-only
+``shard_map_compat``, a sharded cascade, a mesh session, a mesh training
+step and a tensor-parallel one) load no jax, flax or a3gc_tpu module. And
+the port's ``parallel`` exports the JAX package's names; the package data
+ships every kernel source and header, and the port has its console
+script."""
 
 import fnmatch
 import json
@@ -221,6 +223,26 @@ runner = a3gc_tpu_torch.train.StageRunner(
 runner.train_step(synthetic_packed_dataset(2, 4),
                   a3gc_tpu_torch.train.seeded_generator("cpu", 0))
 assert fetch_replicated(runner.state.params)
+import a3gc_tpu_torch.parallel as TPAR
+import a3gc_tpu_torch.parallel.tensor
+for name in ("batch_sharding", "make_mesh", "param_sharding", "replicate",
+             "shard_batch", "shard_params", "fetch_replicated",
+             "initialize_multihost", "is_coordinator",
+             "cascade_apply_sharded"):
+    assert name in TPAR.__all__ and callable(getattr(TPAR, name)), name
+tp_mesh = make_mesh(a3gc_tpu_torch.config.MeshConfig(data=1, model=2),
+                    devices=["cpu", "cpu"])
+tp_cfg = PoseNetConfig(net=N.GraphNetConfig(cell="a3gc", units_in=12,
+                                            units_out=3, units_hidden=32),
+                       rotsize=3)
+tp_runner = a3gc_tpu_torch.train.StageRunner(
+    1, tp_cfg, init_pose_net(gen, tp_cfg, nira),
+    a3gc_tpu_torch.config.TrainConfig(batch_size=2), 1, device="cpu",
+    mesh=tp_mesh)
+assert len(TPAR.shard_params(tp_runner.state.params, tp_mesh)) == 2
+tp_runner.train_step(synthetic_packed_dataset(2, 4),
+                     a3gc_tpu_torch.train.seeded_generator("cpu", 0))
+assert tp_runner._split and fetch_replicated(tp_runner.state.params)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))
@@ -234,6 +256,16 @@ def test_torch_port_imports_no_jax_or_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_torch_port_parallel_exports_the_jax_packages_names():
+    import a3gc_tpu.parallel as JP
+    import a3gc_tpu_torch.parallel as TP
+    jax_names = {n for n, v in vars(JP).items()
+                 if not n.startswith("_") and callable(v)}
+    assert "param_sharding" in jax_names and "shard_params" in jax_names
+    assert jax_names - {"shard_map_compat"} <= set(TP.__all__)
+    assert all(callable(getattr(TP, n)) for n in TP.__all__)
 
 
 def test_torch_port_package_data_ships_every_kernel_source():

@@ -85,8 +85,13 @@ def test_torch_port_make_mesh_over_repeated_cpu_devices():
         batch_sharding(mesh, 6)
     with pytest.raises(ValueError, match="needs"):
         make_mesh(TC.MeshConfig(data=5), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        make_mesh(TC.MeshConfig(data=2, model=2), devices=["cpu"] * 4)
+    tp = make_mesh(TC.MeshConfig(data=2, model=2), devices=["cpu"] * 4)
+    assert tp.shape == {"data": 2, "model": 2}
+    assert tp.model_devices == ((torch.device("cpu"),) * 2,) * 2
+    assert tp.devices == (torch.device("cpu"),) * 2      # the groups' leads
+    assert batch_sharding(tp, 8) == [slice(0, 4), slice(4, 8)]
+    with pytest.raises(ValueError, match="needs"):
+        make_mesh(TC.MeshConfig(data=3, model=2), devices=["cpu"] * 4)
 
 
 def test_torch_port_shard_batch_and_replicate():

@@ -58,6 +58,10 @@ batch (``train``) over every visible card, or with ``--device cpu`` over one
 CPU shard; ``train --coordinator`` joins a multi-process run (``nccl`` on the
 cards, ``gloo`` on the CPU); ``train --tp N`` splits the wide parameters
 over model groups of N devices (tensor parallelism, implies ``--mesh``).
+Run-wide, as in the JAX CLI's ``main``: ``--profile DIR`` writes a
+``torch.profiler`` trace of the command under DIR, ``--debug_nans`` stops it
+at the first op that yields a NaN, ``--compilation_cache DIR`` builds the
+kernel libraries into DIR (:mod:`a3gc_tpu_torch._runtime`).
 """
 
 from __future__ import annotations
@@ -87,8 +91,6 @@ QUALITY_PRESETS = {
 _SMPL_MALE = "models/basicModel_m_lbs_10_207_0_v1.1.0.pkl"
 _STATS_UNDER_ROOT = {False: "stats/all_train_stats.npz",
                      True: "stats/all_sym_train_stats.npz"}
-# flags of the JAX CLI that steer JAX alone: accepted, noted, ignored
-_JAX_ONLY = ("profile", "debug_nans", "compilation_cache")
 
 
 def _add_quality_flag(p):
@@ -135,18 +137,32 @@ def _apply_quality(args):
             setattr(args, attr, 0)
 
 
+def _add_cache_flag(p, runs_kernels=True):
+    p.add_argument("--compilation_cache", type=str, default=None,
+                   metavar="DIR",
+                   help="build the CUDA kernel libraries into DIR, or reuse "
+                        "them from there (default: $A3GC_TORCH_BUILD_DIR, "
+                        "else build/kernels beside the package)"
+                        + ("" if runs_kernels else
+                           "; accepted, no kernel runs in this command"))
+
+
 def _add_common_model_flags(p):
     p.add_argument("--model", choices=MODEL_CHOICES, default="a3gc")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="accepted for the JAX CLI's command lines and "
-                        "ignored (a jax.profiler trace there)")
+                   help="write a torch.profiler trace of the whole command "
+                        "into DIR (CPU ops, and the card's kernels when it "
+                        "runs on one; every thread): Chrome-trace JSON for "
+                        "TensorBoard's profiler plugin or Perfetto, written "
+                        "when the command ends. serve writes it at "
+                        "shutdown (Ctrl-C or SIGTERM); an exec recycle "
+                        "loses the trace of the process it replaces")
     p.add_argument("--debug_nans", action="store_true",
-                   help="accepted and ignored (jax_debug_nans there)")
-    p.add_argument("--compilation_cache", type=str, default=None,
-                   metavar="DIR",
-                   help="accepted and ignored (the jax compilation cache "
-                        "there; the port's kernels are built once into "
-                        "build/kernels)")
+                   help="raise FloatingPointError at the first op that "
+                        "yields a NaN, naming it (and, in a backward, its "
+                        "forward op). For debugging: every op then waits "
+                        "for the card")
+    _add_cache_flag(p)
     p.add_argument("--hu1", type=int, default=256,
                    help="stage-1 hidden units (the DIP net's with --model "
                         "dip)")
@@ -395,15 +411,11 @@ def _note_dip_mesh(args, what, fallback):
 
 
 def _note_ignored_flags(args):
-    r"""One note on stderr for the flags that mean something to the JAX
-    CLI only."""
-    given = [f"--{f}" for f in _JAX_ONLY if getattr(args, f, None)]
+    r"""One note on stderr for ``--precision``, which picks the passes of
+    the JAX package's matrix products: the port computes in fp32."""
     if args.precision:
-        given.append(f"--precision {args.precision}")
-    if given:
-        print(f"[a3gc_tpu_torch] ignoring {' '.join(given)}: the port "
-              "computes in fp32 and has no JAX profiler, NaN check or "
-              "compilation cache", file=sys.stderr)
+        print(f"[a3gc_tpu_torch] ignoring --precision {args.precision}: "
+              "the port computes in fp32", file=sys.stderr)
 
 
 def _note_export_flags(args):
@@ -1433,8 +1445,7 @@ def build_parser():
     s = sub.add_parser("stats", help="normalization statistics")
     s.add_argument("--inputs", nargs="+", required=True)
     s.add_argument("--output", type=str, required=True)
-    s.add_argument("--compilation_cache", type=str, default=None,
-                   metavar="DIR", help="accepted and ignored")
+    _add_cache_flag(s, runs_kernels=False)
     s.set_defaults(fn=cmd_stats)
 
     sv = sub.add_parser("serve", help="dynamic-batching HTTP pose serving "
@@ -1666,8 +1677,7 @@ def build_parser():
                    help="hidden units of the exported net")
     c.add_argument("--epoch", type=int, default=0,
                    help="epoch number recorded in the written checkpoint")
-    c.add_argument("--compilation_cache", type=str, default=None,
-                   metavar="DIR", help="accepted and ignored")
+    _add_cache_flag(c, runs_kernels=False)
     c.set_defaults(fn=cmd_convert)
 
     cd = sub.add_parser("convert-data",
@@ -1676,15 +1686,20 @@ def build_parser():
     cd.add_argument("--torch", type=str, required=True,
                     help="reference transform_to_torch_data* output .pt")
     cd.add_argument("--output", type=str, required=True)
-    cd.add_argument("--compilation_cache", type=str, default=None,
-                    metavar="DIR", help="accepted and ignored")
+    _add_cache_flag(cd, runs_kernels=False)
     cd.set_defaults(fn=cmd_convert_data)
     return p
 
 
 def main(argv=None):
+    r"""Parse ``argv`` and run the command under its run-wide flags
+    (``--profile``, ``--debug_nans``, ``--compilation_cache``:
+    :func:`a3gc_tpu_torch._runtime.command_scope`), which are all undone
+    when it returns or raises."""
+    from a3gc_tpu_torch._runtime import command_scope
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    with command_scope(args):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from a3gc_tpu_torch._device import check_module_device, resolve_device
+from a3gc_tpu_torch._runtime import span, spanned
 from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.data import pipeline as DPipe
 from a3gc_tpu_torch.metrics import PoseEvaluator
@@ -207,10 +208,11 @@ class CascadeEvaluator(_Scorer):
         for seq in sequences:
             T = seq["ori"].shape[0]
             gt = reduced_to_full(seq["pose"].reshape(T, 15, 3, 3))
-            m, pose, seconds = self._run(
-                np.asarray(seq["ori"], np.float32).reshape(1, T, 54),
-                np.asarray(seq["acc"], np.float32).reshape(1, T, 18),
-                [gt], [T])
+            with span("jit__run"):
+                m, pose, seconds = self._run(
+                    np.asarray(seq["ori"], np.float32).reshape(1, T, 54),
+                    np.asarray(seq["acc"], np.float32).reshape(1, T, 18),
+                    [gt], [T])
             total_time += seconds
             total_frames += T
             metrics.append(m[0])
@@ -250,7 +252,8 @@ class CascadeEvaluator(_Scorer):
                     acc[slot, :T] = seq["acc"].reshape(T, 18)
                     gts.append(reduced_to_full(
                         seq["pose"].reshape(T, 15, 3, 3)))
-                out, _, seconds = self._run(ori, acc, gts, lengths)
+                with span("jit__run_b"):
+                    out, _, seconds = self._run(ori, acc, gts, lengths)
                 total_time += seconds
                 total_frames += sum(lengths)
                 for slot, si in enumerate(group):
@@ -306,9 +309,11 @@ class CascadeEvaluator(_Scorer):
         and the device libraries' handles. The card compiles nothing per
         shape, so one pass serves every length."""
         T = min(lengths)
-        self._run(np.zeros((1, T, 54), np.float32),
-                  np.zeros((1, T, 18), np.float32),
-                  [np.tile(np.eye(3, dtype=np.float32), (T, 24, 1, 1))], [T])
+        with span("jit__run"):
+            self._run(np.zeros((1, T, 54), np.float32),
+                      np.zeros((1, T, 18), np.float32),
+                      [np.tile(np.eye(3, dtype=np.float32), (T, 24, 1, 1))],
+                      [T])
         self._reset_split()
 
 
@@ -328,6 +333,7 @@ class DipEvaluator(_Scorer):
                                          device=self.device)
                       for k, v in stats.items()}
 
+    @spanned("jit__prep")
     def _prep(self, seq) -> torch.Tensor:
         r"""One sequence's net input on the device: [1, T, 60]."""
         T = seq["ori"].shape[0]
@@ -336,6 +342,7 @@ class DipEvaluator(_Scorer):
         raw["pose"] = None
         return DPipe.dip_batch(raw, self.stats, no_root=True)[0]
 
+    @spanned("jit__to_pose")
     def _to_pose(self, out: torch.Tensor) -> torch.Tensor:
         return reduced_global_to_full_local(
             _stage_out(out, self.cfg.rotsize), self.model,
@@ -353,8 +360,11 @@ class DipEvaluator(_Scorer):
             T = seq["ori"].shape[0]
             gt = reduced_to_full(seq["pose"].reshape(T, 15, 3, 3))
             t0 = time.perf_counter()
-            out, _ = pose_net_forward(self.params, self.cfg, self._prep(seq))
-            metrics.append(self._score([self._to_pose(out)], [gt], t0)[0])
+            with span("jit__run"):
+                out, _ = pose_net_forward(self.params, self.cfg,
+                                          self._prep(seq))
+                metrics.append(self._score([self._to_pose(out)], [gt],
+                                           t0)[0])
             total_time += time.perf_counter() - t0
             total_frames += T
         return _mean(metrics), total_time, total_frames

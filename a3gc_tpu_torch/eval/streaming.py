@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from a3gc_tpu_torch._device import check_module_device, resolve_device
+from a3gc_tpu_torch._runtime import span
 from a3gc_tpu_torch.data import pipeline as DPipe
 from a3gc_tpu_torch.models import nets as N
 from a3gc_tpu_torch.models.pipeline import (
@@ -259,12 +260,13 @@ class StreamingSession:
         return zero(self.cfg.net, self.streams, self.device)
 
     def _fn(self, x, state, active):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        act = torch.as_tensor(active, dtype=torch.float32,
-                              device=self.device)
-        mask = _frame_mask(act, x.shape[0], x.shape[1], x.dtype)
-        return pose_net_forward(self.params, self.cfg, x, state,
-                                frame_mask=mask)
+        with span("jit__raw"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            act = torch.as_tensor(active, dtype=torch.float32,
+                                  device=self.device)
+            mask = _frame_mask(act, x.shape[0], x.shape[1], x.dtype)
+            return pose_net_forward(self.params, self.cfg, x, state,
+                                    frame_mask=mask)
 
     def reset(self, stream: Optional[int] = None):
         r"""Clear the carried recurrent state. ``stream=i`` zeroes only
@@ -337,9 +339,10 @@ class StreamingSession:
         fused_pass = None
         if self.fused:
             def fused_pass(em, ctx, advf):
-                x_dev = torch.as_tensor(ctx[0], device=self.device)
-                out, _ = self._fn(x_dev, state, em)
-                _, st = self._fn(x_dev[:, :W], state, advf)
+                with span("jit_fused_step"):
+                    x_dev = torch.as_tensor(ctx[0], device=self.device)
+                    out, _ = self._fn(x_dev, state, em)
+                    _, st = self._fn(x_dev[:, :W], state, advf)
 
                 def commit():   # emit_buffered calls it AFTER the fetch
                     self._state = st
@@ -526,13 +529,15 @@ class StreamingCascade:
         call is split over its shards (:func:`shard_window_step`)."""
         S, T = ori.shape[0], ori.shape[1]
         fn = self._step_fn if len(masks) == 1 else self._fused_step
-        if self._mesh is None:
-            out = fn(self.params3, self._to_dev(ori), self._to_dev(acc),
-                     *states, *(self._to_dev(m) for m in masks))
-            pose, states = out[0], tuple(out[1:])
-        else:
-            pose, states = shard_window_step(fn, self._mesh, len(masks))(
-                self._replicas, ori, acc, states, *masks)
+        with span("jit__step" if len(masks) == 1 else "jit_fused_step"):
+            if self._mesh is None:
+                out = fn(self.params3, self._to_dev(ori), self._to_dev(acc),
+                         *states, *(self._to_dev(m) for m in masks))
+                pose, states = out[0], tuple(out[1:])
+            else:
+                pose, states = shard_window_step(fn, self._mesh,
+                                                 len(masks))(
+                    self._replicas, ori, acc, states, *masks)
         return pose.reshape((S, T) + pose.shape[1:]), states
 
     def _dispatch(self, ori_window, acc_window, active=None) -> torch.Tensor:

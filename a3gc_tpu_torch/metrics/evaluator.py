@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from a3gc_tpu_torch._device import index_tensor
+from a3gc_tpu_torch._runtime import spanned
 from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.ops import rotations as R
 from a3gc_tpu_torch.smpl.model import ParametricModel
@@ -82,6 +83,7 @@ def _frame_weights(n_valid, length: int, window: int, device, dtype):
     return (idx < (n_valid - window)).to(dtype)
 
 
+@spanned("jit_full_motion_metrics")
 def full_motion_metrics(model: ParametricModel, pose_p, pose_t,
                         shape_p=None, shape_t=None, tran_p=None, tran_t=None,
                         n_valid=None, fps: int = 60,
@@ -155,6 +157,7 @@ def full_motion_metrics(model: ParametricModel, pose_p, pose_t,
     ))
 
 
+@spanned("jit_masked_global_angle_per_frame")
 def masked_global_angle_per_frame(model: ParametricModel, pose_p, pose_t,
                                   joint_mask: Optional[Tuple[int, ...]] = None
                                   ) -> torch.Tensor:
@@ -205,6 +208,7 @@ class PoseEvaluator:
         self.model = model
         self.fps = fps
 
+    @spanned("jit___call__")     # the evaluators' jax.jit(pe.__call__)
     def __call__(self, pose_p, pose_t, n_valid=None) -> torch.Tensor:
         pose_p = self.model.as_tensor(pose_p).reshape(-1, 24, 3, 3).clone()
         pose_t = self.model.as_tensor(pose_t).reshape(-1, 24, 3, 3).clone()
@@ -277,6 +281,7 @@ def rotation_error(p: torch.Tensor, t: torch.Tensor,
     return R.radian_to_degree(R.angle_between(p, t, rep).mean())
 
 
+@spanned("jit_per_joint_errors")
 def per_joint_errors(model: ParametricModel, pose_p, pose_t,
                      align_joint: int = 0) -> torch.Tensor:
     r"""[3, J]: per-joint position / local angle / global angle errors
@@ -303,6 +308,7 @@ def mean_per_joint_errors(model: ParametricModel, pose_p, pose_t,
     return per_joint_errors(model, pose_p, pose_t, align_joint).mean(dim=1)
 
 
+@spanned("jit_mesh_error")
 def mesh_error(model: ParametricModel, pose_p, pose_t, shape_p=None,
                shape_t=None, align_joint: int = 0) -> torch.Tensor:
     r"""Mean mesh vertex position error."""

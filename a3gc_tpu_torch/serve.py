@@ -56,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from a3gc_tpu_torch._runtime import thread_checks
 from a3gc_tpu_torch.eval.streaming import _tree_map
 
 __all__ = ["PoseServer", "session_snapshot", "session_restore"]
@@ -149,7 +150,14 @@ class _Batcher:
         self.n_requests = 0
         self.n_errors = 0
         self.tick_latencies = collections.deque(maxlen=1024)   # (secs, size)
-        self.thread = threading.Thread(target=self._run, daemon=True)
+        # the device steps run on this thread: under the NaN check of the
+        # thread that builds the batcher (cli serve --debug_nans)
+        checks = thread_checks()
+
+        def run():
+            with checks():
+                self._run()
+        self.thread = threading.Thread(target=run, daemon=True)
         self.thread.start()
 
     def acquire(self, token: Optional[str] = None) -> Optional[int]:

@@ -61,6 +61,7 @@ import torch
 from torch import nn
 
 from a3gc_tpu_torch._device import RowDraws, resolve_device
+from a3gc_tpu_torch._runtime import span, spanned
 from a3gc_tpu_torch.config import TrainConfig
 from a3gc_tpu_torch.data import pipeline as DP
 from a3gc_tpu_torch.models.pipeline import (PoseNetConfig, pose_loss,
@@ -352,6 +353,7 @@ class _Runner:
             raw["_weight"] = w
         return raw
 
+    @spanned("jit_train_step")
     def train_step(self, raw: Dict[str, torch.Tensor],
                    rng: torch.Generator) -> torch.Tensor:
         r"""One optimizer update on a raw batch; returns its loss (a device
@@ -666,10 +668,11 @@ class _Runner:
                      else min(self._eval_b, B - s))
                 if n == 0:
                     continue    # all-pad chunk: nothing real to score
-                losses.append(self.loss(
-                    self.state.params,
-                    self.batch_at(sampler, take[s:s + self._eval_b], wc),
-                    None))
+                with span("jit_eval_step"):
+                    losses.append(self.loss(
+                        self.state.params,
+                        self.batch_at(sampler, take[s:s + self._eval_b], wc),
+                        None))
                 weights.append(n)
         if not losses:
             return 0.0
@@ -681,8 +684,9 @@ class _Runner:
         losses, weights = [], []
         params = self._eval_params()
         for shards, wc, n in self._mesh_eval_chunks(sampler):
-            losses.append(self._local_sum(self._shard_terms(shards, wc,
-                                                            params)))
+            with span("jit_eval_step"):
+                losses.append(self._local_sum(self._shard_terms(shards, wc,
+                                                                params)))
             weights.append(n)
         if not losses:
             return 0.0
@@ -758,19 +762,20 @@ class StageRunner(_Runner):
                     for k, v in seq.items():
                         raw[k][i, :T] = v
                 mask = np.arange(L)[None] < n_valid[:, None]
-                if self.mesh is None:
-                    per_seq = self._per_sequence_loss(
-                        {k: torch.as_tensor(v, device=dev)
-                         for k, v in raw.items()}, mask)
-                else:
-                    per_seq = torch.cat([
-                        self._per_sequence_loss(
-                            {k: torch.as_tensor(v[rows], device=sd)
-                             for k, v in raw.items()}, mask[rows],
-                            params).to(dev)
-                        for rows, sd, params in zip(
-                            batch_sharding(self.mesh, len(n_valid)),
-                            self.mesh.devices, eval_params)])
+                with span("jit_step"):
+                    if self.mesh is None:
+                        per_seq = self._per_sequence_loss(
+                            {k: torch.as_tensor(v, device=dev)
+                             for k, v in raw.items()}, mask)
+                    else:
+                        per_seq = torch.cat([
+                            self._per_sequence_loss(
+                                {k: torch.as_tensor(v[rows], device=sd)
+                                 for k, v in raw.items()}, mask[rows],
+                                params).to(dev)
+                            for rows, sd, params in zip(
+                                batch_sharding(self.mesh, len(n_valid)),
+                                self.mesh.devices, eval_params)])
                 total += float(per_seq[:len(chunk)].sum())
                 count += len(chunk)
         return total / max(count, 1)

@@ -31,7 +31,12 @@ Phases, each printing one JSON line:
                     from torch.Generator seed 0) for 5 windows with a
                     per-slot reset and an idle slot: launch counts,
                     finiteness, one window against the plain path;
-                    ms/window. The A3GC cascade (hidden 256/64/128);
+                    ms/window. The A3GC cascade (hidden 256/64/128), then
+                    one of its windows under the NaN check of
+                    ``--debug_nans`` (``serving_debug_nans``): bit-equal to
+                    the window without it, and with a NaN in stage 1's
+                    recurrent weight ``FloatingPointError`` naming the
+                    kernel op ``a3gc_tpu_torch::gcn_lstm_scan``;
      serving_ggru — the G-GRU cascade (hidden 256/64/128);
      serving_tp   — the TransPose cascade of dense biLSTMs (hidden
                     256/64/128);
@@ -132,9 +137,13 @@ Phases, each printing one JSON line:
                     beside cuDNN);
      cli_evaluate — ``python -m a3gc_tpu_torch.cli evaluate --model a3gc
                     --norm --smpl <pickle> --batch_streams 8 --datasets
-                    <npz>`` as a subprocess on the evaluate phase's params
-                    as ``.tar`` checkpoints; its report against the
-                    in-process table;
+                    <npz> --profile <dir> --compilation_cache <fresh dir>``
+                    in a child counting the launches, on the evaluate
+                    phase's params as ``.tar`` checkpoints; its report
+                    against the in-process table; the trace's ``gcn_lstm``
+                    kernel events against the launches, the kernel op and
+                    the spans in it; the library built into the fresh
+                    directory;
      preprocess   — the data factory on the card (``process_amass_split``
                     with the mirror, ``process_dipimu`` train / valid /
                     test, ``process_totalcapture``) on raw corpora written
@@ -216,6 +225,8 @@ that line; so does a machine without CUDA or a directory without the
 package. Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import glob
 import importlib
 import json
 import os
@@ -1033,14 +1044,70 @@ class Smoke:
                                 window=WINDOW, stats=load_stats(),
                                 normalize=True, streams=S_SERVE,
                                 device=self.dev)
-        self.serve(path, sess,
-                   lambda b: make_window_step(self.cascade(kind, b), model,
-                                              sess.stats),
-                   kernel, 6, [s[0] for s in
-                               (TP_STAGES if kind == "tp" else STAGES)])
+        step_for = lambda b: make_window_step(self.cascade(kind, b), model,
+                                              sess.stats)
+        self.serve(path, sess, step_for, kernel, 6,
+                   [s[0] for s in (TP_STAGES if kind == "tp" else STAGES)])
+        return sess, step_for
 
     def phase_serving(self):
-        self.serve_cascade("serving", "a3gc", "gcn_lstm")
+        self.debug_nans_window(*self.serve_cascade("serving", "a3gc",
+                                                   "gcn_lstm"))
+
+    def debug_nans_window(self, sess, step_for):
+        """``--debug_nans`` on the card (``_runtime.nan_check``): one A3GC
+        window of the serving session's step under the NaN check, bit-equal
+        to the window without it; with a NaN in stage 1's ``rnn1``
+        recurrent weight, ``FloatingPointError`` naming the kernel op
+        ``a3gc_tpu_torch::gcn_lstm_scan``, which launched the kernel."""
+        import copy
+        import numpy as np
+        from a3gc_tpu_torch._runtime import nan_check
+        torch = self.torch
+        S, W, H = S_SERVE, WINDOW, STAGES[0][0]
+        rng = np.random.default_rng(11)
+        ori = torch.as_tensor(random_rotations(rng, (S, W, 6)).reshape(
+            S, W, 54), device=self.dev)
+        acc = torch.as_tensor(rng.normal(scale=0.5, size=(S, W, 18)).astype(
+            np.float32), device=self.dev)
+        act = torch.ones(S, device=self.dev)
+        step = step_for("auto")
+        seconds = {}
+        outs = {}
+        with torch.no_grad():
+            for checked in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with nan_check() if checked else contextlib.nullcontext():
+                    outs[checked] = step(sess.params3, ori, acc,
+                                         *clone_tree(sess._states), act)
+                torch.cuda.synchronize()
+                seconds[checked] = time.perf_counter() - t0
+        equal = all(torch.equal(a, b) for a, b in zip(leaves(outs[False]),
+                                                       leaves(outs[True])))
+        self.check(equal, "serving: the window under the NaN check differs "
+                          "from the window without it")
+        params3 = copy.deepcopy(sess.params3)
+        with torch.no_grad():       # [2, F + H, 4H]: the last H rows
+            params3[0].rnn1.kernel[0, -H, 0] = float("nan")
+        message, before = None, self.wrappers["gcn_lstm"].launches
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad(), nan_check():
+                step(params3, ori, acc, *clone_tree(sess._states), act)
+        except FloatingPointError as e:       # the outcome checked below
+            message = str(e)
+        nan_s = time.perf_counter() - t0
+        launched = self.wrappers["gcn_lstm"].launches - before
+        self.check(message is not None
+                   and "a3gc_tpu_torch::gcn_lstm_scan" in message
+                   and launched == 1,
+                   f"serving: a NaN recurrent weight under the NaN check "
+                   f"raised {message!r} after {launched} launches")
+        emit({"phase": "serving_debug_nans", "bit_equal": equal,
+              "window_s": seconds[False], "window_checked_s": seconds[True],
+              "nan_weight_raised": message, "nan_weight_launches": launched,
+              "nan_weight_s": nan_s, "card": nvidia_smi()})
 
     def phase_serving_ggru(self):
         self.serve_cascade("serving_ggru", "ggru", "ggru")
@@ -1110,8 +1177,10 @@ class Smoke:
         rows = []
         for ev in prof.key_averages():
             # device-side kernel events only: an operator's own row repeats
-            # the device time of the kernels it launched
-            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            # the device time of the kernels it launched, and a span's
+            # device-side annotation (``jit_*``) spans them again
+            if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)):
                 continue
             dev_us = getattr(ev, "self_device_time_total",
                              getattr(ev, "self_cuda_time_total", 0))
@@ -2944,9 +3013,14 @@ class Smoke:
 
     def phase_cli_evaluate(self):
         """``python -m a3gc_tpu_torch.cli evaluate --model a3gc --norm --smpl
-        <pickle> --batch_streams 8 --datasets <npz>`` as a subprocess, on
-        the evaluate phase's params written as reference ``.tar``
-        checkpoints; its report against the in-process batched table."""
+        <pickle> --batch_streams 8 --datasets <npz> --profile <dir>
+        --compilation_cache <fresh dir>`` in a child that counts the
+        launches (``TRAIN_CHILD``), on the evaluate phase's params written
+        as reference ``.tar`` checkpoints: its report against the
+        in-process batched table; the trace holds the ``gcn_lstm``
+        kernel's CUDA events, as many as the child's launches, the op
+        ``a3gc_tpu_torch::gcn_lstm_scan`` and the ``jit__run_b`` spans;
+        the ``gcn_lstm`` library was built into the fresh directory."""
         import shutil
         import tempfile
         import numpy as np
@@ -2960,14 +3034,17 @@ class Smoke:
                 tars.append(os.path.join(cwd, f"s{i + 1}.tar"))
                 TE.save_torch_checkpoint(tars[-1],
                                          TE.graph_net_state_dict(p, "a3gc"))
+            trace_dir = os.path.join(cwd, "trace")
+            cache = os.path.join(cwd, "kernels")
             argv = ["evaluate", "--model", "a3gc", "--norm", "--smpl",
                     data["smpl"], "--batch_streams", str(S_SERVE),
-                    "--datasets", data["npz"], "--torch_checkpoints"] + tars
+                    "--datasets", data["npz"], "--torch_checkpoints"] + tars \
+                + ["--profile", trace_dir, "--compilation_cache", cache]
             env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                        + os.environ.get("PYTHONPATH", ""))
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv, cwd=cwd,
+                [sys.executable, "-c", TRAIN_CHILD] + argv, cwd=cwd,
                 env=env, capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
             report = os.path.join(
@@ -2979,8 +3056,39 @@ class Smoke:
             if not ok:
                 return
             got = np.asarray(report_table(report))
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            t1 = time.perf_counter()
+            traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+            self.check(len(traces) == 1, f"cli evaluate --profile wrote "
+                                         f"{traces}")
+            events = []
+            for path in traces:
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            trace_bytes = sum(os.path.getsize(t) for t in traces)
+            names = [e.get("name", "") for e in events]
+            kernel_events = sum(1 for e in events
+                                if e.get("cat") == "kernel"
+                                and "gcn_lstm_kernel" in e.get("name", ""))
+            parse_s = time.perf_counter() - t1
+            built = glob.glob(os.path.join(cache, "gcn_lstm_*.so"))
         finally:
             shutil.rmtree(cwd, ignore_errors=True)
+        launches = child["launches"]["gcn_lstm"]
+        op_events = names.count("a3gc_tpu_torch::gcn_lstm_scan")
+        spans = {n: names.count(n) for n in ("jit__run", "jit__run_b",
+                                             "jit___call__",
+                                             "jit_full_motion_metrics")}
+        self.check(launches > 0 and kernel_events == launches,
+                   f"cli evaluate --profile: {kernel_events} gcn_lstm "
+                   f"kernel events in the trace, {launches} launches")
+        self.check(op_events > 0 and spans["jit__run_b"] > 0,
+                   f"cli evaluate --profile: op events {op_events}, spans "
+                   f"{spans}")
+        self.check(len(built) == 1, f"cli evaluate --compilation_cache "
+                                    f"built {built}")
+        self.check(not child["banned"], f"cli evaluate imported "
+                                        f"{child['banned']}")
         want = data["tables"][f"batched_{S_SERVE}"]
         err = float(np.abs(got - want).max())
         self.check(err <= REPORT_TOL,
@@ -2989,6 +3097,13 @@ class Smoke:
         emit({"phase": "cli_evaluate", "argv": argv[:6] + ["..."],
               "wall_s": wall, "summary": line, "report_table": got.tolist(),
               "report_max_abs_err_vs_in_process": err, "tol": REPORT_TOL,
+              "launches": child["launches"],
+              "trace": {"files": len(traces), "bytes": trace_bytes,
+                        "events": len(events),
+                        "gcn_lstm_kernel_events": kernel_events,
+                        "gcn_lstm_scan_op_events": op_events,
+                        "spans": spans, "parse_s": parse_s},
+              "compilation_cache": [os.path.basename(b) for b in built],
               "card": nvidia_smi()})
 
     # -- 4c: data preparation -----------------------------------------------
@@ -3642,7 +3757,8 @@ class Smoke:
             wall_us = (time.perf_counter() - t0) * 1e6
         busy_us, kernels = 0.0, 0
         for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)):
                 continue
             busy_us += getattr(ev, "self_device_time_total",
                                getattr(ev, "self_cuda_time_total", 0))

@@ -58,6 +58,15 @@ FAMILIES = ["a3gc", "aagc", "agc", "ggru", "tp", "dip", "dip_uni"]
 DENSE_DIMS = {"tp": (72, 15), "dip": (60, 135), "dip_uni": (60, 135)}
 
 
+@pytest.fixture(autouse=True)
+def _no_data_root_from_earlier_tests(monkeypatch):
+    # the JAX CLI's main sets $A3GC_DATA_ROOT and leaves it set: after one
+    # of its tests in this process, the port's runs here would read that
+    # root's stats and SMPL file and their JAX or subprocess counterparts
+    # would not
+    monkeypatch.delenv("A3GC_DATA_ROOT", raising=False)
+
+
 def _shared_adj(cell):
     """An AGC cell whose four gates share one adjacency, as the reference
     stores it (the perturbed oracle draws four)."""

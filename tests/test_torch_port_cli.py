@@ -1,7 +1,7 @@
 """The port's command line (a3gc_tpu_torch.cli, the ``serve`` subcommand):
 its parser's defaults and quality presets against the JAX package's for the
 flags both have (every flag of the JAX CLI's ``serve``), the flags that wait
-for later slices, the JAX-only flags it accepts and ignores, and one
+for later slices, ``--precision``, which it accepts and ignores, and one
 end-to-end
 state-preserving exec-recycle of ``python -m a3gc_tpu_torch.cli serve
 --device cpu`` at small widths: the clients ride the pause with their seq
@@ -35,6 +35,15 @@ SHARED_FLAGS = ("model", "hu1", "hu2", "hu3", "norm", "cda", "rotsize",
                 "artifact", "path", "torch_checkpoints", "type", "mid1",
                 "mid2", "mid3", "smpl", "data_root", "precision", "profile",
                 "debug_nans", "compilation_cache")
+
+
+@pytest.fixture(autouse=True)
+def _no_data_root_from_earlier_tests(monkeypatch):
+    # the JAX CLI's main sets $A3GC_DATA_ROOT and leaves it set: after one
+    # of its tests in this process, the port's runs here would read that
+    # root's stats and SMPL file and their JAX or subprocess counterparts
+    # would not
+    monkeypatch.delenv("A3GC_DATA_ROOT", raising=False)
 
 
 @pytest.mark.parametrize("argv", [
@@ -262,18 +271,20 @@ def test_torch_port_cli_serve_loads_body_model_and_stats(case, tmp_path,
 @pytest.mark.parametrize("argv,noted", [
     (["--precision", "default"], ["--precision default", "fp32"]),
     (["--precision", "highest", "--profile", "trace", "--debug_nans",
-      "--compilation_cache", "cache"],
-     ["--profile", "--debug_nans", "--compilation_cache",
-      "--precision highest"]),
+      "--compilation_cache", "cache"], ["--precision highest", "fp32"]),
     ([], []),
 ])
 def test_torch_port_cli_notes_jax_only_flags_once(argv, noted, capsys):
+    """Only ``--precision`` is noted and ignored: the run-wide flags act
+    (``tests/test_torch_port_cli_flags.py``)."""
     args = TCLI.build_parser().parse_args(["serve"] + argv)
     TCLI._note_ignored_flags(args)
     err = capsys.readouterr().err
     assert err.count("\n") == (1 if noted else 0)
     for word in noted:
         assert word in err
+    for flag in ("--profile", "--debug_nans", "--compilation_cache"):
+        assert flag not in err
 
 
 def test_torch_port_cli_has_serve_only_and_require_exits():
@@ -299,7 +310,8 @@ def test_torch_port_cli_exec_recycle_preserves_sessions(tmp_path):
     W, K, P = 6, 1, 1
     argv = ["--hu1", "8", "--hu2", "8", "--hu3", "8", "--norm", "--window",
             str(W), "--streams", "2", "--port", "0", "--lookahead", str(K),
-            "--history", str(P), "--max_wait_ms", "2", "--device", "cpu"]
+            "--history", str(P), "--max_wait_ms", "2", "--device", "cpu",
+            "--data_root", str(tmp_path / "data")]    # one root for both
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": REPO,
            "HOME": os.environ.get("HOME", "/"), "TMPDIR": str(tmp_path),
            "OMP_NUM_THREADS": "1"}

@@ -46,6 +46,15 @@ STREAM_FLAGS = ("model", "hu1", "hu2", "hu3", "norm", "cda", "rotsize",
                 "debug_nans", "compilation_cache")
 
 
+@pytest.fixture(autouse=True)
+def _no_data_root_from_earlier_tests(monkeypatch):
+    # the JAX CLI's main sets $A3GC_DATA_ROOT and leaves it set: after one
+    # of its tests in this process, the port's runs here would read that
+    # root's stats and SMPL file and their JAX or subprocess counterparts
+    # would not
+    monkeypatch.delenv("A3GC_DATA_ROOT", raising=False)
+
+
 @pytest.mark.parametrize("argv", [
     ["--output", "o"],
     ["--output", "o", "--window", "30", "60", "--streams", "1", "8",

@@ -13,7 +13,8 @@ products all-gathered over a gloo subgroup): ``cli train --tp 2`` follows a
 single-process run within 1e-5 (weight decay on, so a replicated
 parameter's gradient scaled by the group's size would show), and one step's
 gradients are the single-device ones: each process's column block of a
-split parameter, the whole of a replicated one."""
+split parameter, the whole of a replicated one. A comparison's runs all
+read one data root, the test's own (no stats there: the shipped ones)."""
 
 import json
 import os
@@ -36,7 +37,19 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--hu1", "8", "--hu2", "8", "--hu3", "8"]
 TOL = 1e-5
-ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+
+@pytest.fixture(autouse=True)
+def _no_data_root_from_earlier_tests(monkeypatch):
+    # the JAX CLI's main sets $A3GC_DATA_ROOT and leaves it set: after one
+    # of its tests in this process, an in-process run here would read that
+    # root's stats
+    monkeypatch.delenv("A3GC_DATA_ROOT", raising=False)
+
+
+def _env():
+    r"""The children's environment, as it stands when they are spawned."""
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
 
 
 def _free_port() -> int:
@@ -65,13 +78,14 @@ def _spawn(argv, rank, port, cwd):
         [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv
         + ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
            "--process_id", str(rank)],
-        cwd=str(cwd), env=ENV, stdout=subprocess.PIPE,
+        cwd=str(cwd), env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 
 
 def test_torch_port_two_process_train_matches_one_process(data, tmp_path):
     base = ["train", "--device", "cpu", "-b", "4", "--epochs", "2",
-            "--norm", "--name", "run"] + SMALL + data
+            "--norm", "--name", "run",
+            "--data_root", str(tmp_path / "data")] + SMALL + data
     TCLI.main(base + ["--save_root", str(tmp_path / "single")])
     port = _free_port()
     procs = [_spawn(base + ["--save_root", str(tmp_path / f"r{r}")], r,
@@ -162,7 +176,7 @@ def test_torch_port_two_process_replicas_stay_equal(tmp_path):
     port = str(_free_port())
     procs = [subprocess.Popen(
         [sys.executable, "-c", _REPLICAS, str(r), port,
-         str(tmp_path / f"{r}.npz")], env=ENV, stdout=subprocess.PIPE,
+         str(tmp_path / f"{r}.npz")], env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in (0, 1, -1)]
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert [p.returncode for p in procs] == [0, 0, 0], outs
@@ -177,7 +191,8 @@ def test_torch_port_two_process_tp_train_matches_one_process(data,
                                                              tmp_path):
     base = ["train", "--device", "cpu", "-b", "4", "--epochs", "2",
             "--norm", "--name", "run", "--hu1", "32", "--hu2", "8",
-            "--hu3", "8", "--wd", "0.1"] + data
+            "--hu3", "8", "--wd", "0.1",
+            "--data_root", str(tmp_path / "data")] + data
     TCLI.main(base + ["--save_root", str(tmp_path / "single")])
     port = _free_port()
     procs = [_spawn(base + ["--tp", "2", "--save_root",
@@ -246,7 +261,7 @@ def test_torch_port_two_process_tp_gradients_are_one_devices(tmp_path):
     port = str(_free_port())
     procs = [subprocess.Popen(
         [sys.executable, "-c", _TP_GRADS, str(r), port,
-         str(tmp_path / f"{r}.npz")], env=ENV, stdout=subprocess.PIPE,
+         str(tmp_path / f"{r}.npz")], env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in (0, 1, -1)]
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert [p.returncode for p in procs] == [0, 0, 0], outs

@@ -182,8 +182,12 @@ def _add_common_model_flags(p):
                         "$A3GC_DATA_ROOT, else ./data)")
     p.add_argument("--precision", choices=("highest", "default"),
                    default=None,
-                   help="accepted; the port computes in fp32 whatever it "
-                        "says (the JAX CLI serves at 'default')")
+                   help="matrix-product precision of the nets (default: "
+                        "'highest' for train, 'default' for evaluate / "
+                        "serve / stream / export). 'default' multiplies "
+                        "TF32 operands (10-bit mantissa) with fp32 sums on "
+                        "the card, as the JAX package's Precision.DEFAULT "
+                        "there, and computes in fp32 on the CPU")
     p.add_argument("--rotsize", type=int, default=9, choices=(3, 6, 9),
                    help="stage-3 rotation representation")
     p.add_argument("--device", type=str, default="cuda",
@@ -191,15 +195,26 @@ def _add_common_model_flags(p):
                         "'cpu' runs the plain versions of the kernels)")
 
 
-def _stage_configs(args):
-    r"""The per-model cascade stage configs: (CascadeConfig, is_graph)."""
+def _precision(args, train=False) -> str:
+    r"""``--precision``, else the JAX CLI's default for the command:
+    "highest" to train, "default" for inference (evaluate, stream, export,
+    serve): one TF32 pass on the card, fp32 on the CPU."""
+    return args.precision or ("highest" if train else "default")
+
+
+def _stage_configs(args, precision="highest"):
+    r"""The per-model cascade stage configs: (CascadeConfig, is_graph).
+    ``precision`` sets the nets' matrix-product precision: each command
+    passes ``args.precision`` or its own default, as the JAX CLI does
+    (training "highest"; inference "default", one TF32 pass on the card)."""
     from a3gc_tpu_torch.models import nets as N
     from a3gc_tpu_torch.models.pipeline import CascadeConfig, PoseNetConfig
 
     if args.model in ("a3gc", "aagc", "agc", "ggru"):
         def g(ui, uo, h, rot):
             return PoseNetConfig(net=N.GraphNetConfig(
-                cell=args.model, units_in=ui, units_out=uo, units_hidden=h),
+                cell=args.model, units_in=ui, units_out=uo, units_hidden=h,
+                precision=precision),
                 rotsize=rot)
 
         return CascadeConfig(stage1=g(12, 3, args.hu1, 3),
@@ -209,7 +224,8 @@ def _stage_configs(args):
     if args.model == "tp":
         def d(ni, no, h, rot):
             return PoseNetConfig(net=N.DIPConfig(
-                n_input=ni, n_output=no, n_hidden=h), rotsize=rot)
+                n_input=ni, n_output=no, n_hidden=h, precision=precision),
+                rotsize=rot)
 
         return CascadeConfig(stage1=d(72, 15, 256, 3),
                              stage2=d(87, 69, 64, 3),
@@ -343,12 +359,12 @@ def _load_cascade_params(args, cascade, is_graph, device):
     return tuple(params3)
 
 
-def _dip_config(args):
+def _dip_config(args, precision="highest"):
     from a3gc_tpu_torch.models import nets as N
     from a3gc_tpu_torch.models.pipeline import PoseNetConfig
     return PoseNetConfig(net=N.DIPConfig(
-        n_input=60, n_output=15 * args.rotsize, n_hidden=args.hu1),
-        rotsize=args.rotsize)
+        n_input=60, n_output=15 * args.rotsize, n_hidden=args.hu1,
+        precision=precision), rotsize=args.rotsize)
 
 
 def _load_dip(args, device, allow_init=False):
@@ -359,7 +375,7 @@ def _load_dip(args, device, allow_init=False):
     from a3gc_tpu_torch.models.pipeline import init_pose_net
     from a3gc_tpu_torch.utils import discover_latest
 
-    cfg = _dip_config(args)
+    cfg = _dip_config(args, _precision(args))
     if args.torch_checkpoints:
         return cfg, _import_tar(args.torch_checkpoints[0], cfg, "dip",
                                 device)
@@ -408,14 +424,6 @@ def _note_dip_mesh(args, what, fallback):
     if getattr(args, "mesh", False):
         print(f"[a3gc_tpu_torch] --mesh is not wired for the single-net dip "
               f"{what}; {fallback}", file=sys.stderr)
-
-
-def _note_ignored_flags(args):
-    r"""One note on stderr for ``--precision``, which picks the passes of
-    the JAX package's matrix products: the port computes in fp32."""
-    if args.precision:
-        print(f"[a3gc_tpu_torch] ignoring --precision {args.precision}: "
-              "the port computes in fp32", file=sys.stderr)
 
 
 def _note_export_flags(args):
@@ -482,7 +490,6 @@ def _train(args, device, mesh):
     from a3gc_tpu_torch.utils import (JsonlLogger, discover_latest,
                                       restore_params, save_params)
 
-    _note_ignored_flags(args)
     tc = _train_config(args)
     if mesh is not None:
         n = mesh.shape["data"]
@@ -535,7 +542,8 @@ def _train(args, device, mesh):
         return _train_dip(args, tc, steps, train_sampler, valid_sampler,
                           save, log, device, mesh)
 
-    cascade, is_graph = _stage_configs(args)
+    cascade, is_graph = _stage_configs(
+        args, precision=_precision(args, train=True))
     stats = _load_stats(args) if args.norm else None
     _require(stats is not None or not args.norm,
              "--norm needs the shipped stats assets "
@@ -592,7 +600,7 @@ def _train_dip(args, tc, steps, train_sampler, valid_sampler, save, log,
                                       run_cascade_training, seeded_generator)
     from a3gc_tpu_torch.utils import discover_latest, restore_params
 
-    cfg = _dip_config(args)
+    cfg = _dip_config(args, _precision(args, train=True))
     params = init_pose_net(seeded_generator("cpu", tc.seed), cfg)
     if args.resume:
         found = discover_latest(args.resume, 1)
@@ -634,7 +642,6 @@ def cmd_serve(args):
     import json as _json
 
     _apply_quality(args)
-    _note_ignored_flags(args)
 
     # NOTE: construction happens inside this helper so its frame (and the
     # session/params/model locals pinning device tensors) is POPPED before
@@ -696,7 +703,8 @@ def _build_server(args):
                          reload_fn=_reloading(
                              lambda: _load_dip(args, device)[1]))
         return srv, args.streams, args.window
-    cascade, is_graph = _stage_configs(args)
+    cascade, is_graph = _stage_configs(
+        args, precision=_precision(args))
     params3 = _load_cascade_params(args, cascade, is_graph, device)
     stats = _load_stats(args) if args.norm else None
     _require(stats is not None or not args.norm,
@@ -759,7 +767,6 @@ def cmd_stream(args):
                                                StreamingCascade)
 
     _apply_quality(args)
-    _note_ignored_flags(args)
     _require(not (args.pipelined and (args.lookahead or args.history)),
              "--pipelined does not compose with --lookahead/--history "
              "(both buffer windows); drop one")
@@ -805,7 +812,8 @@ def cmd_stream(args):
                 streams=args.streams, lookahead=args.lookahead,
                 history=args.history, device=device)
         else:
-            cascade, is_graph = _stage_configs(args)
+            cascade, is_graph = _stage_configs(
+                args, precision=_precision(args))
             params3 = _load_cascade_params(args, cascade, is_graph, device)
             stats = _load_stats(args) if args.norm else None
             _require(stats is not None or not args.norm,
@@ -1021,7 +1029,6 @@ def cmd_export(args):
     torch and this package alone: no checkpoint, stats or SMPL file. Export
     on the card (the default ``--device``) to serve there."""
     _apply_quality(args)
-    _note_ignored_flags(args)
     _note_export_flags(args)
     from a3gc_tpu_torch._device import resolve_device
     from a3gc_tpu_torch.export import (export_bundle,
@@ -1031,7 +1038,8 @@ def cmd_export(args):
 
     device = resolve_device(args.device)
     model = _load_body_model(args, device)
-    cascade, is_graph = _stage_configs(args)
+    cascade, is_graph = _stage_configs(
+        args, precision=_precision(args))
     if cascade is None:
         # the single DIP net: stats are baked in unconditionally (the DIP
         # input always normalizes)
@@ -1117,7 +1125,6 @@ def cmd_evaluate(args):
     from a3gc_tpu_torch.utils import write_eval_report
 
     _apply_quality(args)
-    _note_ignored_flags(args)
     _require(args.batch_streams >= 1, "--batch_streams must be >= 1")
     for dataset in args.datasets:
         _require(os.path.isfile(dataset), f"no test set {dataset}")
@@ -1126,7 +1133,8 @@ def cmd_evaluate(args):
     if args.model == "dip":
         return _evaluate_dip(args, model, device)
 
-    cascade, is_graph = _stage_configs(args)
+    cascade, is_graph = _stage_configs(
+        args, precision=_precision(args))
     params3 = _load_cascade_params(args, cascade, is_graph, device)
     stats = _load_stats(args) if args.norm else None
     _require(stats is not None or not args.norm,
@@ -1241,7 +1249,6 @@ def cmd_preprocess(args):
     from a3gc_tpu_torch.data.factory.dipimu import process_dipimu
     from a3gc_tpu_torch.data.factory.totalcapture import process_totalcapture
 
-    _note_ignored_flags(args)
     model = _load_body_model(args, resolve_device(args.device))
     paths = Paths(data_root=_data_root(args))
     if args.dataset == "amass":
@@ -1268,7 +1275,6 @@ def cmd_worst_frames(args):
     from a3gc_tpu_torch._device import resolve_device
     from a3gc_tpu_torch.eval import compare_models
 
-    _note_ignored_flags(args)
     model = _load_body_model(args, resolve_device(args.device))
 
     def load_dir(d):

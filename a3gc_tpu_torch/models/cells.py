@@ -28,7 +28,10 @@ The steps read a parameter through :mod:`a3gc_tpu_torch.parallel.tensor`
 (``TP.matmul`` where it is a product's right operand, ``TP.full``
 elsewhere), so that under tensor parallelism a split parameter's products
 run column-parallel over its blocks; on a plain tensor both are the plain
-operation.
+operation. Every product takes an operand format ``fmt`` ("fp32" or
+"tf32", :func:`a3gc_tpu_torch.ops._common.operand_format`): at "tf32" its
+operands are rounded to TF32 where the JAX cell's products at
+``precision`` take them, and summed in fp32.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from torch import nn
 
 from a3gc_tpu_torch._device import random_rows
+from a3gc_tpu_torch.ops._common import operand
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = [
@@ -130,31 +134,36 @@ def _dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
 
 
 def graph_conv(p: GraphConvParams, x: torch.Tensor, *,
-               dropout_rate: float = 0.0, rng=None) -> torch.Tensor:
+               dropout_rate: float = 0.0, rng=None,
+               fmt: str = "fp32") -> torch.Tensor:
     r"""AAGC projection ``adj · x · kernel + bias`` over [..., N, F], after
     dropout on x when ``rng`` is given."""
     x = _dropout(x, dropout_rate, rng)
-    y = TP.matmul(x, p.kernel)
-    return torch.matmul(p.adj, y) + TP.full(p.bias)
+    y = TP.matmul(x, p.kernel, fmt=fmt)
+    return torch.matmul(operand(p.adj, fmt), operand(y, fmt)) \
+        + TP.full(p.bias)
 
 
-def _attention_gate(ap: AttentionParams, hy: torch.Tensor) -> torch.Tensor:
+def _attention_gate(ap: AttentionParams, hy: torch.Tensor,
+                    fmt: str = "fp32") -> torch.Tensor:
     r"""Per-node sigmoid attention score a ∈ [0, 1], direction-stacked.
 
     q = ReLU(Σ_nodes hy·W);  a = σ(tanh(hy·Wh + q·Wq + bs)·u + bu)
 
     hy [D, B, N, H] → [D, B, N, 1]."""
-    q = torch.relu(torch.sum(TP.matmul(hy, ap.w, stacked=True), dim=2,
-                             keepdim=True))                       # [D,B,1,H]
-    s = torch.tanh(TP.matmul(hy, ap.wh, stacked=True)
-                   + TP.matmul(q, ap.wq, stacked=True)
+    q = torch.relu(torch.sum(TP.matmul(hy, ap.w, stacked=True, fmt=fmt),
+                             dim=2, keepdim=True))                # [D,B,1,H]
+    s = torch.tanh(TP.matmul(hy, ap.wh, stacked=True, fmt=fmt)
+                   + TP.matmul(q, ap.wq, stacked=True, fmt=fmt)
                    + TP.full(ap.bs)[:, None, None, :])            # [D,B,N,H]
-    a = torch.matmul(s, ap.u[:, None])[..., 0] + ap.bu[:, None, :]
+    a = torch.matmul(operand(s, fmt), operand(ap.u, fmt)[:, None])[..., 0] \
+        + ap.bu[:, None, :]
     return torch.sigmoid(a)[..., None]
 
 
 def gcn_lstm_gates(p: GCNLSTMCellParams, z: torch.Tensor,
-                   state: Tuple[torch.Tensor, torch.Tensor]):
+                   state: Tuple[torch.Tensor, torch.Tensor],
+                   fmt: str = "fp32"):
     r"""Tail of the cell step given the pre-activation gate features
     ``z = [x‖h]·W`` (before the graph mix): per-gate adjacency mix, then the
     bias, the nonlinearities and the attention. z [D, B, N, 4H], state (h,
@@ -165,7 +174,8 @@ def gcn_lstm_gates(p: GCNLSTMCellParams, z: torch.Tensor,
     bias = TP.full(p.bias)
     H = bias.shape[-1]
     y = z.reshape(D, B, N, 4, H)
-    mixed = torch.einsum("dknm,dbmkh->dbnkh", p.adj, y)
+    mixed = torch.einsum("dknm,dbmkh->dbnkh", operand(p.adj, fmt),
+                         operand(y, fmt))
     gates = mixed + bias[:, None, None]                            # [D,B,N,4,H]
     i = torch.sigmoid(gates[..., 0, :])
     f = torch.sigmoid(gates[..., 1, :])
@@ -174,24 +184,25 @@ def gcn_lstm_gates(p: GCNLSTMCellParams, z: torch.Tensor,
     c_new = f * c + i * g
     hy = o * torch.tanh(c_new)
     if p.attention is not None:
-        hy = hy + hy * _attention_gate(p.attention, hy)
+        hy = hy + hy * _attention_gate(p.attention, hy, fmt)
     return hy, c_new
 
 
 def gcn_lstm_step_hoisted(p: GCNLSTMCellParams, u_t: torch.Tensor, state, *,
-                          hidden_kernel: torch.Tensor):
+                          hidden_kernel: torch.Tensor, fmt: str = "fp32"):
     r"""Cell step with the input projection ``u_t = x_t·W_x`` hoisted out of
     the scan: ``z = u_t + h·W_h``. u_t [D, B, N, 4H], hidden_kernel [D, H,
     4H]. Returns the new state; the layer's output is tanh of the carried
     h."""
     h, c = state
-    z = u_t + torch.matmul(h, hidden_kernel[:, None])
-    return gcn_lstm_gates(p, z, (h, c))
+    z = u_t + torch.matmul(operand(h, fmt),
+                           operand(hidden_kernel, fmt)[:, None])
+    return gcn_lstm_gates(p, z, (h, c), fmt)
 
 
 def gcn_lstm_step(p: GCNLSTMCellParams, x: torch.Tensor, state,
                   x_mask=None, h_mask=None, *, dropout_rate: float = 0.0,
-                  recurrent_dropout_rate: float = 0.0):
+                  recurrent_dropout_rate: float = 0.0, fmt: str = "fp32"):
     r"""One frame of the AAGC/A3GC/AGC LSTM cell, direction-stacked, the
     input projection inside: x [D, B, N, F], state (h, c) each [D, B, N, H];
     dropout on x and on the h entering the gate product where keep-masks
@@ -200,20 +211,23 @@ def gcn_lstm_step(p: GCNLSTMCellParams, x: torch.Tensor, state,
     h, c = state
     x = _dropout(x, dropout_rate, x_mask)
     h_in = _dropout(h, recurrent_dropout_rate, h_mask)
-    z = TP.matmul(torch.cat((x, h_in), dim=-1), p.kernel, stacked=True)
-    return gcn_lstm_gates(p, z, (h, c))
+    z = TP.matmul(torch.cat((x, h_in), dim=-1), p.kernel, stacked=True,
+                  fmt=fmt)
+    return gcn_lstm_gates(p, z, (h, c), fmt)
 
 
-def ggru_step(p: GGRUCellParams, x: torch.Tensor, state):
+def ggru_step(p: GGRUCellParams, x: torch.Tensor, state,
+              fmt: str = "fp32"):
     r"""One frame of the G-GRU cell, direction-stacked, the input
     projection inside: zi = x·W_in + b_in, then :func:`ggru_step_hoisted`.
     x [D, B, N, F], state ``(h,)``. Returns ``(h',)``."""
-    zi = TP.matmul(x, p.w_in, stacked=True) + TP.full(p.b_in)[:, None, None]
-    return ggru_step_hoisted(p, zi, state)
+    zi = TP.matmul(x, p.w_in, stacked=True, fmt=fmt) \
+        + TP.full(p.b_in)[:, None, None]
+    return ggru_step_hoisted(p, zi, state, fmt)
 
 
 def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,
-                      state: Tuple[torch.Tensor]):
+                      state: Tuple[torch.Tensor], fmt: str = "fp32"):
     r"""G-GRU step given the hoisted input projection ``zi = x·W_in +
     b_in``, direction-stacked: zi [D, B, N, 3H], state ``(h,)`` with h
     [D, B, N, H]. msg = adj·(h·G), zh = msg·W_hid, r = σ(zi_r + zh_r),
@@ -221,9 +235,10 @@ def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,
     Returns the new state ``(h',)``; the layer's output is h'."""
     (h,) = state
     H = h.shape[-1]
-    msg = TP.matmul(h, p.gcn_kernel, stacked=True)
-    msg = torch.einsum("dnm,dbmh->dbnh", p.adj, msg)
-    zh = TP.matmul(msg, p.w_hid, stacked=True)
+    msg = TP.matmul(h, p.gcn_kernel, stacked=True, fmt=fmt)
+    msg = torch.einsum("dnm,dbmh->dbnh", operand(p.adj, fmt),
+                       operand(msg, fmt))
+    zh = TP.matmul(msg, p.w_hid, stacked=True, fmt=fmt)
     r = torch.sigmoid(zi[..., 0:H] + zh[..., 0:H])
     u = torch.sigmoid(zi[..., H:2 * H] + zh[..., H:2 * H])
     cand = torch.tanh(zi[..., 2 * H:] + r * zh[..., 2 * H:])

@@ -22,6 +22,11 @@ step, dropout on each frame's input and on the recurrent h (keep-masks
 drawn for the whole window before the loop), the step rematerialized in
 the backward pass (``remat``); no kernel computes that per-frame dropout.
 The DIP net drops its input and runs the plain hoisted scan.
+
+``precision`` ("highest" or "default", the JAX package's field) sets the
+operand format of every product of a net (:func:`a3gc_tpu_torch.ops.
+_common.operand_format`): fp32 at "highest"; at "default" TF32 operands
+on a card, as XLA's ``Precision.DEFAULT`` there, and fp32 on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
+from a3gc_tpu_torch.ops._common import check_precision, operand_format
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["GraphNetConfig", "GraphNetParams", "init_graph_net",
@@ -61,7 +67,8 @@ class GraphNetConfig:
     always runs the plain version; "cuda" runs the kernel or raises. The
     dropout rates and ``remat`` (rematerialize the cell step in the
     backward pass: the stored per-frame intermediates otherwise dominate
-    device memory) act only in training."""
+    device memory) act only in training. ``precision``: "highest" (fp32
+    products) or "default" (TF32 operands on a card, fp32 on the CPU)."""
 
     cell: str = "a3gc"
     units_in: int = 12
@@ -73,11 +80,13 @@ class GraphNetConfig:
     dropout: float = 0.3
     recurrent_dropout: float = 0.3
     remat: bool = True
+    precision: str = "highest"
 
     def __post_init__(self):
         if self.cell not in CELL_KINDS:
             raise ValueError(f"unknown cell {self.cell!r}")
         _check_backend(self.backend)
+        check_precision(self.precision)
 
 
 def _check_backend(backend: str):
@@ -132,22 +141,23 @@ def graph_net_zero_state(cfg: GraphNetConfig, batch: int, device="cuda",
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
-def _pick(backend: str, x: torch.Tensor, kernel_fn, plain_fn):
-    r"""The layer function of a backend: "eager" → the plain version,
-    "cuda" → the kernel's wrapper or raise off the card, "auto" → the
-    wrapper (kernel on CUDA tensors, plain version on CPU tensors)."""
-    if backend == "eager":
-        return plain_fn
+def _pick(backend: str, x: torch.Tensor, kernel_fn, plain_fn, fmt: str):
+    r"""The layer function of a backend, at operand format ``fmt``:
+    "eager" → the plain version, "cuda" → the kernel's wrapper or raise off
+    the card, "auto" → the wrapper (kernel on CUDA tensors, plain version
+    on CPU tensors)."""
+    fn = plain_fn if backend == "eager" else kernel_fn
     if backend == "cuda" and not x.is_cuda:
         raise RuntimeError("backend='cuda' needs CUDA tensors, got a tensor "
                            f"on {x.device}")
-    return kernel_fn
+    return lambda params, inputs, state, n_valid: fn(params, inputs, state,
+                                                     n_valid, fmt)
 
 
-def _rnn_layer(cfg: GraphNetConfig, x: torch.Tensor):
+def _rnn_layer(cfg: GraphNetConfig, x: torch.Tensor, fmt: str):
     if cfg.cell == "ggru":
-        return _pick(cfg.backend, x, GG.bi_ggru, GG.bi_ggru_reference)
-    return _pick(cfg.backend, x, G.bi_gcn_lstm, G.bi_gcn_lstm_reference)
+        return _pick(cfg.backend, x, GG.bi_ggru, GG.bi_ggru_reference, fmt)
+    return _pick(cfg.backend, x, G.bi_gcn_lstm, G.bi_gcn_lstm_reference, fmt)
 
 
 def check_ones_prefix(frame_mask):
@@ -194,7 +204,7 @@ def _as_input(x, dev) -> torch.Tensor:
 
 
 def _layer_in_scan(cfg: GraphNetConfig, params2, x: torch.Tensor, state,
-                   frame_mask, rng):
+                   frame_mask, rng, fmt: str):
     r"""One bidirectional graph layer in training: the unhoisted cell step
     in :func:`layers.bi_rnn`, with per-frame dropout on the input and on
     the recurrent h (LSTM cells; the G-GRU cell has none) from keep-masks
@@ -202,11 +212,12 @@ def _layer_in_scan(cfg: GraphNetConfig, params2, x: torch.Tensor, state,
     ``cfg.remat``. Returns (y [B, T, N, 2H], state)."""
     B, T, N, F = x.shape
     if cfg.cell == "ggru":
-        step, extras, state = C.ggru_step, (), (state,)
+        step = functools.partial(C.ggru_step, fmt=fmt)
+        extras, state = (), (state,)
     else:
         step = functools.partial(
             C.gcn_lstm_step, dropout_rate=cfg.dropout,
-            recurrent_dropout_rate=cfg.recurrent_dropout)
+            recurrent_dropout_rate=cfg.recurrent_dropout, fmt=fmt)
         H = cfg.units_hidden
         extras = (C.keep_mask(rng, (2, T, B, N, F), cfg.dropout, x.device,
                               batch_axis=2),
@@ -235,6 +246,7 @@ def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
     by frame on the plain path (:func:`_layer_in_scan`)."""
     dev = resolve_device(device)
     check_module_device(params, dev)
+    fmt = operand_format(cfg.precision, dev)
     x = _as_input(x, dev)
     if state is None:
         state = graph_net_zero_state(cfg, x.shape[0], dev, x.dtype)
@@ -242,17 +254,18 @@ def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
     drop_rng = None if cfg.cell == "ggru" else rng
     x = torch.relu(C.graph_conv(params.linear_in, x,
                                 dropout_rate=cfg.linear_dropout,
-                                rng=drop_rng))
+                                rng=drop_rng, fmt=fmt))
     if rng is None:
-        layer = _rnn_layer(cfg, x)
+        layer = _rnn_layer(cfg, x, fmt)
         x, state = layer(params.rnn1, x, state, n_valid)
         x, state = layer(params.rnn2, x, state, n_valid)
     else:
         mask = (None if n_valid is None else
                 torch.arange(x.shape[1], device=dev)[None] < n_valid[:, None])
         for params2 in (params.rnn1, params.rnn2):
-            x, state = _layer_in_scan(cfg, params2, x, state, mask, drop_rng)
-    return C.graph_conv(params.linear_out, x), state
+            x, state = _layer_in_scan(cfg, params2, x, state, mask, drop_rng,
+                                      fmt)
+    return C.graph_conv(params.linear_out, x, fmt=fmt), state
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +294,7 @@ class LSTMLayerParams(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class DIPConfig:
-    r"""Static DIP-net hyperparameters. ``backend`` as in
+    r"""Static DIP-net hyperparameters. ``backend`` and ``precision`` as in
     :class:`GraphNetConfig`; ``dropout`` on the input, in training only."""
 
     n_input: int = 60
@@ -291,9 +304,11 @@ class DIPConfig:
     bidirectional: bool = True
     backend: str = "auto"
     dropout: float = 0.2
+    precision: str = "highest"
 
     def __post_init__(self):
         _check_backend(self.backend)
+        check_precision(self.precision)
 
     @property
     def directions(self) -> int:
@@ -360,20 +375,22 @@ def dip_apply(params: DIPParams, cfg: DIPConfig, x, state=None,
     layers on the plain path."""
     dev = resolve_device(device)
     check_module_device(params, dev)
+    fmt = operand_format(cfg.precision, dev)
     x = _as_input(x, dev)
     if state is None:
         state = dip_zero_state(cfg, x.shape[0], dev, x.dtype)
     n_valid = _n_valid(frame_mask, dev)
     if rng is None:
-        layer = _pick(cfg.backend, x, LS.bi_lstm, LS.bi_lstm_reference)
+        layer = _pick(cfg.backend, x, LS.bi_lstm, LS.bi_lstm_reference, fmt)
     else:
         x = C._dropout(x, cfg.dropout, rng)
-        layer = LS.bi_lstm_reference
-    x = torch.relu(TP.matmul(x, params.linear1.kernel)
+        layer = _pick("eager", x, None, LS.bi_lstm_reference, fmt)
+    x = torch.relu(TP.matmul(x, params.linear1.kernel, fmt=fmt)
                    + TP.full(params.linear1.bias))
     new_states = []
     for layer_params, layer_state in zip(params.lstm, state):
         x, fin = layer(layer_params, x, layer_state, n_valid)
         new_states.append(fin)
-    y = TP.matmul(x, params.linear2.kernel) + TP.full(params.linear2.bias)
+    y = TP.matmul(x, params.linear2.kernel, fmt=fmt) \
+        + TP.full(params.linear2.bias)
     return y, tuple(new_states)

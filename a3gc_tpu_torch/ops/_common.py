@@ -7,7 +7,21 @@ Each ``csrc/<name>.cu`` exports a plain C interface: ``<name>_forward``
 
 The launch plans of the weight-stationary kernels (``lstm``, ``gcn_lstm``)
 are computed here in Python and passed to C: :func:`k_slices` is the
-thread mapping both use."""
+thread mapping both use.
+
+The operand format of the nets' products is settled here too: a net's
+``precision`` ("highest" or "default", the JAX package's
+``GraphNetConfig.precision``) becomes "fp32" or "tf32" on a device
+(:func:`operand_format`), and at "tf32" every product takes its operands
+rounded to TF32 (:func:`round_tf32`, :func:`operand`) and sums
+in fp32: the arithmetic of one tensor-core pass, which is what XLA's
+``Precision.DEFAULT`` computes on an Ampere or Hopper card. The kernels'
+TF32 instantiations round by the same rule (``csrc/scan_common.cuh``
+``tf32_round``). The
+rounding is explicit, not ``torch.backends.cuda.matmul.allow_tf32``: that
+switch is global to the process, would reach the geometry and the metrics
+(which JAX keeps at HIGHEST) and would leak across the server's
+threads."""
 
 from __future__ import annotations
 
@@ -17,9 +31,10 @@ import functools
 import torch
 
 __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
-           "like", "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
-           "k_slices", "sm_count", "device_index", "kernel_library",
-           "launch"]
+           "PRECISIONS", "FORMATS", "check_precision", "operand_format",
+           "round_tf32", "operand", "like", "n_valid_tensor",
+           "check_f32", "check_n_valid", "check_aligned", "k_slices",
+           "sm_count", "device_index", "kernel_library", "launch"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
 SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
@@ -55,6 +70,56 @@ def f32(t: torch.Tensor) -> torch.Tensor:
     r"""bf16/fp16 inputs are upcast at the boundary: the kernels are fp32
     inside."""
     return t if t.dtype == torch.float32 else t.float()
+
+
+PRECISIONS = ("highest", "default")
+FORMATS = ("fp32", "tf32")
+
+
+def check_precision(precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def operand_format(precision: str, device) -> str:
+    r"""The operand format of a net's products at ``precision`` on
+    ``device``: "highest" → "fp32" everywhere; "default" → "tf32" on a CUDA
+    device and "fp32" on the CPU, as ``jax.lax.Precision.DEFAULT`` is one
+    TF32 tensor-core pass on an Ampere or Hopper card and fp32 on the CPU.
+    Raises ``ValueError`` on any other precision."""
+    check_precision(precision)
+    if precision == "highest":
+        return "fp32"
+    return "tf32" if torch.device(device).type == "cuda" else "fp32"
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    r"""fp32 ``t`` rounded to TF32 (10 mantissa bits), to nearest, ties to
+    even, kept in fp32; inf and NaN as they are, a finite value past the
+    largest TF32 to inf: ``jax.lax.reduce_precision(t, 8, 10)`` bit for
+    bit. No gradient (see :func:`operand`)."""
+    i = t.detach().view(torch.int32)
+    r = ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(t), r, t.detach())
+
+
+def operand(t: torch.Tensor, fmt: str) -> torch.Tensor:
+    r"""``t`` as an operand of a product in format ``fmt``: itself at
+    "fp32"; at "tf32" an fp32 ``t`` rounded by :func:`round_tf32` with a
+    straight-through gradient (the rounding's own derivative is zero
+    almost everywhere; JAX differentiates a DEFAULT product through
+    DEFAULT products, the port through fp32 ones). A bf16 or fp16 ``t`` is
+    a TF32 value already."""
+    if fmt == "fp32" or t.dtype != torch.float32:
+        return t
+    if fmt != "tf32":
+        raise ValueError(f"operand format must be one of {FORMATS}, got "
+                         f"{fmt!r}")
+    r = round_tf32(t)
+    if not t.requires_grad:
+        return r
+    return t + torch.where(torch.isfinite(t), r - t.detach(), 0.0)
 
 
 def like(out, ref: torch.Tensor):

@@ -14,8 +14,8 @@
 // attention sums, the direction-row augmentation that saved Mosaic compile
 // time) has no purpose here: a cluster owns exactly one stream's 15 nodes.
 //
-// Per frame, in order (the JAX cell's op order, fp32 FMA throughout, no TF32
-// and no bf16 — the numerics of precision="highest"):
+// Per frame, in order (the JAX cell's op order, fp32 FMA throughout, no bf16;
+// the TF32 instantiation is below):
 //   z   = u_t + h·W_h                         u hoisted by the caller
 //   pre = adj[g]·z_g + bias[g]                bias AFTER the graph mix
 //   i,f,o = σ(pre), g = tanh(pre); c' = f·c + i·g; hy = o·tanh(c')
@@ -62,6 +62,20 @@
 //   * the next frame's u slice is prefetched by cp.async during the cell
 //     and the attention; masked frames of a stream (uniform over its
 //     cluster) only write y.
+// The TF32 instantiation (a net's precision="default" on the card, as XLA's
+// Precision.DEFAULT here) multiplies operands rounded to TF32 where the JAX
+// cell's products take them and sums in fp32; a product of two TF32 values
+// is exact in fp32, so this is one tensor-core pass's arithmetic up to the
+// order of the sums. Weights are rounded once, where they are staged (W_h
+// and Wq in shared memory after the bulk load, W and Wh in registers, adj
+// and u of the attention); activations where they are formed: z before the
+// mix, q before it is sent, s before its partial s·u is sent, hy as the
+// attention products read it. h·W_h takes round(h), h = hy + hy·σ(a): the
+// product cannot start on hy and scale its rows afterwards, so σ(a) of the
+// previous frame is waited for first, and one pass forms h, writes that
+// frame's y from it and rounds it in place (the fp32 hy is not read again:
+// masked frames, y and h_out read a buffer no valid frame has rounded).
+//
 // The launch plan (C, k-slices, shared-memory bytes) comes from the Python
 // wrapper (ops/gcn_lstm.py launch_plan); the C side recomputes the shared
 // memory and refuses a plan that disagrees.
@@ -133,7 +147,7 @@ size_t smem_floats(int N, int H, int C, int KSQ, bool att) {
   return f;
 }
 
-template <bool ATT>
+template <bool ATT, bool TF32>
 __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   PhaseClock clk(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
@@ -219,14 +233,15 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < kMaxKw; ++i) {
       const size_t row = 4 * ksQ + a.KSQ * (i & ~3) + (i & 3);
-      ww[i] = i < KcQ ? __ldg(aw + row * H) : 0.0f;
+      ww[i] = i < KcQ ? operand<TF32>(__ldg(aw + row * H)) : 0.0f;
     }
     const float* awh = a.att_wh + (size_t)d * H * H + c * Hc + colA;
 #pragma unroll
     for (int i = 0; i < kMaxKca / 2; ++i) {
       const size_t row = 4 * ksA + a.KSA * (i & ~3) + (i & 3);
-      wa[2 * i] = i < KcA ? __ldg(awh + row * H) : 0.0f;
-      wa[2 * i + 1] = i < KcA ? __ldg(awh + row * H + 1) : 0.0f;
+      wa[2 * i] = i < KcA ? operand<TF32>(__ldg(awh + row * H)) : 0.0f;
+      wa[2 * i + 1] =
+          i < KcA ? operand<TF32>(__ldg(awh + row * H + 1)) : 0.0f;
     }
   }
 
@@ -243,11 +258,11 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     bias_s[e] = a.bias[((size_t)d * 4 + g) * H + c * Hc + (e - g * Hc)];
   }
   for (int e = tid; e < 4 * N * N; e += kThreads)
-    adj_s[e] = a.adj[(size_t)d * 4 * N * N + e];
+    adj_s[e] = operand<TF32>(a.adj[(size_t)d * 4 * N * N + e]);
   if constexpr (ATT) {
     for (int e = tid; e < Hc; e += kThreads) {
       bs_s[e] = a.att_bs[(size_t)d * H + c * Hc + e];
-      au_s[e] = a.att_u[(size_t)d * H + c * Hc + e];
+      au_s[e] = operand<TF32>(a.att_u[(size_t)d * H + c * Hc + e]);
     }
     if (tid < kNodes) {
       bu_s[tid] = tid < N ? a.att_bu[(size_t)d * N + tid] : 0.0f;
@@ -298,6 +313,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   };
   prefetch_u(0);
   mbar_wait(bar, 0);
+  round_smem<TF32>(w_s, H, M, WS);
+  if constexpr (ATT) round_smem<TF32>(wq_s, H, Hc, WQ);
   cluster.sync();                // every peer is running and initialised
   clk.mark(16);
 
@@ -326,9 +343,27 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       continue;
     }
 
-    // z = u_t + h·W_h on own columns, all node rows (with attention h·W_h
-    // = (hy + hy·σ(a))·W_h: the product on hy, its rows scaled once σ(a) is
-    // here); then the graph mix
+    if constexpr (TF32) {
+      // the product's operand round(h), h = hy + hy·σ(a), in place; the
+      // previous frame's y from h
+      if (ATT && yf >= 0) resolve_gate();
+      for (int e = tid; e < N * H; e += kThreads) {
+        const int n = e / H, k = e - n * H;
+        float h = h_cur[e];
+        if constexpr (ATT) {
+          h = h + h * sg_s[n];
+          if (yf >= 0 && k >= c * Hc && k < (c + 1) * Hc)
+            y_sd[((size_t)yf * N + n) * 2 * H + (k - c * Hc)] = tanhf(h);
+        }
+        h_cur[e] = tf32_round(h);
+      }
+      yf = -1;
+      __syncthreads();
+    }
+
+    // z = u_t + h·W_h on own columns, all node rows (with attention, fp32:
+    // h·W_h = (hy + hy·σ(a))·W_h, the product on hy, its rows scaled once
+    // σ(a) is here); then the graph mix
     const bool gate_due = ATT && yf >= 0;
     float acc[4 * kNodes];       // acc[4n + j]: node n, column col + j
     if (warp < zwarps) {
@@ -365,7 +400,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 #pragma unroll
         for (int m = 0; m < kNodes; ++m) {
           if (m < N) {
-            if constexpr (ATT) {
+            if constexpr (ATT && !TF32) {
               const float sg = sg_s[m];
 #pragma unroll
               for (int j = 0; j < 4; ++j)
@@ -373,10 +408,10 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
             }
             const float4 uv =
                 *reinterpret_cast<const float4*>(u_s + m * M + col);
-            acc[4 * m] = uv.x + acc[4 * m];
-            acc[4 * m + 1] = uv.y + acc[4 * m + 1];
-            acc[4 * m + 2] = uv.z + acc[4 * m + 2];
-            acc[4 * m + 3] = uv.w + acc[4 * m + 3];
+            acc[4 * m] = operand<TF32>(uv.x + acc[4 * m]);
+            acc[4 * m + 1] = operand<TF32>(uv.y + acc[4 * m + 1]);
+            acc[4 * m + 2] = operand<TF32>(uv.z + acc[4 * m + 2]);
+            acc[4 * m + 3] = operand<TF32>(uv.w + acc[4 * m + 3]);
           }
         }
         clk.mark(20);
@@ -461,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       // q = relu((Σ_nodes hy)·W) on own columns, to every peer
       for (int k = tid; k < H; k += kThreads) {
         float v = 0.0f;
-        for (int n = 0; n < N; ++n) v += h_nxt[n * H + k];
+        for (int n = 0; n < N; ++n) v += operand<TF32>(h_nxt[n * H + k]);
         hsum_s[k] = v;
       }
       __syncthreads();
@@ -480,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
           }
         }
         reduce_k_slices(acc, cpwQ);
-        const float q = fmaxf(acc[0], 0.0f);
+        const float q = operand<TF32>(fmaxf(acc[0], 0.0f));
         if (cpwQ >= 4) {         // 4 neighbouring columns in one store
           const float4 qv = {q, __shfl_down_sync(0xffffffffu, q, 1),
                              __shfl_down_sync(0xffffffffu, q, 2),
@@ -511,8 +546,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
           if (i < KcA) {
 #pragma unroll
             for (int n = 0; n < kNodes; ++n) {
-              const float4 hv =
-                  *reinterpret_cast<const float4*>(hp + n * H + a.KSA * i);
+              const float4 hv = operand<TF32>(
+                  *reinterpret_cast<const float4*>(hp + n * H + a.KSA * i));
               acc[2 * n] = fmaf(hv.x, wa[2 * i], acc[2 * n]);
               acc[2 * n] = fmaf(hv.y, wa[2 * i + 2], acc[2 * n]);
               acc[2 * n] = fmaf(hv.z, wa[2 * i + 4], acc[2 * n]);
@@ -549,7 +584,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
         if (colQ < Hc) {
           const float b = bs_s[colQ];
           for (int n = ksQ; n < N; n += a.KSQ)
-            sa_s[n * Hc + colQ] = tanhf(sa_s[n * Hc + colQ] + acc[0] + b);
+            sa_s[n * Hc + colQ] =
+                operand<TF32>(tanhf(sa_s[n * Hc + colQ] + acc[0] + b));
         }
       }
       clk.mark(12);
@@ -639,9 +675,9 @@ cudaLaunchConfig_t config(const Plan& pl, int S, cudaStream_t stream,
   return cfg;
 }
 
-template <bool ATT>
+template <bool ATT, bool TF32>
 int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
-  auto kern = gcn_lstm_kernel<ATT>;
+  auto kern = gcn_lstm_kernel<ATT, TF32>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return a ? (int)err : -(int)err;
@@ -657,6 +693,15 @@ int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int launch(const Args* a, const Plan& pl, int S, bool attention, bool tf32,
+           cudaStream_t stream) {
+  if (attention)
+    return tf32 ? launch<true, true>(a, pl, S, stream)
+                : launch<true, false>(a, pl, S, stream);
+  return tf32 ? launch<false, true>(a, pl, S, stream)
+              : launch<false, false>(a, pl, S, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -668,18 +713,19 @@ size_t gcn_lstm_smem_bytes(int N, int H, int C, int KSQ, int attention) {
          sizeof(float) * smem_floats(N, H, C, KSQ, attention != 0);
 }
 
-// Most clusters of a plan the card holds at once
-// (cudaOccupancyMaxActiveClusters); a negative value is minus a cudaError_t.
+// Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
+// the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
+// is minus a cudaError_t.
 int gcn_lstm_max_active(int S, int N, int H, int attention, int C, int KS,
-                        int KSA, int KSQ, int threads, int smem) {
+                        int KSA, int KSQ, int threads, int smem, int tf32) {
   const Plan pl{C, KS, KSA, KSQ, threads, smem};
   if (S <= 0 || !plan_ok(N, H, attention, pl))
     return -(int)cudaErrorInvalidValue;
-  return attention ? launch<true>(nullptr, pl, S, nullptr)
-                   : launch<false>(nullptr, pl, S, nullptr);
+  return launch(nullptr, pl, S, attention != 0, tf32 != 0, nullptr);
 }
 
-// Launches the scan on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the scan on `stream`, the TF32 instantiation when tf32 != 0;
+// returns cudaGetLastError() (0 on success).
 int gcn_lstm_forward(const float* u, const float* wh, const float* adj,
                      const float* bias, const float* att_w,
                      const float* att_wq, const float* att_wh,
@@ -687,7 +733,7 @@ int gcn_lstm_forward(const float* u, const float* wh, const float* adj,
                      const float* att_bu, const float* h0, const float* c0,
                      const int* n_valid, float* y, float* h_out, float* c_out,
                      int S, int T, int N, int H, int attention, int C, int KS,
-                     int KSA, int KSQ, int threads, int smem,
+                     int KSA, int KSQ, int threads, int smem, int tf32,
                      cudaStream_t stream) {
   const Plan pl{C, KS, KSA, KSQ, threads, smem};
   if (S <= 0 || T <= 0 || !plan_ok(N, H, attention, pl))
@@ -696,8 +742,7 @@ int gcn_lstm_forward(const float* u, const float* wh, const float* adj,
     return (int)cudaErrorInvalidValue;
   Args a{u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs, att_bu,
          h0, c0, n_valid, y, h_out, c_out, S, T, N, H, C, KS, KSA, KSQ};
-  return attention ? launch<true>(&a, pl, S, stream)
-                   : launch<false>(&a, pl, S, stream);
+  return launch(&a, pl, S, attention != 0, tf32 != 0, stream);
 }
 
 const char* gcn_lstm_error_string(int code) {

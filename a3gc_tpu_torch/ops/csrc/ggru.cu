@@ -10,8 +10,8 @@
 // cluster walks all T frames of its stream with the stream's 15 node rows
 // as its own.
 //
-// The function, per frame (the JAX cell, fp32 FMA throughout, no TF32 and
-// no bf16 — the numerics of precision="highest"):
+// The function, per frame (the JAX cell, fp32 FMA throughout, no bf16; the
+// TF32 instantiation is below):
 //   msg  = adj · (h·G)                      adj left-multiplies
 //   zh   = msg · W_hid                      [N, 3H], gate order r, u, c
 //   r = σ(zi_r + zh_r), u = σ(zi_u + zh_u)  zi = x·W_in + b_in, hoisted
@@ -22,7 +22,8 @@
 // The backward direction walks frame = T-1 … 0 and reads zi in forward
 // frame order, as the Pallas index map does.
 //
-// How it is computed: adj·(h·G)·W_hid = (adj·h)·(G·W_hid). W = G·W_hid
+// How the fp32 instantiation computes it: adj·(h·G)·W_hid =
+// (adj·h)·(G·W_hid). W = G·W_hid
 // [H, 3H] does not change over the window, and the graph mix is as
 // column-local on h as on h·G, so a frame is ONE product on one resident
 // matrix with one exchange:
@@ -67,6 +68,22 @@
 //     and waited for before the cell, behind the product;
 //   * n_valid is per stream, so per cluster: a carried frame skips the
 //     product and the exchange and only writes y.
+// The TF32 instantiation (a net's precision="default" on the card) keeps
+// the JAX cell's order, because TF32 rounds each product's operands and
+// the fold would round other values (G·W_hid and adj·h, where the cell
+// rounds h·G and msg): a CPU emulation of the folded order put it as far
+// from the plain version at TF32 as the fp32 kernel is. A frame is then two
+// products and two exchanges, every operand rounded where the cell rounds
+// it (G and W_hid once a launch, when they are staged):
+//   h    rounded own columns to every CTA (the carried exchange)
+//   hg   = h · G                own columns, [H, Hc] of G resident
+//   msg  = adj · hg             column-local; rounded, to every CTA
+//   zh   = msg · W_hid          own gate columns, [H, 3·Hc] of W_hid
+//   the GRU update of own columns (h itself stays fp32)
+// Both exchanges are double-buffered on their own pair of mbarriers, by the
+// argument above: a peer's next stores into a buffer need a value this CTA
+// sends only after it has read that buffer.
+//
 // The launch plan (C, k-slices, shared-memory bytes) comes from the Python
 // wrapper (ops/ggru.py launch_plan); the C side recomputes the shared
 // memory and refuses a plan that disagrees.
@@ -115,13 +132,18 @@ __host__ __device__ inline int gate_pad(int M) {
   return (36 - (4 * M) % 32) % 32;
 }
 
-// Floats of dynamic shared memory after the header.
-size_t smem_floats(int N, int H, int C) {
+// Floats of dynamic shared memory after the header. The TF32 instantiation
+// adds G's own columns and the rounded h, double-buffered (its a_s holds
+// msg, its zh_s h·G first).
+size_t smem_floats(int N, int H, int C, bool tf32) {
   const size_t Hc = H / C, M = 3 * Hc;
   return (size_t)H * M + (size_t)(H / 4) * gate_pad(M) +   // W slice
          2 * (size_t)kNodes * H +                          // adj·h, 2 buffers
          (size_t)N * M + (size_t)kNodes * M +              // zi, zh
-         kNodes * kNodes + (size_t)kNodes * Hc;            // adj, own h
+         kNodes * kNodes + (size_t)kNodes * Hc +           // adj, own h
+         (tf32 ? (size_t)H * Hc + (size_t)(H / 4) * gate_pad(Hc) +  // G
+                     2 * (size_t)kNodes * H                // h, 2 buffers
+               : 0);
 }
 
 // e / d for 0 <= e < 2^16 and 2 <= d <= 2^10 by one multiplication, magic =
@@ -239,6 +261,31 @@ __device__ __forceinline__ void fold_weights(const Args& a, float* w_s,
   }
 }
 
+// The TF32 instantiation's weights, rounded, in the layout of the products:
+// W_hid's own gate columns into w_s (row k at k·M + (k / 4)·gate_pad(M), as
+// the fold's) and G's own columns into g_s (row k at k·Hc +
+// (k / 4)·gate_pad(Hc)). Once a launch.
+__device__ __forceinline__ void stage_weights_tf32(const Args& a, float* w_s,
+                                                   float* g_s,
+                                                   const float* gk,
+                                                   const float* whid, int c) {
+  const int H = a.H, Hc = H / a.C, M = 3 * Hc, M4 = M / 4, q4 = Hc / 4;
+  const int P = gate_pad(M), GP = gate_pad(Hc);
+  for (int e = threadIdx.x; e < H * M4; e += kThreads) {
+    const int k = e / M4, col = 4 * (e - k * M4);
+    const int g = col / Hc, j = col - g * Hc;
+    *reinterpret_cast<float4*>(w_s + (size_t)k * M + (k >> 2) * P + col) =
+        operand<true>(__ldg(reinterpret_cast<const float4*>(
+            whid + (size_t)k * 3 * H + g * H + c * Hc + j)));
+  }
+  for (int e = threadIdx.x; e < H * q4; e += kThreads) {
+    const int k = e / q4, col = 4 * (e - k * q4);
+    *reinterpret_cast<float4*>(g_s + (size_t)k * Hc + (k >> 2) * GP + col) =
+        operand<true>(__ldg(reinterpret_cast<const float4*>(
+            gk + (size_t)k * H + c * Hc + col)));
+  }
+}
+
 // One unit of the GRU update (the JAX cell's op order).
 __device__ __forceinline__ float gru_unit(float h, float zir, float ziu,
                                           float zic, float zhr, float zhu,
@@ -249,26 +296,29 @@ __device__ __forceinline__ float gru_unit(float h, float zir, float ziu,
   return ug * h + (1.0f - ug) * cand;
 }
 
-// The product on the gate matrix ([H, 3·Hc] in shared memory, row k at
-// k·M + (k / 4)·P): a thread owns units u, u + 1 — the r, u and c columns of
-// each, 6 columns — and one k-slice, with the 16 node rows as its 96
-// accumulators acc[6n + 2g + j] (node n, gate g, unit u + j). 6 columns a
-// thread make Hc / 2 column groups, a power of two with the k-slices: every
-// lane of every warp works, where 4 columns leave a quarter of them idle
-// (3·Hc / 4 groups), and an x value loaded feeds 6 FMAs instead of 4.
+// The product on a resident matrix of NG column groups Hc apart ([H, NG·Hc]
+// in shared memory, row k at k·M + (k / 4)·P): a thread owns units u, u + 1
+// of each group (2·NG columns) and one k-slice, with the 16 node rows as
+// its 2·NG·16 accumulators acc[2·NG·n + 2g + j] (node n, group g, unit
+// u + j). NG = 3 is the gate product (the r, u and c columns of two units,
+// 6 columns: Hc / 2 column groups, a power of two with the k-slices, so
+// every lane of every warp works, where 4 columns leave a quarter of them
+// idle, and an x value loaded feeds 6 FMAs instead of 4); NG = 1 is the TF32
+// instantiation's h·G.
 constexpr int kGateAcc = 6 * kNodes;
 
-__device__ __forceinline__ void gate_product(float (&acc)[kGateAcc],
+template <int NG>
+__device__ __forceinline__ void gate_product(float (&acc)[2 * NG * kNodes],
                                              const float* x, const float* w,
                                              int H, int Hc, int M, int P,
                                              int k0, int KS4) {
   for (int k = k0; k < H; k += KS4) {
     const float* wr = w + (size_t)k * M + (k >> 2) * P;
-    float2 wv[4][3];
+    float2 wv[4][NG];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+      for (int g = 0; g < NG; ++g)
         wv[q][g] = *reinterpret_cast<const float2*>(wr + q * M + g * Hc);
 #pragma unroll
     for (int n = 0; n < kNodes; ++n) {
@@ -277,10 +327,11 @@ __device__ __forceinline__ void gate_product(float (&acc)[kGateAcc],
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          acc[6 * n + 2 * g] = fmaf(xk[q], wv[q][g].x, acc[6 * n + 2 * g]);
-          acc[6 * n + 2 * g + 1] =
-              fmaf(xk[q], wv[q][g].y, acc[6 * n + 2 * g + 1]);
+        for (int g = 0; g < NG; ++g) {
+          acc[2 * NG * n + 2 * g] =
+              fmaf(xk[q], wv[q][g].x, acc[2 * NG * n + 2 * g]);
+          acc[2 * NG * n + 2 * g + 1] =
+              fmaf(xk[q], wv[q][g].y, acc[2 * NG * n + 2 * g + 1]);
         }
     }
   }
@@ -319,6 +370,65 @@ __device__ __forceinline__ void store_gate_totals(float (&acc)[kGateAcc],
   }
 }
 
+// The same for NG = 1: the lane of k-slice ks ends with 32 / KS totals,
+// whole pairs of one node row (at KS = 32 one value), stored to
+// out[n, j] (rows M apart).
+__device__ __forceinline__ void store_pair_totals(float (&acc)[2 * kNodes],
+                                                  int ks, int cpw, int KS,
+                                                  bool own, float* out,
+                                                  int M) {
+  const int first =
+      reduce_scatter_k_slices<2 * kNodes, 2 * kNodes>(acc, ks, cpw, KS);
+  if (!own) return;
+  if (KS == 32) {
+    out[(first >> 1) * M + (first & 1)] = acc[0];
+    return;
+  }
+  float* o = out + (first >> 1) * M;
+#pragma unroll
+  for (int i = 0; i < kNodes; ++i)
+    if (i * KS < kNodes)
+      *reinterpret_cast<float2*>(o + i * M) =
+          make_float2(acc[2 * i], acc[2 * i + 1]);
+}
+
+// dst[:, own columns] = adj · src (src: this CTA's columns [16, Hc]), or src
+// itself when `mix` is false, to every CTA's buffer `dst` (row n at n·H,
+// own columns at c·Hc), counted on the receivers' mbarrier `mb`: the mix is
+// within a column, one (node, 4 columns) a thread. At TF32 the operands and
+// the result are rounded.
+template <bool TF32>
+__device__ __forceinline__ void publish_columns(const Args& a,
+                                                const float* adj_s,
+                                                const float* src, float* dst,
+                                                uint64_t* mb, int c,
+                                                bool mix) {
+  const int N = a.N, H = a.H, Hc = H / a.C, q4 = Hc / 4;
+  for (int e = threadIdx.x; e < N * q4; e += kThreads) {
+    const int n = fast_div(e, a.divQ4), col = 4 * (e - n * q4);
+    const float* sc = src + col;
+    float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (mix) {
+      const float* arow = adj_s + n * kNodes;
+#pragma unroll
+      for (int m = 0; m < kNodes; ++m) {
+        const float am = arow[m];             // zero past N
+        const float4 g =
+            operand<TF32>(*reinterpret_cast<const float4*>(sc + m * Hc));
+        v.x = fmaf(am, g.x, v.x);
+        v.y = fmaf(am, g.y, v.y);
+        v.z = fmaf(am, g.z, v.z);
+        v.w = fmaf(am, g.w, v.w);
+      }
+    } else {
+      v = *reinterpret_cast<const float4*>(sc + n * Hc);
+    }
+    publish(dst + (size_t)n * H + c * Hc + col, operand<TF32>(v), mb, c,
+            a.C);
+  }
+}
+
+template <bool TF32>
 __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   PhaseClock clk(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
@@ -327,28 +437,38 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
   const int s = blockIdx.y;
   const int d = blockIdx.z;
   const int S = a.S, T = a.T, N = a.N, H = a.H, C = a.C;
-  const int Hc = H / C, M = 3 * Hc, WP = gate_pad(M);
-  const int q4 = Hc / 4;
+  const int Hc = H / C, M = 3 * Hc, WP = gate_pad(M), GP = gate_pad(Hc);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nv = a.n_valid[s];
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [2] the peers' columns of adj·h, one mbarrier a buffer
+  // [2] the peers' columns of adj·h (fp32) or msg (TF32), one mbarrier a
+  // buffer; [2] at TF32 the peers' columns of h
   uint64_t* mb_a = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* mb_x = mb_a + 2;
   float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);  // [H, M]
-  float* a_s = w_s + (size_t)H * M + (H / 4) * WP;  // [2, 16, H] adj·h
+  float* a_s = w_s + (size_t)H * M + (H / 4) * WP;  // [2, 16, H] adj·h | msg
   float* zi_s = a_s + 2 * (size_t)kNodes * H;  // [N, M] this frame's zi
-  float* zh_s = zi_s + (size_t)N * M;          // [16, M] ah·W
+  float* zh_s = zi_s + (size_t)N * M;          // [16, M] ah·W | h·G, msg·W
   float* adj_s = zh_s + (size_t)kNodes * M;    // [16, 16], zero padded
   float* h_s = adj_s + kNodes * kNodes;        // [16, Hc] own columns of h
+  float* g_s = h_s + (size_t)kNodes * Hc;      // TF32: [H, Hc] of G
+  float* x_s = g_s + (size_t)H * Hc + (H / 4) * GP;  // TF32: [2, 16, H] h
   const size_t buf = (size_t)kNodes * H;
+  // the carried exchange: adj·h (fp32) or h (TF32)
+  float* carry_s = TF32 ? x_s : a_s;
+  uint64_t* mb_c = TF32 ? mb_x : mb_a;
 
   if (tid == 0) {
     mbar_init(mb_a);
     mbar_init(mb_a + 1);
+    if constexpr (TF32) {
+      mbar_init(mb_x);
+      mbar_init(mb_x + 1);
+    }
   }
 
-  // thread mapping of the product: a pair of units × one k-slice, lane =
+  // thread mapping of the products: a pair of units × one k-slice, lane =
   // k-slice · (32 / slices) + pair
   const int cpwW = 32 / a.KS, KS4W = 4 * a.KS;
   const int wwarps = (Hc / 2 + cpwW - 1) / cpwW;
@@ -357,69 +477,102 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
 
   for (int e = tid; e < kNodes * kNodes; e += kThreads) {
     const int n = e / kNodes, m = e - n * kNodes;
-    adj_s[e] = (n < N && m < N) ? a.adj[(size_t)d * N * N + n * N + m] : 0.0f;
+    adj_s[e] = (n < N && m < N)
+                   ? operand<TF32>(a.adj[(size_t)d * N * N + n * N + m])
+                   : 0.0f;
   }
-  // h0: own columns into h_s, all columns into the second buffer, from
-  // which the first gets adj·h0 (each thread mixes whole columns)
+  // h0: own columns into h_s, all columns into the second buffer of the
+  // carried exchange; at fp32 the first then gets adj·h0 (each thread mixes
+  // whole columns), at TF32 the rounded h0 is the first frame's operand and
+  // the other buffers' padded rows are zeroed
   const float* h0 = a.h0 + ((size_t)d * S + s) * N * H;
   for (int e = tid; e < kNodes * Hc; e += kThreads) {
     const int n = fast_div(e, a.divHc), j = e - n * Hc;
     h_s[e] = n < N ? h0[(size_t)n * H + c * Hc + j] : 0.0f;
   }
-  for (int e = tid; e < kNodes * H; e += kThreads)
-    a_s[buf + e] = e < N * H ? h0[e] : 0.0f;
-  __syncthreads();
-  for (int k = tid; k < H; k += kThreads) {
-    const float* src = a_s + buf + k;
-    float col[kNodes];
-#pragma unroll
-    for (int m = 0; m < kNodes; ++m) col[m] = src[m * H];
-#pragma unroll
-    for (int n = 0; n < kNodes; ++n) {
-      float v = 0.0f;
-#pragma unroll
-      for (int m = 0; m < kNodes; ++m)
-        v = fmaf(adj_s[n * kNodes + m], col[m], v);
-      a_s[n * H + k] = v;                       // rows >= N: 0
-    }
+  for (int e = tid; e < kNodes * H; e += kThreads) {
+    carry_s[buf + e] = e < N * H ? operand<TF32>(h0[e]) : 0.0f;
+    if constexpr (TF32) a_s[e] = a_s[buf + e] = x_s[e] = 0.0f;
   }
-  clk.mark(16);
-  fold_weights(a, w_s, a.gk + (size_t)d * H * H,
-               a.whid + (size_t)d * H * 3 * H, c);
+  __syncthreads();
+  if constexpr (TF32) {
+    stage_weights_tf32(a, w_s, g_s, a.gk + (size_t)d * H * H,
+                       a.whid + (size_t)d * H * 3 * H, c);
+  } else {
+    for (int k = tid; k < H; k += kThreads) {
+      const float* src = a_s + buf + k;
+      float col[kNodes];
+#pragma unroll
+      for (int m = 0; m < kNodes; ++m) col[m] = src[m * H];
+#pragma unroll
+      for (int n = 0; n < kNodes; ++n) {
+        float v = 0.0f;
+#pragma unroll
+        for (int m = 0; m < kNodes; ++m)
+          v = fmaf(adj_s[n * kNodes + m], col[m], v);
+        a_s[n * H + k] = v;                     // rows >= N: 0
+      }
+    }
+    clk.mark(16);
+    fold_weights(a, w_s, a.gk + (size_t)d * H * H,
+                 a.whid + (size_t)d * H * 3 * H, c);
+  }
   __syncthreads();
   clk.mark(21);
   cluster.sync();                // every peer is running and initialised
 
   const int slice_bytes = (int)sizeof(float) * N * Hc;
-  uint32_t parity = 0;   // bit b: the phase of mb_a[b] to wait for next
-  int cur = 0;           // the buffer that holds adj·h of the carried state
+  uint32_t parity = 0;   // bit b: the phase of mb_c[b] to wait for next
+  int cur = TF32 ? 1 : 0;  // the buffer of carry_s holding the carried h
   bool due = false;      // the peers' columns of buffer `cur` are in flight
+  uint32_t parity_m = 0; // TF32: bit b, the phase of mb_a[b] to wait for next
+  int cur_m = 0;         // TF32: the buffer of a_s that takes msg next
   for (int step = 0; step < T; ++step) {
     const int frame = d == 0 ? step : T - 1 - step;
     const bool valid = frame < nv;
 
-    if (due) {                   // the peers' ah columns of the last frame
-      receive(mb_a + cur, (parity >> cur) & 1, C, slice_bytes);
+    if (due) {                   // the peers' columns of the last frame
+      receive(mb_c + cur, (parity >> cur) & 1, C, slice_bytes);
       parity ^= 1u << cur;
       due = false;
     }
-    __syncthreads();             // own ah columns written, zi_s and zh_s free
+    __syncthreads();             // own columns written, zi_s and zh_s free
     clk.mark(6);
 
-    // zh = ah · W on own gate columns
     if (valid) {
       fetch_zi_slice(a, zi_s, frame, s, c, d);
+      if constexpr (TF32) {
+        // hg = h · G on own columns, into zh_s [16, Hc]; msg = adj · hg to
+        // every CTA; then the peers' columns of msg
+        if (warp < wwarps) {
+          float acc[2 * kNodes];
+#pragma unroll
+          for (int n = 0; n < 2 * kNodes; ++n) acc[n] = 0.0f;
+          gate_product<1>(acc, carry_s + cur * buf, g_s + colW, H, Hc, Hc,
+                          GP, 4 * ksW, KS4W);
+          store_pair_totals(acc, ksW, cpwW, a.KS, cpW < Hc / 2, zh_s + colW,
+                            Hc);
+        }
+        __syncthreads();         // own columns of hg
+        publish_columns<true>(a, adj_s, zh_s, a_s + cur_m * buf,
+                              mb_a + cur_m, c, true);
+        receive(mb_a + cur_m, (parity_m >> cur_m) & 1, C, slice_bytes);
+        parity_m ^= 1u << cur_m;
+        __syncthreads();         // own columns of msg written, hg read
+      }
+      // zh = ah · W (fp32) or msg · W_hid (TF32) on own gate columns
       if (warp < wwarps) {
         float acc[kGateAcc];
 #pragma unroll
         for (int n = 0; n < kGateAcc; ++n) acc[n] = 0.0f;
-        gate_product(acc, a_s + cur * buf, w_s + colW, H, Hc, M, WP, 4 * ksW,
-                     KS4W);
+        gate_product<3>(acc, TF32 ? a_s + cur_m * buf : a_s + cur * buf,
+                        w_s + colW, H, Hc, M, WP, 4 * ksW, KS4W);
         clk.mark(3);
         store_gate_totals(acc, ksW, cpwW, a.KS, cpW < Hc / 2, zh_s + colW, Hc,
                           M);
         clk.mark(9);
       }
+      if constexpr (TF32) cur_m ^= 1;
     }
     cp_async_wait_all();
     __syncthreads();             // zh_s and zi_s hold this frame
@@ -451,31 +604,16 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
     clk.mark(valid ? 5 : 7);
     if (!valid) continue;
     __syncthreads();             // own columns of h updated
-    // ah[:, own columns] = adj · h, to every CTA's other buffer: the mix is
-    // within a column, one (node, 4 columns) a thread
-    for (int e = tid; e < N * q4; e += kThreads) {
-      const int n = fast_div(e, a.divQ4), col = 4 * (e - n * q4);
-      const float* arow = adj_s + n * kNodes;
-      const float* hc = h_s + col;
-      float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int m = 0; m < kNodes; ++m) {
-        const float am = arow[m];             // zero past N
-        const float4 g = *reinterpret_cast<const float4*>(hc + m * Hc);
-        v.x = fmaf(am, g.x, v.x);
-        v.y = fmaf(am, g.y, v.y);
-        v.z = fmaf(am, g.z, v.z);
-        v.w = fmaf(am, g.w, v.w);
-      }
-      publish(a_s + (cur ^ 1) * buf + (size_t)n * H + c * Hc + col, v,
-              mb_a + (cur ^ 1), c, C);
-    }
+    // adj·h (fp32) or the rounded h (TF32) on own columns, to every CTA's
+    // other buffer
+    publish_columns<TF32>(a, adj_s, h_s, carry_s + (cur ^ 1) * buf,
+                          mb_c + (cur ^ 1), c, !TF32);
     cur ^= 1;
     due = true;
     clk.mark(1);
   }
 
-  if (due) receive(mb_a + cur, (parity >> cur) & 1, C, slice_bytes);
+  if (due) receive(mb_c + cur, (parity >> cur) & 1, C, slice_bytes);
   __syncthreads();
   for (int e = tid; e < N * Hc; e += kThreads) {
     const int n = fast_div(e, a.divHc), j = e - n * Hc;
@@ -491,7 +629,7 @@ struct Plan {
 
 bool pow2_upto32(int x) { return x > 0 && x <= 32 && (x & (x - 1)) == 0; }
 
-bool plan_ok(int N, int H, const Plan& pl) {
+bool plan_ok(int N, int H, const Plan& pl, bool tf32) {
   if (N <= 0 || N > kNodes || H <= 0 || H % 4 != 0) return false;
   if (pl.C <= 0 || pl.C > kMaxCluster || H % pl.C != 0) return false;
   if (pl.threads != kThreads) return false;
@@ -501,14 +639,16 @@ bool plan_ok(int N, int H, const Plan& pl) {
       Hc / 2 * pl.KS > kThreads)
     return false;
   return (size_t)pl.smem ==
-         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C);
+         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, tf32);
 }
 
 // Launches the scan (a != null) or asks how many clusters of the plan the
 // card holds at once (a == null: the count, or minus a cudaError_t).
+template <bool TF32>
 int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
+  auto kern = ggru_kernel<TF32>;
   cudaError_t err = cudaFuncSetAttribute(
-      ggru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return a ? (int)err : -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.C, S, 2);
@@ -524,45 +664,56 @@ int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
   cfg.numAttrs = 1;
   if (!a) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, ggru_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
     return err == cudaSuccess ? clusters : -(int)err;
   }
-  err = cudaLaunchKernelEx(&cfg, ggru_kernel, *a);
+  err = cudaLaunchKernelEx(&cfg, kern, *a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch(const Args* a, const Plan& pl, int S, bool tf32,
+           cudaStream_t stream) {
+  return tf32 ? launch<true>(a, pl, S, stream)
+              : launch<false>(a, pl, S, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one CTA of a plan, in bytes.
-size_t ggru_smem_bytes(int N, int H, int C) {
+// Dynamic shared memory of one CTA of a plan of the fp32 (tf32 = 0) or the
+// TF32 instantiation, in bytes.
+size_t ggru_smem_bytes(int N, int H, int C, int tf32) {
   if (H <= 0 || C <= 0 || H % C != 0) return 0;
-  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C);
+  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, tf32 != 0);
 }
 
-// Most clusters of a plan the card holds at once
-// (cudaOccupancyMaxActiveClusters); a negative value is minus a cudaError_t.
+// Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
+// the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
+// is minus a cudaError_t.
 int ggru_max_active(int S, int N, int H, int C, int KS, int threads,
-                    int smem) {
+                    int smem, int tf32) {
   const Plan pl{C, KS, threads, smem};
-  if (S <= 0 || !plan_ok(N, H, pl)) return -(int)cudaErrorInvalidValue;
-  return launch(nullptr, pl, S, nullptr);
+  if (S <= 0 || !plan_ok(N, H, pl, tf32 != 0))
+    return -(int)cudaErrorInvalidValue;
+  return launch(nullptr, pl, S, tf32 != 0, nullptr);
 }
 
-// Launches the scan on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the scan on `stream`, the TF32 instantiation when tf32 != 0;
+// returns cudaGetLastError() (0 on success).
 int ggru_forward(const float* zi, const float* gk, const float* adj,
                  const float* whid, const float* h0, const int* n_valid,
                  float* y, float* h_out, int S, int T, int N, int H, int C,
-                 int KS, int threads, int smem, cudaStream_t stream) {
+                 int KS, int threads, int smem, int tf32,
+                 cudaStream_t stream) {
   const Plan pl{C, KS, threads, smem};
-  if (S <= 0 || T <= 0 || !plan_ok(N, H, pl))
+  if (S <= 0 || T <= 0 || !plan_ok(N, H, pl, tf32 != 0))
     return (int)cudaErrorInvalidValue;
   const int Hc = H / C;
   Args a{zi, gk, adj, whid, h0, n_valid, y, h_out, S, T, N, H, C, KS,
          div_magic(Hc), div_magic(Hc / 4), div_magic(3 * Hc / 4)};
-  return launch(&a, pl, S, stream);
+  return launch(&a, pl, S, tf32 != 0, stream);
 }
 
 const char* ggru_error_string(int code) {

@@ -9,8 +9,11 @@
 // dip_apply, whose frame_mask is per row, and what serving with an idle
 // slot needs.
 //
-// Per frame, in order (fp32 FMA throughout, no TF32 and no bf16 — the
-// numerics of precision="highest"):
+// Per frame, in order (fp32 FMA throughout, no bf16; the TF32 instantiation,
+// a net's precision="default" on the card, rounds W_hh once when it lands in
+// shared memory and h where it is written for the product, so that the FMA
+// loop multiplies TF32 operands exactly and sums in fp32 — one tensor-core
+// pass's arithmetic, as XLA's Precision.DEFAULT on this card):
 //   z = u_t + h·W_hh            u = x·W_ih + b_ih + b_hh, hoisted by the
 //                               caller, so the kernel adds no bias
 //   i, f, o = σ(z_i, z_f, z_o); g = tanh(z_g)      gate order i, f, g, o
@@ -42,7 +45,10 @@
 //     epoch = frames exchanged so far; the caller zeroes the counters;
 //   * the next frame's u slice is prefetched by cp.async while the current
 //     frame's exchange and the next h·W_hh run; frames where no stream of
-//     the block is valid only write y.
+//     the block is valid only write y;
+//   * the full h the product reads is its operand (TF32: rounded, in every
+//     CTA's buffer and in the L2 exchange); each CTA keeps its own columns
+//     of h in fp32 beside it ([R, Hc]) for the cell, y and h_out.
 // The launch plan (P, KS, R, groups, cluster or cooperative, shared-memory
 // bytes) comes from the Python wrapper (ops/lstm.py launch_plan); the C
 // side recomputes the shared memory and refuses a plan that disagrees.
@@ -90,10 +96,10 @@ struct Args {
 size_t smem_floats(int R, int H, int P, bool coop) {
   const size_t Hc = H / P, M = 4 * Hc;
   return (size_t)H * (M + 4) + (coop ? 1 : 2) * (size_t)R * H +
-         2 * (size_t)R * M + (size_t)R * Hc;
+         2 * (size_t)R * M + 2 * (size_t)R * Hc;
 }
 
-template <int R, bool COOP>
+template <int R, bool COOP, bool TF32>
 __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
   PhaseClock clk(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
                  blockIdx.z == 0);
@@ -113,6 +119,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
   float* z_s = h_buf + (COOP ? 1 : 2) * R * H;   // [R, M] h·W_hh slice
   float* u_s = z_s + R * M;             // [R, M] this frame's u slice
   float* c_s = u_s + R * M;             // [R, Hc] carried c slice
+  float* hown_s = c_s + R * Hc;         // [R, Hc] carried h slice, fp32
 
   // the W_hh slice: column block g·H + p·Hc … of every row k
   if (tid == 0) {
@@ -146,12 +153,14 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
       const int r = (e / H) % R, k = e % H;
       const bool first = e < R * H;
       h_buf[e] = first && r < rows
-                     ? a.h0[((size_t)d * S + s0 + r) * H + k] : 0.0f;
+                     ? operand<TF32>(a.h0[((size_t)d * S + s0 + r) * H + k])
+                     : 0.0f;
     }
     for (int e = tid; e < R * Hc; e += kThreads) {
       const int r = e / Hc;
-      c_s[e] = r < rows ? a.c0[((size_t)d * S + s0 + r) * H + p * Hc +
-                               (e - r * Hc)] : 0.0f;
+      const size_t g = ((size_t)d * S + s0 + r) * H + p * Hc + (e - r * Hc);
+      c_s[e] = r < rows ? a.c0[g] : 0.0f;
+      hown_s[e] = r < rows ? a.h0[g] : 0.0f;
     }
     auto prefetch_u = [&](int step) {
       const int frame = d == 0 ? step : T - 1 - step;
@@ -165,7 +174,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
       cp_async_commit();
     };
     prefetch_u(0);
-    if (sb == (int)blockIdx.y) mbar_wait(bar, 0);
+    if (sb == (int)blockIdx.y) {
+      mbar_wait(bar, 0);
+      round_smem<TF32>(w_s, H, M, WS);
+    }
     __syncthreads();
     if constexpr (!COOP) cg::this_cluster().sync();   // peers are running
     clk.mark(16);
@@ -185,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
         for (int e = tid; e < rows * Hc; e += kThreads) {
           const int r = e / Hc, j = e - r * Hc;
           a.y[((size_t)(s0 + r) * T + frame) * YW + (size_t)d * H +
-              p * Hc + j] = h_cur[r * H + p * Hc + j];
+              p * Hc + j] = hown_s[e];
         }
         clk.mark(1);
         continue;
@@ -246,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
         const int r = e / Hc, j = e - r * Hc;
         const float* zr = z_s + r * M;
         const float* ur = u_s + r * M;
-        float h = h_cur[r * H + p * Hc + j];
+        float h = hown_s[e];
         if (frame < nv_s[r]) {
           const float ig = sigmoid_f(ur[j] + zr[j]);
           const float fg = sigmoid_f(ur[Hc + j] + zr[Hc + j]);
@@ -255,10 +267,12 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
           const float c = fg * c_s[e] + ig * gg;
           c_s[e] = c;
           h = og * tanhf(c);
+          hown_s[e] = h;
         }
-        h_new[r * H + p * Hc + j] = h;
+        const float hx = operand<TF32>(h);
+        h_new[r * H + p * Hc + j] = hx;
         if constexpr (COOP)
-          xg[(size_t)((epoch + 1) & 1) * R * H + r * H + p * Hc + j] = h;
+          xg[(size_t)((epoch + 1) & 1) * R * H + r * H + p * Hc + j] = hx;
         a.y[((size_t)(s0 + r) * T + frame) * YW + (size_t)d * H + p * Hc +
             j] = h;
       }
@@ -296,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(Args a) {
     for (int e = tid; e < rows * Hc; e += kThreads) {
       const int r = e / Hc, j = e - r * Hc;
       const size_t g = ((size_t)d * S + s0 + r) * H + p * Hc + j;
-      a.h_out[g] = h_buf[cur * R * H + r * H + p * Hc + j];
+      a.h_out[g] = hown_s[e];
       a.c_out[g] = c_s[e];
     }
   }
@@ -306,9 +320,9 @@ struct Plan {
   int D, R, P, KS, groups, coop, threads, smem;
 };
 
-template <int R, bool COOP>
+template <int R, bool COOP, bool TF32>
 int launch(const Args& a, const Plan& pl, cudaStream_t stream) {
-  auto kern = lstm_kernel<R, COOP>;
+  auto kern = lstm_kernel<R, COOP, TF32>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
@@ -334,9 +348,9 @@ int launch(const Args& a, const Plan& pl, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int R, bool COOP>
+template <int R, bool COOP, bool TF32>
 int occupancy(const Plan& pl) {
-  auto kern = lstm_kernel<R, COOP>;
+  auto kern = lstm_kernel<R, COOP, TF32>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return -(int)err;
@@ -365,16 +379,30 @@ int occupancy(const Plan& pl) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
-template <bool COOP>
+template <bool COOP, bool TF32>
 int dispatch(const Args* a, const Plan& pl, cudaStream_t stream) {
   switch (pl.R) {
-    case 1: return a ? launch<1, COOP>(*a, pl, stream) : occupancy<1, COOP>(pl);
-    case 2: return a ? launch<2, COOP>(*a, pl, stream) : occupancy<2, COOP>(pl);
-    case 4: return a ? launch<4, COOP>(*a, pl, stream) : occupancy<4, COOP>(pl);
+    case 1:
+      return a ? launch<1, COOP, TF32>(*a, pl, stream)
+               : occupancy<1, COOP, TF32>(pl);
+    case 2:
+      return a ? launch<2, COOP, TF32>(*a, pl, stream)
+               : occupancy<2, COOP, TF32>(pl);
+    case 4:
+      return a ? launch<4, COOP, TF32>(*a, pl, stream)
+               : occupancy<4, COOP, TF32>(pl);
     default:
-      return a ? launch<kMaxRows, COOP>(*a, pl, stream)
-               : occupancy<kMaxRows, COOP>(pl);
+      return a ? launch<kMaxRows, COOP, TF32>(*a, pl, stream)
+               : occupancy<kMaxRows, COOP, TF32>(pl);
   }
+}
+
+int dispatch(const Args* a, const Plan& pl, bool tf32, cudaStream_t stream) {
+  if (pl.coop)
+    return tf32 ? dispatch<true, true>(a, pl, stream)
+                : dispatch<true, false>(a, pl, stream);
+  return tf32 ? dispatch<false, true>(a, pl, stream)
+              : dispatch<false, false>(a, pl, stream);
 }
 
 bool plan_ok(int S, int H, const Plan& pl) {
@@ -404,31 +432,30 @@ size_t lstm_smem_bytes(int R, int H, int P, int coop) {
   return kHeaderBytes + sizeof(float) * smem_floats(R, H, P, coop != 0);
 }
 
-// Most groups the card holds at once for a plan: clusters
-// (cudaOccupancyMaxActiveClusters) or, cooperative, resident CTAs. A
-// negative value is minus a cudaError_t.
+// Most groups the card holds at once for a plan of the fp32 (tf32 = 0) or
+// the TF32 instantiation: clusters (cudaOccupancyMaxActiveClusters) or,
+// cooperative, resident CTAs. A negative value is minus a cudaError_t.
 int lstm_max_active(int S, int H, int D, int R, int P, int KS, int groups,
-                    int coop, int threads, int smem) {
+                    int coop, int threads, int smem, int tf32) {
   const Plan pl{D, R, P, KS, groups, coop, threads, smem};
   if (!plan_ok(S, H, pl)) return -(int)cudaErrorInvalidValue;
-  return coop ? dispatch<true>(nullptr, pl, nullptr)
-              : dispatch<false>(nullptr, pl, nullptr);
+  return dispatch(nullptr, pl, tf32 != 0, nullptr);
 }
 
-// Launches the scan on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the scan on `stream`, the TF32 instantiation when tf32 != 0;
+// returns cudaGetLastError() (0 on success).
 int lstm_forward(const float* u, const float* whh, const float* h0,
                  const float* c0, const int* n_valid, float* y, float* h_out,
                  float* c_out, float* xchg, unsigned* counter, int S, int T,
                  int H, int D, int R, int P, int KS, int groups, int coop,
-                 int threads, int smem, cudaStream_t stream) {
+                 int threads, int smem, int tf32, cudaStream_t stream) {
   const Plan pl{D, R, P, KS, groups, coop, threads, smem};
   if (S <= 0 || T <= 0 || !plan_ok(S, H, pl))
     return (int)cudaErrorInvalidValue;
   if (coop && !(xchg && counter)) return (int)cudaErrorInvalidValue;
   Args a{u, whh, h0, c0, n_valid, y, h_out, c_out, xchg, counter,
          S, T, H, D, P, KS};
-  return coop ? dispatch<true>(&a, pl, stream)
-              : dispatch<false>(&a, pl, stream);
+  return dispatch(&a, pl, tf32 != 0, stream);
 }
 
 const char* lstm_error_string(int code) {

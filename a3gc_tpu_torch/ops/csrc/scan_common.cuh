@@ -1,5 +1,6 @@
 // Device helpers shared by the weight-stationary scan kernels (lstm.cu,
-// gcn_lstm.cu, ggru.cu) for Hopper, sm_90a: the one-shot bulk load of a
+// gcn_lstm.cu, ggru.cu) for Hopper, sm_90a: the TF32 rounding of their
+// TF32 instantiations' operands, the one-shot bulk load of a
 // weight slice into shared memory (cp.async.bulk on an mbarrier), the 16-byte
 // cp.async prefetch of a frame's hoisted inputs, the release/acquire
 // counter of a cooperative group, the st.async exchange between the CTAs
@@ -21,6 +22,46 @@ constexpr int kHeaderBytes = 64;
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// fp32 x rounded to TF32 (10 mantissa bits), to nearest, ties to even; inf
+// and NaN as they are, a finite value past the largest TF32 to inf: bit for
+// bit a3gc_tpu_torch/ops/_common.py round_tf32 (and
+// jax.lax.reduce_precision(x, 8, 10)). cvt.rna.tf32.f32 rounds ties away
+// from zero, so it is not used. A product of two TF32 values is exact in
+// fp32, so an FMA loop on rounded operands does one tensor-core pass's
+// arithmetic up to the order of its sums.
+__device__ __forceinline__ float tf32_round(float x) {
+  const uint32_t i = __float_as_uint(x);
+  if ((i & 0x7f800000u) == 0x7f800000u) return x;
+  return __uint_as_float((i + 0x0fffu + ((i >> 13) & 1u)) & 0xffffe000u);
+}
+
+// x as a product operand of a kernel's TF32 (rounded) or fp32 (as it is)
+// instantiation.
+template <bool TF32>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (TF32) return tf32_round(x);
+  return x;
+}
+
+template <bool TF32>
+__device__ __forceinline__ float4 operand(float4 v) {
+  return make_float4(operand<TF32>(v.x), operand<TF32>(v.y),
+                     operand<TF32>(v.z), operand<TF32>(v.w));
+}
+
+// Round a [rows, cols] slice of shared memory, rows `stride` floats apart,
+// in place (TF32 only), every thread of the block taking a share: a weight
+// slice the TMA unit copied as it is. Once a launch.
+template <bool TF32>
+__device__ __forceinline__ void round_smem(float* p, int rows, int cols,
+                                           int stride) {
+  if constexpr (TF32)
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      float* q = p + (size_t)(e / cols) * stride + e % cols;
+      *q = tf32_round(*q);
+    }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

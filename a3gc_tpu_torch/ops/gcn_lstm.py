@@ -29,7 +29,12 @@ per-stream ``n_valid`` [S]:
 
 The kernel has no backward: the op's autograd formula reruns
 :func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
-the outputs come back in the dtypes of x and of the state.
+the outputs come back in the dtypes of x and of the state. ``fmt`` (the
+net's operand format, :func:`a3gc_tpu_torch.ops._common.operand_format`)
+at "tf32" rounds every product's operands to TF32 where the JAX cell's
+products take them: the hoisted x·W_x here, and inside the scan h·W_h,
+the adjacency mix and the attention products (the kernel's TF32
+instantiation, the ``tf32`` flag of :func:`scan`).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         check_n_valid, f32 as _f32, k_slices,
                                         kernel_library, launch, like,
                                         n_valid_tensor as _n_valid)
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
            "launch_plan", "max_active", "scan", "scan_inputs",
@@ -124,21 +130,23 @@ def launch_plan(N: int, H: int, attention: bool,
 
 
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
-                          state2, n_valid=None):
+                          state2, n_valid=None, fmt: str = "fp32"):
     r"""The plain PyTorch version of :func:`bi_gcn_lstm` — the same function
     on any device: :func:`scan_inputs`, then :func:`scan_reference`. The
     tests use it; on the card it is what the kernel is held to."""
-    y, h, c = scan_reference(*scan_inputs(params2, x, state2, n_valid))
+    y, h, c = scan_reference(*scan_inputs(params2, x, state2, n_valid, fmt),
+                             tf32=fmt == "tf32")
     return like(y, x), like((h, c), state2[0])
 
 
 def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
                    bias: torch.Tensor, attention: Optional[tuple],
                    h0: torch.Tensor, c0: torch.Tensor,
-                   n_valid: torch.Tensor):
+                   n_valid: torch.Tensor, tf32: bool = False):
     r"""The plain PyTorch version of :func:`scan`, on the same hoisted
     inputs and any device: the cells' hoisted step in the masked
-    bidirectional scan. The CPU implementation of the registered op
+    bidirectional scan, its products' operands rounded to TF32 when
+    ``tf32``. The CPU implementation of the registered op
     (:mod:`a3gc_tpu_torch.ops.library`)."""
     T = u.shape[2]
     H = bias.shape[-1]
@@ -153,8 +161,10 @@ def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
                               bs=bs, bu=bu)
     cell = SimpleNamespace(adj=adj, bias=bias, attention=att)
 
+    fmt = "tf32" if tf32 else "fp32"
+
     def step(p, u_t, st):
-        return C.gcn_lstm_step_hoisted(p, u_t, st, hidden_kernel=wh)
+        return C.gcn_lstm_step_hoisted(p, u_t, st, hidden_kernel=wh, fmt=fmt)
 
     hs, (h, c) = L.bi_rnn_precomputed(step, cell, seq_stack, (h0, c0),
                                       frame_mask=frame_mask)
@@ -163,7 +173,7 @@ def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
 
 
 def _library():
-    return kernel_library("gcn_lstm", 16, 11, 5)
+    return kernel_library("gcn_lstm", 16, 12, 5)
 
 
 def _plan_ints(plan: LaunchPlan):
@@ -171,15 +181,15 @@ def _plan_ints(plan: LaunchPlan):
 
 
 def max_active(plan: LaunchPlan, S: int, N: int, H: int,
-               attention: bool) -> int:
+               attention: bool, tf32: bool = False) -> int:
     r"""Clusters of ``plan`` the current card holds at once
-    (``cudaOccupancyMaxActiveClusters``). Raises on a plan the kernel
-    refuses."""
+    (``cudaOccupancyMaxActiveClusters``), for the fp32 or the TF32
+    instantiation. Raises on a plan the kernel refuses."""
     lib = _library()
     fn = lib.gcn_lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 10
+    fn.argtypes = [ctypes.c_int] * 11
     fn.restype = ctypes.c_int
-    n = fn(S, N, H, int(attention), *_plan_ints(plan))
+    n = fn(S, N, H, int(attention), *_plan_ints(plan), int(tf32))
     if n < 0:
         raise RuntimeError("gcn_lstm occupancy query failed: "
                            + lib.gcn_lstm_error_string(-n).decode())
@@ -189,13 +199,14 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int,
 def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
          bias: torch.Tensor, attention: Optional[tuple], h0: torch.Tensor,
          c0: torch.Tensor, n_valid: torch.Tensor,
-         plan: Optional[LaunchPlan] = None):
+         plan: Optional[LaunchPlan] = None, tf32: bool = False):
     r"""Launch the kernel on hoisted inputs. u [2, S, T, N, 4H] (both
     directions in forward frame order), wh [2, H, 4H], adj [2, 4, N, N],
     bias [2, 4, H], attention None or (w, wq, wh, u [2, H], bs, bu), h0/c0
     [2, S, N, H], n_valid [S] int32 — all contiguous fp32 on one card.
-    ``plan`` defaults to :func:`launch_plan`. Returns (y [S, T, N, 2H],
-    h [2, S, N, H], c [2, S, N, H])."""
+    ``plan`` defaults to :func:`launch_plan`; ``tf32`` launches the TF32
+    instantiation (the products' operands rounded to TF32). Returns
+    (y [S, T, N, 2H], h [2, S, N, H], c [2, S, N, H])."""
     _, S, T, N, G = u.shape
     H = G // 4
     dev = u.device
@@ -219,15 +230,17 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
            adj.data_ptr(), bias.data_ptr(), *att, h0.data_ptr(),
            c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
            c_out.data_ptr(), S, T, N, H, int(attention is not None),
-           *_plan_ints(plan))
+           *_plan_ints(plan), int(tf32))
     bi_gcn_lstm.launches += 1
+    bi_gcn_lstm.tf32_launches += int(tf32)
     return y, h_out, c_out
 
 
 def bi_gcn_lstm(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
-                n_valid=None):
+                n_valid=None, fmt: str = "fp32"):
     r"""Bidirectional graph-LSTM layer: x [S, T, N, F], state2 (h, c) each
-    [2, S, N, H], ``n_valid`` None | int | [S] → (y [S, T, N, 2H], (h, c)).
+    [2, S, N, H], ``n_valid`` None | int | [S] → (y [S, T, N, 2H], (h, c)),
+    the products' operands in format ``fmt``.
     Hoists the input projection (:func:`scan_inputs`) and calls the
     registered op ``a3gc_tpu_torch::gcn_lstm_scan``
     (:mod:`a3gc_tpu_torch.ops.library`), as a loaded ``torch.export``
@@ -236,22 +249,23 @@ def bi_gcn_lstm(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
     :func:`scan_reference`."""
     from a3gc_tpu_torch.ops.library import gcn_lstm_scan
     u, wh, adj, bias, att, h0, c0, nv = scan_inputs(params2, x, state2,
-                                                    n_valid)
+                                                    n_valid, fmt)
     y, h, c = gcn_lstm_scan(u, wh, adj, bias, *(att or (None,) * 6), h0, c0,
-                            nv)
+                            nv, fmt == "tf32")
     return like(y, x), like((h, c), state2[0])
 
 
 def scan_inputs(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
-                n_valid=None) -> tuple:
+                n_valid=None, fmt: str = "fp32") -> tuple:
     r"""The arguments of :func:`scan` for one layer call: the hoisted input
-    projection u = x·W_x for both directions (one ``torch.matmul``, forward
-    frame order) and the parameters and state in the kernel's layouts."""
+    projection u = x·W_x for both directions (one ``torch.matmul`` on
+    operands in format ``fmt``, forward frame order) and the parameters and
+    state in the kernel's layouts."""
     x = _f32(x)
     S, T, N, F = x.shape
     H = params2.bias.shape[-1]
     kernel = _f32(params2.kernel)
-    u = torch.matmul(x.reshape(1, S * T * N, F), kernel[:, :F])
+    u = TP.matmul(x.reshape(1, S * T * N, F), kernel[:, :F], fmt=fmt)
     att = params2.attention
     attention = None
     if att is not None:
@@ -264,3 +278,4 @@ def scan_inputs(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
 
 
 bi_gcn_lstm.launches = 0    # kernel launches since the last reset to 0
+bi_gcn_lstm.tf32_launches = 0   # of them, of the TF32 instantiation

@@ -18,6 +18,9 @@ of the JAX cell's op order (msg = adj·(h·G), zh = msg·W_hid, two exchanges),
 which took 1.3-1.6× the time. The same function with its sums in another
 order: within 5e-7 of the plain version on an H100 (within 4e-6 at twice
 the initial recurrent weights, as a kernel in the cell's own order is).
+The TF32 instantiation keeps the cell's order (two products and two
+exchanges a frame), because TF32 rounds each product's operands and the
+fold would round other values.
 
 The launch is the CUDA implementation of the registered op
 ``a3gc_tpu_torch::ggru_scan`` (:mod:`a3gc_tpu_torch.ops.library`), whose
@@ -38,12 +41,16 @@ The function, for x [S, T, N, F], h2 [2, S, N, H] and per-stream
 
 The kernel has no backward: the op's autograd formula reruns
 :func:`scan_reference` on the saved inputs. The kernel is fp32 inside;
-the outputs come back in the dtypes of x and of the state.
+the outputs come back in the dtypes of x and of the state. ``fmt`` (the
+net's operand format) at "tf32" rounds the products' operands to TF32:
+the hoisted x·W_in here; in the plain version and in the kernel's TF32
+instantiation the cell's h·G, adj·hg and msg·W_hid (``csrc/ggru.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -56,6 +63,7 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
                                         like, n_valid_tensor, sm_count)
+from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "gate_pad",
            "launch_plan", "max_active", "one_wave", "scan", "scan_inputs",
@@ -86,16 +94,20 @@ def gate_pad(M: int) -> int:
     return (36 - (4 * M) % 32) % 32
 
 
-def smem_bytes(N: int, H: int, C: int) -> int:
+def smem_bytes(N: int, H: int, C: int, tf32: bool = False) -> int:
     r"""Dynamic shared memory of one CTA (``ggru_smem_bytes`` in C): the
     slice [H, 3H/C] of G·W_hid (:func:`gate_pad` floats after every 4 rows),
     the full adj·h [16, H], double-buffered, zi [N, 3H/C], the gate
     pre-activations [16, 3H/C], the adjacency padded to 16 × 16 and the own
-    columns of h [16, H/C]."""
+    columns of h [16, H/C]. The TF32 instantiation (``tf32``; the slice of
+    W_hid in place of G·W_hid, msg in place of adj·h) adds its slice
+    [H, H/C] of G and the full h [16, H], double-buffered."""
     Hc = H // C
     M = 3 * Hc
     floats = (H * M + H // 4 * gate_pad(M) + 2 * NODES * H + N * M
               + NODES * M + NODES * NODES + NODES * Hc)
+    if tf32:
+        floats += H * Hc + H // 4 * gate_pad(Hc) + 2 * NODES * H
     return SMEM_HEADER + 4 * floats
 
 
@@ -110,8 +122,9 @@ def one_wave(C: int, sms: int = 132) -> int:
 
 
 def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
-                sms: int = 132) -> LaunchPlan:
-    r"""The clusters for S streams of N ≤ 16 nodes at hidden width H.
+                sms: int = 132, tf32: bool = False) -> LaunchPlan:
+    r"""The clusters for S streams of N ≤ 16 nodes at hidden width H, for
+    the fp32 or (``tf32``) the TF32 instantiation.
 
     C: the largest of 8, 4, 2, 1 that leaves a CTA at least 8 hidden
     columns, fits in shared memory and whose 2·S clusters run in one wave
@@ -134,65 +147,71 @@ def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
     else:
         cs = [c for c in (8, 4, 2, 1) if H % c == 0 and H // c % 4 == 0
               and (H // c >= 8 or c == 1)]
-    cs = [c for c in cs if smem_bytes(N, H, c) <= SMEM_LIMIT]
+    cs = [c for c in cs if smem_bytes(N, H, c, tf32) <= SMEM_LIMIT]
     if not cs:
         raise ValueError(f"ggru: no launch plan for S={S}, N={N}, H={H}"
                          + (f", C={C}" if C is not None else ""))
     c = next((c for c in cs if 2 * S <= one_wave(c, sms)), cs[0])
     return LaunchPlan(c, k_slices(H // c // 2, H, THREADS), THREADS,
-                      smem_bytes(N, H, c))
+                      smem_bytes(N, H, c, tf32))
 
 
-def _hoist(params2: C.GGRUCellParams, x: torch.Tensor) -> torch.Tensor:
+def _hoist(params2: C.GGRUCellParams, x: torch.Tensor,
+           fmt: str = "fp32") -> torch.Tensor:
     r"""zi = x·W_in + b_in for both directions, forward frame order:
     [2, S, T, N, 3H]."""
     S, T, N, F = x.shape
-    zi = torch.matmul(x.reshape(1, S * T * N, F), f32(params2.w_in))
+    zi = TP.matmul(x.reshape(1, S * T * N, F), f32(params2.w_in), fmt=fmt)
     zi = zi + f32(params2.b_in)[:, None, :]
     return zi.reshape(2, S, T, N, -1)
 
 
 def bi_ggru_reference(params2: C.GGRUCellParams, x: torch.Tensor, h2,
-                      n_valid=None):
+                      n_valid=None, fmt: str = "fp32"):
     r"""The plain PyTorch version of :func:`bi_ggru` — the same function on
     any device: :func:`scan_inputs`, then :func:`scan_reference`. The tests
     use it; on the card it is what the kernel is held to."""
-    y, h = scan_reference(*scan_inputs(params2, x, h2, n_valid))
+    y, h = scan_reference(*scan_inputs(params2, x, h2, n_valid, fmt),
+                          tf32=fmt == "tf32")
     return like(y, x), like(h, h2)
 
 
 def scan_reference(zi: torch.Tensor, gcn_kernel: torch.Tensor,
                    adj: torch.Tensor, w_hid: torch.Tensor, h0: torch.Tensor,
-                   n_valid: torch.Tensor):
+                   n_valid: torch.Tensor, tf32: bool = False):
     r"""The plain PyTorch version of :func:`scan`, on the same hoisted
     inputs and any device: the cell's hoisted step (the JAX cell's op
-    order) in the masked bidirectional scan, the state as a 1-tuple. The
-    CPU implementation of the registered op
+    order, its products' operands rounded to TF32 when ``tf32``) in the
+    masked bidirectional scan, the state as a 1-tuple. The CPU
+    implementation of the registered op
     (:mod:`a3gc_tpu_torch.ops.library`)."""
     T = zi.shape[2]
     zt = zi.transpose(1, 2)                                   # [2,T,S,N,3H]
     seq_stack = torch.stack((zt[0], zt[1].flip(0)))
     frame_mask = torch.arange(T, device=zi.device)[None] < n_valid[:, None]
     cell = SimpleNamespace(gcn_kernel=gcn_kernel, adj=adj, w_hid=w_hid)
-    hs, (h,) = L.bi_rnn_precomputed(C.ggru_step_hoisted, cell, seq_stack,
-                                    (h0,), frame_mask=frame_mask)
+    step = functools.partial(C.ggru_step_hoisted,
+                             fmt="tf32" if tf32 else "fp32")
+    hs, (h,) = L.bi_rnn_precomputed(step, cell, seq_stack, (h0,),
+                                    frame_mask=frame_mask)
     y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
     return y, h
 
 
 def _library():
-    return kernel_library("ggru", 8, 8, 3)
+    return kernel_library("ggru", 8, 9, 4)
 
 
-def max_active(plan: LaunchPlan, S: int, N: int, H: int) -> int:
+def max_active(plan: LaunchPlan, S: int, N: int, H: int,
+               tf32: bool = False) -> int:
     r"""Clusters of ``plan`` the current card holds at once
-    (``cudaOccupancyMaxActiveClusters``). Raises on a plan the kernel
-    refuses."""
+    (``cudaOccupancyMaxActiveClusters``), for the fp32 or the TF32
+    instantiation. Raises on a plan the kernel refuses."""
     lib = _library()
     fn = lib.ggru_max_active
-    fn.argtypes = [ctypes.c_int] * 7
+    fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_int
-    n = fn(S, N, H, *plan)
+    n = fn(S, N, H, *plan, int(tf32))
     if n < 0:
         raise RuntimeError("ggru occupancy query failed: "
                            + lib.ggru_error_string(-n).decode())
@@ -201,12 +220,13 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int) -> int:
 
 def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
          w_hid: torch.Tensor, h0: torch.Tensor, n_valid: torch.Tensor,
-         plan: Optional[LaunchPlan] = None):
+         plan: Optional[LaunchPlan] = None, tf32: bool = False):
     r"""Launch the kernel on hoisted inputs. zi [2, S, T, N, 3H] (both
     directions in forward frame order), gcn_kernel [2, H, H], adj [2, N, N],
     w_hid [2, H, 3H], h0 [2, S, N, H], n_valid [S] int32 — all contiguous
-    fp32 on one card. ``plan`` defaults to :func:`launch_plan`.
-    Returns (y [S, T, N, 2H], h [2, S, N, H])."""
+    fp32 on one card. ``plan`` defaults to :func:`launch_plan`; ``tf32``
+    launches the TF32 instantiation. Returns (y [S, T, N, 2H],
+    h [2, S, N, H])."""
     _, S, T, N, G3 = zi.shape
     H = G3 // 3
     dev = zi.device
@@ -216,41 +236,48 @@ def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
     check_n_valid("ggru", dev, n_valid, S)
     check_aligned("ggru", zi, gcn_kernel, w_hid)
     if plan is None:
-        plan = launch_plan(S, N, H, sms=sm_count(device_index(dev)))
+        plan = launch_plan(S, N, H, sms=sm_count(device_index(dev)),
+                           tf32=tf32)
     lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)
     launch("ggru", lib, dev, zi.data_ptr(), gcn_kernel.data_ptr(),
            adj.data_ptr(), w_hid.data_ptr(), h0.data_ptr(),
            n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(), S, T, N, H,
-           *plan)
+           *plan, int(tf32))
     bi_ggru.launches += 1
+    bi_ggru.tf32_launches += int(tf32)
     return y, h_out
 
 
-def bi_ggru(params2: C.GGRUCellParams, x: torch.Tensor, h2, n_valid=None):
+def bi_ggru(params2: C.GGRUCellParams, x: torch.Tensor, h2, n_valid=None,
+            fmt: str = "fp32"):
     r"""Bidirectional G-GRU layer: x [S, T, N, F], h2 [2, S, N, H],
-    ``n_valid`` None | int | [S] → (y [S, T, N, 2H], h [2, S, N, H]).
+    ``n_valid`` None | int | [S] → (y [S, T, N, 2H], h [2, S, N, H]), the
+    products' operands in format ``fmt``.
     Hoists the input projection (:func:`scan_inputs`) and calls the
     registered op ``a3gc_tpu_torch::ggru_scan``
     (:mod:`a3gc_tpu_torch.ops.library`): on CUDA tensors it launches the
     kernel (one launch, both directions) or raises, on CPU tensors it
     computes :func:`scan_reference`."""
     from a3gc_tpu_torch.ops.library import ggru_scan
-    y, h = ggru_scan(*scan_inputs(params2, x, h2, n_valid))
+    y, h = ggru_scan(*scan_inputs(params2, x, h2, n_valid, fmt),
+                     fmt == "tf32")
     return like(y, x), like(h, h2)
 
 
 def scan_inputs(params2: C.GGRUCellParams, x: torch.Tensor, h2,
-                n_valid=None) -> tuple:
+                n_valid=None, fmt: str = "fp32") -> tuple:
     r"""The arguments of :func:`scan` for one layer call: the hoisted input
-    projection for both directions (one ``torch.matmul``, forward frame
-    order) and the parameters and state in the kernel's layouts."""
+    projection for both directions (one ``torch.matmul`` on operands in
+    format ``fmt``, forward frame order) and the parameters and state in
+    the kernel's layouts."""
     x = f32(x)
     S, T = x.shape[0], x.shape[1]
-    return (_hoist(params2, x), f32(params2.gcn_kernel).contiguous(),
+    return (_hoist(params2, x, fmt), f32(params2.gcn_kernel).contiguous(),
             f32(params2.adj).contiguous(), f32(params2.w_hid).contiguous(),
             f32(h2).contiguous(), n_valid_tensor(n_valid, S, T, x.device))
 
 
 bi_ggru.launches = 0    # kernel launches since the last reset to 0
+bi_ggru.tf32_launches = 0   # of them, of the TF32 instantiation

@@ -17,6 +17,13 @@ on their device, and differentiates that — the JAX package's
 ``custom_jvp`` of its Pallas layers, which recomputes on the XLA scan. The
 integer ``n_valid`` and absent attention inputs get no gradient.
 
+Each op ends in ``bool tf32=False``, the operand format of its products
+(the kernel's TF32 instantiation on the card, the plain version's rounded
+products on the CPU and in the backward). A program exported before the
+flag existed calls the ops without it and keeps its fp32 meaning; one
+exported from a net at "default" on the card holds ``tf32=True`` in its
+graph.
+
 No op writes its inputs (``mutates_args=()``): no launch writes its
 initial state. ``bi_gcn_lstm``, ``bi_ggru`` and ``bi_lstm`` call the ops,
 so a program exported from the port's window step holds one node per layer
@@ -53,14 +60,14 @@ def gcn_lstm_scan(u: Tensor, wh: Tensor, adj: Tensor, bias: Tensor,
                   att_w: Optional[Tensor], att_wq: Optional[Tensor],
                   att_wh: Optional[Tensor], att_u: Optional[Tensor],
                   att_bs: Optional[Tensor], att_bu: Optional[Tensor],
-                  h0: Tensor, c0: Tensor,
-                  n_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                  h0: Tensor, c0: Tensor, n_valid: Tensor,
+                  tf32: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
     r"""One graph-LSTM layer call, both directions: the arguments of
     ``gcn_lstm.scan`` with the attention tuple spread (all six None for an
     AAGC cell). Returns (y [S, T, N, 2H], h, c [2, S, N, H])."""
     return _contiguous(*_gcn_lstm_plain(u, wh, adj, bias, att_w, att_wq,
                                         att_wh, att_u, att_bs, att_bu, h0,
-                                        c0, n_valid))
+                                        c0, n_valid, tf32))
 
 
 def _attention(*att):
@@ -68,21 +75,21 @@ def _attention(*att):
 
 
 def _gcn_lstm_plain(u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs,
-                    att_bu, h0, c0, n_valid):
+                    att_bu, h0, c0, n_valid, tf32=False):
     att = _attention(att_w, att_wq, att_wh, att_u, att_bs, att_bu)
-    return G.scan_reference(u, wh, adj, bias, att, h0, c0, n_valid)
+    return G.scan_reference(u, wh, adj, bias, att, h0, c0, n_valid, tf32)
 
 
 @gcn_lstm_scan.register_kernel("cuda")
 def _gcn_lstm_cuda(u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs,
-                   att_bu, h0, c0, n_valid):
+                   att_bu, h0, c0, n_valid, tf32=False):
     att = _attention(att_w, att_wq, att_wh, att_u, att_bs, att_bu)
-    return G.scan(u, wh, adj, bias, att, h0, c0, n_valid)
+    return G.scan(u, wh, adj, bias, att, h0, c0, n_valid, tf32=tf32)
 
 
 @gcn_lstm_scan.register_fake
 def _gcn_lstm_fake(u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs,
-                   att_bu, h0, c0, n_valid):
+                   att_bu, h0, c0, n_valid, tf32=False):
     _, S, T, N, G4 = u.shape
     H = G4 // 4
     return (u.new_empty((S, T, N, 2 * H)), h0.new_empty((2, S, N, H)),
@@ -94,20 +101,21 @@ def _gcn_lstm_fake(u, wh, adj, bias, att_w, att_wq, att_wh, att_u, att_bs,
 @torch.library.custom_op(f"{NAMESPACE}::ggru_scan", mutates_args=(),
                          device_types="cpu")
 def ggru_scan(zi: Tensor, gcn_kernel: Tensor, adj: Tensor, w_hid: Tensor,
-              h0: Tensor, n_valid: Tensor) -> Tuple[Tensor, Tensor]:
+              h0: Tensor, n_valid: Tensor,
+              tf32: bool = False) -> Tuple[Tensor, Tensor]:
     r"""One G-GRU layer call, both directions: the arguments of
     ``ggru.scan``. Returns (y [S, T, N, 2H], h [2, S, N, H])."""
     return _contiguous(*GG.scan_reference(zi, gcn_kernel, adj, w_hid, h0,
-                                          n_valid))
+                                          n_valid, tf32))
 
 
 @ggru_scan.register_kernel("cuda")
-def _ggru_cuda(zi, gcn_kernel, adj, w_hid, h0, n_valid):
-    return GG.scan(zi, gcn_kernel, adj, w_hid, h0, n_valid)
+def _ggru_cuda(zi, gcn_kernel, adj, w_hid, h0, n_valid, tf32=False):
+    return GG.scan(zi, gcn_kernel, adj, w_hid, h0, n_valid, tf32=tf32)
 
 
 @ggru_scan.register_fake
-def _ggru_fake(zi, gcn_kernel, adj, w_hid, h0, n_valid):
+def _ggru_fake(zi, gcn_kernel, adj, w_hid, h0, n_valid, tf32=False):
     _, S, T, N, G3 = zi.shape
     H = G3 // 3
     return zi.new_empty((S, T, N, 2 * H)), h0.new_empty((2, S, N, H))
@@ -118,19 +126,20 @@ def _ggru_fake(zi, gcn_kernel, adj, w_hid, h0, n_valid):
 @torch.library.custom_op(f"{NAMESPACE}::lstm_scan", mutates_args=(),
                          device_types="cpu")
 def lstm_scan(u: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor,
-              n_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+              n_valid: Tensor,
+              tf32: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
     r"""One dense LSTM layer call, D = u.shape[0] directions: the arguments
     of ``lstm.scan``. Returns (y [S, T, D·H], h, c [D, S, H])."""
-    return _contiguous(*LS.scan_reference(u, w_hh, h0, c0, n_valid))
+    return _contiguous(*LS.scan_reference(u, w_hh, h0, c0, n_valid, tf32))
 
 
 @lstm_scan.register_kernel("cuda")
-def _lstm_cuda(u, w_hh, h0, c0, n_valid):
-    return LS.scan(u, w_hh, h0, c0, n_valid)
+def _lstm_cuda(u, w_hh, h0, c0, n_valid, tf32=False):
+    return LS.scan(u, w_hh, h0, c0, n_valid, tf32=tf32)
 
 
 @lstm_scan.register_fake
-def _lstm_fake(u, w_hh, h0, c0, n_valid):
+def _lstm_fake(u, w_hh, h0, c0, n_valid, tf32=False):
     D, S, T, G4 = u.shape
     H = G4 // 4
     return (u.new_empty((S, T, D * H)), h0.new_empty((D, S, H)),
@@ -140,14 +149,16 @@ def _lstm_fake(u, w_hh, h0, c0, n_valid):
 # -- autograd: the plain version's gradients ---------------------------------
 
 def _save_inputs(ctx, inputs, output):
-    ctx.save_for_backward(*inputs)
+    *tensors, ctx.tf32 = inputs
+    ctx.save_for_backward(*tensors)
 
 
 def _plain_backward(plain):
     r"""The backward of an op whose plain version is ``plain`` (same
-    arguments, same outputs): rerun ``plain`` under grad on detached copies
-    of the saved inputs that need a gradient and return
-    ``torch.autograd.grad`` with respect to them, None for the others."""
+    arguments, same outputs): rerun ``plain`` under grad, at the op's
+    ``tf32``, on detached copies of the saved inputs that need a gradient
+    and return ``torch.autograd.grad`` with respect to them, None for the
+    others and for the flag."""
     def backward(ctx, *grads):
         inputs = ctx.saved_tensors
         needs = [need and t is not None and t.is_floating_point()
@@ -155,12 +166,13 @@ def _plain_backward(plain):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() if need else t
                       for t, need in zip(inputs, needs)]
-            outs = plain(*leaves)
+            outs = plain(*leaves, ctx.tf32)
             pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
             got = iter(torch.autograd.grad(
                 [o for o, _ in pairs], [t for t, n in zip(leaves, needs) if n],
                 [g for _, g in pairs], allow_unused=True))
-        return tuple(next(got) if need else None for need in needs)
+        return tuple(next(got) if need else None for need in needs) \
+            + (None,)
     return backward
 
 

@@ -35,12 +35,16 @@ The kernel has no backward: the op's autograd formula reruns
 :func:`scan_reference` on the saved inputs. The plain path reads the
 weights through :mod:`a3gc_tpu_torch.parallel.tensor`, so that TransPose
 training under tensor parallelism runs its products column-parallel. The kernel is fp32 inside;
-the outputs come back in the dtypes of x and of the state.
+the outputs come back in the dtypes of x and of the state. ``fmt`` (the
+net's operand format) at "tf32" rounds the products' operands to TF32:
+the hoisted x·W_ih here, h·W_hh inside the scan (the kernel's TF32
+instantiation, the ``tf32`` flag of :func:`scan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -90,11 +94,11 @@ def smem_bytes(R: int, H: int, P: int, cooperative: bool) -> int:
     r"""Dynamic shared memory of one CTA (``lstm_smem_bytes`` in C): the
     W_hh slice [H, 4H/P] with rows padded by 4 floats, the full h
     (double-buffered in a cluster), the z and u slices [R, 4H/P] and the
-    c slice [R, H/P]."""
+    c and h slices [R, H/P]."""
     Hc = H // P
     M = 4 * Hc
     floats = (H * (M + 4) + (1 if cooperative else 2) * R * H + 2 * R * M
-              + R * Hc)
+              + 2 * R * Hc)
     return SMEM_HEADER + 4 * floats
 
 
@@ -143,7 +147,8 @@ def directions(params: nn.Module) -> int:
     return 2 if TP.full(params.w_hh).dim() == 3 else 1
 
 
-def _hoist(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _hoist(params: nn.Module, x: torch.Tensor,
+           fmt: str = "fp32") -> torch.Tensor:
     r"""u = x·W_ih + b_ih + b_hh for every direction, forward frame order:
     [D, S, T, 4H]."""
     S, T, F = x.shape
@@ -151,17 +156,19 @@ def _hoist(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     w_ih = TP.blockwise(params.w_ih, lambda w: f32(w).reshape(D, F, -1))
     bias = (f32(TP.full(params.b_ih))
             + f32(TP.full(params.b_hh))).reshape(D, 1, -1)
-    u = TP.matmul(x.reshape(1, S * T, F), w_ih) + bias
+    u = TP.matmul(x.reshape(1, S * T, F), w_ih, fmt=fmt) + bias
     return u.reshape(D, S, T, -1)
 
 
-def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
+def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state,
+                      fmt: str = "fp32"):
     r"""Dense LSTM step on direction-stacked parameters, the input half
-    hoisted: u_t [D, B, 4H], state (h, c) each [D, B, H]. z = u_t + h·W_hh,
-    gates i, f, g, o. Returns the new state (h', c')."""
+    hoisted: u_t [D, B, 4H], state (h, c) each [D, B, H]. z = u_t + h·W_hh
+    (operands in format ``fmt``), gates i, f, g, o. Returns the new state
+    (h', c')."""
     h, c = state
     H = h.shape[-1]
-    z = u_t + TP.matmul(h, p.w_hh)
+    z = u_t + TP.matmul(h, p.w_hh, fmt=fmt)
     i = torch.sigmoid(z[..., 0:H])
     f = torch.sigmoid(z[..., H:2 * H])
     g = torch.tanh(z[..., 2 * H:3 * H])
@@ -171,30 +178,35 @@ def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state):
 
 
 def bi_lstm_reference(params: nn.Module, x: torch.Tensor, state,
-                      n_valid=None):
+                      n_valid=None, fmt: str = "fp32"):
     r"""The plain PyTorch version of :func:`bi_lstm` — the same function on
     any device: :func:`scan_inputs`, then :func:`scan_reference`. ``params``
     holds direction-stacked ``w_ih`` [2, F, 4H], ``w_hh`` [2, H, 4H],
     ``b_ih`` and ``b_hh`` [2, 4H] (the bidirectional scan), or the same
     without the leading 2 (the unidirectional scan). The tests use it; on
     the card it is what the kernel is held to."""
-    y, h, c = scan_reference(*scan_inputs(params, x, state, n_valid))
+    y, h, c = scan_reference(*scan_inputs(params, x, state, n_valid, fmt),
+                             tf32=fmt == "tf32")
     if directions(params) == 1:
         h, c = h[0], c[0]
     return like(y, x), like((h, c), state[0])
 
 
 def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
-                   c0: torch.Tensor, n_valid: torch.Tensor):
+                   c0: torch.Tensor, n_valid: torch.Tensor,
+                   tf32: bool = False):
     r"""The plain PyTorch version of :func:`scan`, on the same hoisted
     inputs and any device: the hoisted step in the masked scan, one
-    direction (D = 1) or two. The CPU implementation of the registered op
+    direction (D = 1) or two, h·W_hh on TF32 operands when ``tf32``. The
+    CPU implementation of the registered op
     (:mod:`a3gc_tpu_torch.ops.library`). Returns (y [S, T, D·H],
     h [D, S, H], c [D, S, H])."""
     D, T = u.shape[0], u.shape[2]
     frame_mask = torch.arange(T, device=u.device)[None] < n_valid[:, None]
+    step = functools.partial(lstm_step_hoisted,
+                             fmt="tf32" if tf32 else "fp32")
     if D == 1:
-        y, (h, c) = L.uni_rnn(lstm_step_hoisted,
+        y, (h, c) = L.uni_rnn(step,
                               SimpleNamespace(w_hh=TP.blockwise(
                                   w_hh, lambda w: w[0])), u[0],
                               (h0[0], c0[0]), frame_mask=frame_mask)
@@ -202,14 +214,14 @@ def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     ut = u.transpose(1, 2)                                    # [2,T,S,4H]
     seq_stack = torch.stack((ut[0], ut[1].flip(0)))
     hs, (h, c) = L.bi_rnn_precomputed(
-        lstm_step_hoisted, SimpleNamespace(w_hh=w_hh), seq_stack, (h0, c0),
+        step, SimpleNamespace(w_hh=w_hh), seq_stack, (h0, c0),
         frame_mask=frame_mask)
     y = torch.cat((hs[0], hs[1].flip(0)), dim=-1).transpose(0, 1)
     return y, h, c
 
 
 def _library():
-    return kernel_library("lstm", 10, 11, 4)
+    return kernel_library("lstm", 10, 12, 4)
 
 
 def _plan_ints(plan: LaunchPlan):
@@ -217,15 +229,16 @@ def _plan_ints(plan: LaunchPlan):
             int(plan.cooperative), plan.threads, plan.smem)
 
 
-def max_active(plan: LaunchPlan, S: int, H: int) -> int:
+def max_active(plan: LaunchPlan, S: int, H: int, tf32: bool = False) -> int:
     r"""Groups of ``plan`` the current card holds at once: clusters
-    (``cudaOccupancyMaxActiveClusters``) or, cooperative, resident CTAs.
-    Raises on a plan the kernel refuses."""
+    (``cudaOccupancyMaxActiveClusters``) or, cooperative, resident CTAs;
+    for the fp32 or the TF32 instantiation. Raises on a plan the kernel
+    refuses."""
     lib = _library()
     fn = lib.lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 10
+    fn.argtypes = [ctypes.c_int] * 11
     fn.restype = ctypes.c_int
-    n = fn(S, H, *_plan_ints(plan))
+    n = fn(S, H, *_plan_ints(plan), int(tf32))
     if n < 0:
         raise RuntimeError("lstm occupancy query failed: "
                            + lib.lstm_error_string(-n).decode())
@@ -234,11 +247,12 @@ def max_active(plan: LaunchPlan, S: int, H: int) -> int:
 
 def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
          c0: torch.Tensor, n_valid: torch.Tensor,
-         plan: Optional[LaunchPlan] = None):
+         plan: Optional[LaunchPlan] = None, tf32: bool = False):
     r"""Launch the kernel on hoisted inputs. u [D, S, T, 4H] (every
     direction in forward frame order), w_hh [D, H, 4H], h0/c0 [D, S, H],
     n_valid [S] int32 — all contiguous fp32 on one card, D = 1 or 2.
-    ``plan`` defaults to :func:`launch_plan`. Returns (y [S, T, D·H],
+    ``plan`` defaults to :func:`launch_plan`; ``tf32`` launches the TF32
+    instantiation (h and W_hh rounded to TF32). Returns (y [S, T, D·H],
     h [D, S, H], c [D, S, H])."""
     D, S, T, G = u.shape
     H = G // 4
@@ -266,32 +280,37 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
            c0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_out.data_ptr(),
            c_out.data_ptr(), None if xchg is None else xchg.data_ptr(),
            None if counter is None else counter.data_ptr(), S, T, H,
-           *_plan_ints(plan))
+           *_plan_ints(plan), int(tf32))
     bi_lstm.launches += 1
+    bi_lstm.tf32_launches += int(tf32)
     return y, h_out, c_out
 
 
-def bi_lstm(params: nn.Module, x: torch.Tensor, state, n_valid=None):
+def bi_lstm(params: nn.Module, x: torch.Tensor, state, n_valid=None,
+            fmt: str = "fp32"):
     r"""Dense LSTM layer, D directions read from ``params``: x [S, T, F],
     state (h, c) each [2, S, H] (D = 2) or [S, H] (D = 1), ``n_valid`` None
-    | int | [S] → (y [S, T, D·H], (h, c)). Hoists the input projection
+    | int | [S] → (y [S, T, D·H], (h, c)), the products' operands in
+    format ``fmt``. Hoists the input projection
     (:func:`scan_inputs`) and calls the registered op
     ``a3gc_tpu_torch::lstm_scan`` (:mod:`a3gc_tpu_torch.ops.library`): on
     CUDA tensors it launches the kernel (one launch, every direction) or
     raises, on CPU tensors it computes :func:`scan_reference`."""
     from a3gc_tpu_torch.ops.library import lstm_scan
-    y, h, c = lstm_scan(*scan_inputs(params, x, state, n_valid))
+    y, h, c = lstm_scan(*scan_inputs(params, x, state, n_valid, fmt),
+                        fmt == "tf32")
     if directions(params) == 1:
         h, c = h[0], c[0]
     return like(y, x), like((h, c), state[0])
 
 
 def scan_inputs(params: nn.Module, x: torch.Tensor, state,
-                n_valid=None) -> tuple:
+                n_valid=None, fmt: str = "fp32") -> tuple:
     r"""The arguments of :func:`scan` for one layer call: the hoisted input
-    projection for every direction (one ``torch.matmul``, forward frame
-    order) and the parameters and state in the kernel's layouts (a
-    unidirectional layer's gain a leading axis of 1)."""
+    projection for every direction (one ``torch.matmul`` on operands in
+    format ``fmt``, forward frame order) and the parameters and state in
+    the kernel's layouts (a unidirectional layer's gain a leading axis of
+    1)."""
     x = f32(x)
     S, T = x.shape[0], x.shape[1]
     D = directions(params)
@@ -299,8 +318,9 @@ def scan_inputs(params: nn.Module, x: torch.Tensor, state,
     h0, c0 = (f32(s).reshape(D, S, H).contiguous() for s in state)
     w_hh = TP.blockwise(params.w_hh,
                         lambda w: f32(w).reshape(D, H, -1).contiguous())
-    return (_hoist(params, x), w_hh, h0, c0,
+    return (_hoist(params, x, fmt), w_hh, h0, c0,
             n_valid_tensor(n_valid, S, T, x.device))
 
 
 bi_lstm.launches = 0    # kernel launches since the last reset to 0
+bi_lstm.tf32_launches = 0   # of them, of the TF32 instantiation

@@ -39,6 +39,8 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from a3gc_tpu_torch.ops._common import operand
+
 __all__ = ["Columns", "matmul", "full", "blockwise", "column_view",
            "gather_module", "map_parameters"]
 
@@ -83,15 +85,21 @@ def blockwise(w, fn: Callable[[torch.Tensor], torch.Tensor]):
     return Columns([fn(b) for b in w.blocks], fn(w.full), w.group)
 
 
-def matmul(x: torch.Tensor, w, stacked: bool = False) -> torch.Tensor:
-    r"""``x @ w`` (``torch.matmul``); ``stacked``: ``w`` carries a leading
+def matmul(x: torch.Tensor, w, stacked: bool = False,
+           fmt: str = "fp32") -> torch.Tensor:
+    r"""``x @ w`` (``torch.matmul``) on operands in format ``fmt``
+    (:func:`~a3gc_tpu_torch.ops._common.operand`: at "tf32" both rounded
+    to TF32, summed in fp32); ``stacked``: ``w`` carries a leading
     direction axis that x has before its batch axes (``x @ w[:, None]``).
     For a :class:`Columns`, the column-parallel product: member j's block
     on its device, the outputs concatenated on x's device; across
-    processes, ``g(f(x) @ W_own)``."""
+    processes, ``g(f(x) @ W_own)``. Rounding is elementwise, so a block
+    rounds as its columns of the whole do."""
     def right(t):
+        t = operand(t, fmt)
         return t[:, None] if stacked else t
 
+    x = operand(x, fmt)
     if not isinstance(w, Columns):
         return torch.matmul(x, right(w))
     if w.group is not None:

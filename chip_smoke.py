@@ -47,6 +47,25 @@ Phases, each printing one JSON line:
      kernel_long  — the three kernels at the shapes of the buffered
                     sessions: T = 180 and 120, S = 8 and 1, n_valid of
                     whole windows, and no kernel writes its initial state;
+     precision    — a net's precision="default" on the card (TF32
+                    operands, fp32 sums): each kernel's TF32 instantiation
+                    against its plain version at "tf32" (``gcn_lstm`` at
+                    S = 8 and 1, H = 256 / 64 / 128 with attention;
+                    ``ggru`` at S = 8; ``lstm`` at H = 256 and 512, D = 2
+                    and 1; ragged n_valid, an idle stream) within 8.05e-3,
+                    the delta to the fp32 kernel, both kernels' times in
+                    turns; the A3GC cascade at S = 1, T = 2048 (random
+                    weights, stage 3 near rotations): kernel against plain
+                    at "default" in degrees within JAX's own Pallas-vs-XLA
+                    0.034 mean / 0.335 max, "default" against "highest"
+                    within 0.1 on the mean; each command's format from its
+                    parsed argv (train fp32, evaluate / stream / export /
+                    serve TF32, ``--precision`` either way); ``cli
+                    _build_server`` at its default for A3GC, G-GRU and
+                    TransPose and the export command's DIP loader, one
+                    window each, every launch a TF32 one (the main path of
+                    the TF32 rows); the TF32 rows' times at the serving
+                    window's shapes;
      buffered     — ``StreamingCascade(lookahead=1, history=1)``, A3GC, for
                     6 ticks with an idle slot and a reset: launches per
                     tick, ``emitted``, poses against the plain path,
@@ -63,7 +82,10 @@ Phases, each printing one JSON line:
                     the round trip as the clients see it;
      http_dip     — the same over the DIP session on plain windows;
      cli_serve    — ``python -m a3gc_tpu_torch.cli serve --quality
-                    balanced`` as a subprocess, two clients, a
+                    balanced --precision highest`` as a subprocess (the
+                    CLI children held to fp32 results in process take
+                    ``--precision highest``: their own inference default
+                    is TF32 on the card, the precision phase's), two clients, a
                     state-preserving exec-recycle under them: the poses
                     after it against an uninterrupted session, the pause;
      checkpoints  — every family (a3gc, aagc, agc, ggru, tp, dip, dip uni)
@@ -187,7 +209,7 @@ Phases, each printing one JSON line:
      train_times  — training frames/s (B·T·steps over the seconds of the
                     steps, fenced by ``torch.cuda.synchronize()``) of
                     stages 1-3 of A3GC and stage 1 of G-GRU and TransPose,
-                    and of DIP at H = 512, at B = 16, T = 300, fp32 (and
+                    and of DIP at H = 512, at B = 16, T = 150, fp32 (and
                     bf16 for A3GC stage 1 and DIP), with peak memory and
                     one validation chunk's time through the kernels; one
                     step of A3GC stage 1 at
@@ -217,7 +239,12 @@ Phases, each printing one JSON line:
                     wrapper's, the kernel's and the plain version's times
                     (CUDA events) beside their bounds, and for ``lstm``
                     cuDNN's ``torch.nn.LSTM`` on the same weights, timed in
-                    turns with the kernel (kernel, cuDNN, cuDNN, kernel).
+                    turns with the kernel (kernel, cuDNN, cuDNN, kernel);
+                    then the same for each TF32 instantiation
+                    (``<name>_tf32``): its launches on the precision
+                    phase's serving at "default", its max |d| there, its
+                    rows at the serving window's shapes, bound by the TF32
+                    tensor cores' 495 TFLOP/s.
 A line of the seconds each phase took precedes the kernels line. The line
 before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -238,10 +265,40 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores, 700 W
+PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 tensor cores, dense, 700 W
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 KERNEL_TOL = 1e-5           # fp32, sums reordered over a 60-step recurrence
                             # (an H100 showed at most 2.1e-7 for gcn_lstm)
 PATH_TOL = 1e-3             # poses after three stages and IK
+# the precision phase: a net's precision="default" on the card, TF32
+# operands with fp32 sums in the kernels' TF32 instantiations and in the
+# plain versions. A kernel there against its plain version on the same
+# inputs: PREC_KERNEL_TOL, the JAX package's own Pallas kernels at
+# "default" against XLA (KERNEL_CHECK.json, A3GC stage 3, S = 1, 512
+# frames; a TF32 operand is 8x finer than the TPU's bf16 one). The A3GC
+# cascade at S = 1, PREC_T frames: the kernel path against the plain path
+# at "default" within JAX's own Pallas-vs-XLA pose angle there (mean, max
+# in degrees, KERNEL_CHECK.json), "default" against "highest" within the
+# 0.1 deg parity budget of the JAX CLI's inference default (a3gc_tpu/cli.py
+# _stage_configs) on the mean. PREC_KERNEL_TOL alone would pass a kernel
+# that ignored its TF32 flag (the formats are 3-7e-4 apart), so each kernel
+# is also held near the plain version at "tf32" by the measure that tells
+# the formats apart: rms(kernel - plain at "tf32") at most PREC_SEP_* times
+# rms(plain at "fp32" - plain at "tf32"), which the fp32 kernel in its place
+# must exceed. Root mean square, not max: reordered fp32 sums flip a few
+# TF32 roundings, each a whole TF32 step of one operand, which a max
+# shows (0.4-0.55 of the formats' max gap in a CPU emulation at these
+# shapes) and a mean dilutes. Over one frame (PREC_SEP_FRAME) a flip has
+# no recurrence to grow in: the emulation gave at most 0.06 there and 0.27
+# over a window (PREC_SEP_WINDOW), the fp32 kernel 1.0 in both, and
+# operands rounded at other points than the plain version's (ggru.cu's
+# folded fp32 order) 0.37-0.39 over one frame but 0.29-0.33 over four
+# (tests/test_torch_port_precision.py): the frame is the sharp check
+PREC_KERNEL_TOL = 8.05e-3
+PREC_SEP_FRAME, PREC_SEP_WINDOW = 0.15, 0.5
+PREC_ANGLE_MEAN, PREC_ANGLE_MAX = 0.034, 0.335
+PREC_PARITY_MEAN = 0.1
+PREC_T = 2048
 # stage widths: (H, units in, units out, rotsize) of the graph cascades,
 # (H, n_input, n_output, rotsize) of the TransPose cascade and of DIP
 STAGES = ((256, 12, 3, 3), (64, 15, 3, 3), (128, 15, 9, 9))
@@ -257,8 +314,8 @@ LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # counted by the fresh process that steps them), the two of data
 # preparation (cli_data: counted by the cli evaluate child processes), the
 # two of training (counted by the cli train child process), the mesh and
-# tensor parallelism
-N_PATHS = 25
+# tensor parallelism, and the TF32 serving of the precision phase
+N_PATHS = 26
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -276,6 +333,9 @@ EVAL_TIMED_SHAPES = ((1, 2048), (16, 1024))
 # steps (a warm-up step first at each net's first row)
 TRAIN_SEQS, VALID_SEQS, TRAIN_T, TRAIN_B = 16, 16, 300, 16
 TRAIN_TIMED_B = (16,)       # one batch size: a depth cut for the time
+TRAIN_TIMED_T = 150         # frames of the timed steps (a depth cut for the
+                            # precision phase's time: 300 until it came;
+                            # the steps are host-bound frame by frame)
 # the nets timed in bf16 too (the others in fp32 only: a depth cut)
 TRAIN_BF16_NETS = (("a3gc", 1), ("dip", 1))
 TRAIN_TIMED_STEPS = 1
@@ -537,13 +597,17 @@ def gcn_layer_work(S, T, F, H, hoist):
     return layer_work(S, T, F, H, True, hoist)
 
 
-def ggru_layer_work(S, T, F, H, hoist):
+def ggru_layer_work(S, T, F, H, hoist, tf32=False):
     """(FLOP, bytes) of one bidirectional G-GRU layer call, as layer_work.
     The least the function needs: adj·(h·G)·W_hid = (adj·h)·(G·W_hid), so
     6·N·H² + 2·N²·H FLOP per (stream, direction, frame) in the scan and one
-    G·W_hid (2·H·H·3H) per direction."""
+    G·W_hid (2·H·H·3H) per direction. With TF32 operands (``tf32``) the
+    function is the cell's order, whose products round where the fold's
+    do not: 8·N·H² + 2·N²·H FLOP a frame and no fold."""
     N = N_NODES
-    flop = 2 * T * S * (6 * N * H * H + 2 * N * N * H) + 2 * 2 * H * H * 3 * H
+    flop = (2 * T * S * (8 * N * H * H + 2 * N * N * H) if tf32 else
+            2 * T * S * (6 * N * H * H + 2 * N * N * H)
+            + 2 * 2 * H * H * 3 * H)
     params = 2 * (H * H + N * N + 3 * H * H)
     state = 2 * S * N * H
     if hoist:
@@ -578,8 +642,8 @@ def uni_lstm_layer_work(S, T, F, H, hoist):
     return lstm_layer_work(S, T, F, H, hoist, D=1)
 
 
-def bound(flop, nbytes):
-    t_ops = flop / PEAK_FP32_FLOPS * 1e3
+def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops = flop / peak * 1e3
     t_mem = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
@@ -683,6 +747,14 @@ def tree_err(a, b):
                for x, y in zip(leaves(a), leaves(b)))
 
 
+def tree_rms(a, b):
+    """Root mean square of a - b over all elements of two nests of tensors
+    of one structure."""
+    d = [(x.double() - y.double()) for x, y in zip(leaves(a), leaves(b))]
+    return (sum(float(t.square().sum()) for t in d)
+            / sum(t.numel() for t in d)) ** 0.5
+
+
 def merged_states(shards, axis=1):
     """The per-shard carried states of a mesh session as one nest, each
     leaf concatenated over the shards along the slot axis."""
@@ -716,7 +788,10 @@ class Smoke:
         self.failures = []
         self.max_err = {}
         self.max_grad_err = {}
-        self.shapes = {name: [] for name in LIBRARIES}
+        # the kernels' rows: fp32 (the library's name) and their TF32
+        # instantiations (<name>_tf32)
+        self.shapes = {name: [] for lib in LIBRARIES
+                       for name in (lib, lib + "_tf32")}
         self.launches = {}          # path -> {kernel: launches}
         self._eval = None           # the evaluation phases' data
         self._prep = None           # the data preparation phases' data
@@ -728,9 +803,14 @@ class Smoke:
     def zero_counts(self):
         for w in self.wrappers.values():
             w.launches = 0
+            w.tf32_launches = 0
 
     def counts(self):
         return {name: w.launches for name, w in self.wrappers.items()}
+
+    def tf32_counts(self):
+        return {name + "_tf32": w.tf32_launches
+                for name, w in self.wrappers.items()}
 
     # -- 1 ---------------------------------------------------------------
     def phase_device(self):
@@ -751,7 +831,7 @@ class Smoke:
               "load_s": round(wall, 3),
               "ptxas": {n: [l.strip() for l in b.log.splitlines()
                             if "registers" in l or "spill" in l
-                            or "smem" in l]
+                            or "smem" in l or "Function properties" in l]
                         for n, b in built.items()}})
 
     # -- helpers -----------------------------------------------------------
@@ -805,7 +885,8 @@ class Smoke:
         return x, (st if n_state > 1 else st[0]), nv
 
     # -- 2 ---------------------------------------------------------------
-    def compare_layer(self, name, label, kernel_fn, plain_fn, args):
+    def compare_layer(self, name, label, kernel_fn, plain_fn, args,
+                      tol=KERNEL_TOL):
         torch = self.torch
         state_before = clone_tree(args[2])
         with torch.no_grad():
@@ -820,9 +901,42 @@ class Smoke:
                 for a, b in zip(leaves(out), leaves(ref))]
         err = max(errs)
         self.max_err[name] = max(self.max_err.get(name, 0.0), err)
-        ok = err <= KERNEL_TOL and bool(torch.isfinite(leaves(out)[0]).all())
+        ok = err <= tol and bool(torch.isfinite(leaves(out)[0]).all())
         self.check(ok, f"{name} {label}: max|d|={err:.3e}")
         return errs, ok
+
+    def compare_formats(self, name, label, kernel_fn, plain_fn, args,
+                        bound):
+        """A kernel's TF32 instantiation against its plain version at
+        "tf32": max|d| within PREC_KERNEL_TOL, finite, the initial state
+        untouched, and near the plain version at "tf32" by the measure that
+        tells the formats apart: rms(kernel - plain) at most ``bound``
+        times rms(plain at "fp32" - plain at "tf32"), where the fp32
+        kernel in its place (the control) must exceed it."""
+        torch = self.torch
+        state_before = clone_tree(args[2])
+        with torch.no_grad():
+            out = {(k, fmt): fn(*args, fmt)
+                   for k, fn in (("kernel", kernel_fn), ("plain", plain_fn))
+                   for fmt in ("tf32", "fp32")}
+        torch.cuda.synchronize()
+        self.check(all(torch.equal(a, b) for a, b in zip(
+            leaves(args[2]), leaves(state_before))),
+            f"{name}_tf32 {label}: the launch wrote its initial state")
+        got, want = out["kernel", "tf32"], out["plain", "tf32"]
+        err = tree_err(got, want)
+        self.max_err[name + "_tf32"] = max(
+            self.max_err.get(name + "_tf32", 0.0), err)
+        gap = tree_rms(out["plain", "fp32"], want)
+        ratio = tree_rms(got, want) / gap
+        control = tree_rms(out["kernel", "fp32"], want) / gap
+        ok = (err <= PREC_KERNEL_TOL and ratio <= bound < control
+              and bool(torch.isfinite(leaves(got)[0]).all()))
+        self.check(ok, f"{name}_tf32 {label}: max|d|={err:.3e}, rms ratio "
+                       f"{ratio:.3f} (bound {bound}), control {control:.3f}")
+        return {"max_abs_err": err, "rms_gap": gap, "rms_ratio": ratio,
+                "control_ratio": control, "ok": ok,
+                "tf32_vs_fp32": tree_err(got, out["kernel", "fp32"])}
 
     def phase_kernel(self):
         from a3gc_tpu_torch.ops import gcn_lstm as G
@@ -1227,6 +1341,252 @@ class Smoke:
               "n_cases": len(rows), "all_ok": all(r["ok"] for r in rows),
               "cases": [r for r in rows if not r["ok"]] or "all within tol"})
 
+    def phase_precision(self):
+        """A net's precision="default" on the card: each kernel's TF32
+        instantiation against its plain version at "tf32" over one frame
+        and over a window (ragged n_valid, an idle stream; max|d| and the
+        rms ratio to the formats' gap, with the fp32 kernel as the
+        control, :meth:`compare_formats`), the delta between the two
+        formats and their times in turns; the A3GC cascade at S = 1,
+        PREC_T frames, kernel against plain at "default" (and its mean
+        angle against the fp32 kernels') and "default" against "highest"
+        in degrees; each command's format from its parsed argv; then the
+        serve command at its default (A3GC, G-GRU, TransPose through
+        ``cli._build_server`` and a client, DIP through the export
+        command's loader), counting the TF32 launches, and the TF32 rows
+        of the kernels line at the serving window's shapes."""
+        import dataclasses
+        import functools
+        import threading
+        import numpy as np
+        from a3gc_tpu_torch import cli
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.eval.streaming import DipStreamingSession
+        from a3gc_tpu_torch.models.pipeline import cascade_apply
+        from a3gc_tpu_torch.ops import gcn_lstm as G
+        from a3gc_tpu_torch.ops import ggru as GG
+        from a3gc_tpu_torch.ops import lstm as LS
+        from a3gc_tpu_torch.ops._common import operand_format
+        from a3gc_tpu_torch.ops.rotations import angle_between
+        from a3gc_tpu_torch.smpl import ParametricModel
+        torch = self.torch
+        gen = torch.Generator().manual_seed(11)
+        T = WINDOW
+        mods = {"gcn_lstm": G, "ggru": GG, "lstm": LS}
+        cases = ([("gcn_lstm", H, S, 2) for S in (S_SERVE, 1)
+                  for H, _, _, _ in STAGES]
+                 + [("ggru", H, S_SERVE, 2) for H, _, _, _ in STAGES]
+                 + [("lstm", H, S_SERVE, D) for D in (2, 1)
+                    for H in (256, DIP[0])])
+        rows = []
+        for name, H, S, D in cases:
+            mod, F = mods[name], H
+            p = (self.cell(gen, "a3gc" if name == "gcn_lstm" else name, F, H)
+                 if name != "lstm" else self.lstm_layer(gen, F, H, D=D))
+            row = {"kernel": name, "H": H, "S": S, "D": D}
+            for T in (1, WINDOW):
+                args = (p,) + self.layer_inputs(
+                    gen, S, T, F, H, [min(v, T) for v in ragged(S)],
+                    nodes=name != "lstm", n_state=1 if name == "ggru" else 2,
+                    D=D)
+                row[f"T={T}"] = self.compare_formats(
+                    name, f"H={H} S={S} D={D} T={T}",
+                    getattr(mod, f"bi_{name}"),
+                    getattr(mod, f"bi_{name}_reference"), args,
+                    PREC_SEP_FRAME if T == 1 else PREC_SEP_WINDOW)
+            with torch.no_grad():
+                scan_args = mod.scan_inputs(*args, "tf32")
+                ms = {"fp32": 0.0, "tf32": 0.0}
+                for fmt in ("fp32", "tf32", "tf32", "fp32"):
+                    ms[fmt] += cuda_ms(lambda: mod.scan(
+                        *scan_args, tf32=fmt == "tf32"), 10) / 2
+            row.update(T=T, n_valid=ragged(S), scan_ms_fp32=ms["fp32"],
+                       scan_ms_tf32=ms["tf32"])
+            rows.append(row)
+
+        # the A3GC cascade at batch 1: stage 3 emitting near rotations, as a
+        # trained net does (near_rotation_outputs)
+        def at(cfg, precision, backend):
+            net = functools.partial(dataclasses.replace, precision=precision,
+                                    backend=backend)
+            return dataclasses.replace(cfg, **{
+                f"stage{i + 1}": dataclasses.replace(s, net=net(s.net))
+                for i, s in enumerate(cfg.stages)})
+
+        base = self.cascade("a3gc", "auto")
+        params3 = self.params3(base)
+        near_rotation_outputs(params3[2])
+        imu = torch.as_tensor(np.random.default_rng(12).normal(
+            scale=0.5, size=(1, PREC_T, N_NODES, 12)).astype(np.float32),
+            device=self.dev)
+        model = ParametricModel()
+        poses = {}
+        with torch.no_grad():
+            for key, prec, backend in (("kernel_default", "default", "cuda"),
+                                       ("plain_default", "default", "eager"),
+                                       ("kernel_highest", "highest", "cuda")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                poses[key] = cascade_apply(params3, at(base, prec, backend),
+                                           model, imu, device=self.dev)
+                torch.cuda.synchronize()
+                poses[key + "_s"] = time.perf_counter() - t0
+
+            def degrees(a, b):
+                return torch.rad2deg(angle_between(
+                    poses[a].reshape(-1, 3, 3), poses[b].reshape(-1, 3, 3)))
+
+            kp = degrees("kernel_default", "plain_default")
+            dh = degrees("kernel_default", "kernel_highest")
+            gap = degrees("kernel_highest", "plain_default")
+        angles = {"kernel_vs_plain_default": {
+                      "mean": float(kp.mean()), "max": float(kp.max())},
+                  "default_vs_highest": {
+                      "mean": float(dh.mean()), "max": float(dh.max())},
+                  "highest_kernels_vs_plain_default": {
+                      "mean": float(gap.mean()), "max": float(gap.max())}}
+        # the cascade of TF32 kernels nearer the plain one at "default" than
+        # the cascade of fp32 kernels is
+        sep = (angles["kernel_vs_plain_default"]["mean"]
+               / angles["highest_kernels_vs_plain_default"]["mean"])
+        angles["mean_ratio"] = sep
+        self.check(sep <= PREC_SEP_WINDOW,
+                   f"precision: cascade kernel vs plain at default is "
+                   f"{sep:.3f} of the fp32 kernels' angle (bound "
+                   f"{PREC_SEP_WINDOW})")
+        self.check(bool(torch.isfinite(poses["kernel_default"]).all())
+                   and angles["kernel_vs_plain_default"]["mean"]
+                   <= PREC_ANGLE_MEAN
+                   and angles["kernel_vs_plain_default"]["max"]
+                   <= PREC_ANGLE_MAX,
+                   f"precision: cascade kernel vs plain at default "
+                   f"{angles['kernel_vs_plain_default']} deg")
+        self.check(angles["default_vs_highest"]["mean"] <= PREC_PARITY_MEAN,
+                   f"precision: cascade default vs highest "
+                   f"{angles['default_vs_highest']} deg")
+
+        # each command's format on the card, from its parsed argv
+        formats, fmt_ok = {}, True
+        commands = {"train": ["train", "-b", "16", "--train_data", "t.npz",
+                              "--valid_data", "v.npz"],
+                    "evaluate": ["evaluate", "--datasets", "t.npz"],
+                    "stream": ["stream", "--input", "t.npz"],
+                    "export": ["export", "--output", "art"],
+                    "serve": ["serve"]}
+        for command, argv in commands.items():
+            for given in (None, "highest", "default"):
+                for model_flag in ("a3gc", "tp", "dip"):
+                    args = cli.build_parser().parse_args(
+                        argv + ["--model", model_flag] + (
+                            [] if given is None else ["--precision", given]))
+                    prec = cli._precision(args, train=command == "train")
+                    if model_flag == "dip":
+                        net = cli._dip_config(args, prec).net
+                    else:
+                        net = cli._stage_configs(args, prec)[0].stage1.net
+                    fmt = operand_format(net.precision, self.dev)
+                    want = ("fp32" if (given or ("highest" if command ==
+                                                 "train" else "default"))
+                            == "highest" else "tf32")
+                    fmt_ok &= fmt == want
+                    formats[f"{command} {model_flag} "
+                            f"{given or '(no flag)'}"] = fmt
+        self.check(fmt_ok, f"precision: command formats {formats}")
+
+        # the serve command at its default precision, one window a family
+        rng = np.random.default_rng(13)
+        self.zero_counts()                            # the main path starts
+        served = {}
+        for model_flag in ("a3gc", "ggru", "tp"):
+            args = cli.build_parser().parse_args(
+                ["serve", "--port", "0", "--norm", "--model", model_flag,
+                 "--streams", str(S_SERVE)])
+            cli._apply_quality(args)                  # as cmd_serve does
+            srv, _, _ = cli._build_server(args)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                before = self.tf32_counts()
+                with PoseClient(*srv.address[:2], timeout=120.0,
+                                retry_s=30.0) as c:
+                    pose = c.step(*self.windows(rng, 1))
+                after = self.tf32_counts()
+                served[model_flag] = {
+                    "finite": bool(np.isfinite(pose).all()),
+                    "tf32_launches": {k: after[k] - before[k]
+                                      for k in after}}
+            finally:
+                srv.shutdown()
+                thread.join(timeout=10)
+        args = cli.build_parser().parse_args(
+            ["export", "--model", "dip", "--hu1", str(DIP[0]), "--output",
+             "art"])
+        dip_cfg, dip = cli._load_dip(args, self.dev, allow_init=True)
+        sess = DipStreamingSession(dip, dip_cfg, model, window=WINDOW,
+                                   stats=cli._load_stats(args),
+                                   streams=S_SERVE, device=self.dev)
+        before = self.tf32_counts()
+        pose = sess.step(*self.windows(rng, S_SERVE))
+        after = self.tf32_counts()
+        served["dip"] = {"finite": bool(np.isfinite(pose).all()),
+                         "tf32_launches": {k: after[k] - before[k]
+                                           for k in after}}
+        counts = self.tf32_counts()                   # the main path ended
+        self.launches["precision"] = counts
+        want = {"a3gc": ("gcn_lstm_tf32", 6), "ggru": ("ggru_tf32", 6),
+                "tp": ("lstm_tf32", 6), "dip": ("lstm_tf32", 2)}
+        for model_flag, (kernel, n) in want.items():
+            got = served[model_flag]
+            self.check(got["finite"] and got["tf32_launches"][kernel] == n
+                       and sum(got["tf32_launches"].values()) == n,
+                       f"precision: serve --model {model_flag} at its "
+                       f"default: {got}")
+        # every fp32 launch of those windows was a TF32 one
+        self.check(self.counts() == {k[:-5]: v for k, v in counts.items()},
+                   f"precision: fp32 launches at default {self.counts()}")
+
+        # the TF32 rows of the kernels line: the serving window's layer
+        # calls (S = 8, T = 60)
+        full = [T] * S_SERVE
+        for H, _, _, _ in STAGES:
+            for F in (H, 2 * H):
+                for name, work in (("gcn_lstm", gcn_layer_work),
+                                   ("ggru", functools.partial(
+                                       ggru_layer_work, tf32=True))):
+                    p = self.cell(gen, "a3gc" if name == "gcn_lstm"
+                                  else name, F, H)
+                    args = self.layer_inputs(gen, S_SERVE, T, F, H, full,
+                                             n_state=2 if name == "gcn_lstm"
+                                             else 1)
+                    self.time_layer(name, "precision", S_SERVE, F, H, p,
+                                    args, work, plain_reps=2, fmt="tf32")
+        dense = [(H, F, 2) for H, _, _, _ in TP_STAGES for F in (H, 2 * H)]
+        dense += [(DIP[0], F, 2) for F in (DIP[0], 2 * DIP[0])]
+        dense += [(DIP[0], DIP[0], 1)] * 2
+        for H, F, D in dense:
+            p = self.lstm_layer(gen, F, H, D=D)
+            args = self.layer_inputs(gen, S_SERVE, T, F, H, full,
+                                     nodes=False, D=D)
+            self.time_layer("lstm", "precision", S_SERVE, F, H, p, args,
+                            lstm_layer_work if D == 2
+                            else uni_lstm_layer_work, plain_reps=2,
+                            fmt="tf32")
+        emit({"phase": "precision", "tol": PREC_KERNEL_TOL,
+              "rms_ratio_bounds": {"frame": PREC_SEP_FRAME,
+                                   "window": PREC_SEP_WINDOW},
+              "max_abs_err": {k: self.max_err[k + "_tf32"]
+                              for k in LIBRARIES},
+              "cases": rows, "cascade_T": PREC_T,
+              "cascade_angle_deg": angles,
+              "cascade_s": {k[:-2]: v for k, v in poses.items()
+                            if k.endswith("_s")},
+              "angle_bounds_deg": {"kernel_vs_plain": [PREC_ANGLE_MEAN,
+                                                       PREC_ANGLE_MAX],
+                                   "default_vs_highest_mean":
+                                       PREC_PARITY_MEAN},
+              "formats": formats, "served_at_default": served,
+              "card": nvidia_smi()})
+
     def windows(self, rng, S):
         import numpy as np
         ori = random_rotations(rng, (S, WINDOW, 6)).reshape(S, WINDOW, 54)
@@ -1580,9 +1940,12 @@ class Smoke:
         return proc, ready
 
     def phase_cli_serve(self):
+        # --precision highest: the server is held to in-process sessions
+        # at the library's precision (its own default, "default", is TF32
+        # on the card: the precision phase)
         self.cli_serve("cli_serve", ["serve", "--port", "0", "--streams",
                                      str(S_SERVE), "--norm", "--quality",
-                                     "balanced"])
+                                     "balanced", "--precision", "highest"])
 
     def cli_serve(self, path, argv):
         """The server as a user starts it (``argv``: a fresh init with
@@ -1777,7 +2140,7 @@ class Smoke:
         torch = self.torch
         model, nira = ParametricModel(), load_adjacency_template()
         base = ["serve", "--port", "0", "--streams", str(S_SERVE), "--norm",
-                "--window", str(WINDOW)]
+                "--window", str(WINDOW), "--precision", "highest"]
         for i, (H, _, _, _) in enumerate(STAGES):    # the defaults
             base += [f"--hu{i + 1}", str(H)]
         cascade, _ = cli._stage_configs(cli.build_parser().parse_args(base))
@@ -2274,7 +2637,8 @@ class Smoke:
         try:
             argv = ["export", "--norm", "--streams", "1", str(S_SERVE),
                     "--window", str(WINDOW), "--lookahead", "1",
-                    "--history", "1", "--output", art]
+                    "--history", "1", "--precision", "highest",
+                    "--output", art]
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "a3gc_tpu_torch.cli"] + argv,
@@ -3038,7 +3402,8 @@ class Smoke:
             cache = os.path.join(cwd, "kernels")
             argv = ["evaluate", "--model", "a3gc", "--norm", "--smpl",
                     data["smpl"], "--batch_streams", str(S_SERVE),
-                    "--datasets", data["npz"], "--torch_checkpoints"] + tars \
+                    "--datasets", data["npz"], "--precision", "highest",
+                    "--torch_checkpoints"] + tars \
                 + ["--profile", trace_dir, "--compilation_cache", cache]
             env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                        + os.environ.get("PYTHONPATH", ""))
@@ -3433,7 +3798,8 @@ class Smoke:
             runs[tag] = ([sys.executable, "-c", TRAIN_CHILD, "evaluate",
                           "--model", "a3gc", "--norm", "--smpl",
                           data["smpl"], "--save_preds", "--datasets",
-                          test_npz, "--torch_checkpoints"] + tars, cwd)
+                          test_npz, "--precision", "highest",
+                          "--torch_checkpoints"] + tars, cwd)
         # the reference's packed layouts for convert-data
         rng = np.random.default_rng(3)
         N, T = 4, 300
@@ -3781,7 +4147,7 @@ class Smoke:
         from a3gc_tpu_torch.train import seeded_generator
         torch = self.torch
         data = DP.put_device(synthetic_packed_dataset(
-            max(TRAIN_TIMED_B), TRAIN_T, seed=2), self.dev)
+            max(TRAIN_TIMED_B), TRAIN_TIMED_T, seed=2), self.dev)
         rows = []
         for kind, stage in (("a3gc", 1), ("a3gc", 2), ("a3gc", 3),
                             ("ggru", 1), ("tp", 1), ("dip", 1)):
@@ -3828,12 +4194,12 @@ class Smoke:
                                        f"{e!r}")
                     rows.append({
                         "net": kind, "stage": stage, "dtype": dtype,
-                        "batch": B, "frames": TRAIN_T,
+                        "batch": B, "frames": TRAIN_TIMED_T,
                         "hidden": (DIP[0] if kind == "dip" else
                                    (TP_STAGES if kind == "tp"
                                     else STAGES)[stage - 1][0]),
                         "step_s": step_s, "warmup_step_s": warm_s,
-                        "frames_per_s": B * TRAIN_T / step_s,
+                        "frames_per_s": B * TRAIN_TIMED_T / step_s,
                         "valid_chunk_ms": valid_ms,
                         "peak_memory_gib": peak / 2 ** 30,
                         "losses": losses, "profile": profile})
@@ -4099,43 +4465,49 @@ class Smoke:
                 shutil.rmtree(data["tmp"], ignore_errors=True)
 
     # -- 5 ---------------------------------------------------------------
-    def plan_record(self, name, S, H, D=2):
+    def plan_record(self, name, S, H, D=2, tf32=False):
         """The launch plan of a weight-stationary kernel at this shape, with
         how many of its groups the card holds at once (``lstm``: of D
-        directions)."""
+        directions; of the TF32 instantiation when ``tf32``)."""
         if name == "lstm":
             from a3gc_tpu_torch.ops import lstm as LS
             from a3gc_tpu_torch.ops._common import sm_count
             plan = LS.launch_plan(S, H, sm_count(0), D=D)
             rec = {"D": D, "P": plan.P, "R": plan.R, "KS": plan.KS,
                    "groups": plan.groups, "cooperative": plan.cooperative,
-                   "max_active": LS.max_active(plan, S, H)}
+                   "max_active": LS.max_active(plan, S, H, tf32)}
         elif name == "gcn_lstm":
             from a3gc_tpu_torch.ops import gcn_lstm as G
             plan = G.launch_plan(N_NODES, H, True)
             rec = {"C": plan.C, "KS": plan.KS, "KSA": plan.KSA,
                    "KSQ": plan.KSQ, "groups": 2 * S,
-                   "max_active": G.max_active(plan, S, N_NODES, H, True)}
+                   "max_active": G.max_active(plan, S, N_NODES, H, True,
+                                               tf32)}
         else:
             from a3gc_tpu_torch.ops import ggru as GG
-            plan = GG.launch_plan(S, N_NODES, H)
+            plan = GG.launch_plan(S, N_NODES, H, tf32=tf32)
             rec = {"C": plan.C, "KS": plan.KS, "groups": 2 * S,
-                   "max_active": GG.max_active(plan, S, N_NODES, H)}
+                   "max_active": GG.max_active(plan, S, N_NODES, H, tf32)}
         rec.update(cluster=plan.cluster, smem=plan.smem,
                    ctas=(plan.ctas if name == "lstm" else 2 * S * plan.C))
         return rec
 
     def time_layer(self, name, path, S, F, H, layer, args, work,
-                   library=None, reps=20, plain_reps=3):
+                   library=None, reps=20, plain_reps=3, fmt="fp32"):
+        r"""Time a layer call (the wrapper, the kernel alone, the plain
+        version, a library call) into the kernel's rows: ``name``'s, or at
+        ``fmt`` "tf32" its TF32 instantiation's (``<name>_tf32``, bound by
+        the TF32 tensor cores' rate: the least time for TF32 products)."""
         mod = importlib.import_module(f"a3gc_tpu_torch.ops.{name}")
         torch = self.torch
         T = args[0].shape[1]
+        tf32 = fmt == "tf32"
         with torch.no_grad():
-            scan_args = mod.scan_inputs(layer, *args)
+            scan_args = mod.scan_inputs(layer, *args, fmt)
             # in turns (kernel, library, library, kernel): the card's clock
             # and its neighbours move every timed call alike
-            calls = {"ms": lambda: self.wrappers[name](layer, *args),
-                     "scan_ms": lambda: mod.scan(*scan_args)}
+            calls = {"ms": lambda: self.wrappers[name](layer, *args, fmt),
+                     "scan_ms": lambda: mod.scan(*scan_args, tf32=tf32)}
             if library is not None:
                 calls["library_ms"] = library
             order = list(calls) + list(reversed(calls))
@@ -4143,21 +4515,23 @@ class Smoke:
             for k in order:
                 times[k] += cuda_ms(calls[k], reps) / 2
             plain = getattr(mod, f"bi_{name}_reference")
-            plain_ms = (cuda_ms(lambda: plain(layer, *args), plain_reps,
+            plain_ms = (cuda_ms(lambda: plain(layer, *args, fmt), plain_reps,
                                 warmup=int(plain_reps > 1))
                         if plain_reps else None)
         D = 2
         if name == "lstm":
             from a3gc_tpu_torch.ops import lstm as LS
             D = LS.directions(layer)
-        b_ms, b_by = bound(*work(S, T, F, H, True))
-        sb_ms, sb_by = bound(*work(S, T, F, H, False))
-        self.shapes[name].append({
+        peak = PEAK_TF32_FLOPS if tf32 else PEAK_FP32_FLOPS
+        b_ms, b_by = bound(*work(S, T, F, H, True), peak)
+        sb_ms, sb_by = bound(*work(S, T, F, H, False), peak)
+        self.shapes[name + "_tf32" if tf32 else name].append({
             "path": path, "S": S, "T": T, "H": H, "F": F, "ms": times["ms"],
             "scan_ms": times["scan_ms"], "plain_ms": plain_ms,
             "library_ms": times.get("library_ms"),
             "bound_ms": b_ms, "bound_by": b_by, "scan_bound_ms": sb_ms,
-            "scan_bound_by": sb_by, "plan": self.plan_record(name, S, H, D)})
+            "scan_bound_by": sb_by,
+            "plan": self.plan_record(name, S, H, D, tf32)})
 
     def cudnn_lstm(self, p, x, st, kernel_out=None):
         """cuDNN's torch.nn.LSTM on the layer's weights (one direction or
@@ -4295,8 +4669,20 @@ class Smoke:
                      "weights, as many directions",
                      None),
         }
+        # the TF32 instantiations: their launches on the serve command at
+        # its default precision, their rows at the same window's shapes
+        for name in LIBRARIES:
+            replaces, _, work, timed, _ = meta[name]
+            meta[name + "_tf32"] = (
+                replaces, ("precision",), work,
+                timed + ", at precision='default' (TF32 operands, fp32 "
+                "sums: the TF32 instantiation)",
+                "no PyTorch call rounds the operands of this recurrence to "
+                "TF32 at the JAX cell's points")
         entries = []
         for name, (replaces, paths, work, timed, no_lib) in meta.items():
+            tf32 = name.endswith("_tf32")
+            lib_name = name[:-5] if tf32 else name
             main = [r for r in self.shapes[name]
                     if r["S"] == S_SERVE and r["T"] == WINDOW]
             works = [(uni_lstm_layer_work if r["plan"].get("D") == 1
@@ -4307,7 +4693,7 @@ class Smoke:
             lib = [r["library_ms"] for r in main]
             entry = {
                 "name": name, "route": "cuda",
-                "source": f"a3gc_tpu_torch/ops/csrc/{name}.cu",
+                "source": f"a3gc_tpu_torch/ops/csrc/{lib_name}.cu",
                 "replaces": replaces,
                 "launches": sum(self.launches[p][name] for p in paths),
                 "launches_by_path": {p: self.launches[p][name]
@@ -4317,7 +4703,8 @@ class Smoke:
                 "ms": sum(r["ms"] for r in main),
                 "plain_ms": sum(r["plain_ms"] for r in main),
                 "bound_ms": sum(r["bound_ms"] for r in main),
-                "bound_by": bound(flop, nbytes)[1],
+                "bound_by": bound(flop, nbytes, PEAK_TF32_FLOPS if tf32
+                                  else PEAK_FP32_FLOPS)[1],
                 "library_ms": (sum(lib) if lib and None not in lib
                                else None),
                 "timed": timed, "per_shape": self.shapes[name],
@@ -4350,6 +4737,7 @@ def main():
     phases = (smoke.phase_device, smoke.phase_kernel,
               smoke.phase_kernel_ggru, smoke.phase_kernel_lstm,
               smoke.phase_kernel_lstm_uni, smoke.phase_kernel_long,
+              smoke.phase_precision,
               smoke.phase_serving, smoke.phase_serving_ggru,
               smoke.phase_serving_tp, smoke.phase_serving_dip,
               smoke.phase_serving_dip_uni,

@@ -60,8 +60,8 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    n_ptr, n_int = {"lstm": (10, 11), "ggru": (8, 8),
-                    "gcn_lstm": (16, 11)}[name]
+    n_ptr, n_int = {"lstm": (10, 12), "ggru": (8, 9),
+                    "gcn_lstm": (16, 12)}[name]
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])

@@ -1168,3 +1168,157 @@ def test_torch_port_tp_step_on_card(cell):
     assert wrapper.launches == 4
     ref = single.eval_epoch(DP.Sampler(data, 4, shuffle=False))
     assert abs(got - ref) <= 1e-5 * abs(ref)
+
+
+# -- the TF32 instantiations (a net's precision="default" on the card) -------
+
+# a kernel at "tf32" against its plain version at "tf32": the JAX package's
+# own Pallas kernels at "default" against XLA (KERNEL_CHECK.json, A3GC
+# stage 3, S = 1), as chip_smoke.py PREC_KERNEL_TOL; and by root mean
+# square at most PREC_SEP_* of the plain version's gap between the formats,
+# which the fp32 kernel in its place exceeds (chip_smoke.py
+# compare_formats: over one frame and over a window)
+PREC_KERNEL_TOL = 8.05e-3
+PREC_SEP_FRAME, PREC_SEP_WINDOW = 0.15, 0.5
+
+
+def _rms(a, b):
+    d = [(x.double() - y.double()) for x, y in zip(a, b)]
+    return (sum(float(t.square().sum()) for t in d)
+            / sum(t.numel() for t in d)) ** 0.5
+
+
+def _tf32_case(name, H, S, D=2, F=None, T=60):
+    r"""(wrapper, plain version, args) of one layer call at S streams of T
+    frames with ragged n_valid (an idle stream from S = 5 on), F = 2H by
+    default."""
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import cells as C
+    from a3gc_tpu_torch.models import layers as L
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(H + S + D + T)
+    nodes = 15
+    F = F or (2 * H if D == 2 else H)
+    if name == "lstm":
+        b = 1.0 / H ** 0.5
+
+        def u(*shape):
+            return torch.rand(shape, generator=gen) * (2 * b) - b
+
+        def one():
+            return N.LSTMLayerParams(w_ih=u(F, 4 * H), w_hh=u(H, 4 * H),
+                                     b_ih=u(4 * H), b_hh=u(4 * H))
+
+        p = L.stack_directions(one(), one()) if D == 2 else one()
+        x = torch.randn((S, T, F), generator=gen)
+        shape = (2, S, H) if D == 2 else (S, H)
+        st = tuple(0.5 * torch.randn(shape, generator=gen) for _ in range(2))
+        mod = LS
+    else:
+        nira = load_adjacency_template()
+        if name == "ggru":
+            p = L.stack_directions(*(C.init_ggru_cell(gen, F, H, nira)
+                                     for _ in range(2)))
+            st = 0.5 * torch.randn((2, S, nodes, H), generator=gen)
+            mod = GG
+        else:
+            p = _cell(gen, "a3gc", F, H)
+            st = tuple(0.5 * torch.randn((2, S, nodes, H), generator=gen)
+                       for _ in range(2))
+            mod = G
+        x = torch.randn((S, T, nodes, F), generator=gen)
+    cuda = lambda t: tuple(cuda(s) for s in t) if isinstance(t, tuple) \
+        else t.cuda()
+    args = (p.cuda(), x.cuda(), cuda(st),
+            torch.tensor([min(v, T) for v in _ragged(S, T)], device="cuda"))
+    return (getattr(mod, f"bi_{name}"), getattr(mod, f"bi_{name}_reference"),
+            args)
+
+
+def _outputs(out):
+    y, st = out
+    return [y] + (list(st) if isinstance(st, tuple) else [st])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,H,S,D", [
+    ("gcn_lstm", H, S, 2) for H in (64, 128, 256) for S in (1, 8, 12)
+] + [("ggru", H, S, 2) for H in (64, 128, 256) for S in (1, 8)]
+  + [("lstm", H, 8, D) for H in (64, 256, 512) for D in (2, 1)])
+def test_torch_port_tf32_kernel_matches_plain_on_card(name, H, S, D):
+    """Each kernel's TF32 instantiation against its plain version with TF32
+    operands, every frame and the final state, ragged n_valid and an idle
+    stream: within PREC_KERNEL_TOL; one launch, counted as a TF32 one; the
+    idle stream's state passes through; and, over one frame and over a
+    window, nearer the plain version at "tf32" than the plain version at
+    "fp32" is (the rms ratio), where the fp32 kernel is not."""
+    _need_card()
+    for T, bound in ((1, PREC_SEP_FRAME), (60, PREC_SEP_WINDOW)):
+        kernel, plain, args = _tf32_case(name, H, S, D, T=T)
+        kernel.launches = kernel.tf32_launches = 0
+        with torch.no_grad():
+            got = _outputs(kernel(*args, "tf32"))
+            want = _outputs(plain(*args, "tf32"))
+            fp32 = _outputs(kernel(*args, "fp32"))
+            gap = _rms(_outputs(plain(*args, "fp32")), want)
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.tf32_launches) == (2, 1)
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max().item() <= PREC_KERNEL_TOL
+        assert _rms(got, want) <= bound * gap < _rms(fp32, want), T
+    if S > 4:                                   # stream 4 is idle
+        state = args[2] if isinstance(args[2], tuple) else (args[2],)
+        for final, start in zip(got[1:], state):
+            torch.testing.assert_close(final[..., 4, :, :] if name != "lstm"
+                                       else final[..., 4, :],
+                                       start[..., 4, :, :] if name != "lstm"
+                                       else start[..., 4, :],
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_torch_port_default_precision_serves_tf32_on_card():
+    """A cascade at precision="default" on the card runs the kernels' TF32
+    instantiation (every launch a TF32 one) and stays near the same
+    cascade at "highest"; at "highest" no launch is a TF32 one."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                cascade_apply, init_pose_net)
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.smpl import ParametricModel
+    nira = load_adjacency_template()
+
+    def cfg(precision):
+        return CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+            cell="a3gc", units_in=ui, units_out=uo, units_hidden=h,
+            precision=precision), rotsize=rot)
+            for h, ui, uo, rot in ((64, 12, 3, 3), (32, 15, 3, 3),
+                                   (64, 15, 9, 9))))
+
+    params3 = tuple(init_pose_net(torch.Generator().manual_seed(i), c,
+                                  nira).cuda()
+                    for i, c in enumerate(cfg("highest").stages))
+    out3 = params3[2].linear_out            # near rotations, as trained
+    with torch.no_grad():
+        out3.kernel.mul_(0.1)
+        out3.bias.copy_(torch.eye(3, device="cuda").flatten())
+    imu = torch.randn((2, 90, 15, 12),
+                      generator=torch.Generator().manual_seed(5)).cuda()
+    out = {}
+    for precision in ("highest", "default"):
+        G.bi_gcn_lstm.launches = G.bi_gcn_lstm.tf32_launches = 0
+        with torch.no_grad():
+            out[precision] = cascade_apply(params3, cfg(precision),
+                                           ParametricModel(), imu)
+        torch.cuda.synchronize()
+        assert G.bi_gcn_lstm.launches == 6
+        assert G.bi_gcn_lstm.tf32_launches == (6 if precision == "default"
+                                               else 0)
+    delta = (out["default"] - out["highest"]).abs().max().item()
+    assert 0.0 < delta <= 5e-2

@@ -268,23 +268,26 @@ def test_torch_port_cli_serve_loads_body_model_and_stats(case, tmp_path,
         srv.shutdown()
 
 
-@pytest.mark.parametrize("argv,noted", [
-    (["--precision", "default"], ["--precision default", "fp32"]),
-    (["--precision", "highest", "--profile", "trace", "--debug_nans",
-      "--compilation_cache", "cache"], ["--precision highest", "fp32"]),
-    ([], []),
+@pytest.mark.parametrize("argv", [
+    ["--precision", "default"],
+    ["--precision", "highest", "--compilation_cache", "cache"],
+    [],
 ])
-def test_torch_port_cli_notes_jax_only_flags_once(argv, noted, capsys):
-    """Only ``--precision`` is noted and ignored: the run-wide flags act
-    (``tests/test_torch_port_cli_flags.py``)."""
-    args = TCLI.build_parser().parse_args(["serve"] + argv)
-    TCLI._note_ignored_flags(args)
+def test_torch_port_cli_notes_no_precision(argv, tmp_path, capsys,
+                                           monkeypatch):
+    """``--precision`` acts (tests/test_torch_port_precision.py): a command
+    given it notes nothing about it on stderr, and the run-wide flags are
+    not noted either (tests/test_torch_port_cli_flags.py)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("A3GC_DATA_ROOT", raising=False)
+    assert not hasattr(TCLI, "_note_ignored_flags")
+    TCLI.main(["export", "--device", "cpu", "--hu1", "8", "--hu2", "8",
+               "--hu3", "8", "--window", "6", "--streams", "1",
+               "--output", str(tmp_path / "art")] + argv)
     err = capsys.readouterr().err
-    assert err.count("\n") == (1 if noted else 0)
-    for word in noted:
-        assert word in err
-    for flag in ("--profile", "--debug_nans", "--compilation_cache"):
-        assert flag not in err
+    assert (tmp_path / "art").is_dir()
+    for word in ("precision", "ignoring", "fp32", "--compilation_cache"):
+        assert word not in err, err
 
 
 def test_torch_port_cli_has_serve_only_and_require_exits():

@@ -171,9 +171,25 @@ def test_torch_port_ggru_forced_plan_is_honoured(H, C, S):
     _check_slices(H // C // 2, H, plan.KS)
 
 
+@pytest.mark.parametrize("S", [1, 3, 8, 12])
+@pytest.mark.parametrize("H", [8, 32, 64, 128, 256])
+def test_torch_port_ggru_tf32_launch_plan(H, S):
+    """The TF32 instantiation (the cell's order: slices of G and W_hid,
+    msg and h exchanged) fits the clusters the fp32 one takes."""
+    N = 15
+    plan = GG.launch_plan(S, N, H, tf32=True)
+    Hc = H // plan.C
+    assert plan.smem == GG.smem_bytes(N, H, plan.C, True) <= SMEM_LIMIT
+    assert plan.smem >= 4 * (H * 4 * Hc + 4 * 16 * H)
+    assert plan.smem > GG.smem_bytes(N, H, plan.C)
+    assert plan[:3] == GG.launch_plan(S, N, H)[:3]
+    _check_slices(Hc // 2, H, plan.KS)
+
+
 def test_torch_port_ggru_smem_bytes():
     """The H = 256 slice fits a CTA of a cluster of 8 and not one of 4."""
     assert GG.smem_bytes(15, 256, 8) == 147136
+    assert GG.smem_bytes(15, 256, 8, tf32=True) == 213696
     assert GG.smem_bytes(15, 256, 4) > SMEM_LIMIT
     for M in (12, 24, 48, 96, 192):            # banks 4 apart per 4 rows
         assert (4 * M + GG.gate_pad(M)) % 32 == 4 and GG.gate_pad(M) % 4 == 0

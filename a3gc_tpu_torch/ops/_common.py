@@ -34,7 +34,8 @@ __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
            "PRECISIONS", "FORMATS", "check_precision", "operand_format",
            "round_tf32", "operand", "like", "n_valid_tensor",
            "check_f32", "check_n_valid", "check_aligned", "k_slices",
-           "sm_count", "device_index", "kernel_library", "launch"]
+           "mma_row_stride", "sm_count", "device_index", "kernel_library",
+           "launch"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
 SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
@@ -52,6 +53,14 @@ def k_slices(columns: int, K: int, threads: int = THREADS) -> int:
     while ks < 32 and columns * ks * 2 <= threads and K % (8 * ks) == 0:
         ks *= 2
     return ks
+
+
+def mma_row_stride(K: int) -> int:
+    r"""Row stride (floats) of an A operand of the TF32 instantiations'
+    tensor-core products in shared memory, ≡ 16 (mod 32)
+    (``csrc/scan_common.cuh`` ``mma_row_stride``): a quarter-warp's 16-byte
+    fragment loads of two adjacent rows then fall on distinct banks."""
+    return K + (48 - K % 32) % 32
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,7 @@
 // time) has no purpose here: a cluster owns exactly one stream's 15 nodes.
 //
 // Per frame, in order (the JAX cell's op order, fp32 FMA throughout, no bf16;
-// the TF32 instantiation is below):
+// the TF32 instantiation, on the tensor cores, is below):
 //   z   = u_t + h·W_h                         u hoisted by the caller
 //   pre = adj[g]·z_g + bias[g]                bias AFTER the graph mix
 //   i,f,o = σ(pre), g = tanh(pre); c' = f·c + i·g; hy = o·tanh(c')
@@ -64,17 +64,41 @@
 //     cluster) only write y.
 // The TF32 instantiation (a net's precision="default" on the card, as XLA's
 // Precision.DEFAULT here) multiplies operands rounded to TF32 where the JAX
-// cell's products take them and sums in fp32; a product of two TF32 values
-// is exact in fp32, so this is one tensor-core pass's arithmetic up to the
-// order of the sums. Weights are rounded once, where they are staged (W_h
-// and Wq in shared memory after the bulk load, W and Wh in registers, adj
-// and u of the attention); activations where they are formed: z before the
-// mix, q before it is sent, s before its partial s·u is sent, hy as the
-// attention products read it. h·W_h takes round(h), h = hy + hy·σ(a): the
-// product cannot start on hy and scale its rows afterwards, so σ(a) of the
-// previous frame is waited for first, and one pass forms h, writes that
-// frame's y from it and rounds it in place (the fp32 hy is not read again:
-// masked frames, y and h_out read a buffer no valid frame has rounded).
+// cell's products take them and sums in fp32. Its operands stay
+// tf32_round (ties to even, bit for bit the plain version's round_tf32):
+// the tensor core would truncate an unrounded fp32, and cvt.rna rounds ties
+// away from zero. Weights are rounded once, where they are staged,
+// activations where they are formed: z before the mix, q before it is sent,
+// s before its partial s·u is sent, hy as the attention products read it,
+// h = hy + hy·σ(a) by a pass before h·W_h. What bounds its FMA form (phase
+// clocks, scripts/torch_kernel_phases.py --tf32 --fma, H = 256, with the
+// scalar pass the float4 one below replaced): shared-memory reads of h·W_h
+// (8k SM cycles a frame), hy·Wh rounding hy on every read in 255 registers
+// with a spill (15k), and the pass that scaled and rounded h in place behind
+// a barrier (5k). The tensor-core path (plan field mma = 1, wherever mma_ok
+// allows: every serving width):
+//   * h·W_h, 16 node rows × 4·Hc gate columns, on mma.sync.m16n8k8 TF32
+//     (scan_common.cuh mma_tiles): warp w owns n-tiles of 8 gate columns
+//     (2 at 4·Hc = 128, 1 at 64) over the whole k range, so no partial sums
+//     cross warps and the mix needs no block barrier; W_h's slice sits in
+//     shared memory transposed and swizzled for 16-byte B loads, h's rows
+//     are padded to a stride ≡ 16 (mod 32) for 16-byte A loads. The A
+//     operand round(h), h = hy + hy·σ(a), is formed once a CTA by a float4
+//     pass in place that also writes the previous frame's y (shared with the
+//     FMA form): scaling and rounding every warp's A
+//     fragments as they were loaded instead cost 9.7k SM cycles a frame at
+//     H = 256, more than the FMA loop. σ(a) is still waited for first: JAX
+//     rounds the scaled h;
+//   * z = round(u + h·W_h) is staged in the warp's own columns of pre_s and
+//     the gate mix round(adj[g])·z_g runs as a second mma (K = 16 nodes,
+//     two steps; adj's fragments in registers), a warp's n-tiles lying in
+//     one gate (Hc % 8 == 0): a __syncwarp, not a barrier;
+//   * round(hy)·Wh on the tensor cores, B fragments of Wh's own columns in
+//     registers for the window (at most 8 k-blocks a warp: att_split k
+//     parts of a warp each, their partial sums added in order with q·Wq);
+//   * the three vector products ((Σ hy)·W, q·Wq, s·u) stay FMA loops, the
+//     three st.async exchanges stay as they are.
+// A shape without a tensor-core plan keeps the FMA form (plan mma = 0).
 //
 // The launch plan (C, k-slices, shared-memory bytes) comes from the Python
 // wrapper (ops/gcn_lstm.py launch_plan); the C side recomputes the shared
@@ -136,19 +160,35 @@ __host__ __device__ inline int wq_pad(int KSQ) {
   return 32 / KSQ > 4 ? 32 / KSQ : 4;
 }
 
+// The tensor-core path's hy·Wh: n-tiles Hc / 8 of own columns, each over
+// `att_split` k parts of one warp each (at most 4: the partial sums' planes
+// share pre_s), so that every warp holds at most 8 k-blocks of Wh's B
+// fragments in registers.
+__host__ __device__ inline int att_split(int H, int Hc) {
+  int ks = 8 / (Hc / 8) < 4 ? 8 / (Hc / 8) : 4;
+  while (ks > 1 && (H / 16) % ks != 0) ks /= 2;
+  return ks;
+}
+
 // Floats of dynamic shared memory after the header. W_h's rows are padded
 // by 4 floats: lanes of k-slices 4 rows apart then read different banks.
-size_t smem_floats(int N, int H, int C, int KSQ, bool att) {
+// The tensor-core path (mma) holds W_h's slice transposed and swizzled
+// (mma_b_offset), pads the rows of the full h to mma_row_stride and those of
+// the mixed gates by 8 floats (the mix reads B at bank 8t + g).
+size_t smem_floats(int N, int H, int C, int KSQ, bool att, bool mma) {
   const size_t Hc = H / C, M = 4 * Hc;
-  size_t f = (size_t)H * (M + 4) + 2 * (size_t)kNodes * H + kNodes * M +
-             N * M + N * Hc + M + 4 * (size_t)N * N;
+  const size_t HS = mma ? mma_row_stride(H) : H, MP = mma ? M + 8 : M;
+  size_t f = (mma ? (size_t)H * M : (size_t)H * (M + 4)) +
+             2 * (size_t)kNodes * HS + kNodes * MP + N * M + N * Hc + M +
+             4 * (size_t)N * N;
   if (att) f += (size_t)H * (Hc + wq_pad(KSQ)) + kNodes * Hc + 2 * H +
                 2 * Hc + C * kNodes + 2 * kNodes;
   return f;
 }
 
-template <bool ATT, bool TF32>
+template <bool ATT, bool TF32, bool MMA>
 __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
+  static_assert(TF32 || !MMA, "the tensor cores take TF32 operands");
   cg::cluster_group cluster = cg::this_cluster();
   PhaseClock clk(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
                  blockIdx.z == 0);
@@ -158,17 +198,22 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   const int S = a.S, T = a.T, N = a.N, H = a.H, C = a.C, G = 4 * H;
   const int Hc = H / C, M = 4 * Hc, WS = M + 4, WQ = Hc + wq_pad(a.KSQ);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // row strides of the full h and of the mixed gates (padded for the tensor
+  // cores' fragment loads)
+  const int HS = MMA ? mma_row_stride(H) : H, MP = MMA ? M + 8 : M;
+  const int gq = lane >> 2, tq = lane & 3;   // an mma fragment's (g, t)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // the weights
   uint64_t* mb_h = bar + 1;      // this frame's hy slices from the peers
   uint64_t* mb_q = bar + 2;      // their q columns
   uint64_t* mb_a = bar + 3;      // their partial s·u
-  float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);  // [H, WS]
-  float* wq_s = w_s + (size_t)H * WS;          // [H, WQ] (attention)
-  float* hb = wq_s + (ATT ? (size_t)H * WQ : 0);   // [2, 16, H] full h / hy
-  float* pre_s = hb + 2 * kNodes * H;          // [16, M] mixed gates
-  float* u_s = pre_s + kNodes * M;             // [N, M] this frame's u
+  // [H, WS]; with MMA W_h^T [M, H] (mma_b_offset)
+  float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
+  float* wq_s = w_s + (MMA ? (size_t)M * H : (size_t)H * WS);  // [H, WQ]
+  float* hb = wq_s + (ATT ? (size_t)H * WQ : 0);   // [2, 16, HS] full h / hy
+  float* pre_s = hb + 2 * kNodes * HS;         // [16, MP] mixed gates
+  float* u_s = pre_s + kNodes * MP;            // [N, M] this frame's u
   float* c_s = u_s + N * M;                    // [N, Hc] carried c slice
   float* bias_s = c_s + N * Hc;                // [M]
   float* adj_s = bias_s + M;                   // [4, N, N]
@@ -182,20 +227,28 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   float* hsum_s = bu_s + kNodes;               // [H] Σ_nodes hy
 
   // the W_h slice (column block g·H + c·Hc … of every row) and Wq's columns
+  const uint32_t wbytes = sizeof(float) * H * ((MMA ? 0 : M) + (ATT ? Hc : 0));
   if (tid == 0) {
     mbar_init(bar);
     mbar_init(mb_h);
     mbar_init(mb_q);
     mbar_init(mb_a);
-    mbar_arrive_expect_tx(
-        bar, (uint32_t)(sizeof(float) * H * (M + (ATT ? Hc : 0))));
+    if (wbytes) mbar_arrive_expect_tx(bar, wbytes);
   }
   __syncthreads();
   const float* wh = a.wh + (size_t)d * H * G;
-  for (int e = tid; e < 4 * H; e += kThreads) {
-    const int k = e >> 2, g = e & 3;
-    bulk_load(w_s + (size_t)k * WS + g * Hc,
-              wh + (size_t)k * G + g * H + c * Hc, sizeof(float) * Hc, bar);
+  if constexpr (MMA) {
+    // transposed and rounded for the tensor cores: own gate column n =
+    // g·Hc + j is column g·H + c·Hc + j of W_h
+    stage_b_tf32(w_s, wh, G, M, H, [=](int n) {
+      return (n / Hc) * H + c * Hc + n % Hc;
+    });
+  } else {
+    for (int e = tid; e < 4 * H; e += kThreads) {
+      const int k = e >> 2, g = e & 3;
+      bulk_load(w_s + (size_t)k * WS + g * Hc,
+                wh + (size_t)k * G + g * H + c * Hc, sizeof(float) * Hc, bar);
+    }
   }
   if constexpr (ATT) {
     const float* awq = a.att_wq + (size_t)d * H * H;
@@ -224,10 +277,20 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   const int ksQ = lane / cpwQ, colQ = warp * cpwQ + lane % cpwQ;
   const int cq = colQ < Hc ? colQ : Hc - 1;
 
+  // the tensor-core path's hy·Wh: warp w takes n-tile ta = w % NTA of own
+  // columns over k part pa = w / NTA, KBP 16-deep k-blocks (warps past
+  // NTA·KSP idle)
+  const int NTA = MMA ? Hc / 8 : 1, KSP = MMA ? att_split(H, Hc) : 1;
+  const int KBP = H / 16 / KSP, ta = warp % NTA, pa = warp / NTA;
+
   // registers for the whole window: this thread's column of the attention
   // W at k-slice ksQ (ww[i]: the slice's i-th row), and its column pair of
-  // Wh at k-slice ksA (wa[2i + j]: column colA + j, the slice's i-th row)
-  float ww[ATT ? kMaxKw : 1], wa[ATT ? kMaxKca : 1];
+  // Wh at k-slice ksA (wa[2i + j]: column colA + j, the slice's i-th row),
+  // or with MMA its B fragments of Wh (wb[i]: k-block pa·KBP + i of n-tile
+  // ta, rounded) and the A fragments of its n-tiles' gate mix (adjf)
+  float ww[ATT ? kMaxKw : 1], wa[ATT && !MMA ? kMaxKca : 1];
+  float4 wb[ATT && MMA ? kMaxKca / 4 : 1];
+  float adjf[MMA ? 8 : 1];
   if constexpr (ATT) {
     const float* aw = a.att_w + (size_t)d * H * H + c * Hc + cq;
 #pragma unroll
@@ -235,6 +298,21 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       const size_t row = 4 * ksQ + a.KSQ * (i & ~3) + (i & 3);
       ww[i] = i < KcQ ? operand<TF32>(__ldg(aw + row * H)) : 0.0f;
     }
+  }
+  if constexpr (ATT && MMA) {
+    const float* awh = a.att_wh + (size_t)d * H * H + c * Hc + 8 * ta + gq;
+#pragma unroll
+    for (int i = 0; i < kMaxKca / 4; ++i) {
+      float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (i < KBP && pa < KSP) {
+        const size_t k = 16 * (pa * KBP + i) + 4 * tq;
+        v = make_float4(__ldg(awh + k * H), __ldg(awh + (k + 1) * H),
+                        __ldg(awh + (k + 2) * H), __ldg(awh + (k + 3) * H));
+      }
+      wb[i] = operand<true>(v);
+    }
+  }
+  if constexpr (ATT && !MMA) {
     const float* awh = a.att_wh + (size_t)d * H * H + c * Hc + colA;
 #pragma unroll
     for (int i = 0; i < kMaxKca / 2; ++i) {
@@ -247,8 +325,10 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 
   const size_t st = ((size_t)d * S + s) * N * H;
   const int nv = a.n_valid[s];
-  for (int e = tid; e < 2 * kNodes * H; e += kThreads)
-    hb[e] = e < N * H ? a.h0[st + e] : 0.0f;
+  for (int e = tid; e < 2 * kNodes * HS; e += kThreads) {
+    const int n = e / HS, k = e - n * HS;    // n ≥ 16: the second buffer
+    hb[e] = n < N && k < H ? a.h0[st + (size_t)n * H + k] : 0.0f;
+  }
   for (int e = tid; e < N * Hc; e += kThreads) {
     const int n = e / Hc;
     c_s[e] = a.c0[st + (size_t)n * H + c * Hc + (e - n * Hc)];
@@ -259,6 +339,13 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   }
   for (int e = tid; e < 4 * N * N; e += kThreads)
     adj_s[e] = operand<TF32>(a.adj[(size_t)d * 4 * N * N + e]);
+  // MMA: warp w's n-tiles of the gate columns, w·NTW … (w + 1)·NTW - 1, lie
+  // in one gate (plan: Hc % (8·NTW) == 0)
+  const int NTW = M / 64;
+  if constexpr (MMA) {
+    __syncthreads();
+    mma_a16_fragments(adjf, adj_s + (warp * NTW * 8 / Hc) * N * N, N, N);
+  }
   if constexpr (ATT) {
     for (int e = tid; e < Hc; e += kThreads) {
       bs_s[e] = a.att_bs[(size_t)d * H + c * Hc + e];
@@ -288,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     float* y_f = y_sd + (size_t)frame * N * 2 * H;
     for (int e = tid; e < N * Hc; e += kThreads) {
       const int n = e / Hc, j = e - n * Hc;
-      float h = hy[n * H + c * Hc + j];
+      float h = hy[n * HS + c * Hc + j];
       if constexpr (ATT) h = h + h * sg_s[n];
       y_f[(size_t)n * 2 * H + j] = tanhf(h);
     }
@@ -312,8 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     __syncthreads();
   };
   prefetch_u(0);
-  mbar_wait(bar, 0);
-  round_smem<TF32>(w_s, H, M, WS);
+  if (wbytes) mbar_wait(bar, 0);
+  if constexpr (!MMA) round_smem<TF32>(w_s, H, M, WS);
   if constexpr (ATT) round_smem<TF32>(wq_s, H, Hc, WQ);
   cluster.sync();                // every peer is running and initialised
   clk.mark(16);
@@ -325,8 +412,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     cp_async_wait_all();
     __syncthreads();             // u_s holds this frame's slice
     clk.mark(0);
-    float* h_cur = hb + cur * kNodes * H;
-    float* h_nxt = hb + (cur ^ 1) * kNodes * H;
+    float* h_cur = hb + cur * kNodes * HS;
+    float* h_nxt = hb + (cur ^ 1) * kNodes * HS;
     float* y_t = y_sd + (size_t)frame * N * 2 * H;
 
     if (frame >= nv) {           // the stream carries its state: y = tanh(h)
@@ -344,96 +431,165 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     }
 
     if constexpr (TF32) {
-      // the product's operand round(h), h = hy + hy·σ(a), in place; the
-      // previous frame's y from h
+      // the product's operand round(h), h = hy + hy·σ(a), in place, once a
+      // CTA (JAX rounds the scaled h, so σ(a) of the previous frame is
+      // waited for first; rounding in every warp's A fragments instead cost
+      // more than the product); the previous frame's y from h. No valid
+      // frame follows a masked one, so masked frames, y and h_out read a
+      // buffer this has not rounded.
       if (ATT && yf >= 0) resolve_gate();
-      for (int e = tid; e < N * H; e += kThreads) {
-        const int n = e / H, k = e - n * H;
-        float h = h_cur[e];
+      clk.mark(22);
+      // float4 chunk (n, q) of h, e = n·(H/4) + q stepping by the block
+      const int c4 = H / 4, dn = kThreads / c4, dq = kThreads - dn * c4;
+      for (int n = tid / c4, q = tid % c4; n < N;
+           n += dn + (q + dq >= c4), q = q + dq >= c4 ? q + dq - c4 : q + dq) {
+        const int k = 4 * q;
+        float4* p = reinterpret_cast<float4*>(h_cur + n * HS + k);
+        float4 h = *p;
         if constexpr (ATT) {
-          h = h + h * sg_s[n];
-          if (yf >= 0 && k >= c * Hc && k < (c + 1) * Hc)
-            y_sd[((size_t)yf * N + n) * 2 * H + (k - c * Hc)] = tanhf(h);
+          const float sg = sg_s[n];
+          h = make_float4(h.x + h.x * sg, h.y + h.y * sg, h.z + h.z * sg,
+                          h.w + h.w * sg);
+          if (yf >= 0 && k >= c * Hc && k < (c + 1) * Hc) {
+            // one tanh live at a time: the FMA form has no register to spare
+            float* yp = y_sd + ((size_t)yf * N + n) * 2 * H + (k - c * Hc);
+            yp[0] = tanhf(h.x);
+            yp[1] = tanhf(h.y);
+            yp[2] = tanhf(h.z);
+            yp[3] = tanhf(h.w);
+          }
         }
-        h_cur[e] = tf32_round(h);
+        *p = operand<true>(h);
       }
       yf = -1;
       __syncthreads();
+      clk.mark(23);
     }
 
-    // z = u_t + h·W_h on own columns, all node rows (with attention, fp32:
-    // h·W_h = (hy + hy·σ(a))·W_h, the product on hy, its rows scaled once
-    // σ(a) is here); then the graph mix
     const bool gate_due = ATT && yf >= 0;
-    float acc[4 * kNodes];       // acc[4n + j]: node n, column col + j
-    if (warp < zwarps) {
+    if constexpr (MMA) {
+      // z = u_t + round(h)·W_h on the tensor cores. Warp w owns n-tiles
+      // w·NTW … over the whole k range: no partial sums to combine across
+      // warps, and the mix below needs whole columns of z in the warp that
+      // formed them.
+      const int n0[2] = {warp * NTW * 8, warp * NTW * 8 + 8};
+      float z[2][4];
+      mma_tiles(z, h_cur, HS, [](float4 v, int) { return v; }, w_s, H, n0,
+                NTW);
+      clk.mark(2);
+      // z = round(u + h·W_h), zero past the nodes, staged in this warp's
+      // columns of pre_s as B of the mix
 #pragma unroll
-      for (int n = 0; n < 4 * kNodes; ++n) acc[n] = 0.0f;
-      const float* wp = w_s + col;
-      for (int k = 4 * ks; k < H; k += KS4) {
-        float4 w[4];
+      for (int i = 0; i < 2; ++i) {
+        if (i >= NTW) continue;
+        const int col = n0[i] + 2 * tq;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          w[q] = *reinterpret_cast<const float4*>(wp + (k + q) * WS);
-#pragma unroll
-        for (int n = 0; n < kNodes; ++n) {
-          const float4 hv =
-              *reinterpret_cast<const float4*>(h_cur + n * H + k);
-          const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[4 * n] = fmaf(hk[q], w[q].x, acc[4 * n]);
-            acc[4 * n + 1] = fmaf(hk[q], w[q].y, acc[4 * n + 1]);
-            acc[4 * n + 2] = fmaf(hk[q], w[q].z, acc[4 * n + 2]);
-            acc[4 * n + 3] = fmaf(hk[q], w[q].w, acc[4 * n + 3]);
+        for (int r = 0; r < 2; ++r) {
+          const int n = gq + 8 * r;
+          float2 v = {0.0f, 0.0f};
+          if (n < N) {
+            const float2 uv =
+                *reinterpret_cast<const float2*>(u_s + n * M + col);
+            v = make_float2(tf32_round(uv.x + z[i][2 * r]),
+                            tf32_round(uv.y + z[i][2 * r + 1]));
           }
+          *reinterpret_cast<float2*>(pre_s + n * MP + col) = v;
         }
       }
-      reduce_k_slices(acc, cpw);
-    }
-    clk.mark(2);
-    if (gate_due) resolve_gate();
-    clk.mark(3);
-    if (warp < zwarps) {
-      if (cp < M / 4) {
-        const int g = col / Hc;  // all 4 columns: Hc % 4 == 0
+      __syncwarp();
+      clk.mark(20);
+      // pre = round(adj[gate])·z_gate + bias, the mix on the tensor cores
+      // (K = 16 nodes; one gate a warp); the staged z is read before any
+      // lane overwrites it with pre
+      float mix[2][4];
 #pragma unroll
-        for (int m = 0; m < kNodes; ++m) {
-          if (m < N) {
-            if constexpr (ATT && !TF32) {
-              const float sg = sg_s[m];
+      for (int i = 0; i < 2; ++i)
+        if (i < NTW) mma_mix16(mix[i], adjf, pre_s + n0[i], MP);
+      __syncwarp();
 #pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[4 * m + j] = acc[4 * m + j] + acc[4 * m + j] * sg;
+      for (int i = 0; i < 2; ++i) {
+        if (i >= NTW) continue;
+        const int col = n0[i] + 2 * tq;
+        const float2 bv = *reinterpret_cast<const float2*>(bias_s + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(pre_s + (gq + 8 * r) * MP + col) =
+              make_float2(mix[i][2 * r] + bv.x, mix[i][2 * r + 1] + bv.y);
+      }
+    } else {
+      // z = u_t + h·W_h on own columns, all node rows (with attention, fp32:
+      // h·W_h = (hy + hy·σ(a))·W_h, the product on hy, its rows scaled once
+      // σ(a) is here); then the graph mix
+      float acc[4 * kNodes];       // acc[4n + j]: node n, column col + j
+      if (warp < zwarps) {
+#pragma unroll
+        for (int n = 0; n < 4 * kNodes; ++n) acc[n] = 0.0f;
+        const float* wp = w_s + col;
+        for (int k = 4 * ks; k < H; k += KS4) {
+          float4 w[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            w[q] = *reinterpret_cast<const float4*>(wp + (k + q) * WS);
+#pragma unroll
+          for (int n = 0; n < kNodes; ++n) {
+            const float4 hv =
+                *reinterpret_cast<const float4*>(h_cur + n * H + k);
+            const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[4 * n] = fmaf(hk[q], w[q].x, acc[4 * n]);
+              acc[4 * n + 1] = fmaf(hk[q], w[q].y, acc[4 * n + 1]);
+              acc[4 * n + 2] = fmaf(hk[q], w[q].z, acc[4 * n + 2]);
+              acc[4 * n + 3] = fmaf(hk[q], w[q].w, acc[4 * n + 3]);
             }
-            const float4 uv =
-                *reinterpret_cast<const float4*>(u_s + m * M + col);
-            acc[4 * m] = operand<TF32>(uv.x + acc[4 * m]);
-            acc[4 * m + 1] = operand<TF32>(uv.y + acc[4 * m + 1]);
-            acc[4 * m + 2] = operand<TF32>(uv.z + acc[4 * m + 2]);
-            acc[4 * m + 3] = operand<TF32>(uv.w + acc[4 * m + 3]);
           }
         }
-        clk.mark(20);
-        const float4 bv = *reinterpret_cast<const float4*>(bias_s + col);
-        for (int n = ks; n < N; n += a.KS) {
-          const float* arow = adj_s + (g * N + n) * N;
-          float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+        reduce_k_slices(acc, cpw);
+      }
+      clk.mark(2);
+      if (gate_due) resolve_gate();
+      clk.mark(3);
+      if (warp < zwarps) {
+        if (cp < M / 4) {
+          const int g = col / Hc;  // all 4 columns: Hc % 4 == 0
 #pragma unroll
           for (int m = 0; m < kNodes; ++m) {
             if (m < N) {
-              const float am = arow[m];
-              v.x = fmaf(am, acc[4 * m], v.x);
-              v.y = fmaf(am, acc[4 * m + 1], v.y);
-              v.z = fmaf(am, acc[4 * m + 2], v.z);
-              v.w = fmaf(am, acc[4 * m + 3], v.w);
+              if constexpr (ATT && !TF32) {
+                const float sg = sg_s[m];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  acc[4 * m + j] = acc[4 * m + j] + acc[4 * m + j] * sg;
+              }
+              const float4 uv =
+                  *reinterpret_cast<const float4*>(u_s + m * M + col);
+              acc[4 * m] = operand<TF32>(uv.x + acc[4 * m]);
+              acc[4 * m + 1] = operand<TF32>(uv.y + acc[4 * m + 1]);
+              acc[4 * m + 2] = operand<TF32>(uv.z + acc[4 * m + 2]);
+              acc[4 * m + 3] = operand<TF32>(uv.w + acc[4 * m + 3]);
             }
           }
-          v.x += bv.x;
-          v.y += bv.y;
-          v.z += bv.z;
-          v.w += bv.w;
-          *reinterpret_cast<float4*>(pre_s + n * M + col) = v;
+          clk.mark(20);
+          const float4 bv = *reinterpret_cast<const float4*>(bias_s + col);
+          for (int n = ks; n < N; n += a.KS) {
+            const float* arow = adj_s + (g * N + n) * N;
+            float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int m = 0; m < kNodes; ++m) {
+              if (m < N) {
+                const float am = arow[m];
+                v.x = fmaf(am, acc[4 * m], v.x);
+                v.y = fmaf(am, acc[4 * m + 1], v.y);
+                v.z = fmaf(am, acc[4 * m + 2], v.z);
+                v.w = fmaf(am, acc[4 * m + 3], v.w);
+              }
+            }
+            v.x += bv.x;
+            v.y += bv.y;
+            v.z += bv.z;
+            v.w += bv.w;
+            *reinterpret_cast<float4*>(pre_s + n * M + col) = v;
+          }
         }
       }
     }
@@ -445,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     // gates and the cell, local: unit j of node n reads its four columns
     for (int e = tid; e < N * Hc; e += kThreads) {
       const int n = e / Hc, j = e - n * Hc;
-      const float* pr = pre_s + n * M;
+      const float* pr = pre_s + n * MP;
       const float ig = sigmoid_f(pr[j]);
       const float fg = sigmoid_f(pr[Hc + j]);
       const float gg = tanhf(pr[2 * Hc + j]);
@@ -453,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       const float cn = fg * c_s[e] + ig * gg;
       c_s[e] = cn;
       const float hy = og * tanhf(cn);
-      h_nxt[n * H + c * Hc + j] = hy;
+      h_nxt[n * HS + c * Hc + j] = hy;
       if constexpr (!ATT) y_t[(size_t)n * 2 * H + j] = tanhf(hy);
     }
     clk.mark(6);
@@ -465,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       const int q4 = Hc / 4;
       for (int e = tid; e < N * q4; e += kThreads) {
         const int n = e / q4;
-        float* src = h_nxt + n * H + c * Hc + 4 * (e - n * q4);
+        float* src = h_nxt + n * HS + c * Hc + 4 * (e - n * q4);
         const float4 v = *reinterpret_cast<const float4*>(src);
         for (int peer = 0; peer < C; ++peer) {
           if (peer == c) continue;
@@ -496,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       // q = relu((Σ_nodes hy)·W) on own columns, to every peer
       for (int k = tid; k < H; k += kThreads) {
         float v = 0.0f;
-        for (int n = 0; n < N; ++n) v += operand<TF32>(h_nxt[n * H + k]);
+        for (int n = 0; n < N; ++n) v += operand<TF32>(h_nxt[n * HS + k]);
         hsum_s[k] = v;
       }
       __syncthreads();
@@ -535,8 +691,34 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       }
       clk.mark(19);
       // the peers' q columns are waited for after hy·Wh
-      // own columns of hy·Wh (→ sa_s)
-      if (warp < awarps) {
+      if constexpr (MMA) {
+        // own columns of round(hy)·Wh on the tensor cores, each A fragment
+        // rounded as it is loaded; the KSP parts' partial sums go to planes
+        // [KSP, 16, Hc] of pre_s (free until the next frame's mix), added in
+        // order before q·Wq
+        if (pa < KSP) {
+          float p4[4], e4[4];
+          mma_zero(p4);
+          mma_zero(e4);
+          const float* lo = h_nxt + gq * HS + 16 * pa * KBP + 4 * tq;
+          const float* hi = lo + 8 * HS;
+#pragma unroll
+          for (int i = 0; i < kMaxKca / 4; ++i)
+            if (i < KBP)
+              mma_tf32_k16(
+                  p4, e4,
+                  operand<true>(*reinterpret_cast<const float4*>(lo + 16 * i)),
+                  operand<true>(*reinterpret_cast<const float4*>(hi + 16 * i)),
+                  wb[i]);
+          mma_sum(p4, e4);
+          float* part = pre_s + (size_t)pa * kNodes * Hc + 8 * ta + 2 * tq;
+          *reinterpret_cast<float2*>(part + gq * Hc) =
+              make_float2(p4[0], p4[1]);
+          *reinterpret_cast<float2*>(part + (gq + 8) * Hc) =
+              make_float2(p4[2], p4[3]);
+        }
+      } else if (warp < awarps) {
+        // own columns of hy·Wh (→ sa_s)
         float acc[2 * kNodes];   // acc[2n + j]: node n, column colA + j
 #pragma unroll
         for (int n = 0; n < 2 * kNodes; ++n) acc[n] = 0.0f;
@@ -583,9 +765,16 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
         reduce_k_slices(acc, cpwQ);
         if (colQ < Hc) {
           const float b = bs_s[colQ];
-          for (int n = ksQ; n < N; n += a.KSQ)
-            sa_s[n * Hc + colQ] =
-                operand<TF32>(tanhf(sa_s[n * Hc + colQ] + acc[0] + b));
+          for (int n = ksQ; n < N; n += a.KSQ) {
+            float hw = 0.0f;             // hy·Wh
+            if constexpr (MMA) {
+              for (int p = 0; p < KSP; ++p)
+                hw += pre_s[((size_t)p * kNodes + n) * Hc + colQ];
+            } else {
+              hw = sa_s[n * Hc + colQ];
+            }
+            sa_s[n * Hc + colQ] = operand<TF32>(tanhf(hw + acc[0] + b));
+          }
         }
       }
       clk.mark(12);
@@ -614,7 +803,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 
   cp_async_wait_all();
   __syncthreads();
-  const float* h_fin = hb + cur * kNodes * H;
+  const float* h_fin = hb + cur * kNodes * HS;
   if constexpr (ATT) {
     if (yf >= 0) {
       resolve_gate();
@@ -623,7 +812,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   }
   for (int e = tid; e < N * Hc; e += kThreads) {
     const int n = e / Hc, j = e - n * Hc;
-    float h = h_fin[n * H + c * Hc + j];
+    float h = h_fin[n * HS + c * Hc + j];
     if constexpr (ATT) h = h + h * sg_s[n];
     a.h_out[st + (size_t)n * H + c * Hc + j] = h;
     a.c_out[st + (size_t)n * H + c * Hc + j] = c_s[e];
@@ -633,12 +822,22 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 }
 
 struct Plan {
-  int C, KS, KSA, KSQ, threads, smem;
+  int C, KS, KSA, KSQ, threads, smem, mma;
 };
 
 bool pow2_upto32(int x) { return x > 0 && x <= 32 && (x & (x - 1)) == 0; }
 
-bool plan_ok(int N, int H, int attention, const Plan& pl) {
+// Shapes the tensor-core path takes: k in 16-deep blocks and W_h^T swizzled
+// (H % 32 == 0); 8 warps over 8 or 16 n-tiles of gate columns (M = 64 or
+// 128), a warp's tiles in one gate; at most 8 k-blocks of Wh a warp.
+bool mma_ok(int H, int Hc, bool attention) {
+  const int M = 4 * Hc;
+  if (H % 32 != 0 || (M != 64 && M != 128) || Hc % (8 * (M / 64)) != 0)
+    return false;
+  return !attention || H / 16 / att_split(H, Hc) <= kMaxKca / 4;
+}
+
+bool plan_ok(int N, int H, int attention, const Plan& pl, bool tf32) {
   if (N <= 0 || N > kNodes || H <= 0 || H % 4 != 0) return false;
   if (pl.C <= 0 || pl.C > kMaxCluster || H % pl.C != 0) return false;
   const int Hc = H / pl.C, M = 4 * Hc;
@@ -654,9 +853,11 @@ bool plan_ok(int N, int H, int attention, const Plan& pl) {
         Hc * pl.KSQ > kThreads || H / pl.KSQ > kMaxKw)
       return false;
   }
+  if (pl.mma != 0 && (pl.mma != 1 || !tf32 || !mma_ok(H, Hc, attention)))
+    return false;
   return (size_t)pl.smem ==
-         kHeaderBytes +
-             sizeof(float) * smem_floats(N, H, pl.C, pl.KSQ, attention);
+         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, pl.KSQ,
+                                                    attention, pl.mma != 0);
 }
 
 cudaLaunchConfig_t config(const Plan& pl, int S, cudaStream_t stream,
@@ -675,9 +876,9 @@ cudaLaunchConfig_t config(const Plan& pl, int S, cudaStream_t stream,
   return cfg;
 }
 
-template <bool ATT, bool TF32>
+template <bool ATT, bool TF32, bool MMA>
 int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
-  auto kern = gcn_lstm_kernel<ATT, TF32>;
+  auto kern = gcn_lstm_kernel<ATT, TF32, MMA>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return a ? (int)err : -(int)err;
@@ -695,33 +896,65 @@ int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
 
 int launch(const Args* a, const Plan& pl, int S, bool attention, bool tf32,
            cudaStream_t stream) {
-  if (attention)
-    return tf32 ? launch<true, true>(a, pl, S, stream)
-                : launch<true, false>(a, pl, S, stream);
-  return tf32 ? launch<false, true>(a, pl, S, stream)
-              : launch<false, false>(a, pl, S, stream);
+  if (attention) {
+    if (!tf32) return launch<true, false, false>(a, pl, S, stream);
+    return pl.mma ? launch<true, true, true>(a, pl, S, stream)
+                  : launch<true, true, false>(a, pl, S, stream);
+  }
+  if (!tf32) return launch<false, false, false>(a, pl, S, stream);
+  return pl.mma ? launch<false, true, true>(a, pl, S, stream)
+                : launch<false, true, false>(a, pl, S, stream);
+}
+
+template <bool ATT, bool TF32, bool MMA>
+cudaError_t attributes(cudaFuncAttributes* fa) {
+  return cudaFuncGetAttributes(fa, gcn_lstm_kernel<ATT, TF32, MMA>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one CTA of a plan, in bytes.
-size_t gcn_lstm_smem_bytes(int N, int H, int C, int KSQ, int attention) {
+// Dynamic shared memory of one CTA of a plan (mma = 1: the TF32
+// instantiation on the tensor cores), in bytes.
+size_t gcn_lstm_smem_bytes(int N, int H, int C, int KSQ, int attention,
+                           int mma) {
   if (H <= 0 || C <= 0 || H % C != 0 || KSQ <= 0) return 0;
-  return kHeaderBytes +
-         sizeof(float) * smem_floats(N, H, C, KSQ, attention != 0);
+  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, KSQ,
+                                                    attention != 0, mma != 0);
 }
 
 // Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
 // the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
 // is minus a cudaError_t.
 int gcn_lstm_max_active(int S, int N, int H, int attention, int C, int KS,
-                        int KSA, int KSQ, int threads, int smem, int tf32) {
-  const Plan pl{C, KS, KSA, KSQ, threads, smem};
-  if (S <= 0 || !plan_ok(N, H, attention, pl))
+                        int KSA, int KSQ, int threads, int smem, int mma,
+                        int tf32) {
+  const Plan pl{C, KS, KSA, KSQ, threads, smem, mma};
+  if (S <= 0 || !plan_ok(N, H, attention, pl, tf32 != 0))
     return -(int)cudaErrorInvalidValue;
   return launch(nullptr, pl, S, attention != 0, tf32 != 0, nullptr);
+}
+
+// Registers a thread and local-memory bytes (spills) of the instantiation
+// a launch of (attention, tf32, mma) runs, from cudaFuncGetAttributes;
+// returns a cudaError_t.
+int gcn_lstm_func_attributes(int attention, int tf32, int mma, int* regs,
+                             int* local_bytes) {
+  cudaFuncAttributes fa = {};
+  cudaError_t e;
+  if (mma && !tf32) return (int)cudaErrorInvalidValue;
+  if (attention)
+    e = !tf32 ? attributes<true, false, false>(&fa)
+        : mma ? attributes<true, true, true>(&fa)
+              : attributes<true, true, false>(&fa);
+  else
+    e = !tf32 ? attributes<false, false, false>(&fa)
+        : mma ? attributes<false, true, true>(&fa)
+              : attributes<false, true, false>(&fa);
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)e;
 }
 
 // Launches the scan on `stream`, the TF32 instantiation when tf32 != 0;
@@ -733,10 +966,10 @@ int gcn_lstm_forward(const float* u, const float* wh, const float* adj,
                      const float* att_bu, const float* h0, const float* c0,
                      const int* n_valid, float* y, float* h_out, float* c_out,
                      int S, int T, int N, int H, int attention, int C, int KS,
-                     int KSA, int KSQ, int threads, int smem, int tf32,
-                     cudaStream_t stream) {
-  const Plan pl{C, KS, KSA, KSQ, threads, smem};
-  if (S <= 0 || T <= 0 || !plan_ok(N, H, attention, pl))
+                     int KSA, int KSQ, int threads, int smem, int mma,
+                     int tf32, cudaStream_t stream) {
+  const Plan pl{C, KS, KSA, KSQ, threads, smem, mma};
+  if (S <= 0 || T <= 0 || !plan_ok(N, H, attention, pl, tf32 != 0))
     return (int)cudaErrorInvalidValue;
   if (attention && !(att_w && att_wq && att_wh && att_u && att_bs && att_bu))
     return (int)cudaErrorInvalidValue;

@@ -72,9 +72,28 @@
 // the JAX cell's order, because TF32 rounds each product's operands and
 // the fold would round other values (G·W_hid and adj·h, where the cell
 // rounds h·G and msg): a CPU emulation of the folded order put it as far
-// from the plain version at TF32 as the fp32 kernel is. A frame is then two
-// products and two exchanges, every operand rounded where the cell rounds
-// it (G and W_hid once a launch, when they are staged):
+// from the plain version at TF32 as the fp32 kernel is. Every operand is
+// tf32_round of what the cell rounds (G and W_hid once a launch, when they
+// are staged; h when it is exchanged; hg and msg when they are formed): the
+// tensor core would truncate an unrounded fp32. What bounds its FMA form (a
+// frame of two products and two exchanges) at H = 64 / 128
+// was the second exchange and its barriers, not the arithmetic (1.93× /
+// 1.49× the fp32 fold's time). On the tensor cores (mma.sync.m16n8k8 TF32,
+// scan_common.cuh; plan field mma, wherever mma_ok allows):
+//   * mma 2, where all of G fits beside the W_hid slice (H ≤ 128): every
+//     CTA forms all of hg = round(h)·round(G) and msg = round(adj)·round(hg)
+//     itself, from the full rounded h it already receives, so a frame has
+//     ONE exchange, as the fp32 fold: h own columns to every CTA (the
+//     carried exchange); hg and msg per n-tile of a warp (the mix a second
+//     mma on the warp's own columns, behind a __syncwarp); zh = msg·W_hid on
+//     own gate columns. Every CTA runs the same instructions on the same
+//     operands, so the peers' msg agree bit for bit. The redundant products
+//     are 256 (H = 128) and 64 (H = 64) mma a CTA a frame;
+//   * mma 1 (H = 256: all of G is 256 KiB): the two exchanges stay, hg and
+//     msg on own columns, msg pushed to every CTA by st.async per n-tile;
+//   * G's and W_hid's slices sit transposed and swizzled for 16-byte B
+//     loads, the rows of h and msg padded to a stride ≡ 16 (mod 32).
+// The FMA form (plan mma = 0, a shape without a tensor-core plan):
 //   h    rounded own columns to every CTA (the carried exchange)
 //   hg   = h · G                own columns, [H, Hc] of G resident
 //   msg  = adj · hg             column-local; rounded, to every CTA
@@ -110,6 +129,7 @@ using namespace scan;
 
 constexpr int kNodes = 16;       // node rows padded to 16; rows >= N stay zero
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
 
 struct Args {
@@ -134,9 +154,20 @@ __host__ __device__ inline int gate_pad(int M) {
 
 // Floats of dynamic shared memory after the header. The TF32 instantiation
 // adds G's own columns and the rounded h, double-buffered (its a_s holds
-// msg, its zh_s h·G first).
-size_t smem_floats(int N, int H, int C, bool tf32) {
+// msg, its zh_s h·G first). On the tensor cores (mma 1: G's own columns,
+// mma 2: all of G) W_hid's and G's slices are transposed and swizzled
+// (mma_b_offset), and the rows of h and msg padded to mma_row_stride; mma 2
+// forms all of msg in every CTA, in one buffer.
+size_t smem_floats(int N, int H, int C, bool tf32, int mma) {
   const size_t Hc = H / C, M = 3 * Hc;
+  if (mma) {
+    const size_t HS = mma_row_stride(H);
+    return (size_t)H * M + (mma == 1 ? 2 : 1) * kNodes * HS +   // W^T, msg
+           (size_t)N * M + (size_t)kNodes * M +                 // zi, zh
+           kNodes * kNodes + (size_t)kNodes * Hc +              // adj, own h
+           (mma == 2 ? (size_t)H : Hc) * H +                    // G^T
+           2 * (size_t)kNodes * HS;                             // h, 2 buffers
+  }
   return (size_t)H * M + (size_t)(H / 4) * gate_pad(M) +   // W slice
          2 * (size_t)kNodes * H +                          // adj·h, 2 buffers
          (size_t)N * M + (size_t)kNodes * M +              // zi, zh
@@ -393,16 +424,16 @@ __device__ __forceinline__ void store_pair_totals(float (&acc)[2 * kNodes],
 }
 
 // dst[:, own columns] = adj · src (src: this CTA's columns [16, Hc]), or src
-// itself when `mix` is false, to every CTA's buffer `dst` (row n at n·H,
-// own columns at c·Hc), counted on the receivers' mbarrier `mb`: the mix is
-// within a column, one (node, 4 columns) a thread. At TF32 the operands and
-// the result are rounded.
+// itself when `mix` is false, to every CTA's buffer `dst` (row n at
+// n·stride, own columns at c·Hc), counted on the receivers' mbarrier `mb`:
+// the mix is within a column, one (node, 4 columns) a thread. At TF32 the
+// operands and the result are rounded.
 template <bool TF32>
 __device__ __forceinline__ void publish_columns(const Args& a,
                                                 const float* adj_s,
                                                 const float* src, float* dst,
-                                                uint64_t* mb, int c,
-                                                bool mix) {
+                                                uint64_t* mb, int c, bool mix,
+                                                int stride) {
   const int N = a.N, H = a.H, Hc = H / a.C, q4 = Hc / 4;
   for (int e = threadIdx.x; e < N * q4; e += kThreads) {
     const int n = fast_div(e, a.divQ4), col = 4 * (e - n * q4);
@@ -423,13 +454,14 @@ __device__ __forceinline__ void publish_columns(const Args& a,
     } else {
       v = *reinterpret_cast<const float4*>(sc + n * Hc);
     }
-    publish(dst + (size_t)n * H + c * Hc + col, operand<TF32>(v), mb, c,
+    publish(dst + (size_t)n * stride + c * Hc + col, operand<TF32>(v), mb, c,
             a.C);
   }
 }
 
-template <bool TF32>
+template <bool TF32, int MMA>
 __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
+  static_assert(TF32 || !MMA, "the tensor cores take TF32 operands");
   cg::cluster_group cluster = cg::this_cluster();
   PhaseClock clk(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
                  blockIdx.z == 0);
@@ -440,21 +472,29 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
   const int Hc = H / C, M = 3 * Hc, WP = gate_pad(M), GP = gate_pad(Hc);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nv = a.n_valid[s];
+  // row stride of the full h and of msg (padded for the tensor cores'
+  // fragment loads)
+  const int HS = MMA ? mma_row_stride(H) : H;
+  const int gq = lane >> 2, tq = lane & 3;   // an mma fragment's (g, t)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [2] the peers' columns of adj·h (fp32) or msg (TF32), one mbarrier a
   // buffer; [2] at TF32 the peers' columns of h
   uint64_t* mb_a = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* mb_x = mb_a + 2;
-  float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);  // [H, M]
-  float* a_s = w_s + (size_t)H * M + (H / 4) * WP;  // [2, 16, H] adj·h | msg
-  float* zi_s = a_s + 2 * (size_t)kNodes * H;  // [N, M] this frame's zi
+  // [H, M] (padded, gate_pad); with MMA W_hid^T [M, H] (mma_b_offset)
+  float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
+  // [2, 16, HS] adj·h | msg (MMA 2: one buffer)
+  float* a_s = w_s + (MMA ? (size_t)M * H : (size_t)H * M + (H / 4) * WP);
+  float* zi_s = a_s + (MMA == 2 ? 1 : 2) * (size_t)kNodes * HS;  // [N, M]
   float* zh_s = zi_s + (size_t)N * M;          // [16, M] ah·W | h·G, msg·W
   float* adj_s = zh_s + (size_t)kNodes * M;    // [16, 16], zero padded
   float* h_s = adj_s + kNodes * kNodes;        // [16, Hc] own columns of h
-  float* g_s = h_s + (size_t)kNodes * Hc;      // TF32: [H, Hc] of G
-  float* x_s = g_s + (size_t)H * Hc + (H / 4) * GP;  // TF32: [2, 16, H] h
-  const size_t buf = (size_t)kNodes * H;
+  // TF32: [H, Hc] of G; MMA 1: G^T [Hc, H], MMA 2: G^T [H, H]
+  float* g_s = h_s + (size_t)kNodes * Hc;
+  float* x_s = g_s + (MMA == 2 ? (size_t)H * H : (size_t)H * Hc +
+                                     (MMA ? 0 : (H / 4) * GP));  // [2, 16, HS]
+  const size_t buf = (size_t)kNodes * HS;
   // the carried exchange: adj·h (fp32) or h (TF32)
   float* carry_s = TF32 ? x_s : a_s;
   uint64_t* mb_c = TF32 ? mb_x : mb_a;
@@ -490,12 +530,25 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
     const int n = fast_div(e, a.divHc), j = e - n * Hc;
     h_s[e] = n < N ? h0[(size_t)n * H + c * Hc + j] : 0.0f;
   }
-  for (int e = tid; e < kNodes * H; e += kThreads) {
-    carry_s[buf + e] = e < N * H ? operand<TF32>(h0[e]) : 0.0f;
-    if constexpr (TF32) a_s[e] = a_s[buf + e] = x_s[e] = 0.0f;
+  for (int e = tid; e < kNodes * HS; e += kThreads) {
+    const int n = e / HS, k = e - n * HS;
+    carry_s[buf + e] = n < N && k < H ? operand<TF32>(h0[n * H + k]) : 0.0f;
+    if constexpr (TF32) {
+      a_s[e] = x_s[e] = 0.0f;
+      if constexpr (MMA != 2) a_s[buf + e] = 0.0f;
+    }
   }
   __syncthreads();
-  if constexpr (TF32) {
+  // MMA: the A fragments of the graph mix, round(adj) padded, for the window
+  float adjf[MMA ? 8 : 1];
+  if constexpr (MMA) {
+    mma_a16_fragments(adjf, adj_s, kNodes, kNodes);
+    const float* gk = a.gk + (size_t)d * H * H;
+    stage_b_tf32(w_s, a.whid + (size_t)d * H * 3 * H, 3 * H, M, H,
+                 [=](int n) { return (n / Hc) * H + c * Hc + n % Hc; });
+    stage_b_tf32(g_s, gk, H, MMA == 2 ? H : Hc, H,
+                 [=](int n) { return MMA == 2 ? n : c * Hc + n; });
+  } else if constexpr (TF32) {
     stage_weights_tf32(a, w_s, g_s, a.gk + (size_t)d * H * H,
                        a.whid + (size_t)d * H * 3 * H, c);
   } else {
@@ -541,7 +594,65 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
 
     if (valid) {
       fetch_zi_slice(a, zi_s, frame, s, c, d);
-      if constexpr (TF32) {
+      if constexpr (MMA) {
+        // on the tensor cores: hg = h·G (MMA 2: every column, MMA 1: own
+        // columns), then msg = round(adj)·round(hg) per n-tile, rounded,
+        // into msg (MMA 1: own columns, sent to every CTA; then the peers')
+        float* msg = a_s + (MMA == 1 ? cur_m * buf : 0);
+        const int NG = (MMA == 2 ? H : Hc) / 8, mc = MMA == 2 ? 0 : c * Hc;
+        for (int nt = warp; nt < NG; nt += 2 * kWarps) {
+          const int n0[2] = {8 * nt, 8 * (nt + kWarps)};
+          const int cnt = nt + kWarps < NG ? 2 : 1;
+          float d4[2][4];
+          mma_tiles(d4, carry_s + cur * buf, HS,
+                    [](float4 v, int) { return v; }, g_s, H, n0, cnt);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < cnt) mma_store<true>(msg + mc + n0[i], HS, d4[i]);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < cnt) mma_mix16(d4[i], adjf, msg + mc + n0[i], HS);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < cnt) mma_store<true>(msg + mc + n0[i], HS, d4[i]);
+          if constexpr (MMA == 1) {
+            __syncwarp();
+            const int n = lane >> 1;             // 16 rows × 2 float4 a tile
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              if (i >= cnt || n >= N) continue;
+              float* src = msg + n * HS + mc + n0[i] + 4 * (lane & 1);
+              const float4 v = *reinterpret_cast<const float4*>(src);
+              for (int peer = 0; peer < C; ++peer)
+                if (peer != c)
+                  st_async(map_rank(src, peer), v,
+                           map_rank(mb_a + cur_m, peer));
+            }
+          }
+        }
+        clk.mark(10);
+        if constexpr (MMA == 1) {
+          receive(mb_a + cur_m, (parity_m >> cur_m) & 1, C, slice_bytes);
+          parity_m ^= 1u << cur_m;
+        }
+        __syncthreads();         // every column of msg
+        clk.mark(12);
+        // zh = msg·W_hid on own gate columns
+        for (int nt = warp; nt < M / 8; nt += 2 * kWarps) {
+          const int n0[2] = {8 * nt, 8 * (nt + kWarps)};
+          const int cnt = nt + kWarps < M / 8 ? 2 : 1;
+          float d4[2][4];
+          mma_tiles(d4, msg, HS, [](float4 v, int) { return v; }, w_s, H, n0,
+                    cnt);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < cnt) mma_store<false>(zh_s + n0[i], M, d4[i]);
+        }
+        clk.mark(3);
+        if constexpr (MMA == 1) cur_m ^= 1;
+      } else if constexpr (TF32) {
         // hg = h · G on own columns, into zh_s [16, Hc]; msg = adj · hg to
         // every CTA; then the peers' columns of msg
         if (warp < wwarps) {
@@ -553,15 +664,18 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
           store_pair_totals(acc, ksW, cpwW, a.KS, cpW < Hc / 2, zh_s + colW,
                             Hc);
         }
+        clk.mark(10);
         __syncthreads();         // own columns of hg
         publish_columns<true>(a, adj_s, zh_s, a_s + cur_m * buf,
-                              mb_a + cur_m, c, true);
+                              mb_a + cur_m, c, true, H);
+        clk.mark(11);
         receive(mb_a + cur_m, (parity_m >> cur_m) & 1, C, slice_bytes);
         parity_m ^= 1u << cur_m;
         __syncthreads();         // own columns of msg written, hg read
+        clk.mark(12);
       }
       // zh = ah · W (fp32) or msg · W_hid (TF32) on own gate columns
-      if (warp < wwarps) {
+      if (MMA == 0 && warp < wwarps) {
         float acc[kGateAcc];
 #pragma unroll
         for (int n = 0; n < kGateAcc; ++n) acc[n] = 0.0f;
@@ -572,7 +686,7 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
                           M);
         clk.mark(9);
       }
-      if constexpr (TF32) cur_m ^= 1;
+      if constexpr (TF32 && !MMA) cur_m ^= 1;
     }
     cp_async_wait_all();
     __syncthreads();             // zh_s and zi_s hold this frame
@@ -607,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
     // adj·h (fp32) or the rounded h (TF32) on own columns, to every CTA's
     // other buffer
     publish_columns<TF32>(a, adj_s, h_s, carry_s + (cur ^ 1) * buf,
-                          mb_c + (cur ^ 1), c, !TF32);
+                          mb_c + (cur ^ 1), c, !TF32, HS);
     cur ^= 1;
     due = true;
     clk.mark(1);
@@ -624,10 +738,14 @@ __global__ void __launch_bounds__(kThreads, 1) ggru_kernel(Args a) {
 }
 
 struct Plan {
-  int C, KS, threads, smem;
+  int C, KS, threads, smem, mma;
 };
 
 bool pow2_upto32(int x) { return x > 0 && x <= 32 && (x & (x - 1)) == 0; }
+
+// Shapes the tensor-core paths take: k in 16-deep blocks and swizzled
+// weights (H % 32 == 0), whole n-tiles of own columns (Hc % 8 == 0).
+bool mma_ok(int H, int Hc) { return H % 32 == 0 && Hc % 8 == 0; }
 
 bool plan_ok(int N, int H, const Plan& pl, bool tf32) {
   if (N <= 0 || N > kNodes || H <= 0 || H % 4 != 0) return false;
@@ -638,15 +756,17 @@ bool plan_ok(int N, int H, const Plan& pl, bool tf32) {
   if (!pow2_upto32(pl.KS) || H % (4 * pl.KS) != 0 ||
       Hc / 2 * pl.KS > kThreads)
     return false;
+  if (pl.mma < 0 || pl.mma > 2 || (pl.mma && (!tf32 || !mma_ok(H, Hc))))
+    return false;
   return (size_t)pl.smem ==
-         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, tf32);
+         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, tf32, pl.mma);
 }
 
 // Launches the scan (a != null) or asks how many clusters of the plan the
 // card holds at once (a == null: the count, or minus a cudaError_t).
-template <bool TF32>
+template <bool TF32, int MMA>
 int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
-  auto kern = ggru_kernel<TF32>;
+  auto kern = ggru_kernel<TF32, MMA>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return a ? (int)err : -(int)err;
@@ -674,8 +794,15 @@ int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
 
 int launch(const Args* a, const Plan& pl, int S, bool tf32,
            cudaStream_t stream) {
-  return tf32 ? launch<true>(a, pl, S, stream)
-              : launch<false>(a, pl, S, stream);
+  if (!tf32) return launch<false, 0>(a, pl, S, stream);
+  return pl.mma == 2   ? launch<true, 2>(a, pl, S, stream)
+         : pl.mma == 1 ? launch<true, 1>(a, pl, S, stream)
+                       : launch<true, 0>(a, pl, S, stream);
+}
+
+template <bool TF32, int MMA>
+cudaError_t attributes(cudaFuncAttributes* fa) {
+  return cudaFuncGetAttributes(fa, ggru_kernel<TF32, MMA>);
 }
 
 }  // namespace
@@ -683,21 +810,37 @@ int launch(const Args* a, const Plan& pl, int S, bool tf32,
 extern "C" {
 
 // Dynamic shared memory of one CTA of a plan of the fp32 (tf32 = 0) or the
-// TF32 instantiation, in bytes.
-size_t ggru_smem_bytes(int N, int H, int C, int tf32) {
+// TF32 instantiation (mma 1 / 2: on the tensor cores with G's own columns
+// / all of G), in bytes.
+size_t ggru_smem_bytes(int N, int H, int C, int tf32, int mma) {
   if (H <= 0 || C <= 0 || H % C != 0) return 0;
-  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, tf32 != 0);
+  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, tf32 != 0, mma);
 }
 
 // Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
 // the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
 // is minus a cudaError_t.
 int ggru_max_active(int S, int N, int H, int C, int KS, int threads,
-                    int smem, int tf32) {
-  const Plan pl{C, KS, threads, smem};
+                    int smem, int mma, int tf32) {
+  const Plan pl{C, KS, threads, smem, mma};
   if (S <= 0 || !plan_ok(N, H, pl, tf32 != 0))
     return -(int)cudaErrorInvalidValue;
   return launch(nullptr, pl, S, tf32 != 0, nullptr);
+}
+
+// Registers a thread and local-memory bytes (spills) of the instantiation
+// a launch of (tf32, mma) runs, from cudaFuncGetAttributes; returns a
+// cudaError_t.
+int ggru_func_attributes(int tf32, int mma, int* regs, int* local_bytes) {
+  cudaFuncAttributes fa = {};
+  if (mma < 0 || mma > 2 || (mma && !tf32)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = !tf32      ? attributes<false, 0>(&fa)
+                        : mma == 2 ? attributes<true, 2>(&fa)
+                        : mma == 1 ? attributes<true, 1>(&fa)
+                                   : attributes<true, 0>(&fa);
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)e;
 }
 
 // Launches the scan on `stream`, the TF32 instantiation when tf32 != 0;
@@ -705,9 +848,9 @@ int ggru_max_active(int S, int N, int H, int C, int KS, int threads,
 int ggru_forward(const float* zi, const float* gk, const float* adj,
                  const float* whid, const float* h0, const int* n_valid,
                  float* y, float* h_out, int S, int T, int N, int H, int C,
-                 int KS, int threads, int smem, int tf32,
+                 int KS, int threads, int smem, int mma, int tf32,
                  cudaStream_t stream) {
-  const Plan pl{C, KS, threads, smem};
+  const Plan pl{C, KS, threads, smem, mma};
   if (S <= 0 || T <= 0 || !plan_ok(N, H, pl, tf32 != 0))
     return (int)cudaErrorInvalidValue;
   const int Hc = H / C;

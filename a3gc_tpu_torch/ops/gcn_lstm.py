@@ -34,7 +34,9 @@ net's operand format, :func:`a3gc_tpu_torch.ops._common.operand_format`)
 at "tf32" rounds every product's operands to TF32 where the JAX cell's
 products take them: the hoisted x·W_x here, and inside the scan h·W_h,
 the adjacency mix and the attention products (the kernel's TF32
-instantiation, the ``tf32`` flag of :func:`scan`).
+instantiation, the ``tf32`` flag of :func:`scan`; h·W_h, the mix and hy·Wh
+on the tensor cores, ``mma.sync`` m16n8k8 TF32, where the plan's ``mma``
+says so: every serving width).
 """
 
 from __future__ import annotations
@@ -51,12 +53,13 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         THREADS, check_aligned, check_f32,
                                         check_n_valid, f32 as _f32, k_slices,
                                         kernel_library, launch, like,
+                                        mma_row_stride,
                                         n_valid_tensor as _n_valid)
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
-           "launch_plan", "max_active", "scan", "scan_inputs",
-           "scan_reference", "smem_bytes"]
+           "func_attributes", "launch_plan", "max_active", "mma_ok", "scan",
+           "scan_inputs", "scan_reference", "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
@@ -72,31 +75,59 @@ class LaunchPlan(NamedTuple):
     KSQ: int           # k-slices per column of q·Wq and (Σ hy)·W
     threads: int
     smem: int          # dynamic shared memory per CTA, bytes
+    mma: int = 0       # 1: the TF32 instantiation's products on the tensor
+                       # cores (mma.sync m16n8k8), 0: FMA loops
 
     @property
     def cluster(self) -> int:
         return self.C
 
 
-def smem_bytes(N: int, H: int, C: int, KSQ: int, attention: bool) -> int:
+def att_split(H: int, Hc: int) -> int:
+    r"""k parts of the tensor-core path's hy·Wh (``att_split`` in C): each
+    of its Hc / 8 n-tiles over at most 4 warps, so that a warp holds at most
+    8 k-blocks of Wh in registers."""
+    ks = min(4, 8 // (Hc // 8))
+    while ks > 1 and (H // 16) % ks:
+        ks //= 2
+    return ks
+
+
+def mma_ok(H: int, Hc: int, attention: bool) -> bool:
+    r"""Whether the TF32 instantiation can take the tensor-core path at
+    this split (``mma_ok`` in C): k in 16-deep blocks and a swizzled W_h^T
+    (H % 32 == 0), 8 or 16 n-tiles of gate columns over the 8 warps (4·Hc
+    = 64 or 128), a warp's tiles in one gate, at most 8 k-blocks of Wh's
+    fragments a warp."""
+    M = 4 * Hc
+    if H % 32 or M not in (64, 128) or Hc % (8 * (M // 64)):
+        return False
+    return not attention or H // 16 // att_split(H, Hc) <= MAX_KCA // 4
+
+
+def smem_bytes(N: int, H: int, C: int, KSQ: int, attention: bool,
+               mma: bool = False) -> int:
     r"""Dynamic shared memory of one CTA (``gcn_lstm_smem_bytes`` in C):
     the W_h slice [H, 4H/C] (rows padded by 4 floats), the full h
     double-buffered [2, 16, H], the mixed gates [16, 4H/C], u [N, 4H/C],
     c [N, H/C], bias, adjacency; with attention Wq's columns [H, H/C]
     (rows padded by max(4, 32/KSQ) floats), s, q, Σ_nodes hy and the
-    partial sums."""
+    partial sums. The tensor-core path (``mma``) holds the W_h slice
+    transposed and swizzled, unpadded, pads h's rows to
+    :func:`mma_row_stride` and the mixed gates' rows by 8 floats."""
     Hc = H // C
     M = 4 * Hc
-    floats = (H * (M + 4) + 2 * NODES * H + NODES * M + N * M + N * Hc + M
-              + 4 * N * N)
+    HS, MP = (mma_row_stride(H), M + 8) if mma else (H, M)
+    floats = (H * M + (0 if mma else 4 * H) + 2 * NODES * HS + NODES * MP
+              + N * M + N * Hc + M + 4 * N * N)
     if attention:
         floats += (H * (Hc + max(4, 32 // KSQ)) + NODES * Hc + 2 * H
                    + 2 * Hc + C * NODES + 2 * NODES)
     return SMEM_HEADER + 4 * floats
 
 
-def launch_plan(N: int, H: int, attention: bool,
-                C: Optional[int] = None) -> LaunchPlan:
+def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
+                tf32: bool = False, mma: Optional[bool] = None) -> LaunchPlan:
     r"""The cluster for a layer of N ≤ 16 nodes at hidden width H: the
     smallest C ≤ 4 whose CTAs own at most 64 gate columns each, else the
     smallest C ≤ 8 with at most 128 (wider only where no C gives that),
@@ -107,7 +138,12 @@ def launch_plan(N: int, H: int, attention: bool,
     clusters of 8, one (stream, direction) each at S = 8, do not all fit
     on the card at once (an H100 holds 15). ``C``
     forces the split, for measuring C against 2C. Raises if nothing
-    fits."""
+    fits.
+
+    The TF32 instantiation (``tf32``) takes the same split, on the tensor
+    cores where :func:`mma_ok` and its shared memory allow (``mma`` forces
+    the choice: False keeps the FMA loops, for measuring one against the
+    other)."""
     if N <= 0 or N > NODES or H <= 0 or H % 4:
         raise ValueError(f"gcn_lstm: needs N <= {NODES} and H % 4 == 0, got "
                          f"N={N}, H={H}")
@@ -123,7 +159,18 @@ def launch_plan(N: int, H: int, attention: bool,
             if smem > SMEM_LIMIT or (attention and (
                     2 * (H // ksa) > MAX_KCA or H // ksq > MAX_KW)):
                 continue
-            return LaunchPlan(c, k_slices(Hc, H), ksa, ksq, THREADS, smem)
+            smem_mma = smem_bytes(N, H, c, ksq, attention, True)
+            fits = (tf32 and mma_ok(H, Hc, attention)
+                    and smem_mma <= SMEM_LIMIT)
+            if mma and not fits:
+                raise ValueError(f"gcn_lstm: no launch plan on the tensor "
+                                 f"cores for N={N}, H={H}, C={c}, "
+                                 f"tf32={tf32}")
+            use = fits if mma is None else bool(mma)
+            if use:
+                smem = smem_mma
+            return LaunchPlan(c, k_slices(Hc, H), ksa, ksq, THREADS, smem,
+                              int(use))
     raise ValueError(f"gcn_lstm: no launch plan for N={N}, H={H}, "
                      f"attention={attention}"
                      + (f", C={C}" if C is not None else ""))
@@ -173,11 +220,12 @@ def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
 
 
 def _library():
-    return kernel_library("gcn_lstm", 16, 12, 5)
+    return kernel_library("gcn_lstm", 16, 13, 6)
 
 
 def _plan_ints(plan: LaunchPlan):
-    return (plan.C, plan.KS, plan.KSA, plan.KSQ, plan.threads, plan.smem)
+    return (plan.C, plan.KS, plan.KSA, plan.KSQ, plan.threads, plan.smem,
+            plan.mma)
 
 
 def max_active(plan: LaunchPlan, S: int, N: int, H: int,
@@ -187,13 +235,31 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int,
     instantiation. Raises on a plan the kernel refuses."""
     lib = _library()
     fn = lib.gcn_lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 11
+    fn.argtypes = [ctypes.c_int] * 12
     fn.restype = ctypes.c_int
     n = fn(S, N, H, int(attention), *_plan_ints(plan), int(tf32))
     if n < 0:
         raise RuntimeError("gcn_lstm occupancy query failed: "
                            + lib.gcn_lstm_error_string(-n).decode())
     return n
+
+
+def func_attributes(attention: bool, tf32: bool,
+                    mma: bool = False) -> dict:
+    r"""Registers a thread and local-memory bytes (spills) of the
+    instantiation a launch of (attention, tf32, mma) runs
+    (``cudaFuncGetAttributes``): {"regs": …, "local_bytes": …}."""
+    lib = _library()
+    fn = lib.gcn_lstm_func_attributes
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = fn(int(attention), int(tf32), int(mma), ctypes.byref(regs),
+             ctypes.byref(local))
+    if err:
+        raise RuntimeError("gcn_lstm attribute query failed: "
+                           + lib.gcn_lstm_error_string(err).decode())
+    return {"regs": regs.value, "local_bytes": local.value}
 
 
 def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
@@ -220,7 +286,7 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     check_n_valid("gcn_lstm", dev, n_valid, S)
     check_aligned("gcn_lstm", u, wh, *(attention[1:2] if attention else ()))
     if plan is None:
-        plan = launch_plan(N, H, attention is not None)
+        plan = launch_plan(N, H, attention is not None, tf32=tf32)
     lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)

@@ -18,9 +18,12 @@ of the JAX cell's op order (msg = adj·(h·G), zh = msg·W_hid, two exchanges),
 which took 1.3-1.6× the time. The same function with its sums in another
 order: within 5e-7 of the plain version on an H100 (within 4e-6 at twice
 the initial recurrent weights, as a kernel in the cell's own order is).
-The TF32 instantiation keeps the cell's order (two products and two
-exchanges a frame), because TF32 rounds each product's operands and the
-fold would round other values.
+The TF32 instantiation keeps the cell's order, because TF32 rounds each
+product's operands and the fold would round other values; its products run
+on the tensor cores (``mma.sync`` m16n8k8 TF32, plan field ``mma``): with
+all of G resident up to H = 128, each CTA forms all of h·G and msg itself
+and a frame has one exchange, as the fold has; at H = 256 (G's own columns)
+msg is exchanged too.
 
 The launch is the CUDA implementation of the registered op
 ``a3gc_tpu_torch::ggru_scan`` (:mod:`a3gc_tpu_torch.ops.library`), whose
@@ -62,12 +65,13 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         check_aligned, check_f32,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
-                                        like, n_valid_tensor, sm_count)
+                                        like, mma_row_stride, n_valid_tensor,
+                                        sm_count)
 from a3gc_tpu_torch.parallel import tensor as TP
 
-__all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "gate_pad",
-           "launch_plan", "max_active", "one_wave", "scan", "scan_inputs",
-           "scan_reference", "smem_bytes"]
+__all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "func_attributes",
+           "gate_pad", "launch_plan", "max_active", "mma_ok", "one_wave",
+           "scan", "scan_inputs", "scan_reference", "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 THREADS = 256        # threads per CTA of ggru.cu
@@ -81,6 +85,9 @@ class LaunchPlan(NamedTuple):
                        # product on G·W_hid
     threads: int
     smem: int          # dynamic shared memory per CTA, bytes
+    mma: int = 0       # the TF32 instantiation's products on the tensor
+                       # cores: 1 with G's own columns (two exchanges a
+                       # frame), 2 with all of G resident (one); 0: FMA loops
 
     @property
     def cluster(self) -> int:
@@ -94,16 +101,33 @@ def gate_pad(M: int) -> int:
     return (36 - (4 * M) % 32) % 32
 
 
-def smem_bytes(N: int, H: int, C: int, tf32: bool = False) -> int:
+def mma_ok(H: int, Hc: int) -> bool:
+    r"""Whether the TF32 instantiation can take the tensor-core paths at
+    this split (``mma_ok`` in C): k in 16-deep blocks and swizzled weights
+    (H % 32 == 0), whole 8-column n-tiles of own columns (Hc % 8 == 0)."""
+    return H % 32 == 0 and Hc % 8 == 0
+
+
+def smem_bytes(N: int, H: int, C: int, tf32: bool = False,
+               mma: int = 0) -> int:
     r"""Dynamic shared memory of one CTA (``ggru_smem_bytes`` in C): the
     slice [H, 3H/C] of G·W_hid (:func:`gate_pad` floats after every 4 rows),
     the full adj·h [16, H], double-buffered, zi [N, 3H/C], the gate
     pre-activations [16, 3H/C], the adjacency padded to 16 × 16 and the own
     columns of h [16, H/C]. The TF32 instantiation (``tf32``; the slice of
     W_hid in place of G·W_hid, msg in place of adj·h) adds its slice
-    [H, H/C] of G and the full h [16, H], double-buffered."""
+    [H, H/C] of G and the full h [16, H], double-buffered. On the tensor
+    cores (``mma`` 1: G's own columns, 2: all of G) the W_hid and G slices
+    are transposed, unpadded, the rows of h and msg padded to
+    ``_common.mma_row_stride``, and mma 2 keeps one msg buffer."""
     Hc = H // C
     M = 3 * Hc
+    if mma:
+        HS = mma_row_stride(H)
+        return SMEM_HEADER + 4 * (
+            H * M + (1 if mma == 2 else 2) * NODES * HS + N * M + NODES * M
+            + NODES * NODES + NODES * Hc + (H if mma == 2 else Hc) * H
+            + 2 * NODES * HS)
     floats = (H * M + H // 4 * gate_pad(M) + 2 * NODES * H + N * M
               + NODES * M + NODES * NODES + NODES * Hc)
     if tf32:
@@ -121,8 +145,26 @@ def one_wave(C: int, sms: int = 132) -> int:
     return (sms - sms // 11) // C
 
 
+def _mma_choice(N: int, H: int, C: int, tf32: bool,
+                mma: Optional[int]) -> int:
+    r"""The tensor-core path of a TF32 plan at C: ``mma`` if given (checked),
+    else all of G resident where it fits (one exchange a frame), else G's
+    own columns, else (no tensor-core shape, or nothing fits) 0."""
+    if mma is not None:
+        if mma and (not tf32 or mma not in (1, 2)
+                    or not mma_ok(H, H // C)):
+            raise ValueError(f"ggru: no launch plan with mma={mma} for "
+                             f"H={H}, C={C}, tf32={tf32}")
+        return mma
+    if not tf32 or not mma_ok(H, H // C):
+        return 0
+    return next((m for m in (2, 1)
+                 if smem_bytes(N, H, C, True, m) <= SMEM_LIMIT), 0)
+
+
 def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
-                sms: int = 132, tf32: bool = False) -> LaunchPlan:
+                sms: int = 132, tf32: bool = False,
+                mma: Optional[int] = None) -> LaunchPlan:
     r"""The clusters for S streams of N ≤ 16 nodes at hidden width H, for
     the fp32 or (``tf32``) the TF32 instantiation.
 
@@ -137,7 +179,11 @@ def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
     16 clusters of 8 may need two waves (0.25 against 0.35 ms at H = 128).
     At H = 256 only C = 8 fits, and 8 streams took 0.74 ms on a card that
     ran the sixteen clusters in two waves and 0.46 ms on one that ran them
-    at once."""
+    at once.
+
+    The TF32 instantiation's path (:func:`_mma_choice`; ``mma`` forces it:
+    0 keeps the FMA loops, for measuring one against the other) does not
+    change C."""
     if S <= 0 or N <= 0 or N > NODES or H <= 0 or H % 4:
         raise ValueError(f"ggru: needs S >= 1, N <= {NODES} and H % 4 == 0, "
                          f"got S={S}, N={N}, H={H}")
@@ -152,8 +198,13 @@ def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
         raise ValueError(f"ggru: no launch plan for S={S}, N={N}, H={H}"
                          + (f", C={C}" if C is not None else ""))
     c = next((c for c in cs if 2 * S <= one_wave(c, sms)), cs[0])
-    return LaunchPlan(c, k_slices(H // c // 2, H, THREADS), THREADS,
-                      smem_bytes(N, H, c, tf32))
+    m = _mma_choice(N, H, c, tf32, mma)
+    smem = smem_bytes(N, H, c, tf32, m)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ggru: no launch plan for S={S}, N={N}, H={H}, "
+                         f"C={c}, mma={m}")
+    return LaunchPlan(c, k_slices(H // c // 2, H, THREADS), THREADS, smem,
+                      m)
 
 
 def _hoist(params2: C.GGRUCellParams, x: torch.Tensor,
@@ -199,7 +250,7 @@ def scan_reference(zi: torch.Tensor, gcn_kernel: torch.Tensor,
 
 
 def _library():
-    return kernel_library("ggru", 8, 9, 4)
+    return kernel_library("ggru", 8, 10, 5)
 
 
 def max_active(plan: LaunchPlan, S: int, N: int, H: int,
@@ -209,13 +260,29 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int,
     instantiation. Raises on a plan the kernel refuses."""
     lib = _library()
     fn = lib.ggru_max_active
-    fn.argtypes = [ctypes.c_int] * 8
+    fn.argtypes = [ctypes.c_int] * 9
     fn.restype = ctypes.c_int
     n = fn(S, N, H, *plan, int(tf32))
     if n < 0:
         raise RuntimeError("ggru occupancy query failed: "
                            + lib.ggru_error_string(-n).decode())
     return n
+
+
+def func_attributes(tf32: bool, mma: int = 0) -> dict:
+    r"""Registers a thread and local-memory bytes (spills) of the
+    instantiation a launch of (tf32, mma) runs (``cudaFuncGetAttributes``):
+    {"regs": …, "local_bytes": …}."""
+    lib = _library()
+    fn = lib.ggru_func_attributes
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = fn(int(tf32), int(mma), ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError("ggru attribute query failed: "
+                           + lib.ggru_error_string(err).decode())
+    return {"regs": regs.value, "local_bytes": local.value}
 
 
 def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,

@@ -1347,14 +1347,18 @@ class Smoke:
         and over a window (ragged n_valid, an idle stream; max|d| and the
         rms ratio to the formats' gap, with the fp32 kernel as the
         control, :meth:`compare_formats`), the delta between the two
-        formats and their times in turns; the A3GC cascade at S = 1,
+        formats and their times in turns (with the TF32 instantiation's FMA
+        path, forced by plan, beside its tensor-core path); the
+        registers and local memory of every instantiation (a tensor-core
+        TF32 one that spills fails); the A3GC cascade at S = 1,
         PREC_T frames, kernel against plain at "default" (and its mean
         angle against the fp32 kernels') and "default" against "highest"
         in degrees; each command's format from its parsed argv; then the
         serve command at its default (A3GC, G-GRU, TransPose through
         ``cli._build_server`` and a client, DIP through the export
         command's loader), counting the TF32 launches, and the TF32 rows
-        of the kernels line at the serving window's shapes."""
+        of the kernels line at the serving window's shapes (and at S = 1,
+        and cuDNN's LSTM with TF32 allowed as ``lstm``'s yardstick)."""
         import dataclasses
         import functools
         import threading
@@ -1373,36 +1377,85 @@ class Smoke:
         gen = torch.Generator().manual_seed(11)
         T = WINDOW
         mods = {"gcn_lstm": G, "ggru": GG, "lstm": LS}
-        cases = ([("gcn_lstm", H, S, 2) for S in (S_SERVE, 1)
+        cases = ([("gcn_lstm", "a3gc", H, S, 2) for S in (S_SERVE, 1)
                   for H, _, _, _ in STAGES]
-                 + [("ggru", H, S_SERVE, 2) for H, _, _, _ in STAGES]
-                 + [("lstm", H, S_SERVE, D) for D in (2, 1)
+                 + [("gcn_lstm", "aagc", H, S_SERVE, 2)
+                    for H, _, _, _ in STAGES]
+                 + [("ggru", "ggru", H, S, 2) for S in (S_SERVE, 1)
+                    for H, _, _, _ in STAGES]
+                 + [("lstm", "lstm", H, S_SERVE, D) for D in (2, 1)
                     for H in (256, DIP[0])])
         rows = []
-        for name, H, S, D in cases:
+        for name, cell, H, S, D in cases:
             mod, F = mods[name], H
-            p = (self.cell(gen, "a3gc" if name == "gcn_lstm" else name, F, H)
+            p = (self.cell(gen, cell, F, H)
                  if name != "lstm" else self.lstm_layer(gen, F, H, D=D))
-            row = {"kernel": name, "H": H, "S": S, "D": D}
+            row = {"kernel": name, "cell": cell, "H": H, "S": S, "D": D}
             for T in (1, WINDOW):
                 args = (p,) + self.layer_inputs(
                     gen, S, T, F, H, [min(v, T) for v in ragged(S)],
                     nodes=name != "lstm", n_state=1 if name == "ggru" else 2,
                     D=D)
                 row[f"T={T}"] = self.compare_formats(
-                    name, f"H={H} S={S} D={D} T={T}",
+                    name, f"{cell} H={H} S={S} D={D} T={T}",
                     getattr(mod, f"bi_{name}"),
                     getattr(mod, f"bi_{name}_reference"), args,
                     PREC_SEP_FRAME if T == 1 else PREC_SEP_WINDOW)
+            # the kernel alone at "fp32", at "tf32", and (gcn_lstm, ggru) at
+            # "tf32" on the FMA path, forced by plan: in turns
+            plans = {"fp32": (None, False), "tf32": (None, True)}
+            if name == "gcn_lstm":
+                plans["tf32_fma"] = (G.launch_plan(
+                    N_NODES, H, cell == "a3gc", tf32=True, mma=False), True)
+            elif name == "ggru":
+                plans["tf32_fma"] = (GG.launch_plan(
+                    S, N_NODES, H, tf32=True, mma=0), True)
             with torch.no_grad():
                 scan_args = mod.scan_inputs(*args, "tf32")
-                ms = {"fp32": 0.0, "tf32": 0.0}
-                for fmt in ("fp32", "tf32", "tf32", "fp32"):
-                    ms[fmt] += cuda_ms(lambda: mod.scan(
-                        *scan_args, tf32=fmt == "tf32"), 10) / 2
+                ms = dict.fromkeys(plans, 0.0)
+                for k in list(plans) + list(reversed(plans)):
+                    plan, tf32 = plans[k]
+                    ms[k] += cuda_ms(lambda: mod.scan(
+                        *scan_args, plan=plan, tf32=tf32), 10) / 2
             row.update(T=T, n_valid=ragged(S), scan_ms_fp32=ms["fp32"],
-                       scan_ms_tf32=ms["tf32"])
+                       scan_ms_tf32=ms["tf32"],
+                       tf32_over_fp32=ms["tf32"] / ms["fp32"])
+            if "tf32_fma" in ms:
+                row.update(scan_ms_tf32_fma=ms["tf32_fma"],
+                           tf32_fma_over_fp32=ms["tf32_fma"] / ms["fp32"])
+            if name != "lstm":
+                row["plan_tf32"] = (G.launch_plan(N_NODES, H, cell == "a3gc",
+                                                  tf32=True)
+                                    if name == "gcn_lstm" else
+                                    GG.launch_plan(S, N_NODES, H,
+                                                   tf32=True))._asdict()
             rows.append(row)
+
+        # registers and local memory (spills, stack) of each instantiation;
+        # the TF32 instantiations the serving widths' plans launch (on the
+        # tensor cores) must keep everything in registers
+        attrs, tensor_core = {}, []
+        for att in (True, False):
+            for tf32, mma in ((False, False), (True, False), (True, True)):
+                key = (f"gcn_lstm attention={int(att)} tf32={int(tf32)} "
+                       f"mma={int(mma)}")
+                attrs[key] = G.func_attributes(att, tf32, mma)
+                if mma:
+                    tensor_core.append(key)
+        for tf32, mma in ((False, 0), (True, 0), (True, 1), (True, 2)):
+            key = f"ggru tf32={int(tf32)} mma={mma}"
+            attrs[key] = GG.func_attributes(tf32, mma)
+            if mma:
+                tensor_core.append(key)
+        for H, _, _, _ in STAGES:
+            self.check(G.launch_plan(N_NODES, H, True, tf32=True).mma == 1
+                       and all(GG.launch_plan(S, N_NODES, H, tf32=True).mma
+                               for S in (S_SERVE, 1)),
+                       f"precision: H={H} plans off the tensor cores")
+        self.check(all(attrs[k]["local_bytes"] == 0 for k in tensor_core),
+                   f"precision: a tensor-core TF32 instantiation uses local "
+                   f"memory: {attrs}")
+        print(json.dumps({"instantiations": attrs}), flush=True)
 
         # the A3GC cascade at batch 1: stage 3 emitting near rotations, as a
         # trained net does (near_rotation_outputs)
@@ -1546,20 +1599,25 @@ class Smoke:
                    f"precision: fp32 launches at default {self.counts()}")
 
         # the TF32 rows of the kernels line: the serving window's layer
-        # calls (S = 8, T = 60)
+        # calls (S = 8, T = 60), and the graph kernels at S = 1 (per-sequence
+        # evaluation), rows of their own
+        for S in (S_SERVE, 1):
+            full = [T] * S
+            for H, _, _, _ in STAGES:
+                for F in (H, 2 * H):
+                    for name, work in (("gcn_lstm", gcn_layer_work),
+                                       ("ggru", functools.partial(
+                                           ggru_layer_work, tf32=True))):
+                        p = self.cell(gen, "a3gc" if name == "gcn_lstm"
+                                      else name, F, H)
+                        args = self.layer_inputs(
+                            gen, S, T, F, H, full,
+                            n_state=2 if name == "gcn_lstm" else 1)
+                        self.time_layer(name, "precision", S, F, H, p,
+                                        args, work,
+                                        plain_reps=2 if S > 1 else 1,
+                                        fmt="tf32")
         full = [T] * S_SERVE
-        for H, _, _, _ in STAGES:
-            for F in (H, 2 * H):
-                for name, work in (("gcn_lstm", gcn_layer_work),
-                                   ("ggru", functools.partial(
-                                       ggru_layer_work, tf32=True))):
-                    p = self.cell(gen, "a3gc" if name == "gcn_lstm"
-                                  else name, F, H)
-                    args = self.layer_inputs(gen, S_SERVE, T, F, H, full,
-                                             n_state=2 if name == "gcn_lstm"
-                                             else 1)
-                    self.time_layer(name, "precision", S_SERVE, F, H, p,
-                                    args, work, plain_reps=2, fmt="tf32")
         dense = [(H, F, 2) for H, _, _, _ in TP_STAGES for F in (H, 2 * H)]
         dense += [(DIP[0], F, 2) for F in (DIP[0], 2 * DIP[0])]
         dense += [(DIP[0], DIP[0], 1)] * 2
@@ -1569,8 +1627,9 @@ class Smoke:
                                      nodes=False, D=D)
             self.time_layer("lstm", "precision", S_SERVE, F, H, p, args,
                             lstm_layer_work if D == 2
-                            else uni_lstm_layer_work, plain_reps=2,
-                            fmt="tf32")
+                            else uni_lstm_layer_work,
+                            library=self.cudnn_lstm(p, *args[:2], tf32=True),
+                            plain_reps=2, fmt="tf32")
         emit({"phase": "precision", "tol": PREC_KERNEL_TOL,
               "rms_ratio_bounds": {"frame": PREC_SEP_FRAME,
                                    "window": PREC_SEP_WINDOW},
@@ -1585,7 +1644,7 @@ class Smoke:
                                    "default_vs_highest_mean":
                                        PREC_PARITY_MEAN},
               "formats": formats, "served_at_default": served,
-              "card": nvidia_smi()})
+              "instantiations": attrs, "card": nvidia_smi()})
 
     def windows(self, rng, S):
         import numpy as np
@@ -4478,15 +4537,16 @@ class Smoke:
                    "max_active": LS.max_active(plan, S, H, tf32)}
         elif name == "gcn_lstm":
             from a3gc_tpu_torch.ops import gcn_lstm as G
-            plan = G.launch_plan(N_NODES, H, True)
+            plan = G.launch_plan(N_NODES, H, True, tf32=tf32)
             rec = {"C": plan.C, "KS": plan.KS, "KSA": plan.KSA,
-                   "KSQ": plan.KSQ, "groups": 2 * S,
+                   "KSQ": plan.KSQ, "mma": plan.mma, "groups": 2 * S,
                    "max_active": G.max_active(plan, S, N_NODES, H, True,
                                                tf32)}
         else:
             from a3gc_tpu_torch.ops import ggru as GG
             plan = GG.launch_plan(S, N_NODES, H, tf32=tf32)
-            rec = {"C": plan.C, "KS": plan.KS, "groups": 2 * S,
+            rec = {"C": plan.C, "KS": plan.KS, "mma": plan.mma,
+                   "groups": 2 * S,
                    "max_active": GG.max_active(plan, S, N_NODES, H, tf32)}
         rec.update(cluster=plan.cluster, smem=plan.smem,
                    ctas=(plan.ctas if name == "lstm" else 2 * S * plan.C))
@@ -4533,12 +4593,14 @@ class Smoke:
             "scan_bound_by": sb_by,
             "plan": self.plan_record(name, S, H, D, tf32)})
 
-    def cudnn_lstm(self, p, x, st, kernel_out=None):
+    def cudnn_lstm(self, p, x, st, kernel_out=None, tf32=False):
         """cuDNN's torch.nn.LSTM on the layer's weights (one direction or
         two, as the layer has), checked against the plain version at
         n_valid = T (or against ``kernel_out``, the kernel's output there,
         where the plain version is too slow to run again); returns the call
-        to time."""
+        to time. ``tf32``: with ``torch.backends.cudnn.allow_tf32`` set for
+        the call (cuDNN's TF32 math, rounding at its own points), checked
+        against the plain version at "tf32" within PREC_KERNEL_TOL."""
         from a3gc_tpu_torch.ops import lstm as LS
         torch = self.torch
         D = LS.directions(p)
@@ -4556,16 +4618,28 @@ class Smoke:
                 getattr(mod, "bias_hh_l0" + suffix).copy_(w["b_hh"])
             # torch.nn.LSTM's state is [D, S, H] either way
             cst = st if D == 2 else tuple(t[None] for t in st)
-            got = mod(x, cst)
-            want = (LS.bi_lstm_reference(p, x, st) if kernel_out is None
-                    else kernel_out)
+
+            def call():
+                if not tf32:
+                    return mod(x, cst)
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    return mod(x, cst)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+
+            got = call()
+            want = (LS.bi_lstm_reference(p, x, st, fmt="tf32" if tf32
+                                         else "fp32")
+                    if kernel_out is None else kernel_out)
         torch.cuda.synchronize()
         err = max(float((a.reshape(b.shape) - b).abs().max())
                   for a, b in zip(leaves(got), leaves(want)))
-        self.check(err <= KERNEL_TOL,
-                   f"cuDNN LSTM vs {'plain' if kernel_out is None else 'kernel'}"
+        self.check(err <= (PREC_KERNEL_TOL if tf32 else KERNEL_TOL),
+                   f"cuDNN LSTM{' (TF32)' if tf32 else ''} vs "
+                   f"{'plain' if kernel_out is None else 'kernel'}"
                    f" H={H} F={F} D={D} T={x.shape[1]}: {err:.3e}")
-        return lambda: mod(x, cst)
+        return call
 
     def phase_times(self):
         torch = self.torch
@@ -4676,7 +4750,12 @@ class Smoke:
             meta[name + "_tf32"] = (
                 replaces, ("precision",), work,
                 timed + ", at precision='default' (TF32 operands, fp32 "
-                "sums: the TF32 instantiation)",
+                "sums: the TF32 instantiation)"
+                + ("; library: cuDNN torch.nn.LSTM with "
+                   "torch.backends.cudnn.allow_tf32 set" if name == "lstm"
+                   else ""),
+                "cuDNN's TF32 LSTM rounds at its own points, not the JAX "
+                "cell's: a yardstick of time only" if name == "lstm" else
                 "no PyTorch call rounds the operands of this recurrence to "
                 "TF32 at the JAX cell's points")
         entries = []

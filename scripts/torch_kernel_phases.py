@@ -6,9 +6,13 @@ runs one launch per layer shape of the serving paths (S = 8) and the batch-1
 path (S = 1), T = 60, every frame valid, and prints the SM cycles that
 thread 0 of CTA (0, 0, 0) spent per frame in each phase (per launch for the
 phases before and after the frames), barrier waits included, beside the
-launch's time (CUDA events, the instrumented build).
+launch's time (CUDA events, the instrumented build). ``--tf32`` runs
+the TF32 instantiations instead (a net's precision="default" on the card:
+``gcn_lstm`` and ``ggru`` on the tensor cores), ``--tf32 --fma`` their FMA
+path (what a shape without a tensor-core plan takes), forced by plan.
 
-    python3 scripts/torch_kernel_phases.py [--kernels ggru,lstm] [--out FILE]
+    python3 scripts/torch_kernel_phases.py [--kernels ggru,lstm]
+                                           [--tf32 [--fma]] [--out FILE]
 
 One JSON line per shape, then the card's name and power limit. The marks
 cost a few cycles each; the shipped build has none. Imports nothing of JAX
@@ -29,14 +33,19 @@ ONCE = (16, 17, 21)       # slots marked once per launch, not per frame
 PHASES = {
     "gcn_lstm": {16: "init", 0: "wait u, sync", 1: "masked frame",
                  2: "h.W_h", 3: "s.u wait, sigma(a), sync",
-                 20: "u + scale", 4: "graph mix", 5: "sync",
+                 20: "u + scale (mma: z staged)", 4: "graph mix", 5: "sync",
                  6: "cell", 7: "sync", 8: "hy push",
                  9: "hy wait (barrier without attention)",
                  15: "previous y", 18: "sum_nodes hy, sync",
                  19: "q, push", 10: "hy.Wh", 11: "q wait, sync",
                  12: "q.Wq, s", 13: "sync", 14: "s.u partials, push",
+                 22: "tf32: s.u wait, sigma(a)",
+                 23: "tf32: h = hy + hy.sigma(a), y, round, sync",
                  17: "final state"},
-    "ggru": {16: "init", 21: "G.W_hid slice", 6: "exchange wait, sync",
+    "ggru": {16: "init", 21: "G.W_hid slice (tf32: weights staged)",
+             6: "exchange wait, sync",
+             10: "tf32: h.G, store (mma: h.G, mix, msg push)",
+             11: "tf32: sync, msg mix, push", 12: "tf32: msg wait, sync",
              3: "gate product", 9: "gate k-slice sum, store",
              4: "wait zi, sync", 5: "cell", 7: "carried frame",
              1: "sync, graph mix, push", 17: "final state"},
@@ -60,8 +69,8 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    n_ptr, n_int = {"lstm": (10, 12), "ggru": (8, 9),
-                    "gcn_lstm": (16, 12)}[name]
+    n_ptr, n_int = {"lstm": (10, 12), "ggru": (8, 10),
+                    "gcn_lstm": (16, 13)}[name]
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
@@ -80,8 +89,15 @@ def main():
     ap.add_argument("--out", help="also write the JSON lines here")
     ap.add_argument("--kernels", default="gcn_lstm,ggru,lstm",
                     help="comma-separated kernels to run (default: all)")
+    ap.add_argument("--tf32", action="store_true",
+                    help="run the TF32 instantiations")
+    ap.add_argument("--fma", action="store_true",
+                    help="with --tf32: the graph kernels' FMA path")
     args = ap.parse_args()
     wanted = args.kernels.split(",")
+    fmt = "tf32" if args.tf32 else "fp32"
+    if args.fma and not args.tf32:
+        ap.error("--fma needs --tf32")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_phases: no CUDA device", file=sys.stderr)
@@ -124,26 +140,36 @@ def main():
                 mod, p = GG, smoke.cell(gen, "ggru", H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
                                                n_state=1)
-                cell = "C=%d" % GG.launch_plan(S, CS.N_NODES, H).C
+                cell = "C=%d" % GG.launch_plan(S, CS.N_NODES, H,
+                                               tf32=args.tf32).C
             else:
                 mod, p = LS, smoke.lstm_layer(gen, H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
                                                nodes=False)
+            plan = None
+            if args.tf32 and name == "gcn_lstm":
+                plan = G.launch_plan(CS.N_NODES, H, cell == "a3gc",
+                                     tf32=True, mma=not args.fma)
+            elif args.tf32 and name == "ggru":
+                plan = GG.launch_plan(S, CS.N_NODES, H, tf32=True,
+                                      mma=0 if args.fma else None)
             with torch.no_grad():
-                sargs = mod.scan_inputs(p, x, st, nv)
-                mod.scan(*sargs)
+                sargs = mod.scan_inputs(p, x, st, nv, fmt)
+                mod.scan(*sargs, plan=plan, tf32=args.tf32)
                 torch.cuda.synchronize()
                 cycles(name)                      # zero the slots
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                mod.scan(*sargs)
+                mod.scan(*sargs, plan=plan, tf32=args.tf32)
                 end.record()
                 torch.cuda.synchronize()
             got = cycles(name)
             total = sum(got)
             ms = start.elapsed_time(end)
-            line = {"kernel": name, "cell": cell, "S": S, "H": H, "T": T,
+            line = {"kernel": name, "cell": cell, "format": fmt, "S": S,
+                    "H": H, "T": T,
+                    "plan": plan._asdict() if plan is not None else None,
                     "ms": ms, "cycles_total": total,
                     "ns_per_cycle": ms * 1e6 / total if total else None,
                     "cycles_per_frame": {

@@ -21,8 +21,9 @@ def _need_card():
 
 
 def _ragged(S, T=60):
-    """Per-stream valid lengths with full, short and idle streams."""
-    return [T, T, 37, T, 0, T, T, T, 11, T, 59, T][:S]
+    """Per-stream valid lengths with full, short and idle streams (the
+    pattern repeats past 12 streams)."""
+    return ([T, T, 37, T, 0, T, T, T, 11, T, 59, T] * 2)[:S]
 
 
 # every launch plan regime of the weight-stationary kernels (gcn_lstm
@@ -1188,10 +1189,10 @@ def _rms(a, b):
             / sum(t.numel() for t in d)) ** 0.5
 
 
-def _tf32_case(name, H, S, D=2, F=None, T=60):
+def _tf32_case(name, H, S, D=2, F=None, T=60, cell="a3gc"):
     r"""(wrapper, plain version, args) of one layer call at S streams of T
     frames with ragged n_valid (an idle stream from S = 5 on), F = 2H by
-    default."""
+    default; ``cell`` picks the graph-LSTM cell."""
     from a3gc_tpu_torch.data import load_adjacency_template
     from a3gc_tpu_torch.models import cells as C
     from a3gc_tpu_torch.models import layers as L
@@ -1225,7 +1226,7 @@ def _tf32_case(name, H, S, D=2, F=None, T=60):
             st = 0.5 * torch.randn((2, S, nodes, H), generator=gen)
             mod = GG
         else:
-            p = _cell(gen, "a3gc", F, H)
+            p = _cell(gen, cell, F, H)
             st = tuple(0.5 * torch.randn((2, S, nodes, H), generator=gen)
                        for _ in range(2))
             mod = G
@@ -1244,20 +1245,26 @@ def _outputs(out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,H,S,D", [
-    ("gcn_lstm", H, S, 2) for H in (64, 128, 256) for S in (1, 8, 12)
-] + [("ggru", H, S, 2) for H in (64, 128, 256) for S in (1, 8)]
-  + [("lstm", H, 8, D) for H in (64, 256, 512) for D in (2, 1)])
-def test_torch_port_tf32_kernel_matches_plain_on_card(name, H, S, D):
+@pytest.mark.parametrize("name,H,S,D,cell,window", [
+    ("gcn_lstm", H, S, 2, "a3gc", 60) for H in (64, 128, 256)
+    for S in (1, 8, 12)
+] + [("gcn_lstm", H, 8, 2, "aagc", 60) for H in (64, 128, 256)]
+  + [("gcn_lstm", 64, 16, 2, "a3gc", 1024)]
+  + [("ggru", H, S, 2, "ggru", 60) for H in (64, 128, 256) for S in (1, 8)]
+  + [("lstm", H, 8, D, "lstm", 60) for H in (64, 256, 512) for D in (2, 1)])
+def test_torch_port_tf32_kernel_matches_plain_on_card(name, H, S, D, cell,
+                                                      window):
     """Each kernel's TF32 instantiation against its plain version with TF32
     operands, every frame and the final state, ragged n_valid and an idle
     stream: within PREC_KERNEL_TOL; one launch, counted as a TF32 one; the
     idle stream's state passes through; and, over one frame and over a
-    window, nearer the plain version at "tf32" than the plain version at
-    "fp32" is (the rms ratio), where the fp32 kernel is not."""
+    window (60 frames, and 1024 at batched evaluation's S = 16), nearer the
+    plain version at "tf32" than the plain version at "fp32" is (the rms
+    ratio), where the fp32 kernel is not. The graph kernels run their
+    tensor-core paths (every width here has one)."""
     _need_card()
-    for T, bound in ((1, PREC_SEP_FRAME), (60, PREC_SEP_WINDOW)):
-        kernel, plain, args = _tf32_case(name, H, S, D, T=T)
+    for T, bound in ((1, PREC_SEP_FRAME), (window, PREC_SEP_WINDOW)):
+        kernel, plain, args = _tf32_case(name, H, S, D, T=T, cell=cell)
         kernel.launches = kernel.tf32_launches = 0
         with torch.no_grad():
             got = _outputs(kernel(*args, "tf32"))

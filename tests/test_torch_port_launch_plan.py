@@ -19,7 +19,7 @@ from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_LIMIT, THREADS,
-                                        k_slices)
+                                        k_slices, mma_row_stride)
 
 H100_SMS = 132
 
@@ -179,11 +179,67 @@ def test_torch_port_ggru_tf32_launch_plan(H, S):
     N = 15
     plan = GG.launch_plan(S, N, H, tf32=True)
     Hc = H // plan.C
-    assert plan.smem == GG.smem_bytes(N, H, plan.C, True) <= SMEM_LIMIT
+    assert plan.smem == GG.smem_bytes(N, H, plan.C, True,
+                                      plan.mma) <= SMEM_LIMIT
     assert plan.smem >= 4 * (H * 4 * Hc + 4 * 16 * H)
     assert plan.smem > GG.smem_bytes(N, H, plan.C)
     assert plan[:3] == GG.launch_plan(S, N, H)[:3]
     _check_slices(Hc // 2, H, plan.KS)
+    # on the tensor cores wherever the shape allows: all of G resident up to
+    # H = 128 (one exchange a frame), G's own columns at 256
+    assert plan.mma == ((2 if H <= 128 else 1) if GG.mma_ok(H, Hc) else 0)
+    assert GG.launch_plan(S, N, H).mma == 0
+
+
+@pytest.mark.parametrize("attention", [True, False])
+@pytest.mark.parametrize("H", [8, 32, 64, 128, 256])
+def test_torch_port_gcn_lstm_tf32_launch_plan(H, attention):
+    """The TF32 instantiation takes the fp32 split, on the tensor cores
+    wherever the shape allows (every serving width): W_h's slice
+    transposed, the full h's rows padded to a stride ≡ 16 (mod 32), the
+    mixed gates' by 8 floats, within a CTA's shared memory."""
+    N = 15
+    base = G.launch_plan(N, H, attention)
+    plan = G.launch_plan(N, H, attention, tf32=True)
+    Hc = H // plan.C
+    assert plan[:5] == base[:5] and base.mma == 0
+    assert plan.mma == int(G.mma_ok(H, Hc, attention))
+    assert plan.smem == G.smem_bytes(N, H, plan.C, plan.KSQ, attention,
+                                     bool(plan.mma)) <= SMEM_LIMIT
+    if H in (64, 128, 256):
+        assert plan.mma == 1
+    if plan.mma:
+        HS = mma_row_stride(H)
+        assert HS >= H and HS % 32 == 16
+        M = 4 * Hc
+        assert M in (64, 128)             # 1 or 2 n-tiles a warp
+        assert Hc % (8 * (M // 64)) == 0  # a warp's n-tiles in one gate
+        assert plan.smem >= 4 * (H * M + 2 * 16 * HS + 16 * (M + 8))
+    forced = G.launch_plan(N, H, attention, tf32=True, mma=False)
+    assert forced.mma == 0 and forced.smem == base.smem
+
+
+@pytest.mark.parametrize("H", [32, 64, 128, 256])
+def test_torch_port_tf32_mma_smem_bytes(H):
+    """The tensor-core plans' shared memory: every plan fits 232,448 B;
+    gcn_lstm's at H = 256 (the widest) is below the FMA path's (W_h's slice
+    unpadded); ggru holds all of G up to H = 128 and only its own columns
+    at 256, where all of G (256 KiB) cannot fit."""
+    N = 15
+    for attention in (True, False):
+        p = G.launch_plan(N, H, attention, tf32=True)
+        assert p.mma == 1 and p.smem <= SMEM_LIMIT
+    for S in (1, 8):
+        p = GG.launch_plan(S, N, H, tf32=True)
+        whole = GG.smem_bytes(N, H, p.C, True, 2)
+        assert whole >= 4 * H * H
+        assert p.smem == (whole if H <= 128 else
+                          GG.smem_bytes(N, H, p.C, True, 1)) <= SMEM_LIMIT
+        assert (whole <= SMEM_LIMIT) == (H <= 128)
+    assert G.smem_bytes(N, 256, 8, 8, True, True) == 230224
+    assert G.smem_bytes(N, 256, 8, 8, True) == 231760
+    assert GG.smem_bytes(N, 256, 8, True, 1) == 215744
+    assert GG.smem_bytes(N, 128, 4, True, 2) == 157376
 
 
 def test_torch_port_ggru_smem_bytes():
@@ -257,6 +313,13 @@ def test_torch_port_doubled_split_is_a_valid_plan(kernel, H):
     lambda: GG.launch_plan(8, 15, 64, C=0),          # no CTA
     lambda: GG.launch_plan(8, 15, 128, C=1),         # slice over 227 KB
     lambda: GG.launch_plan(8, 15, 8, C=4),           # 2 columns a CTA
+    # tensor-core plans: a shape without them, fp32 operands, all of G
+    # over 227 KB
+    lambda: G.launch_plan(15, 8, True, tf32=True, mma=True),
+    lambda: G.launch_plan(15, 64, True, mma=True),
+    lambda: GG.launch_plan(8, 15, 8, tf32=True, mma=1),
+    lambda: GG.launch_plan(8, 15, 64, mma=2),
+    lambda: GG.launch_plan(8, 15, 256, tf32=True, mma=2),
 ])
 def test_torch_port_launch_plan_refuses(call):
     with pytest.raises(ValueError, match="needs|no launch plan"):

@@ -16,8 +16,10 @@ and serves it:
 The artifact is a directory:
 
     manifest.json   geometry, the shape and slot axis of every state leaf,
-                    provenance (torch version, the device it was exported
-                    on, the kernel libraries' source digests), a sha256 of
+                    what each net's recurrent layers are in the program
+                    ("op" or "plain"), provenance (torch version, the
+                    device it was exported on, the kernel libraries'
+                    source digests), a sha256 of
                     the program that a load verifies
     step.pt2        the ``torch.export`` program: (ori, acc, states,
                     active) -> (pose, states)
@@ -26,8 +28,11 @@ The recurrent layers are the registered ops of
 :mod:`a3gc_tpu_torch.ops.library`, one node per layer call: a program
 exported on the card launches the Hopper kernels where it runs, with the
 same checks, launch plans and launch counters as the eager path; one
-exported on the CPU computes their plain versions there. A program moves
-to another device only when :func:`load_exported` is asked to.
+exported on the CPU computes their plain versions there. On the card a net
+whose kernel has no launch plan at the artifact's geometry holds its plain
+version instead, as ``backend="auto"`` runs it: one node a layer call, the
+ops ``*_scan_plain`` of the same module. A program moves to another device
+only when :func:`load_exported` is asked to.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from a3gc_tpu_torch.eval.streaming import (StreamingCascade, _slot_axis,
                                            _to_host, make_dip_window_step,
                                            make_window_step)
 from a3gc_tpu_torch.models import nets as N
+from a3gc_tpu_torch.ops._common import operand_format
 
 __all__ = ["export_streaming_cascade", "export_streaming_dip",
            "save_exported", "load_exported",
@@ -64,21 +70,37 @@ _FORMAT = "torch.export"
 _KERNELS = ("gcn_lstm", "ggru", "lstm")
 
 
-def _pin_backend(cfg, backend: str):
+def _pin_backend(cfg, device: torch.device, streams: int):
     r"""Pin the scan backend of every net so the exported program does not
-    depend on what the exporting process would pick: ``cuda`` on the card
-    (the kernels or a raise, never the plain version), ``auto`` on the CPU
-    (the ops' plain versions). Accepts a 3-stage ``CascadeConfig`` or a
-    single-net ``PoseNetConfig`` (the dip export)."""
+    depend on what the exporting process would pick: on the card ``cuda``
+    (the kernel op, which launches or raises) where the kernel has a launch
+    plan for the net's layer calls at ``streams`` streams, else ``eager``
+    (the plain version, one ``*_scan_plain`` op node a layer call in the
+    program), as ``auto`` chooses there;
+    ``auto`` on the CPU (the ops' plain versions). Accepts a 3-stage
+    ``CascadeConfig`` or a single-net ``PoseNetConfig`` (the dip export).
+    Returns the pinned config and, per net, what the program holds: "op"
+    or "plain"."""
     def pin(stage):
+        net = stage.net
+        backend = "auto"
+        if device.type == "cuda":
+            fmt = operand_format(net.precision, device)
+            backend = ("cuda" if N.plan_refusal(net, streams, fmt, device)
+                       is None else "eager")
         return dataclasses.replace(
-            stage, net=dataclasses.replace(stage.net, backend=backend))
+            stage, net=dataclasses.replace(net, backend=backend))
 
     if not hasattr(cfg, "stage1"):
-        return pin(cfg)
-    return dataclasses.replace(cfg, stage1=pin(cfg.stage1),
-                               stage2=pin(cfg.stage2),
-                               stage3=pin(cfg.stage3))
+        cfg = pin(cfg)
+        stages = (cfg,)
+    else:
+        cfg = dataclasses.replace(cfg, stage1=pin(cfg.stage1),
+                                  stage2=pin(cfg.stage2),
+                                  stage3=pin(cfg.stage3))
+        stages = cfg.stages
+    return cfg, ["plain" if s.net.backend == "eager" else "op"
+                 for s in stages]
 
 
 def _params_device(nets) -> torch.device:
@@ -141,7 +163,7 @@ def _export_program(step, nets, single, zero, cfgs, window, streams,
 
 def _base_manifest(family: str, window: int, streams: int, rotsize: int,
                    backend: str, device: torch.device, normalized: bool,
-                   states) -> dict:
+                   states, recurrent) -> dict:
     from a3gc_tpu_torch.ops._build import library_digest
     return {
         "format_version": _FORMAT_VERSION,
@@ -159,6 +181,7 @@ def _base_manifest(family: str, window: int, streams: int, rotsize: int,
         },
         "outputs": {"pose": [streams, window, 24, 3, 3]},
         "states": states,
+        "recurrent": recurrent,
         "torch_version": torch.__version__,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
@@ -179,7 +202,7 @@ def export_streaming_cascade(
     baked into the program."""
     device = _params_device(params3)
     backend = "cuda" if device.type == "cuda" else "auto"
-    cfg = _pin_backend(cfg, backend)
+    cfg, recurrent = _pin_backend(cfg, device, streams)
     stats_t = ({k: torch.as_tensor(v, dtype=torch.float32, device=device)
                 for k, v in stats.items()}
                if (normalize and stats is not None) else None)
@@ -193,7 +216,7 @@ def export_streaming_cascade(
         family=(cfg.stage1.net.cell if cfg.is_graph else "tp"),
         window=window, streams=streams, rotsize=cfg.stage3.rotsize,
         backend=backend, device=device, normalized=stats_t is not None,
-        states=spec)
+        states=spec, recurrent=recurrent)
     return ep, manifest
 
 
@@ -210,7 +233,7 @@ def export_streaming_dip(params, cfg, model, window: int = 60,
                          "input is always normalized)")
     device = _params_device((params,))
     backend = "cuda" if device.type == "cuda" else "auto"
-    cfg = _pin_backend(cfg, backend)
+    cfg, recurrent = _pin_backend(cfg, device, streams)
     stats_t = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                for k, v in stats.items()}
     step = make_dip_window_step(cfg, model, stats_t)
@@ -219,7 +242,8 @@ def export_streaming_dip(params, cfg, model, window: int = 60,
                                streams, device)
     manifest = _base_manifest(
         family="dip", window=window, streams=streams, rotsize=cfg.rotsize,
-        backend=backend, device=device, normalized=True, states=spec)
+        backend=backend, device=device, normalized=True, states=spec,
+        recurrent=recurrent)
     return ep, manifest
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 from typing import Optional
 
 import numpy as np
@@ -46,13 +47,15 @@ from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
-from a3gc_tpu_torch.ops._common import check_precision, operand_format
+from a3gc_tpu_torch.ops._common import (check_precision, device_index,
+                                        operand_format, sm_count)
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["GraphNetConfig", "GraphNetParams", "init_graph_net",
            "graph_net_zero_state", "graph_net_apply", "DenseParams",
            "LSTMLayerParams", "DIPConfig", "DIPParams", "init_dip",
-           "dip_zero_state", "dip_apply", "check_ones_prefix"]
+           "dip_zero_state", "dip_apply", "check_ones_prefix",
+           "plan_refusal"]
 
 CELL_KINDS = ("aagc", "a3gc", "agc", "ggru")
 BACKENDS = ("auto", "eager", "cuda")
@@ -63,8 +66,9 @@ class GraphNetConfig:
     r"""Static net hyperparameters.
 
     ``backend``: "auto" runs the recurrent layers through the CUDA kernel on
-    CUDA tensors and through the plain version on CPU tensors; "eager"
-    always runs the plain version; "cuda" runs the kernel or raises. The
+    CUDA tensors where it has a launch plan for their shape (else, and on
+    CPU tensors, through the plain version); "eager" always runs the plain
+    version; "cuda" runs the kernel or raises. The
     dropout rates and ``remat`` (rematerialize the cell step in the
     backward pass: the stored per-frame intermediates otherwise dominate
     device memory) act only in training. ``precision``: "highest" (fp32
@@ -141,23 +145,66 @@ def graph_net_zero_state(cfg: GraphNetConfig, batch: int, device="cuda",
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
-def _pick(backend: str, x: torch.Tensor, kernel_fn, plain_fn, fmt: str):
-    r"""The layer function of a backend, at operand format ``fmt``:
+def plan_refusal(cfg, streams: int, fmt: str, device) -> Optional[str]:
+    r"""Why the kernel of ``cfg``'s recurrent layers (a
+    :class:`GraphNetConfig` or a :class:`DIPConfig`) has no launch plan for
+    a layer call of ``streams`` streams at operand format ``fmt`` on CUDA
+    device ``device``: its module's ``plan_refusal`` (None where it has a
+    plan). The key holds no input width, so rnn1 (F = H) and rnn2
+    (F = 2H), and every layer of a DIP net, get the same answer: a net
+    runs its kernel in every layer or in none."""
+    if isinstance(cfg, DIPConfig):
+        return LS.plan_refusal(streams, cfg.n_hidden,
+                               sm_count(device_index(device)),
+                               cfg.directions)
+    if cfg.cell == "ggru":
+        return GG.plan_refusal(streams, cfg.num_nodes, cfg.units_hidden,
+                               fmt == "tf32",
+                               sm_count(device_index(device)))
+    return G.plan_refusal(cfg.num_nodes, cfg.units_hidden,
+                          cfg.cell in ("a3gc", "agc"), fmt == "tf32")
+
+
+_NOTED_PLAIN = set()    # (kernel, refusal, fmt) already noted on stderr
+
+
+def _pick(cfg, x: torch.Tensor, kernel_fn, plain_fn, fmt: str):
+    r"""The layer function of ``cfg.backend``, at operand format ``fmt``:
     "eager" → the plain version, "cuda" → the kernel's wrapper or raise off
-    the card, "auto" → the wrapper (kernel on CUDA tensors, plain version
-    on CPU tensors)."""
-    fn = plain_fn if backend == "eager" else kernel_fn
-    if backend == "cuda" and not x.is_cuda:
+    the card, "auto" → the wrapper on CPU tensors (which computes the plain
+    version there) and, on CUDA tensors, the wrapper where the kernel has a
+    launch plan for the layer call (:func:`plan_refusal`, from the shapes,
+    before anything launches), else the plain version: JAX's ``use_pallas``
+    takes the XLA scan where its kernel does not fit. A plain layer call
+    on a card adds one to ``kernel_fn.plain_dispatches``; the first of each
+    (kernel, shape, format) notes it on stderr."""
+    if cfg.backend == "cuda" and not x.is_cuda:
         raise RuntimeError("backend='cuda' needs CUDA tensors, got a tensor "
                            f"on {x.device}")
+    fn = plain_fn if cfg.backend == "eager" else kernel_fn
+    if cfg.backend == "auto" and x.is_cuda:
+        why = plan_refusal(cfg, x.shape[0], fmt, x.device)
+        if why is not None:
+            if (kernel_fn.__name__, why, fmt) not in _NOTED_PLAIN:
+                _NOTED_PLAIN.add((kernel_fn.__name__, why, fmt))
+                print(f"note: {why}; backend='auto' runs this layer's plain "
+                      f"version at operand format {fmt} on {x.device}, no "
+                      "kernel launch", file=sys.stderr)
+
+            def fn(*args):
+                kernel_fn.plain_dispatches += 1
+                return plain_fn(*args)
+
     return lambda params, inputs, state, n_valid: fn(params, inputs, state,
                                                      n_valid, fmt)
 
 
 def _rnn_layer(cfg: GraphNetConfig, x: torch.Tensor, fmt: str):
+    r"""The function of both recurrent layers of the net: one choice, as
+    :func:`plan_refusal` gives rnn1 and rnn2 the same answer."""
     if cfg.cell == "ggru":
-        return _pick(cfg.backend, x, GG.bi_ggru, GG.bi_ggru_reference, fmt)
-    return _pick(cfg.backend, x, G.bi_gcn_lstm, G.bi_gcn_lstm_reference, fmt)
+        return _pick(cfg, x, GG.bi_ggru, GG.bi_ggru_reference, fmt)
+    return _pick(cfg, x, G.bi_gcn_lstm, G.bi_gcn_lstm_reference, fmt)
 
 
 def check_ones_prefix(frame_mask):
@@ -381,10 +428,11 @@ def dip_apply(params: DIPParams, cfg: DIPConfig, x, state=None,
         state = dip_zero_state(cfg, x.shape[0], dev, x.dtype)
     n_valid = _n_valid(frame_mask, dev)
     if rng is None:
-        layer = _pick(cfg.backend, x, LS.bi_lstm, LS.bi_lstm_reference, fmt)
+        layer = _pick(cfg, x, LS.bi_lstm, LS.bi_lstm_reference, fmt)
     else:
         x = C._dropout(x, cfg.dropout, rng)
-        layer = _pick("eager", x, None, LS.bi_lstm_reference, fmt)
+        layer = _pick(dataclasses.replace(cfg, backend="eager"), x, None,
+                      LS.bi_lstm_reference, fmt)
     x = torch.relu(TP.matmul(x, params.linear1.kernel, fmt=fmt)
                    + TP.full(params.linear1.bias))
     new_states = []

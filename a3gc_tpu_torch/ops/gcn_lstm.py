@@ -42,6 +42,7 @@ says so: every serving width).
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -58,8 +59,9 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
-           "func_attributes", "launch_plan", "max_active", "mma_ok", "scan",
-           "scan_inputs", "scan_reference", "smem_bytes"]
+           "func_attributes", "launch_plan", "max_active", "mma_ok",
+           "plan_refusal", "scan", "scan_inputs", "scan_reference",
+           "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
@@ -176,13 +178,37 @@ def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
                      + (f", C={C}" if C is not None else ""))
 
 
+@functools.lru_cache(maxsize=None)
+def plan_refusal(N: int, H: int, attention: bool,
+                 tf32: bool = False) -> Optional[str]:
+    r"""Whether the kernel has a launch plan for a layer call: None where
+    it has, else :func:`launch_plan`'s refusal, asked with the arguments
+    :func:`scan` gives it (so the two cannot disagree). Cached by that
+    key: a dispatch pays one lookup."""
+    try:
+        launch_plan(N, H, attention, tf32=tf32)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
                           state2, n_valid=None, fmt: str = "fp32"):
     r"""The plain PyTorch version of :func:`bi_gcn_lstm` — the same function
-    on any device: :func:`scan_inputs`, then :func:`scan_reference`. The
-    tests use it; on the card it is what the kernel is held to."""
-    y, h, c = scan_reference(*scan_inputs(params2, x, state2, n_valid, fmt),
-                             tf32=fmt == "tf32")
+    on any device: :func:`scan_inputs`, then :func:`scan_reference` (while
+    ``torch.export`` traces, as the one node of the op
+    ``a3gc_tpu_torch::gcn_lstm_scan_plain``). The tests use it; on the card
+    it is what the kernel is held to."""
+    u, wh, adj, bias, att, h0, c0, nv = scan_inputs(params2, x, state2,
+                                                    n_valid, fmt)
+    if torch.compiler.is_compiling():
+        from a3gc_tpu_torch.ops.library import gcn_lstm_scan_plain
+        y, h, c = gcn_lstm_scan_plain(u, wh, adj, bias,
+                                      *(att or (None,) * 6), h0, c0, nv,
+                                      fmt == "tf32")
+    else:
+        y, h, c = scan_reference(u, wh, adj, bias, att, h0, c0, nv,
+                                 tf32=fmt == "tf32")
     return like(y, x), like((h, c), state2[0])
 
 
@@ -345,3 +371,6 @@ def scan_inputs(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
 
 bi_gcn_lstm.launches = 0    # kernel launches since the last reset to 0
 bi_gcn_lstm.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_gcn_lstm.plain_dispatches = 0    # layer calls on a card that
+                                    # backend="auto" gave the plain version
+                                    # (no plan for their shape)

@@ -71,7 +71,8 @@ from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "func_attributes",
            "gate_pad", "launch_plan", "max_active", "mma_ok", "one_wave",
-           "scan", "scan_inputs", "scan_reference", "smem_bytes"]
+           "plan_refusal", "scan", "scan_inputs", "scan_reference",
+           "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 THREADS = 256        # threads per CTA of ggru.cu
@@ -207,6 +208,20 @@ def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
                       m)
 
 
+@functools.lru_cache(maxsize=None)
+def plan_refusal(S: int, N: int, H: int, tf32: bool,
+                 sms: int) -> Optional[str]:
+    r"""Whether the kernel has a launch plan for a layer call on a card of
+    ``sms`` SMs: None where it has, else :func:`launch_plan`'s refusal,
+    asked with the arguments :func:`scan` gives it (so the two cannot
+    disagree). Cached by that key: a dispatch pays one lookup."""
+    try:
+        launch_plan(S, N, H, sms=sms, tf32=tf32)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def _hoist(params2: C.GGRUCellParams, x: torch.Tensor,
            fmt: str = "fp32") -> torch.Tensor:
     r"""zi = x·W_in + b_in for both directions, forward frame order:
@@ -220,10 +235,16 @@ def _hoist(params2: C.GGRUCellParams, x: torch.Tensor,
 def bi_ggru_reference(params2: C.GGRUCellParams, x: torch.Tensor, h2,
                       n_valid=None, fmt: str = "fp32"):
     r"""The plain PyTorch version of :func:`bi_ggru` — the same function on
-    any device: :func:`scan_inputs`, then :func:`scan_reference`. The tests
-    use it; on the card it is what the kernel is held to."""
-    y, h = scan_reference(*scan_inputs(params2, x, h2, n_valid, fmt),
-                          tf32=fmt == "tf32")
+    any device: :func:`scan_inputs`, then :func:`scan_reference` (while
+    ``torch.export`` traces, as the one node of the op
+    ``a3gc_tpu_torch::ggru_scan_plain``). The tests use it; on the card it
+    is what the kernel is held to."""
+    args = scan_inputs(params2, x, h2, n_valid, fmt)
+    if torch.compiler.is_compiling():
+        from a3gc_tpu_torch.ops.library import ggru_scan_plain
+        y, h = ggru_scan_plain(*args, fmt == "tf32")
+    else:
+        y, h = scan_reference(*args, tf32=fmt == "tf32")
     return like(y, x), like(h, h2)
 
 
@@ -348,3 +369,5 @@ def scan_inputs(params2: C.GGRUCellParams, x: torch.Tensor, h2,
 
 bi_ggru.launches = 0    # kernel launches since the last reset to 0
 bi_ggru.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_ggru.plain_dispatches = 0    # layer calls on a card that backend="auto"
+                                # gave the plain version (no plan)

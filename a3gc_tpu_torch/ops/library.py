@@ -24,6 +24,18 @@ flag existed calls the ops without it and keeps its fp32 meaning; one
 exported from a net at "default" on the card holds ``tf32=True`` in its
 graph.
 
+Beside them, ``a3gc_tpu_torch::gcn_lstm_scan_plain`` / ``ggru_scan_plain``
+/ ``lstm_scan_plain`` take the same arguments and compute the plain version
+on every device: the form in which a traced program (``torch.export``)
+holds the plain version of a layer whose kernel has no launch plan at the
+traced shape (``bi_*_reference`` calls them while tracing). One node a
+layer call, where the frame loop traced op by op is tens of thousands
+(``scripts/torch_export_plain.py``, the A3GC cascade at ``--hu1 80``,
+S = 8, W = 60, TF32 operands, on an H100's host: 767 nodes against
+25,525, 19 s against 160 s to export, 1.7 s against 53 s to load). Each
+adds one to its kernel wrapper's ``plain_dispatches``, as the eager
+dispatch does.
+
 No op writes its inputs (``mutates_args=()``): no launch writes its
 initial state. ``bi_gcn_lstm``, ``bi_ggru`` and ``bi_lstm`` call the ops,
 so a program exported from the port's window step holds one node per layer
@@ -43,7 +55,8 @@ from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
 from a3gc_tpu_torch.ops import lstm as LS
 
-__all__ = ["NAMESPACE", "gcn_lstm_scan", "ggru_scan", "lstm_scan"]
+__all__ = ["NAMESPACE", "gcn_lstm_scan", "ggru_scan", "lstm_scan",
+           "gcn_lstm_scan_plain", "ggru_scan_plain", "lstm_scan_plain"]
 
 NAMESPACE = "a3gc_tpu_torch"
 
@@ -146,6 +159,47 @@ def _lstm_fake(u, w_hh, h0, c0, n_valid, tf32=False):
             h0.new_empty((D, S, H)))
 
 
+# -- the plain versions as ops ------------------------------------------------
+
+@torch.library.custom_op(f"{NAMESPACE}::gcn_lstm_scan_plain",
+                         mutates_args=())
+def gcn_lstm_scan_plain(u: Tensor, wh: Tensor, adj: Tensor, bias: Tensor,
+                        att_w: Optional[Tensor], att_wq: Optional[Tensor],
+                        att_wh: Optional[Tensor], att_u: Optional[Tensor],
+                        att_bs: Optional[Tensor], att_bu: Optional[Tensor],
+                        h0: Tensor, c0: Tensor, n_valid: Tensor,
+                        tf32: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    r""":func:`gcn_lstm_scan`'s plain version on any device."""
+    G.bi_gcn_lstm.plain_dispatches += 1
+    return _contiguous(*_gcn_lstm_plain(u, wh, adj, bias, att_w, att_wq,
+                                        att_wh, att_u, att_bs, att_bu, h0,
+                                        c0, n_valid, tf32))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::ggru_scan_plain", mutates_args=())
+def ggru_scan_plain(zi: Tensor, gcn_kernel: Tensor, adj: Tensor,
+                    w_hid: Tensor, h0: Tensor, n_valid: Tensor,
+                    tf32: bool = False) -> Tuple[Tensor, Tensor]:
+    r""":func:`ggru_scan`'s plain version on any device."""
+    GG.bi_ggru.plain_dispatches += 1
+    return _contiguous(*GG.scan_reference(zi, gcn_kernel, adj, w_hid, h0,
+                                          n_valid, tf32))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lstm_scan_plain", mutates_args=())
+def lstm_scan_plain(u: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor,
+                    n_valid: Tensor,
+                    tf32: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    r""":func:`lstm_scan`'s plain version on any device."""
+    LS.bi_lstm.plain_dispatches += 1
+    return _contiguous(*LS.scan_reference(u, w_hh, h0, c0, n_valid, tf32))
+
+
+gcn_lstm_scan_plain.register_fake(_gcn_lstm_fake)
+ggru_scan_plain.register_fake(_ggru_fake)
+lstm_scan_plain.register_fake(_lstm_fake)
+
+
 # -- autograd: the plain version's gradients ---------------------------------
 
 def _save_inputs(ctx, inputs, output):
@@ -182,3 +236,9 @@ ggru_scan.register_autograd(_plain_backward(GG.scan_reference),
                             setup_context=_save_inputs)
 lstm_scan.register_autograd(_plain_backward(LS.scan_reference),
                             setup_context=_save_inputs)
+gcn_lstm_scan_plain.register_autograd(_plain_backward(_gcn_lstm_plain),
+                                      setup_context=_save_inputs)
+ggru_scan_plain.register_autograd(_plain_backward(GG.scan_reference),
+                                  setup_context=_save_inputs)
+lstm_scan_plain.register_autograd(_plain_backward(LS.scan_reference),
+                                  setup_context=_save_inputs)

@@ -60,8 +60,9 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
-           "launch_plan", "lstm_step_hoisted", "max_active", "scan",
-           "scan_inputs", "scan_reference", "smem_bytes"]
+           "launch_plan", "lstm_step_hoisted", "max_active",
+           "plan_refusal", "scan", "scan_inputs", "scan_reference",
+           "smem_bytes"]
 
 
 class LaunchPlan(NamedTuple):
@@ -141,6 +142,20 @@ def launch_plan(S: int, H: int, sms: int = 132,
                      + (f", P={P}" if P is not None else ""))
 
 
+@functools.lru_cache(maxsize=None)
+def plan_refusal(S: int, H: int, sms: int, D: int = 2) -> Optional[str]:
+    r"""Whether the kernel has a launch plan for a layer call of D
+    directions on a card of ``sms`` SMs: None where it has, else
+    :func:`launch_plan`'s refusal, asked with the arguments :func:`scan`
+    gives it (so the two cannot disagree). Cached by that key: a dispatch
+    pays one lookup."""
+    try:
+        launch_plan(S, H, sms, D=D)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def directions(params: nn.Module) -> int:
     r"""D of a layer's parameters: 2 when direction-stacked (``w_hh``
     [2, H, 4H]), 1 when not (``w_hh`` [H, 4H])."""
@@ -183,10 +198,16 @@ def bi_lstm_reference(params: nn.Module, x: torch.Tensor, state,
     any device: :func:`scan_inputs`, then :func:`scan_reference`. ``params``
     holds direction-stacked ``w_ih`` [2, F, 4H], ``w_hh`` [2, H, 4H],
     ``b_ih`` and ``b_hh`` [2, 4H] (the bidirectional scan), or the same
-    without the leading 2 (the unidirectional scan). The tests use it; on
-    the card it is what the kernel is held to."""
-    y, h, c = scan_reference(*scan_inputs(params, x, state, n_valid, fmt),
-                             tf32=fmt == "tf32")
+    without the leading 2 (the unidirectional scan). While
+    ``torch.export`` traces, :func:`scan_reference` is the one node of the
+    op ``a3gc_tpu_torch::lstm_scan_plain``. The tests use it; on the card it
+    is what the kernel is held to."""
+    args = scan_inputs(params, x, state, n_valid, fmt)
+    if torch.compiler.is_compiling():
+        from a3gc_tpu_torch.ops.library import lstm_scan_plain
+        y, h, c = lstm_scan_plain(*args, fmt == "tf32")
+    else:
+        y, h, c = scan_reference(*args, tf32=fmt == "tf32")
     if directions(params) == 1:
         h, c = h[0], c[0]
     return like(y, x), like((h, c), state[0])
@@ -324,3 +345,5 @@ def scan_inputs(params: nn.Module, x: torch.Tensor, state,
 
 bi_lstm.launches = 0    # kernel launches since the last reset to 0
 bi_lstm.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_lstm.plain_dispatches = 0    # layer calls on a card that backend="auto"
+                                # gave the plain version (no plan)

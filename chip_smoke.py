@@ -227,6 +227,21 @@ Phases, each printing one JSON line:
                     against the unsharded and plain paths; a 60-frame step
                     of each under torch.profiler; ``cli train --tp 2``
                     exits with JAX's message on one card;
+     graft_entry  — the driver entry points (``a3gc_tpu_torch.
+                    graft_entry``): ``entry()`` (A3GC 256 / 64 / 128,
+                    S = 1, T = 300, "default": six TF32 ``gcn_lstm``
+                    launches) against the same cascade at backend="eager"
+                    within 0.034 / 0.335 deg, its ``torch.export`` check,
+                    ``dryrun_multichip(8)`` over the card listed 8 times;
+                    then widths with no launch plan (A3GC H = 80, G-GRU
+                    H = 152, the TransPose LSTM H = 268 at S = 8, all at
+                    "default"): backend="auto" bit-equal to "eager" with
+                    no launch and the layer calls counted as plain
+                    dispatches, backend="cuda" raising, one ``cli
+                    _build_server`` window at ``--hu1 80`` and a ``cli
+                    export --hu1 80 --precision highest`` artifact (its
+                    stage 1 the plain scan's op) stepped against the live
+                    session;
   6. kernels      — the ``{"kernels": [...]}`` line: launches on each
                     kernel's serving, evaluation and training paths, max
                     |d| of the kernel phases and of the gradient checks,
@@ -314,8 +329,15 @@ LONG_N_VALID = (180, 120, 60, 0, 180, 180, 60, 120)
 # counted by the fresh process that steps them), the two of data
 # preparation (cli_data: counted by the cli evaluate child processes), the
 # two of training (counted by the cli train child process), the mesh and
-# tensor parallelism, and the TF32 serving of the precision phase
-N_PATHS = 26
+# tensor parallelism, the TF32 serving of the precision phase, and the
+# driver entry points (graft_entry)
+N_PATHS = 27
+# the graft_entry phase: hidden widths the kernels have no launch plan for
+# (backend="auto" runs the plain version there): the A3GC cell, the G-GRU
+# cell at "default" (TF32; fp32 plans it) and the TransPose LSTM at S = 8;
+# dryrun_multichip's mesh of the card listed GRAFT_DEVICES times
+GRAFT_UNPLANNED = (("a3gc", 80), ("ggru", 152), ("tp", 268))
+GRAFT_DEVICES = 8
 # evaluation: a synthetic test set of EVAL_N sequences, lengths from seed 0
 # in [EVAL_MIN_T, EVAL_MAX_T], a synthetic SMPL body of SMPL's vertex count
 EVAL_N, EVAL_MIN_T, EVAL_MAX_T, EVAL_VERTICES = 16, 240, 2400, 6890
@@ -465,6 +487,7 @@ print(json.dumps({"cuda_init_s": cuda_init_s, "families": out,
                                        "jax", "jaxlib", "flax",
                                        "a3gc_tpu"))}))
 """
+
 
 
 def whole_windows(S, T):
@@ -804,6 +827,7 @@ class Smoke:
         for w in self.wrappers.values():
             w.launches = 0
             w.tf32_launches = 0
+            w.plain_dispatches = 0
 
     def counts(self):
         return {name: w.launches for name, w in self.wrappers.items()}
@@ -811,6 +835,9 @@ class Smoke:
     def tf32_counts(self):
         return {name + "_tf32": w.tf32_launches
                 for name, w in self.wrappers.items()}
+
+    def plain_counts(self):
+        return {name: w.plain_dispatches for name, w in self.wrappers.items()}
 
     # -- 1 ---------------------------------------------------------------
     def phase_device(self):
@@ -4517,6 +4544,252 @@ class Smoke:
               "valid_rel_err_vs_plain": plain_err, "cli": cli_out,
               "launches": counts, "tol": STAGE_TOL, "card": nvidia_smi()})
 
+    # -- the driver entry points ---------------------------------------------
+    def unplanned_net(self, kind, H, backend):
+        """A net at hidden width ``H`` (``GRAFT_UNPLANNED``), precision
+        "default", random weights from seed 3: (apply, params, cfg, x) at
+        S = 8, T = 60."""
+        from a3gc_tpu_torch.data import load_adjacency_template
+        from a3gc_tpu_torch.models import nets as N
+        torch = self.torch
+        gen = torch.Generator().manual_seed(3)
+        if kind == "tp":
+            cfg = N.DIPConfig(n_input=TP_STAGES[0][1],
+                              n_output=TP_STAGES[0][2], n_hidden=H,
+                              precision="default", backend=backend)
+            params = N.init_dip(gen, cfg).to(self.dev)
+            x = torch.randn((S_SERVE, WINDOW, cfg.n_input), generator=gen)
+            return N.dip_apply, params, cfg, x.to(self.dev)
+        cfg = N.GraphNetConfig(cell=kind, units_in=12, units_out=9,
+                               units_hidden=H, precision="default",
+                               backend=backend)
+        params = N.init_graph_net(gen, cfg, load_adjacency_template())
+        x = torch.randn((S_SERVE, WINDOW, N_NODES, 12), generator=gen)
+        return N.graph_net_apply, params.to(self.dev), cfg, x.to(self.dev)
+
+    def phase_graft_entry(self):
+        """The driver entry points of ``a3gc_tpu_torch.graft_entry`` and
+        the dispatch at widths with no launch plan. ``entry()`` on the card
+        (A3GC 256 / 64 / 128, S = 1, T = 300, "default": six TF32
+        ``gcn_lstm`` launches) against the same cascade at backend="eager"
+        in degrees (stage 3 near rotations), its ``torch.export`` check,
+        ``dryrun_multichip(8)`` over the card listed 8 times: the path's
+        launches. Then at each ``GRAFT_UNPLANNED`` width a net at
+        backend="auto" bit-equal to "eager" with no launch and its layer
+        calls counted as plain dispatches, backend="cuda" raising at
+        H = 80, one ``cli._build_server`` window at ``--hu1 80`` and a ``cli
+        export --hu1 80 --precision highest`` artifact stepped against the
+        live session."""
+        import dataclasses
+        import io
+        import shutil
+        import tempfile
+        import threading
+        import numpy as np
+        from a3gc_tpu_torch import cli, graft_entry
+        from a3gc_tpu_torch import export as X
+        from a3gc_tpu_torch.client import PoseClient
+        from a3gc_tpu_torch.eval.streaming import StreamingCascade
+        from a3gc_tpu_torch.models.pipeline import cascade_apply
+        from a3gc_tpu_torch.ops.rotations import angle_between
+        from a3gc_tpu_torch.smpl import ParametricModel
+        torch = self.torch
+        seconds = {}
+        t0 = time.perf_counter()
+        cfg, _, body, _ = graft_entry._flagship(device=self.dev)
+        fn, (params3, imu) = graft_entry.entry(device=self.dev)
+        near_rotation_outputs(params3[2])
+        imu = torch.as_tensor(np.random.default_rng(19).normal(
+            scale=0.5, size=tuple(imu.shape)).astype(np.float32),
+            device=self.dev)
+        with torch.no_grad():
+            self.zero_counts()                        # the main path starts
+            pose = fn(params3, imu)
+            torch.cuda.synchronize()
+            entry_counts = {**self.counts(), **self.tf32_counts()}
+            eager = dataclasses.replace(cfg, **{
+                f"stage{i + 1}": dataclasses.replace(
+                    s, net=dataclasses.replace(s.net, backend="eager"))
+                for i, s in enumerate(cfg.stages)})
+            plain = cascade_apply(params3, eager, body, imu, device=self.dev)
+            deg = torch.rad2deg(angle_between(pose.reshape(-1, 3, 3),
+                                              plain.reshape(-1, 3, 3)))
+        angle = {"mean": float(deg.mean()), "max": float(deg.max())}
+        self.check(pose.shape == (300, 24, 3, 3)
+                   and bool(torch.isfinite(pose).all())
+                   and angle["mean"] <= PREC_ANGLE_MEAN
+                   and angle["max"] <= PREC_ANGLE_MAX,
+                   f"graft_entry: entry() vs plain {angle} deg")
+        self.check(entry_counts["gcn_lstm"] == 6
+                   and entry_counts["gcn_lstm_tf32"] == 6
+                   and sum(entry_counts.values()) == 12,
+                   f"graft_entry: entry() launches {entry_counts}")
+        seconds["entry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = graft_entry.compile_check(fn, params3, imu)
+        self.check(compiled, "graft_entry: compile check")
+        seconds["compile_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(GRAFT_DEVICES,
+                                     devices=[self.dev] * GRAFT_DEVICES)
+        torch.cuda.synchronize()
+        counts = {**self.counts(), **self.tf32_counts()}
+        self.launches["graft_entry"] = counts         # the main path ended
+        dry = {k: counts[k] - entry_counts[k] for k in counts}
+        self.check(dry["gcn_lstm"] > 0
+                   and dry["gcn_lstm_tf32"] == dry["gcn_lstm"]
+                   and sum(dry.values()) == 2 * dry["gcn_lstm"],
+                   f"graft_entry: dryrun_multichip launches {dry}")
+        seconds["dryrun_multichip"] = time.perf_counter() - t0
+
+        # backend="auto" at widths with no launch plan: the plain version,
+        # no launch, every layer call counted; "cuda" still raises
+        t0 = time.perf_counter()
+        unplanned = {}
+        for kind, H in GRAFT_UNPLANNED:
+            apply, params, cfg_u, x = self.unplanned_net(kind, H, "auto")
+            name = {"a3gc": "gcn_lstm", "ggru": "ggru", "tp": "lstm"}[kind]
+            out = {}
+            for backend in ("auto", "eager"):
+                self.zero_counts()
+                with torch.no_grad():
+                    out[backend] = apply(params, dataclasses.replace(
+                        cfg_u, backend=backend), x, device=self.dev)
+                torch.cuda.synchronize()
+                out[backend + "_counts"] = (self.counts(),
+                                            self.plain_counts())
+            err = tree_err(out["auto"], out["eager"])
+            launches, plain_n = out["auto_counts"]
+            unplanned[f"{kind} H={H}"] = {
+                "max_abs_err_vs_eager": err, "launches": launches,
+                "plain_dispatches": plain_n}
+            self.check(err == 0.0 and sum(launches.values()) == 0
+                       and plain_n == {k: (2 if k == name else 0)
+                                       for k in LIBRARIES}
+                       and bool(torch.isfinite(out["auto"][0]).all()),
+                       f"graft_entry: {kind} H={H} at auto "
+                       f"{unplanned[f'{kind} H={H}']}")
+            if kind == "a3gc":
+                try:
+                    with torch.no_grad():
+                        apply(params, dataclasses.replace(
+                            cfg_u, backend="cuda"), x, device=self.dev)
+                    raised = None
+                except ValueError as e:
+                    raised = str(e)
+                unplanned[f"{kind} H={H}"]["cuda_raises"] = raised
+                self.check(raised is not None and "no launch plan" in raised,
+                           f"graft_entry: backend='cuda' at H={H} did not "
+                           "raise")
+        seconds["unplanned"] = time.perf_counter() - t0
+
+        # one window of the serve command at --hu1 80 (its default
+        # precision): stages 2 and 3 launch, stage 1 runs plain
+        t0 = time.perf_counter()
+        H = GRAFT_UNPLANNED[0][1]
+        args = cli.build_parser().parse_args(
+            ["serve", "--port", "0", "--norm", "--model", "a3gc",
+             "--streams", str(S_SERVE), "--hu1", str(H)])
+        cli._apply_quality(args)                      # as cmd_serve does
+        srv, _, _ = cli._build_server(args)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            self.zero_counts()
+            with PoseClient(*srv.address[:2], timeout=120.0,
+                            retry_s=30.0) as c:
+                served = c.step(*self.windows(np.random.default_rng(13), 1))
+            server = {"finite": bool(np.isfinite(served).all()),
+                      "launches": self.counts(),
+                      "tf32_launches": self.tf32_counts(),
+                      "plain_dispatches": self.plain_counts()}
+        finally:
+            srv.shutdown()
+            thread.join(timeout=10)
+        self.check(server["finite"]
+                   and server["launches"] == {"gcn_lstm": 4, "ggru": 0,
+                                              "lstm": 0}
+                   and server["tf32_launches"]["gcn_lstm_tf32"] == 4
+                   and server["plain_dispatches"] == {"gcn_lstm": 2,
+                                                      "ggru": 0, "lstm": 0},
+                   f"graft_entry: serve --hu1 {H} window {server}")
+        seconds["serve"] = time.perf_counter() - t0
+
+        # the --hu1 80 artifact (`cli export` in process: stage 1 is the
+        # plain scan's op in the program), loaded and stepped against the
+        # live session on the same params: 5 windows, a reset of slot 3
+        # after window 1, slot 5 idle in window 3. At --precision highest,
+        # as the cli_export phase holds its artifact: at "default" the
+        # products traced into a program can sum in another order than the
+        # eager ones at some shapes, and IK on random weights magnifies that
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        argv = ["export", "--norm", "--hu1", str(H), "--precision",
+                "highest", "--streams", str(S_SERVE), "--window",
+                str(WINDOW), "--output", os.path.join(tmp, "a3gc")]
+        try:
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                cli.main(argv)
+            export_s = time.perf_counter() - t1
+            sess = X.ArtifactSession(X.load_exported(argv[-1],
+                                                     device=self.dev))
+            nbytes = sum(os.path.getsize(os.path.join(argv[-1], f))
+                         for f in os.listdir(argv[-1]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        eargs = cli.build_parser().parse_args(argv)
+        cascade, is_graph = cli._stage_configs(
+            eargs, precision=cli._precision(eargs))
+        live = StreamingCascade(
+            cli._load_cascade_params(eargs, cascade, is_graph, self.dev),
+            cascade, ParametricModel(), window=WINDOW,
+            stats=cli._load_stats(eargs), normalize=True, streams=S_SERVE,
+            device=self.dev)
+        rng = np.random.default_rng(17)
+        idle = np.ones(S_SERVE, np.float32)
+        idle[5] = 0.0
+        poses = {"artifact": [], "live": []}
+        per_window = {"artifact": [], "live": []}
+        for w in range(5):
+            ori, acc = self.windows(rng, S_SERVE)
+            for who, sess_ in (("artifact", sess), ("live", live)):
+                self.zero_counts()
+                poses[who].append(sess_.step(
+                    ori, acc, active=idle if w == 3 else None))
+                per_window[who].append(
+                    [self.counts()["gcn_lstm"],
+                     self.plain_counts()["gcn_lstm"]])
+                if w == 1:
+                    sess_.reset(stream=3)
+        rows = np.ones((5, S_SERVE), bool)
+        rows[3] = idle > 0
+        pose_err = float(np.abs(np.stack(poses["artifact"])[rows]
+                                - np.stack(poses["live"])[rows]).max())
+        state_err = tree_err(sess._states, live._states)
+        artifact = {
+            "argv": argv[:-2], "said": said.getvalue().strip(),
+            "recurrent": sess.art.manifest["recurrent"],
+            "export_s": export_s, "bytes": nbytes,
+            "launches_plain_per_window": per_window,
+            "pose_max_abs_err_vs_live": pose_err,
+            "state_max_abs_err_vs_live": state_err}
+        self.check(artifact["recurrent"] == ["plain", "op", "op"]
+                   and per_window["artifact"] == [[4, 2]] * 5
+                   and per_window["live"] == [[4, 2]] * 5
+                   and pose_err <= KERNEL_TOL and state_err <= KERNEL_TOL,
+                   f"graft_entry: --hu1 {H} artifact {artifact}")
+        seconds["export"] = time.perf_counter() - t0
+        emit({"phase": "graft_entry", "entry_launches": entry_counts,
+              "entry_angle_deg_vs_plain": angle,
+              "angle_bounds_deg": [PREC_ANGLE_MEAN, PREC_ANGLE_MAX],
+              "compile_check": compiled,
+              "dryrun_multichip": {"n_devices": GRAFT_DEVICES,
+                                   "launches": dry},
+              "launches": counts, "unplanned": unplanned,
+              "serve_window": server, "artifact": artifact,
+              "seconds": seconds, "card": nvidia_smi()})
+
     def cleanup(self):
         import shutil
         for data in (self._eval, self._prep):
@@ -4744,11 +5017,13 @@ class Smoke:
                      None),
         }
         # the TF32 instantiations: their launches on the serve command at
-        # its default precision, their rows at the same window's shapes
+        # its default precision and on the driver entry points (entry() and
+        # dryrun_multichip run "default"), their rows at the serving
+        # window's shapes
         for name in LIBRARIES:
             replaces, _, work, timed, _ = meta[name]
             meta[name + "_tf32"] = (
-                replaces, ("precision",), work,
+                replaces, ("precision", "graft_entry"), work,
                 timed + ", at precision='default' (TF32 operands, fp32 "
                 "sums: the TF32 instantiation)"
                 + ("; library: cuDNN torch.nn.LSTM with "
@@ -4831,7 +5106,8 @@ def main():
               smoke.phase_mesh, smoke.phase_kernel_eval, smoke.phase_cli_evaluate,
               smoke.phase_preprocess, smoke.phase_cli_data,
               smoke.phase_kernel_grad, smoke.phase_train,
-              smoke.phase_train_times, smoke.phase_tp, smoke.phase_times)
+              smoke.phase_train_times, smoke.phase_tp,
+              smoke.phase_graft_entry, smoke.phase_times)
     try:
         seconds = {}
         for phase in phases:

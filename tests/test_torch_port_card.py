@@ -1329,3 +1329,93 @@ def test_torch_port_default_precision_serves_tf32_on_card():
                                                else 0)
     delta = (out["default"] - out["highest"]).abs().max().item()
     assert 0.0 < delta <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H,S", [("a3gc", 80, 8), ("a3gc", 80, 1),
+                                      ("ggru", 152, 8), ("tp", 268, 8)])
+def test_torch_port_auto_runs_plain_where_no_plan_on_card(kind, H, S):
+    """At a width the kernel has no launch plan for, backend="auto" at
+    "default" runs the plain version on the card: bit-equal to "eager", no
+    launch, two plain dispatches (one a layer call); backend="cuda" still
+    raises there."""
+    _need_card()
+    import dataclasses
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    gen = torch.Generator().manual_seed(3)
+    T = 60
+    if kind == "tp":
+        cfg = N.DIPConfig(n_input=72, n_output=15, n_hidden=H,
+                          precision="default")
+        params = N.init_dip(gen, cfg).cuda()
+        x = torch.randn((S, T, 72), generator=gen).cuda()
+        apply, wrapper = N.dip_apply, LS.bi_lstm
+    else:
+        cfg = N.GraphNetConfig(cell=kind, units_in=12, units_out=9,
+                               units_hidden=H, precision="default")
+        params = N.init_graph_net(gen, cfg, load_adjacency_template()).cuda()
+        x = torch.randn((S, T, 15, 12), generator=gen).cuda()
+        apply = N.graph_net_apply
+        wrapper = GG.bi_ggru if kind == "ggru" else G.bi_gcn_lstm
+    assert N.plan_refusal(cfg, S, "tf32", x.device) is not None
+    out = {}
+    for backend in ("auto", "eager"):
+        for w in (G.bi_gcn_lstm, GG.bi_ggru, LS.bi_lstm):
+            w.launches = w.tf32_launches = w.plain_dispatches = 0
+        with torch.no_grad():
+            out[backend] = apply(params, dataclasses.replace(
+                cfg, backend=backend), x, device="cuda")
+        torch.cuda.synchronize()
+        assert wrapper.launches == 0
+        assert wrapper.plain_dispatches == (2 if backend == "auto" else 0)
+    got, want = out["auto"], out["eager"]
+    assert torch.equal(got[0], want[0])
+    leaves = [got[1]] if isinstance(got[1], torch.Tensor) else got[1]
+    assert torch.isfinite(got[0]).all() and all(
+        torch.isfinite(t).all() for t in torch.utils._pytree.tree_leaves(
+            leaves))
+    if kind == "a3gc":
+        with pytest.raises(ValueError, match="no launch plan"):
+            with torch.no_grad():
+                apply(params, dataclasses.replace(cfg, backend="cuda"), x,
+                      device="cuda")
+
+
+@pytest.mark.cuda
+def test_torch_port_graft_entry_on_card_matches_plain():
+    """``entry()`` on the card: six TF32 ``gcn_lstm`` launches (the S = 1
+    instantiation of the ``_dirfused_kernel`` counterpart), the poses
+    within JAX's own Pallas-vs-XLA angle at "default" (0.034 deg mean,
+    0.335 max) of the same cascade at backend="eager", stage 3 emitting
+    near rotations (as a trained net does: on raw random outputs IK
+    magnifies any rounding)."""
+    _need_card()
+    import dataclasses
+    from a3gc_tpu_torch import graft_entry as GE
+    from a3gc_tpu_torch.models.pipeline import cascade_apply
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops.rotations import angle_between
+    cfg, _, model, _ = GE._flagship(device="cuda")
+    fn, (p3, imu) = GE.entry(device="cuda")
+    with torch.no_grad():
+        p3[2].linear_out.kernel.mul_(0.1)
+        p3[2].linear_out.bias.copy_(torch.eye(3, device="cuda").flatten())
+    imu = torch.randn(imu.shape, generator=torch.Generator().manual_seed(4)
+                      ).mul_(0.5).cuda()
+    G.bi_gcn_lstm.launches = G.bi_gcn_lstm.tf32_launches = 0
+    got = fn(p3, imu)
+    torch.cuda.synchronize()
+    assert G.bi_gcn_lstm.launches == G.bi_gcn_lstm.tf32_launches == 6
+    eager = dataclasses.replace(cfg, **{
+        f"stage{i + 1}": dataclasses.replace(
+            s, net=dataclasses.replace(s.net, backend="eager"))
+        for i, s in enumerate(cfg.stages)})
+    want = cascade_apply(p3, eager, model, imu, device="cuda")
+    deg = torch.rad2deg(angle_between(got.reshape(-1, 3, 3),
+                                      want.reshape(-1, 3, 3)))
+    assert got.shape == (300, 24, 3, 3) and torch.isfinite(got).all()
+    assert float(deg.mean()) <= 0.034 and float(deg.max()) <= 0.335

@@ -13,7 +13,9 @@ DIP-IMU tree, ``cli convert-data``, ``cli worst-frames --render``), and the
 mesh (``a3gc_tpu_torch.parallel``: its mesh, serving, multihost and tensor
 modules, every export of the JAX package's ``parallel`` but the JAX-only
 ``shard_map_compat``, a sharded cascade, a mesh session, a mesh training
-step and a tensor-parallel one) load no jax, flax or a3gc_tpu module. And
+step and a tensor-parallel one), and the driver entry points
+(``a3gc_tpu_torch.graft_entry``: ``entry()``, its export check,
+``dryrun_multichip``) load no jax, flax or a3gc_tpu module. And
 the port's ``parallel`` exports the JAX package's names; the package data
 ships every kernel source and header, and the port has its console
 script."""
@@ -243,6 +245,10 @@ assert len(TPAR.shard_params(tp_runner.state.params, tp_mesh)) == 2
 tp_runner.train_step(synthetic_packed_dataset(2, 4),
                      a3gc_tpu_torch.train.seeded_generator("cpu", 0))
 assert tp_runner._split and fetch_replicated(tp_runner.state.params)
+# the driver entry points: entry()'s forward, its torch.export check and
+# dryrun_multichip over eight CPU shards
+import a3gc_tpu_torch.graft_entry
+assert a3gc_tpu_torch.graft_entry.main(["--device", "cpu"]) == 0
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "a3gc_tpu"))
 print(json.dumps(banned))

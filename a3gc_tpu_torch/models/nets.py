@@ -156,7 +156,7 @@ def plan_refusal(cfg, streams: int, fmt: str, device) -> Optional[str]:
     if isinstance(cfg, DIPConfig):
         return LS.plan_refusal(streams, cfg.n_hidden,
                                sm_count(device_index(device)),
-                               cfg.directions)
+                               cfg.directions, fmt == "tf32")
     if cfg.cell == "ggru":
         return GG.plan_refusal(streams, cfg.num_nodes, cfg.units_hidden,
                                fmt == "tf32",

@@ -46,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import SimpleNamespace
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,26 +56,36 @@ from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
                                         THREADS, check_aligned, check_f32,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
-                                        like, n_valid_tensor, sm_count)
+                                        like, mma_row_stride, n_valid_tensor,
+                                        sm_count)
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
-           "launch_plan", "lstm_step_hoisted", "max_active",
-           "plan_refusal", "scan", "scan_inputs", "scan_reference",
-           "smem_bytes"]
+           "func_attributes", "launch_plan", "lstm_step_hoisted",
+           "max_active", "mma_split", "plan_refusal", "scan", "scan_inputs",
+           "scan_reference", "smem_bytes"]
+
+WARPS = THREADS // 32
+MMA_NKB = (4, 16)           # k-blocks of 16 a warp holds A's fragments of
+                            # (16: 128 registers a thread): the serving
+                            # widths' instantiations, no others to build
+ROWS = 8                    # the tensor-core form's h rows (n = 8 streams)
 
 
 class LaunchPlan(NamedTuple):
     r"""How ``csrc/lstm.cu`` runs one layer call."""
     R: int                 # streams per group (1, 2, 4 or 8)
     P: int                 # CTAs per group; CTA p owns hidden units p·H/P …
-    KS: int                # k-slices per gate column of h·W_hh
+    KS: int                # k-slices per gate column of h·W_hh (mma: the
+                           # k parts over the warps, mma_split)
     groups: int            # groups per direction on the card at once
     cooperative: bool      # False: a cluster of P CTAs exchanging through
                            # DSMEM; True: a cooperative grid, through L2
     threads: int
     smem: int              # dynamic shared memory per CTA, bytes
     D: int = 2             # directions, one grid layer each
+    mma: int = 0           # 1: the TF32 instantiation's product on the
+                           # tensor cores (mma.sync m16n8k8), 0: FMA loop
 
     @property
     def cluster(self) -> int:
@@ -91,20 +101,49 @@ def rows_per_group(S: int) -> int:
     return 1 if S <= 1 else 2 if S <= 2 else 4 if S <= 4 else 8
 
 
-def smem_bytes(R: int, H: int, P: int, cooperative: bool) -> int:
+def mma_split(H: int, P: int) -> Optional[Tuple[int, int]]:
+    r"""The tensor-core form's split of a CTA's h·W_hh over its 8 warps at
+    hidden width H and P CTAs a group (``MmaSplit`` in C), or None where
+    it has none: (KS, NKB), KS k parts of the H / 16 k-blocks, each warp
+    holding the A fragments (W_hh^T) of one tile of 16 gate columns × NKB
+    k-blocks in registers (NKB 4 or 16: at most 128 registers a thread). KS is 2 where the tiles leave half the warps idle (2 · M / 16
+    ≤ 8) and that split exists, else 1; the tiles of a k part fill at most
+    its warps."""
+    if H <= 0 or H % 16 or P <= 0 or H % P:
+        return None
+    MT, KB = 4 * (H // P) // 16, H // 16
+    if 4 * (H // P) % 16:
+        return None
+    for ks in (2, 1):
+        if ks * MT <= WARPS and KB % ks == 0 and KB // ks in MMA_NKB:
+            return ks, KB // ks
+    return None
+
+
+def smem_bytes(R: int, H: int, P: int, cooperative: bool,
+               mma: bool = False) -> int:
     r"""Dynamic shared memory of one CTA (``lstm_smem_bytes`` in C): the
     W_hh slice [H, 4H/P] with rows padded by 4 floats, the full h
     (double-buffered in a cluster), the z and u slices [R, 4H/P] and the
-    c and h slices [R, H/P]."""
+    c and h slices [R, H/P]. The tensor-core form (``mma``) stages the
+    W_hh slice the same way (its A fragments go from there to registers),
+    then 8 rows of the full h padded to :func:`mma_row_stride` and the z
+    slices of its KS k parts with rows padded by 4 floats."""
     Hc = H // P
     M = 4 * Hc
-    floats = (H * (M + 4) + (1 if cooperative else 2) * R * H + 2 * R * M
-              + 2 * R * Hc)
+    nbuf = 1 if cooperative else 2
+    if mma:
+        KS = mma_split(H, P)[0]
+        floats = (H * (M + 4) + nbuf * ROWS * mma_row_stride(H)
+                  + KS * R * (M + 4) + R * M + 2 * R * Hc)
+    else:
+        floats = H * (M + 4) + nbuf * R * H + 2 * R * M + 2 * R * Hc
     return SMEM_HEADER + 4 * floats
 
 
-def launch_plan(S: int, H: int, sms: int = 132,
-                P: Optional[int] = None, D: int = 2) -> LaunchPlan:
+def launch_plan(S: int, H: int, sms: int = 132, P: Optional[int] = None,
+                D: int = 2, tf32: bool = False,
+                mma: Optional[bool] = None) -> LaunchPlan:
     r"""The group for S streams of D directions at hidden width H on a card
     of ``sms`` SMs: the smallest P whose CTAs own at most 64 gate columns
     each (wider only where no P gives that) and whose W_hh slice fits in
@@ -119,38 +158,98 @@ def launch_plan(S: int, H: int, sms: int = 132,
     once, so one direction holds twice the blocks (132 SMs: H = 512 4
     against 2, H = 256 8 against 4). That changes ``groups`` only beyond
     S = 16 at H = 512 (S = 32 at H = 256); every serving shape (S ≤ 12)
-    has the same plan at D = 1 as at D = 2 but for D."""
+    has the same plan at D = 1 as at D = 2 but for D.
+
+    The TF32 instantiation (``tf32``) has a plan of its own: the product
+    on the tensor cores (``mma`` = 1) at the smallest P whose
+    :func:`mma_split` exists (its A fragments in at most 128 registers a
+    thread) and whose shared memory fits; a split exists only where H / 16
+    is 4, 8, 16 or 32 (H = 64, 128, 256, 512). Elsewhere the fp32 plan in
+    the FMA form. ``mma`` forces the form (False: the FMA form at
+    the fp32 plan's P, for measuring one against the other; True: raises
+    where the tensor cores have no plan), ``P`` the split. At the dense
+    serving widths that rule gives the P that won against the other
+    candidates (``scripts/torch_kernel_ab.py --tf32``, device ms a launch
+    at S = 8 / 1, T = 60, D = 2, on an H100; PERF.md §6):
+
+      H = 64: P = 2 (0.0666 / 0.0612; P = 4 0.0650 / 0.0636 and P = 8
+      0.0676 / 0.0670 with two k parts of 2 k-blocks; P = 1, two tiles a
+      warp, 0.0932 / 0.0653: the cell of two units a thread outweighed
+      the exchange, which st.async makes cheap);
+      H = 128: P = 8 (0.0699 / 0.0697; P = 4, 8 k-blocks a warp, 0.0772
+      / 0.0716; P = 2, two tiles a warp, 0.1127 / 0.0810);
+      H = 256: P = 8 (a cluster: 0.0978 / 0.0890; the cooperative 16, two
+      k parts of 8 k-blocks, 0.1655 / 0.1503);
+      H = 512: P = 32 (cooperative: 0.1807 / 0.1674; P = 16's A would be
+      256 registers a thread).
+
+    The FMA form at the fp32 plan's P took 0.139 / 0.092, 0.174 / 0.106,
+    0.286 / 0.170 and 0.396 / 0.219 ms in the same run. The forms the
+    plans do not take (two tiles a warp, 2 or 8 k-blocks) were dropped
+    from the kernel's instantiations."""
     if S <= 0 or H <= 0 or H % 4 or D not in (1, 2):
         raise ValueError(f"lstm: needs S >= 1, H % 4 == 0 and D in (1, 2), "
                          f"got S={S}, H={H}, D={D}")
+    if mma and not tf32:
+        raise ValueError("lstm: the tensor-core form needs the TF32 "
+                         "instantiation (tf32=True)")
     R = rows_per_group(S)
     n_blocks = -(-S // R)
+
+    def fits(p, mma_form):
+        """(KS, cooperative, groups, smem) of split p, or None."""
+        Hc = H // p
+        if H % p or Hc % 4:
+            return None
+        if mma_form:
+            split = mma_split(H, p)
+            if split is None:
+                return None
+            ks = split[0]
+        else:
+            ks = k_slices(4 * Hc, H)
+        coop = p > MAX_CLUSTER
+        smem = smem_bytes(R, H, p, coop, mma_form)
+        groups = min(n_blocks, sms // (D * p)) if coop else n_blocks
+        if smem > SMEM_LIMIT or groups < 1:
+            return None
+        return ks, coop, groups, smem
+
+    if tf32 and mma is not False:
+        for p in ([P] if P is not None else range(1, 65)):
+            got = p > 0 and fits(p, True)
+            if got:
+                ks, coop, groups, smem = got
+                return LaunchPlan(R, p, ks, groups, coop, THREADS, smem, D,
+                                  1)
+        if mma:
+            raise ValueError(f"lstm: no launch plan on the tensor cores for "
+                             f"S={S}, H={H}"
+                             + (f", P={P}" if P is not None else ""))
     widths = (THREADS,) if P is not None else (64, 128, THREADS)
     for widest in widths:
         for p in ([P] if P is not None else range(1, 65)):
             Hc = H // p
             if H % p or Hc % 4 or 4 * Hc > widest:
                 continue
-            coop = p > MAX_CLUSTER
-            smem = smem_bytes(R, H, p, coop)
-            groups = min(n_blocks, sms // (D * p)) if coop else n_blocks
-            if smem > SMEM_LIMIT or groups < 1:
-                continue
-            return LaunchPlan(R, p, k_slices(4 * Hc, H), groups, coop,
-                              THREADS, smem, D)
+            got = fits(p, False)
+            if got:
+                ks, coop, groups, smem = got
+                return LaunchPlan(R, p, ks, groups, coop, THREADS, smem, D)
     raise ValueError(f"lstm: no launch plan for S={S}, H={H}"
                      + (f", P={P}" if P is not None else ""))
 
 
 @functools.lru_cache(maxsize=None)
-def plan_refusal(S: int, H: int, sms: int, D: int = 2) -> Optional[str]:
+def plan_refusal(S: int, H: int, sms: int, D: int = 2,
+                 tf32: bool = False) -> Optional[str]:
     r"""Whether the kernel has a launch plan for a layer call of D
-    directions on a card of ``sms`` SMs: None where it has, else
-    :func:`launch_plan`'s refusal, asked with the arguments :func:`scan`
-    gives it (so the two cannot disagree). Cached by that key: a dispatch
-    pays one lookup."""
+    directions on a card of ``sms`` SMs, for the fp32 or the TF32
+    instantiation: None where it has, else :func:`launch_plan`'s refusal,
+    asked with the arguments :func:`scan` gives it (so the two cannot
+    disagree). Cached by that key: a dispatch pays one lookup."""
     try:
-        launch_plan(S, H, sms, D=D)
+        launch_plan(S, H, sms, D=D, tf32=tf32)
     except ValueError as e:
         return str(e)
     return None
@@ -242,12 +341,12 @@ def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
 
 
 def _library():
-    return kernel_library("lstm", 10, 12, 4)
+    return kernel_library("lstm", 10, 13, 6)
 
 
 def _plan_ints(plan: LaunchPlan):
     return (plan.D, plan.R, plan.P, plan.KS, plan.groups,
-            int(plan.cooperative), plan.threads, plan.smem)
+            int(plan.cooperative), plan.threads, plan.smem, plan.mma)
 
 
 def max_active(plan: LaunchPlan, S: int, H: int, tf32: bool = False) -> int:
@@ -257,7 +356,7 @@ def max_active(plan: LaunchPlan, S: int, H: int, tf32: bool = False) -> int:
     refuses."""
     lib = _library()
     fn = lib.lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 11
+    fn.argtypes = [ctypes.c_int] * 12
     fn.restype = ctypes.c_int
     n = fn(S, H, *_plan_ints(plan), int(tf32))
     if n < 0:
@@ -266,15 +365,34 @@ def max_active(plan: LaunchPlan, S: int, H: int, tf32: bool = False) -> int:
     return n
 
 
+def func_attributes(plan: LaunchPlan, H: int, tf32: bool = False) -> dict:
+    r"""Registers a thread and local-memory bytes (spills) of the
+    instantiation a launch of ``plan`` at hidden width H runs
+    (``cudaFuncGetAttributes``): {"regs": …, "local_bytes": …}."""
+    lib = _library()
+    fn = lib.lstm_func_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    nkb = mma_split(H, plan.P)[1] if plan.mma else 0
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = fn(plan.R, int(plan.cooperative), int(tf32), nkb,
+             ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError("lstm attribute query failed: "
+                           + lib.lstm_error_string(err).decode())
+    return {"regs": regs.value, "local_bytes": local.value}
+
+
 def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
          c0: torch.Tensor, n_valid: torch.Tensor,
          plan: Optional[LaunchPlan] = None, tf32: bool = False):
     r"""Launch the kernel on hoisted inputs. u [D, S, T, 4H] (every
     direction in forward frame order), w_hh [D, H, 4H], h0/c0 [D, S, H],
     n_valid [S] int32 — all contiguous fp32 on one card, D = 1 or 2.
-    ``plan`` defaults to :func:`launch_plan`; ``tf32`` launches the TF32
-    instantiation (h and W_hh rounded to TF32). Returns (y [S, T, D·H],
-    h [D, S, H], c [D, S, H])."""
+    ``plan`` defaults to :func:`launch_plan` (the TF32 plan when
+    ``tf32``); ``tf32`` launches the TF32 instantiation (h and W_hh
+    rounded to TF32; on the tensor cores where the plan's ``mma`` says
+    so). Returns (y [S, T, D·H], h [D, S, H], c [D, S, H])."""
     D, S, T, G = u.shape
     H = G // 4
     dev = u.device
@@ -283,7 +401,8 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     check_n_valid("lstm", dev, n_valid, S)
     check_aligned("lstm", u, w_hh)
     if plan is None:
-        plan = launch_plan(S, H, sm_count(device_index(dev)), D=D)
+        plan = launch_plan(S, H, sm_count(device_index(dev)), D=D,
+                           tf32=tf32)
     if plan.D != D:
         raise ValueError(f"lstm: a plan for D={plan.D} given {D} "
                          "directions")

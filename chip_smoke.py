@@ -1397,7 +1397,7 @@ class Smoke:
         from a3gc_tpu_torch.ops import gcn_lstm as G
         from a3gc_tpu_torch.ops import ggru as GG
         from a3gc_tpu_torch.ops import lstm as LS
-        from a3gc_tpu_torch.ops._common import operand_format
+        from a3gc_tpu_torch.ops._common import operand_format, sm_count
         from a3gc_tpu_torch.ops.rotations import angle_between
         from a3gc_tpu_torch.smpl import ParametricModel
         torch = self.torch
@@ -1410,9 +1410,10 @@ class Smoke:
                     for H, _, _, _ in STAGES]
                  + [("ggru", "ggru", H, S, 2) for S in (S_SERVE, 1)
                     for H, _, _, _ in STAGES]
-                 + [("lstm", "lstm", H, S_SERVE, D) for D in (2, 1)
-                    for H in (256, DIP[0])])
-        rows = []
+                 + [("lstm", "lstm", H, S, D) for S in (S_SERVE, 1)
+                    for D in (2, 1)
+                    for H in [h for h, _, _, _ in TP_STAGES] + [DIP[0]]])
+        rows, lstm_plans = [], []
         for name, cell, H, S, D in cases:
             mod, F = mods[name], H
             p = (self.cell(gen, cell, F, H)
@@ -1437,6 +1438,9 @@ class Smoke:
             elif name == "ggru":
                 plans["tf32_fma"] = (GG.launch_plan(
                     S, N_NODES, H, tf32=True, mma=0), True)
+            else:
+                plans["tf32_fma"] = (LS.launch_plan(
+                    S, H, sm_count(0), D=D, tf32=True, mma=False), True)
             with torch.no_grad():
                 scan_args = mod.scan_inputs(*args, "tf32")
                 ms = dict.fromkeys(plans, 0.0)
@@ -1450,12 +1454,18 @@ class Smoke:
             if "tf32_fma" in ms:
                 row.update(scan_ms_tf32_fma=ms["tf32_fma"],
                            tf32_fma_over_fp32=ms["tf32_fma"] / ms["fp32"])
-            if name != "lstm":
-                row["plan_tf32"] = (G.launch_plan(N_NODES, H, cell == "a3gc",
-                                                  tf32=True)
-                                    if name == "gcn_lstm" else
-                                    GG.launch_plan(S, N_NODES, H,
-                                                   tf32=True))._asdict()
+            row["plan_tf32"] = (G.launch_plan(N_NODES, H, cell == "a3gc",
+                                              tf32=True)
+                                if name == "gcn_lstm" else
+                                GG.launch_plan(S, N_NODES, H, tf32=True)
+                                if name == "ggru" else
+                                LS.launch_plan(S, H, sm_count(0), D=D,
+                                               tf32=True))._asdict()
+            if name == "lstm":
+                lstm_plans += [(H, LS.launch_plan(S, H, sm_count(0), D=D),
+                                False), (H, plans["tf32_fma"][0], True),
+                               (H, LS.launch_plan(S, H, sm_count(0), D=D,
+                                                  tf32=True), True)]
             rows.append(row)
 
         # registers and local memory (spills, stack) of each instantiation;
@@ -1474,14 +1484,28 @@ class Smoke:
             attrs[key] = GG.func_attributes(tf32, mma)
             if mma:
                 tensor_core.append(key)
+        # lstm: every instantiation the dense widths' plans launch (fp32,
+        # the TF32 FMA form, the tensor-core form), none with local memory
+        for H, pl, tf32 in lstm_plans:
+            key = (f"lstm cooperative={int(pl.cooperative)} "
+                   + (f"tf32=1 mma=1 NKB={LS.mma_split(H, pl.P)[1]}"
+                      if pl.mma else f"R={pl.R} tf32={int(tf32)} mma=0"))
+            if key not in attrs:
+                attrs[key] = LS.func_attributes(pl, H, tf32)
+                tensor_core.append(key)
         for H, _, _, _ in STAGES:
             self.check(G.launch_plan(N_NODES, H, True, tf32=True).mma == 1
                        and all(GG.launch_plan(S, N_NODES, H, tf32=True).mma
                                for S in (S_SERVE, 1)),
                        f"precision: H={H} plans off the tensor cores")
+        for H in [h for h, _, _, _ in TP_STAGES] + [DIP[0]]:
+            self.check(all(LS.launch_plan(S, H, sm_count(0), D=D,
+                                          tf32=True).mma == 1
+                           for S in (S_SERVE, 1) for D in (2, 1)),
+                       f"precision: lstm H={H} plans off the tensor cores")
         self.check(all(attrs[k]["local_bytes"] == 0 for k in tensor_core),
-                   f"precision: a tensor-core TF32 instantiation uses local "
-                   f"memory: {attrs}")
+                   f"precision: a tensor-core TF32 instantiation (or an "
+                   f"lstm one) uses local memory: {attrs}")
         print(json.dumps({"instantiations": attrs}), flush=True)
 
         # the A3GC cascade at batch 1: stage 3 emitting near rotations, as a
@@ -1657,6 +1681,18 @@ class Smoke:
                             else uni_lstm_layer_work,
                             library=self.cudnn_lstm(p, *args[:2], tf32=True),
                             plain_reps=2, fmt="tf32")
+        # lstm's other shapes at the inference commands' default: offline
+        # TransPose and DIP (S = 1) and a DIP K = 1 emission pass (T = 120),
+        # F = H, rows of their own
+        extra = [(H, 1, T) for H, _, _, _ in TP_STAGES] + [(DIP[0], 1, T)]
+        extra.append((DIP[0], S_SERVE, 120))
+        for H, S, Tx in extra:
+            p = self.lstm_layer(gen, H, H)
+            args = self.layer_inputs(gen, S, Tx, H, H, [Tx] * S, nodes=False)
+            self.time_layer("lstm", "precision", S, H, H, p, args,
+                            lstm_layer_work,
+                            library=self.cudnn_lstm(p, *args[:2], tf32=True),
+                            plain_reps=1, fmt="tf32")
         emit({"phase": "precision", "tol": PREC_KERNEL_TOL,
               "rms_ratio_bounds": {"frame": PREC_SEP_FRAME,
                                    "window": PREC_SEP_WINDOW},
@@ -3407,9 +3443,12 @@ class Smoke:
 
     def phase_kernel_eval(self):
         """Each kernel at evaluation lengths against its plain version
-        (S = 1, T = 2048 and S = 8, T = 1024, ragged n_valid), then timed at
-        S = 1, T = 2048 and S = 16, T = 1024 for the kernels line (the
-        plain version, ≈ 1-2 s a call there, is not timed again)."""
+        (S = 1, T = 2048 and S = 8, T = 1024, ragged n_valid; ``lstm`` also
+        at "tf32", the evaluate command's default, by compare_formats over
+        the whole sequence), then timed at S = 1, T = 2048 and S = 16, T =
+        1024 for the kernels line (the plain version, ≈ 1-2 s a call
+        there, is not timed again); ``lstm`` there also at "tf32", against
+        cuDNN with TF32 allowed."""
         from a3gc_tpu_torch.ops import gcn_lstm as G
         from a3gc_tpu_torch.ops import ggru as GG
         from a3gc_tpu_torch.ops import lstm as LS
@@ -3441,6 +3480,15 @@ class Smoke:
                     rows.append({"kernel": name, "H": H, "F": H, "S": S,
                                  "T": T, "n_valid": nv, "y": errs[0],
                                  "state": max(errs[1:]), "ok": ok})
+                    if name == "lstm":
+                        # the TF32 instantiation (the evaluate command's
+                        # default) on the same ragged inputs, against the
+                        # plain version at "tf32", the fp32 kernel the
+                        # control
+                        rows[-1]["tf32"] = self.compare_formats(
+                            name, f"eval H={H} S={S} T={T}", kernel_fn,
+                            plain_fn, (p,) + args, PREC_SEP_WINDOW)
+                        rows[-1]["ok"] = ok and rows[-1]["tf32"]["ok"]
                 for S, T in EVAL_TIMED_SHAPES:
                     x, st, nv = self.layer_inputs(gen, S, T, H, H, [T] * S,
                                                   nodes=nodes,
@@ -3450,12 +3498,23 @@ class Smoke:
                         with torch.no_grad():
                             out = LS.bi_lstm(p, x, st)
                         library = self.cudnn_lstm(p, x, st, kernel_out=out)
-                    self.time_layer(
-                        name, path or ("evaluate_dip" if H == DIP[0]
-                                       else "evaluate_families"),
-                        S, H, H, p, (x, st, nv), work, library=library,
-                        reps=3, plain_reps=0)
+                    where = path or ("evaluate_dip" if H == DIP[0]
+                                     else "evaluate_families")
+                    self.time_layer(name, where, S, H, H, p, (x, st, nv),
+                                    work, library=library, reps=3,
+                                    plain_reps=0)
+                    if name == "lstm":
+                        # the TF32 instantiation, the evaluate command's
+                        # default, against cuDNN with TF32 allowed
+                        with torch.no_grad():
+                            out = LS.bi_lstm(p, x, st, fmt="tf32")
+                        self.time_layer(
+                            name, where, S, H, H, p, (x, st, nv), work,
+                            library=self.cudnn_lstm(p, x, st, kernel_out=out,
+                                                    tf32=True),
+                            reps=3, plain_reps=0, fmt="tf32")
         emit({"phase": "kernel_eval", "tol": KERNEL_TOL,
+              "tf32_tol": PREC_KERNEL_TOL, "tf32_bound": PREC_SEP_WINDOW,
               "max_abs_err": max(r["y"] for r in rows),
               "max_abs_err_state": max(r["state"] for r in rows),
               "n_cases": len(rows), "all_ok": all(r["ok"] for r in rows),
@@ -4804,9 +4863,10 @@ class Smoke:
         if name == "lstm":
             from a3gc_tpu_torch.ops import lstm as LS
             from a3gc_tpu_torch.ops._common import sm_count
-            plan = LS.launch_plan(S, H, sm_count(0), D=D)
+            plan = LS.launch_plan(S, H, sm_count(0), D=D, tf32=tf32)
             rec = {"D": D, "P": plan.P, "R": plan.R, "KS": plan.KS,
                    "groups": plan.groups, "cooperative": plan.cooperative,
+                   "mma": plan.mma,
                    "max_active": LS.max_active(plan, S, H, tf32)}
         elif name == "gcn_lstm":
             from a3gc_tpu_torch.ops import gcn_lstm as G

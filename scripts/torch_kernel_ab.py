@@ -30,6 +30,25 @@ their groups the card holds at once), then one summary line per kernel
 (sums over a serving window at S = 8) and the card's name and power limit.
 Imports nothing of JAX or of the JAX package. Exits non-zero without a card
 or if the two designs disagree by more than 1e-5.
+
+``--tf32`` instead times the TF32 plans of ``lstm`` against each other, in
+turns: the FMA form at the fp32 plan's P (``mma`` = 0), the tensor-core
+form (``mma`` = 1) at each candidate P of the dense serving widths
+(TF32_CANDIDATES), the default TF32 plan and the fp32 kernel, at H = 256 /
+64 / 128 / 512, S = 8 and 1, D = 2 and 1, T = 60; with ``--shapes all``
+also the default plan against the FMA form at T = 120 (H = 512, S = 8), S =
+16, T = 1024 and S = 1, T = 2048, beside the plain version at "tf32" and
+cuDNN's ``torch.nn.LSTM`` with TF32 allowed (a yardstick of time only).
+Each shape prints one JSON line: per plan its ms as chip_smoke.py times a
+call (CUDA events around back-to-back calls: the host's time a call shows
+where it exceeds the kernel's) and its device ms (the card kept busy while
+the host enqueues the calls), max|d| from the plain scan at "tf32", rms
+ratio to the gap between the plain scan's formats, registers and local
+memory. Exits non-zero if a plan is off the plain
+version by more than 8.05e-3 (chip_smoke.py PREC_KERNEL_TOL).
+
+    python3 scripts/torch_kernel_ab.py --tf32 [--shapes serving|all]
+                                       [--reps N] [--out FILE]
 """
 
 import argparse
@@ -42,6 +61,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
+# the P to time the tensor-core form at, per dense serving width
+TF32_CANDIDATES = {64: (2, 4, 8), 128: (8, 16), 256: (8, 16), 512: (32,)}
 
 
 def build_old(src_dir, name):
@@ -102,21 +123,146 @@ def old_scan(torch, name, fn, args):
     return y, h_out, c_out
 
 
+def device_ms(torch, fn, reps, warmup=2):
+    """Mean device time of fn() in ms over reps calls, the card kept busy
+    (torch.cuda._sleep) while the host enqueues them, so that the host's
+    time a call (Python, checks, allocation, the launch) does not show."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e5) * reps + int(1e6))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tf32_ab(args):
+    """``--tf32``: the lstm TF32 plans against each other (see the module
+    docstring); returns the exit code."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.ops._build import load_library
+    from a3gc_tpu_torch.ops._common import sm_count
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = CS.Smoke()
+    load_library("lstm")
+    sms = sm_count(0)
+    gen = torch.Generator().manual_seed(17)
+    widths = [h for h, _, _, _ in CS.TP_STAGES] + [CS.DIP[0]]
+    shapes = [(H, S, D, CS.WINDOW, True) for S in (CS.S_SERVE, 1)
+              for H in widths for D in (2, 1)]
+    if args.shapes == "all":
+        shapes.append((CS.DIP[0], CS.S_SERVE, 2, 120, False))
+        shapes += [(H, S, 2, T, False) for S, T in CS.EVAL_TIMED_SHAPES
+                   for H in widths]
+    lines, ok = [], True
+
+    def rms(a, b):
+        num = sum(float((x.double() - y.double()).square().sum())
+                  for x, y in zip(a, b))
+        return (num / sum(x.numel() for x in a)) ** 0.5
+
+    for H, S, D, T, candidates in shapes:
+        p = smoke.lstm_layer(gen, H, H, D=D)
+        x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
+                                       nodes=False, D=D)
+        plans = {"fp32": (LS.launch_plan(S, H, sms, D=D), False),
+                 "tf32_fma": (LS.launch_plan(S, H, sms, D=D, tf32=True,
+                                             mma=False), True),
+                 "tf32": (LS.launch_plan(S, H, sms, D=D, tf32=True), True)}
+        refused = {}
+        for P in TF32_CANDIDATES[H] if candidates else ():
+            try:
+                plans[f"tf32_mma_P{P}"] = (LS.launch_plan(
+                    S, H, sms, P=P, D=D, tf32=True, mma=True), True)
+            except ValueError as e:
+                refused[f"tf32_mma_P{P}"] = str(e)
+        with torch.no_grad():
+            sargs = LS.scan_inputs(p, x, st, nv, "tf32")
+            want = LS.scan_reference(*sargs, tf32=True)
+            gap = rms(LS.scan_reference(*sargs, tf32=False), want)
+            got = {k: LS.scan(*sargs, plan=pl, tf32=tf32)
+                   for k, (pl, tf32) in plans.items()}
+            torch.cuda.synchronize()
+            calls = {k: (lambda pl=pl, tf32=tf32: LS.scan(
+                *sargs, plan=pl, tf32=tf32)) for k, (pl, tf32)
+                in plans.items()}
+            reps = args.reps if T <= CS.WINDOW * 2 else max(2, args.reps // 5)
+            times = dict.fromkeys(calls, 0.0)
+            busy = dict.fromkeys(calls, 0.0)
+            for k in list(calls) + list(reversed(calls)):
+                times[k] += CS.cuda_ms(calls[k], reps) / 2
+                busy[k] += device_ms(torch, calls[k], reps) / 2
+            line = {"kernel": "lstm", "H": H, "S": S, "D": D, "T": T,
+                    "ms": times, "device_ms": busy, "refused": refused,
+                    "plans": {}}
+            for k, (pl, tf32) in plans.items():
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got[k], want))
+                fine = all(bool(torch.isfinite(t).all()) for t in got[k])
+                if k != "fp32":
+                    ok &= fine and err <= CS.PREC_KERNEL_TOL
+                line["plans"][k] = {
+                    "plan": pl._asdict(), "max_abs_err": err,
+                    "rms_ratio": rms(got[k], want) / gap, "finite": fine,
+                    "attributes": LS.func_attributes(pl, H, tf32)}
+            line["rms_gap"] = gap
+            line["mma_over_fma"] = {k: busy[k] / busy["tf32_fma"]
+                                    for k in busy if "mma" in k
+                                    or k == "tf32"}
+            if not candidates:
+                plain = lambda: LS.bi_lstm_reference(p, x, st, nv,
+                                                     fmt="tf32")
+                line["plain_ms"] = CS.cuda_ms(plain, 1, warmup=0)
+                cudnn = smoke.cudnn_lstm(p, x, st, tf32=True)
+                line["cudnn_tf32_ms"] = CS.cuda_ms(cudnn, reps)
+                line["cudnn_tf32_device_ms"] = device_ms(torch, cudnn, reps)
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+    card = CS.nvidia_smi()
+    print(card)
+    if args.out:
+        with open(args.out, "w") as f:
+            for line in lines:
+                f.write(json.dumps(line) + "\n")
+            f.write(json.dumps({"card": card}) + "\n")
+    return 0 if ok else 1
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True,
+    ap.add_argument("--old",
                     help="directory with the earlier <kernel>.cu of every "
                     "kernel asked for")
+    ap.add_argument("--tf32", action="store_true",
+                    help="time lstm's TF32 plans against each other")
+    ap.add_argument("--shapes", choices=("serving", "all"), default="all",
+                    help="with --tf32: the serving shapes only, or also "
+                    "T = 120 and the evaluation lengths")
+    ap.add_argument("--reps", type=int, default=20,
+                    help="with --tf32: timed launches a plan and turn")
     ap.add_argument("--kernels", default="gcn_lstm,ggru,lstm",
                     help="comma-separated kernels to compare (default: all)")
     ap.add_argument("--out", help="also write the JSON lines here")
     args = ap.parse_args()
+    if not args.tf32 and not args.old:
+        ap.error("--old is required without --tf32")
     names = [n for n in ("gcn_lstm", "ggru", "lstm")
              if n in args.kernels.split(",")]
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    if args.tf32:
+        return tf32_ab(args)
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
     from a3gc_tpu_torch.ops import gcn_lstm as G

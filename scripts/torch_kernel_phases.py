@@ -8,11 +8,14 @@ thread 0 of CTA (0, 0, 0) spent per frame in each phase (per launch for the
 phases before and after the frames), barrier waits included, beside the
 launch's time (CUDA events, the instrumented build). ``--tf32`` runs
 the TF32 instantiations instead (a net's precision="default" on the card:
-``gcn_lstm`` and ``ggru`` on the tensor cores), ``--tf32 --fma`` their FMA
-path (what a shape without a tensor-core plan takes), forced by plan.
+all three on the tensor cores), ``--tf32 --fma`` their FMA path (what a
+shape without a tensor-core plan takes), forced by plan; ``--lstm_P``
+forces ``lstm``'s split (its plans at another P; a width without a plan
+there is skipped).
 
     python3 scripts/torch_kernel_phases.py [--kernels ggru,lstm]
-                                           [--tf32 [--fma]] [--out FILE]
+                                           [--tf32 [--fma]] [--lstm_P P]
+                                           [--out FILE]
 
 One JSON line per shape, then the card's name and power limit. The marks
 cost a few cycles each; the shipped build has none. Imports nothing of JAX
@@ -49,10 +52,13 @@ PHASES = {
              3: "gate product", 9: "gate k-slice sum, store",
              4: "wait zi, sync", 5: "cell", 7: "carried frame",
              1: "sync, graph mix, push", 17: "final state"},
-    "lstm": {16: "init", 0: "frame check", 1: "skipped frame",
-             2: "cooperative wait, h from L2", 3: "h.W_hh",
-             4: "wait u, sync", 5: "cell", 6: "sync", 7: "prefetch u",
-             8: "h push (DSMEM)", 9: "cluster barrier / release"},
+    "lstm": {21: "init: A fragments (mma)", 16: "init", 0: "frame check",
+             1: "skipped frame",
+             2: "h wait (cooperative: from L2; mma cluster: st.async)",
+             3: "h.W_hh", 4: "wait u, sync",
+             5: "cell (mma cluster: and st.async h push)", 6: "sync",
+             7: "prefetch u", 8: "h push (DSMEM)",
+             9: "cluster barrier / release", 17: "final state"},
 }
 
 
@@ -69,7 +75,7 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    n_ptr, n_int = {"lstm": (10, 12), "ggru": (8, 10),
+    n_ptr, n_int = {"lstm": (10, 13), "ggru": (8, 10),
                     "gcn_lstm": (16, 13)}[name]
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -92,7 +98,9 @@ def main():
     ap.add_argument("--tf32", action="store_true",
                     help="run the TF32 instantiations")
     ap.add_argument("--fma", action="store_true",
-                    help="with --tf32: the graph kernels' FMA path")
+                    help="with --tf32: the kernels' FMA path")
+    ap.add_argument("--lstm_P", type=int,
+                    help="lstm's split P (default: its launch plan's)")
     args = ap.parse_args()
     wanted = args.kernels.split(",")
     fmt = "tf32" if args.tf32 else "fp32"
@@ -107,6 +115,7 @@ def main():
     from a3gc_tpu_torch.ops import gcn_lstm as G
     from a3gc_tpu_torch.ops import ggru as GG
     from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.ops._common import sm_count
     smoke = CS.Smoke()
     with ThreadPoolExecutor(3) as pool:
         libs = dict(zip(CS.LIBRARIES, pool.map(build, CS.LIBRARIES)))
@@ -153,6 +162,13 @@ def main():
             elif args.tf32 and name == "ggru":
                 plan = GG.launch_plan(S, CS.N_NODES, H, tf32=True,
                                       mma=0 if args.fma else None)
+            elif name == "lstm" and (args.tf32 or args.lstm_P):
+                try:
+                    plan = LS.launch_plan(S, H, sm_count(0), P=args.lstm_P,
+                                          tf32=args.tf32,
+                                          mma=False if args.fma else None)
+                except ValueError:        # no plan at the forced split
+                    continue
             with torch.no_grad():
                 sargs = mod.scan_inputs(p, x, st, nv, fmt)
                 mod.scan(*sargs, plan=plan, tf32=args.tf32)

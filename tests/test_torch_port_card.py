@@ -1288,6 +1288,40 @@ def test_torch_port_tf32_kernel_matches_plain_on_card(name, H, S, D, cell,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,S,D,P,mma", [
+    (H, S, D, None, mma) for H in (64, 128, 256, 512) for S in (1, 8)
+    for D in (2, 1) for mma in (True, False)
+] + [(64, 8, 2, 4, True), (128, 8, 2, 16, True), (256, 8, 2, 16, True),
+     (256, 12, 2, 8, True), (64, 12, 1, 2, True), (64, 3, 2, None, True)])
+def test_torch_port_lstm_tf32_forms_match_plain_on_card(H, S, D, P, mma):
+    """``lstm.cu``'s TF32 instantiation in each form at each dense serving
+    width (the tensor-core form at its plan's P and at the other measured
+    candidates, the FMA form at the fp32 plan's), on the hoisted inputs,
+    ragged n_valid: within PREC_KERNEL_TOL of the plain scan at "tf32",
+    nearer it than the plain scan at "fp32" by the window's bound, and the
+    initial state untouched."""
+    from a3gc_tpu_torch.ops import lstm as LS
+    _need_card()
+    _, _, args = _tf32_case("lstm", H, S, D, F=H)
+    plan = LS.launch_plan(S, H, torch.cuda.get_device_properties(0)
+                          .multi_processor_count, P=P, D=D, tf32=True,
+                          mma=mma)
+    assert plan.mma == int(mma)
+    with torch.no_grad():
+        sargs = LS.scan_inputs(*args, "tf32")
+        before = [t.clone() for t in sargs[2:4]]
+        got = LS.scan(*sargs, plan=plan, tf32=True)
+        want = LS.scan_reference(*sargs, tf32=True)
+        gap = _rms(LS.scan_reference(*sargs, tf32=False), want)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, sargs[2:4]))
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= PREC_KERNEL_TOL
+    assert _rms(got, want) <= PREC_SEP_WINDOW * gap
+
+
+@pytest.mark.cuda
 def test_torch_port_default_precision_serves_tf32_on_card():
     """A cascade at precision="default" on the card runs the kernels' TF32
     instantiation (every launch a TF32 one) and stays near the same

@@ -62,11 +62,31 @@ def test_torch_port_plan_refusal_agrees_with_launch_plan(module):
         else:
             for S in (1, 8):
                 for D in (1, 2):
-                    cases.append((LS.plan_refusal(S, H, SMS, D), _refusal(
-                        lambda: LS.launch_plan(S, H, SMS, D=D))))
+                    for tf32 in (False, True):
+                        cases.append((LS.plan_refusal(S, H, SMS, D, tf32),
+                                      _refusal(lambda: LS.launch_plan(
+                                          S, H, SMS, D=D, tf32=tf32))))
     assert all(got == want for got, want in cases)
     # the sweep reaches both answers
     assert {got is None for got, _ in cases} == {True, False}
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "tf32"])
+def test_torch_port_dense_plan_refusal_keyed_by_format(fmt):
+    """``nets.plan_refusal`` of a dense net (bi and uni) at each operand
+    format is ``lstm.launch_plan``'s answer for that format: the TF32 plan
+    (on the tensor cores where it fits) at "tf32", the fp32 plan at
+    "fp32", over the sweep of widths."""
+    card = torch.device("cuda", 0)
+    for H in WIDTHS:
+        for bi in (True, False):
+            cfg = dataclasses.replace(_dense(H), bidirectional=bi)
+            for S in (1, 8):
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(TN, "sm_count", lambda index: SMS)
+                    got = TN.plan_refusal(cfg, S, fmt, card)
+                assert got == _refusal(lambda: LS.launch_plan(
+                    S, H, SMS, D=2 if bi else 1, tf32=fmt == "tf32"))
 
 
 def _graph(cell, H, precision="default", backend="auto"):

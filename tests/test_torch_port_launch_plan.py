@@ -92,6 +92,114 @@ def test_torch_port_lstm_launch_plan_one_direction(H, S):
         LS.launch_plan(S, H, H100_SMS, D=3)
 
 
+def _fp32_plan_pr16(S, H, sms, D):
+    r"""The fp32 plan as it stood before the TF32 instantiation had a plan
+    of its own (fields R … D), or the refusal's None."""
+    R = LS.rows_per_group(S)
+    n_blocks = -(-S // R)
+    for widest in (64, 128, THREADS):
+        for p in range(1, 65):
+            Hc = H // p
+            if H % p or Hc % 4 or 4 * Hc > widest:
+                continue
+            coop = p > MAX_CLUSTER
+            smem = 64 + 4 * (H * (4 * Hc + 4) + (1 if coop else 2) * R * H
+                             + 2 * R * 4 * Hc + 2 * R * Hc)
+            groups = min(n_blocks, H100_SMS // (D * p)) if coop else n_blocks
+            if smem > SMEM_LIMIT or groups < 1:
+                continue
+            return (R, p, k_slices(4 * Hc, H), groups, coop, THREADS, smem,
+                    D)
+    return None
+
+
+def _plan_or_none(**kw):
+    try:
+        return LS.launch_plan(**kw)
+    except ValueError:
+        return None
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+def test_torch_port_lstm_fp32_plan_unchanged(S, D):
+    """The fp32 plan is the one before the TF32 plan existed, field for
+    field (and FMA), at every H % 4 == 0 up to 800."""
+    for H in range(4, 801, 4):
+        got = _plan_or_none(S=S, H=H, sms=H100_SMS, D=D)
+        want = _fp32_plan_pr16(S, H, H100_SMS, D)
+        assert (got is None) == (want is None), H
+        if got is not None:
+            assert tuple(got[:8]) == want and got.mma == 0, H
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+def test_torch_port_lstm_tf32_plan_covers_fp32(S, D):
+    """Wherever the fp32 plan exists the TF32 plan does: on the tensor
+    cores where a split fits (a plan the C side takes: even k parts, A in
+    128 registers), else the fp32 plan itself in the FMA form; forced to
+    the FMA form it is the fp32 plan."""
+    for H in range(4, 801, 4):
+        fp32 = _plan_or_none(S=S, H=H, sms=H100_SMS, D=D)
+        if fp32 is None:
+            continue
+        tf32 = LS.launch_plan(S, H, H100_SMS, D=D, tf32=True)
+        fma = LS.launch_plan(S, H, H100_SMS, D=D, tf32=True, mma=False)
+        assert fma == fp32
+        if not tf32.mma:
+            assert tf32 == fp32, H
+            continue
+        KS, NKB = LS.mma_split(H, tf32.P)
+        assert tf32.KS == KS and KS * NKB == H // 16 and KS in (1, 2)
+        assert NKB in (4, 16) and KS * 4 * H // tf32.P <= 8 * 16
+        assert tf32.smem == LS.smem_bytes(tf32.R, H, tf32.P,
+                                          tf32.cooperative, True)
+        assert tf32.smem <= SMEM_LIMIT and tf32.R == fp32.R
+        assert tf32.cooperative == (tf32.P > MAX_CLUSTER)
+        if tf32.cooperative:
+            assert tf32.ctas <= H100_SMS
+
+
+@pytest.mark.parametrize("D", [2, 1])
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_torch_port_lstm_tf32_plan_serving_widths(H, S, D):
+    """At the dense serving widths the TF32 plan is on the tensor cores at
+    the smallest P whose ``mma_split`` exists (2 / 8 / 8 / 32 at H = 64 /
+    128 / 256 / 512, the P measured best), whatever S and D."""
+    plan = LS.launch_plan(S, H, H100_SMS, D=D, tf32=True)
+    assert plan.mma == 1
+    assert plan.P == min(p for p in range(1, 65)
+                         if LS.mma_split(H, p) is not None)
+    assert plan.P == {64: 2, 128: 8, 256: 8, 512: 32}[H]
+    assert plan.cooperative == (plan.P > MAX_CLUSTER)
+
+
+@pytest.mark.parametrize("H,P,coop", [(64, 2, False), (64, 4, False),
+                                      (128, 8, False), (256, 8, False),
+                                      (256, 16, True), (512, 32, True)])
+def test_torch_port_lstm_mma_smem_bytes(H, P, coop):
+    """The tensor-core form's shared memory: the W_hh slice staged as the
+    FMA form stages it (rows padded by 4 floats), 8 rows of the full h
+    padded to a stride ≡ 16 (mod 32) floats (double-buffered in a
+    cluster), the k parts' z slices with rows padded by 4 floats, u, c and
+    h."""
+    KS = LS.mma_split(H, P)[0]
+    Hc = H // P
+    M = 4 * Hc
+    HS = mma_row_stride(H)
+    assert HS >= H and HS % 32 == 16
+    for R in (1, 2, 4, 8):
+        floats = (H * (M + 4) + (1 if coop else 2) * 8 * HS
+                  + KS * R * (M + 4) + R * M + 2 * R * Hc)
+        assert LS.smem_bytes(R, H, P, coop, True) == 64 + 4 * floats
+        assert LS.smem_bytes(R, H, P, coop, True) <= SMEM_LIMIT
+    assert LS.smem_bytes(8, 64, 2, False, True) == 49344
+    assert LS.smem_bytes(8, 128, 8, False, True) == 51520
+    assert LS.smem_bytes(8, 512, 32, True, True) == 163648
+
+
 def test_torch_port_lstm_scan_inputs_layout_one_direction():
     from a3gc_tpu_torch.models import nets as N
     rng = np.random.default_rng(0)
@@ -300,6 +408,12 @@ def test_torch_port_doubled_split_is_a_valid_plan(kernel, H):
     lambda: LS.launch_plan(8, 1024, H100_SMS),       # W_hh over > 132 SMs
     lambda: LS.launch_plan(8, 30, H100_SMS),         # H % 4
     lambda: LS.launch_plan(8, 256, H100_SMS, P=3),   # uneven split
+    # lstm's tensor-core plans: fp32 operands, A over 128 registers or a
+    # tile a warp, a width without 16-deep k-blocks
+    lambda: LS.launch_plan(8, 64, H100_SMS, mma=True),
+    lambda: LS.launch_plan(8, 64, H100_SMS, P=1, tf32=True, mma=True),
+    lambda: LS.launch_plan(8, 512, H100_SMS, P=16, tf32=True, mma=True),
+    lambda: LS.launch_plan(8, 72, H100_SMS, tf32=True, mma=True),
     lambda: G.launch_plan(17, 64, True),             # more than 16 nodes
     lambda: G.launch_plan(15, 256, True, C=16),      # not a portable cluster
     lambda: G.launch_plan(15, 256, True, C=4),       # slice over 227 KB

@@ -2,14 +2,16 @@
 float32 on the CPU and held to the plain versions at "tf32" by the check
 the card applies (``chip_smoke.py`` ``compare_formats``).
 
-``gcn_lstm.cu`` and ``ggru.cu`` at "tf32" compute their products with
+``gcn_lstm.cu``, ``ggru.cu`` and ``lstm.cu`` at "tf32" compute their
+products with
 ``mma.sync.m16n8k8`` on operands rounded exactly where the plain version
 rounds them. A product of two TF32 values is exact in fp32, so what changes
 against the FMA loops is the order of the fp32 sums: k in 16-deep blocks,
 each block two 8-term steps (the lanes' k renumbered: 4t, 4t + 1 in step 0,
 4t + 2, 4t + 3 in step 1) added into two accumulators that are summed at
 the end; hy·Wh over ``att_split`` k parts added in order; the graph mix as
-two 8-node steps into one accumulator. The emulation below runs those
+two 8-node steps into one accumulator; ``lstm.cu``'s h·W_hh over its plan's
+KS k parts (one a group of warps), added in order, part 0 first. The emulation below runs those
 frames (the 8 products of a step summed in float64, then added into the
 fp32 accumulator) and must stay within PREC_SEP_FRAME / PREC_SEP_WINDOW of
 the gap between the formats, over one frame and over a window; the same
@@ -24,9 +26,11 @@ import torch
 from a3gc_tpu_torch.data import load_adjacency_template
 from a3gc_tpu_torch.models import cells as TC
 from a3gc_tpu_torch.models import layers as TL
+from a3gc_tpu_torch.models import nets as TN
 from a3gc_tpu_torch.ops import _common as CM
 from a3gc_tpu_torch.ops import gcn_lstm as G
 from a3gc_tpu_torch.ops import ggru as GG
+from a3gc_tpu_torch.ops import lstm as LS
 
 SEP_FRAME, SEP_WINDOW = 0.15, 0.5      # chip_smoke.py PREC_SEP_*
 N = 15
@@ -231,3 +235,89 @@ def test_torch_port_tf32_mma_blocks_cover_k(H):
     parts = G.att_split(H, Hc)
     assert plan.mma == 1 and (H // 16) % parts == 0
     assert H // 16 // parts <= 8 and Hc // 8 * parts <= 8
+
+
+def _lstm_emulated(u, w_hh, h0, c0, n_valid, parts, tf32=True):
+    r"""``lstm.cu``'s tensor-core TF32 frames on the hoisted inputs: z = u
+    + h·W_hh in the kernel's order over ``parts`` k parts, the cell, h
+    rounded where it is written for the next product: (y, h, c)."""
+    r = CM.round_tf32 if tf32 else (lambda t: t)
+    D, S, T, G4 = u.shape
+    H = G4 // 4
+    y = torch.zeros(S, T, D * H)
+    hs, cs = [], []
+    for d in range(D):
+        h, c, w = h0[d], c0[d], r(w_hh[d])
+        for f in (range(T) if d == 0 else range(T - 1, -1, -1)):
+            z = u[d, :, f] + _mma(r(h), w, parts)
+            i, fg, g, o = (z[:, k * H:(k + 1) * H] for k in range(4))
+            cn = torch.sigmoid(fg) * c + torch.sigmoid(i) * torch.tanh(g)
+            hn = torch.sigmoid(o) * torch.tanh(cn)
+            live = (f < n_valid)[:, None]
+            h = torch.where(live, hn, h)
+            c = torch.where(live, cn, c)
+            y[:, f, d * H:(d + 1) * H] = h
+        hs.append(h)
+        cs.append(c)
+    return y, torch.stack(hs), torch.stack(cs)
+
+
+def _lstm_layer(H, T, D, S=2):
+    r"""(params, x, state, n_valid) of one dense layer call, F = H: the
+    init's uniform weights (±1/√H), inputs from a numpy seed, ragged
+    n_valid."""
+    rng = np.random.default_rng(3 * H + T + D)
+
+    def arr(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    def one():
+        b = 1.0 / H ** 0.5
+        return TN.LSTMLayerParams(*(arr(rng.uniform(-b, b, size=shape))
+                                    for shape in ((H, 4 * H), (H, 4 * H),
+                                                  (4 * H,), (4 * H,))))
+
+    p = TL.stack_directions(one(), one()) if D == 2 else one()
+    lead = (2,) if D == 2 else ()
+    st = tuple(arr(0.5 * rng.normal(size=lead + (S, H))) for _ in range(2))
+    nv = torch.as_tensor([T if i % 2 == 0 else max(T - 7, 1)
+                          for i in range(S)], dtype=torch.int32)
+    return p, arr(rng.normal(size=(S, T, H))), st, nv
+
+
+@pytest.mark.parametrize("T,bound", [(1, SEP_FRAME), (60, SEP_WINDOW)])
+@pytest.mark.parametrize("D", [2, 1])
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_torch_port_tf32_mma_lstm_order_within_bound(H, D, T, bound):
+    """``lstm.cu``'s tensor-core frame at the TF32 plan of each dense
+    serving width (its k parts as the plan splits k over the warps),
+    behind the hoisted input projection at "tf32": nearer the plain
+    version at "tf32" than the bound, a fraction of the formats' gap; the
+    same order at "fp32" (the control) exceeds it."""
+    plan = LS.launch_plan(2, H, 132, D=D, tf32=True)
+    assert plan.mma == 1
+    args = _lstm_layer(H, T, D)
+    with torch.no_grad():
+        want = _outputs(LS.bi_lstm_reference(*args, fmt="tf32"))
+        gap = _rms(_outputs(LS.bi_lstm_reference(*args, fmt="fp32")), want)
+        got, control = ([t.reshape(w.shape) for t, w in zip(_lstm_emulated(
+            *LS.scan_inputs(*args, fmt), plan.KS, tf32=fmt == "tf32"), want)]
+            for fmt in ("tf32", "fp32"))
+    assert gap > 0.0
+    assert all(torch.isfinite(t).all() for t in got)
+    assert _rms(got, want) <= bound * gap, _rms(got, want) / gap
+    assert _rms(control, want) > bound * gap, _rms(control, want) / gap
+
+
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_torch_port_tf32_mma_lstm_split_covers_k(H):
+    """The TF32 plan's k parts split the 16-deep blocks evenly over the
+    warps' A fragments (4 or 16 blocks a warp: at most 128 registers), and
+    the warps of a part, one tile each, cover the CTA's gate columns."""
+    plan = LS.launch_plan(8, H, 132, tf32=True)
+    KS, NKB = LS.mma_split(H, plan.P)
+    M = 4 * H // plan.P
+    assert plan.KS == KS and KS * NKB == H // 16
+    assert NKB in (4, 16)
+    tiles = {w % (8 // KS) for w in range(8)}
+    assert tiles >= set(range(M // 16))

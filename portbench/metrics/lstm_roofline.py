@@ -1,0 +1,11 @@
+r"""``transpose.offline_seq`` (it moves ``frames_per_s.transpose``): share
+of its roofline that ``ops/csrc/lstm.cu`` reached: the least time
+of the dense LSTM scans that the window's inputs needed (``work.
+lstm_layer_work`` of each layer call) over the device time of the kernels
+named ``lstm_kernel``."""
+
+from portbench.metric_math import roofline_pct
+
+
+def read(m):
+    return roofline_pct(m, "lstm", r"\blstm_kernel")

@@ -18,10 +18,31 @@ every process-wide setting it changed when the command returns or raises:
     reused from, ``DIR`` (``$A3GC_TORCH_BUILD_DIR``, read by
     :func:`a3gc_tpu_torch.ops._build.build_dir` at each build).
 
-:func:`span` / :func:`spanned` name a step-level region
-``jit_<function>`` after the JAX function that the JAX package compiles
-with ``jax.jit`` there, as XLA names the computation in a JAX trace. A span
-is recorded only while a profiler runs; otherwise it costs a flag test.
+:func:`span` / :func:`spanned` name a region of a trace. Two families of
+names, both fixed (tests and the benchmark's readers look for them):
+
+  * step spans, ``jit_<function>``: a whole step, named after the JAX
+    function that the JAX package compiles with ``jax.jit`` there, as XLA
+    names the computation in a JAX trace (``jit__run`` in ``eval/run.py``,
+    ``jit__step`` / ``jit_fused_step`` / ``jit__raw`` in
+    ``eval/streaming.py``, ``jit_step`` / ``jit_eval_step`` in
+    ``train/loop.py``);
+  * layer spans, ``a3gc.<layer>``, inside a step: ``a3gc.prep`` (each
+    call of ``data/pipeline.py`` ``normalize_imu`` and
+    ``scatter_graph_inputs``), ``a3gc.cascade`` (``models/pipeline.py``
+    ``cascade_apply``), ``a3gc.stage1`` … ``a3gc.stage3`` (in it, each
+    stage's net with the concatenation that feeds it), ``a3gc.rnn``
+    (``models/nets.py``: each recurrent layer call, kernel or plain),
+    ``a3gc.ik`` (``reduced_global_to_full_local``) and ``a3gc.round``
+    (``ops/_common.py`` ``operand``: one operand rounded to TF32; the
+    per-frame steps round through ``step_operand`` and open none, so that
+    no span opens once a frame).
+
+A span is recorded only while a profiler runs, as a
+``torch.profiler.record_function`` on the profiler's clock, beside the
+card's activity. Off, it costs a flag test and a shared null context
+(≈ 0.5 µs; an offline sequence opens 36 layer spans in a TransPose
+cascade and 49 in an A3GC one at TF32); on, ≈ 10-15 µs of host time each.
 """
 
 from __future__ import annotations

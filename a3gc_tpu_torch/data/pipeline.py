@@ -12,6 +12,9 @@ Layout of a packed dataset (npz or dict of arrays):
   acc [N, T, 18]  ori [N, T, 54]  pose [N, T, 135]
   leaf_pos [N, T, 5, 3]  full_pos [N, T, 24, 3]
 
+:func:`normalize_imu` and :func:`scatter_graph_inputs` are each the
+profiler span ``a3gc.prep`` (:func:`a3gc_tpu_torch._runtime.span`).
+
 For mesh training, :func:`put_device_sharded` splits a corpus into one
 block of rows a device of the mesh, and :meth:`Sampler.iter_indices_sharded`
 draws each shard's batch rows from its own block.
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from a3gc_tpu_torch._device import index_tensor, random_rows
+from a3gc_tpu_torch._runtime import spanned
 from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.ops import rotations as R
 
@@ -38,6 +42,7 @@ GraphBatch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                    torch.Tensor, torch.Tensor]
 
 
+@spanned("a3gc.prep")
 def normalize_imu(ori: torch.Tensor, acc: torch.Tensor,
                   stats: Optional[Dict[str, torch.Tensor]]):
     r"""Per-channel (x − μ)/σ. ``stats`` holds tensors on the inputs'
@@ -49,6 +54,7 @@ def normalize_imu(ori: torch.Tensor, acc: torch.Tensor,
     return ori, acc
 
 
+@spanned("a3gc.prep")
 def scatter_graph_inputs(ori: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     r"""Scatter the 5 non-root sensors' (acc3 + ori9) onto the 15-node graph.
     ori [..., 54], acc [..., 18] → [..., 15, 12]; the other nodes are 0."""

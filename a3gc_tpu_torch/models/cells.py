@@ -31,7 +31,10 @@ run column-parallel over its blocks; on a plain tensor both are the plain
 operation. Every product takes an operand format ``fmt`` ("fp32" or
 "tf32", :func:`a3gc_tpu_torch.ops._common.operand_format`): at "tf32" its
 operands are rounded to TF32 where the JAX cell's products at
-``precision`` take them, and summed in fp32.
+``precision`` take them, and summed in fp32. The steps round without the
+profiler span ``a3gc.round`` (``step_operand``, ``TP.matmul(...,
+step=True)``), which would be one a frame; :func:`graph_conv`, once a
+call, rounds with it.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 from torch import nn
 
 from a3gc_tpu_torch._device import random_rows
-from a3gc_tpu_torch.ops._common import operand
+from a3gc_tpu_torch.ops._common import operand, step_operand
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = [
@@ -151,12 +154,14 @@ def _attention_gate(ap: AttentionParams, hy: torch.Tensor,
     q = ReLU(Σ_nodes hy·W);  a = σ(tanh(hy·Wh + q·Wq + bs)·u + bu)
 
     hy [D, B, N, H] → [D, B, N, 1]."""
-    q = torch.relu(torch.sum(TP.matmul(hy, ap.w, stacked=True, fmt=fmt),
+    q = torch.relu(torch.sum(TP.matmul(hy, ap.w, stacked=True, fmt=fmt,
+                                       step=True),
                              dim=2, keepdim=True))                # [D,B,1,H]
-    s = torch.tanh(TP.matmul(hy, ap.wh, stacked=True, fmt=fmt)
-                   + TP.matmul(q, ap.wq, stacked=True, fmt=fmt)
+    s = torch.tanh(TP.matmul(hy, ap.wh, stacked=True, fmt=fmt, step=True)
+                   + TP.matmul(q, ap.wq, stacked=True, fmt=fmt, step=True)
                    + TP.full(ap.bs)[:, None, None, :])            # [D,B,N,H]
-    a = torch.matmul(operand(s, fmt), operand(ap.u, fmt)[:, None])[..., 0] \
+    a = torch.matmul(step_operand(s, fmt),
+                     step_operand(ap.u, fmt)[:, None])[..., 0] \
         + ap.bu[:, None, :]
     return torch.sigmoid(a)[..., None]
 
@@ -174,8 +179,8 @@ def gcn_lstm_gates(p: GCNLSTMCellParams, z: torch.Tensor,
     bias = TP.full(p.bias)
     H = bias.shape[-1]
     y = z.reshape(D, B, N, 4, H)
-    mixed = torch.einsum("dknm,dbmkh->dbnkh", operand(p.adj, fmt),
-                         operand(y, fmt))
+    mixed = torch.einsum("dknm,dbmkh->dbnkh", step_operand(p.adj, fmt),
+                         step_operand(y, fmt))
     gates = mixed + bias[:, None, None]                            # [D,B,N,4,H]
     i = torch.sigmoid(gates[..., 0, :])
     f = torch.sigmoid(gates[..., 1, :])
@@ -195,8 +200,8 @@ def gcn_lstm_step_hoisted(p: GCNLSTMCellParams, u_t: torch.Tensor, state, *,
     4H]. Returns the new state; the layer's output is tanh of the carried
     h."""
     h, c = state
-    z = u_t + torch.matmul(operand(h, fmt),
-                           operand(hidden_kernel, fmt)[:, None])
+    z = u_t + torch.matmul(step_operand(h, fmt),
+                           step_operand(hidden_kernel, fmt)[:, None])
     return gcn_lstm_gates(p, z, (h, c), fmt)
 
 
@@ -212,7 +217,7 @@ def gcn_lstm_step(p: GCNLSTMCellParams, x: torch.Tensor, state,
     x = _dropout(x, dropout_rate, x_mask)
     h_in = _dropout(h, recurrent_dropout_rate, h_mask)
     z = TP.matmul(torch.cat((x, h_in), dim=-1), p.kernel, stacked=True,
-                  fmt=fmt)
+                  fmt=fmt, step=True)
     return gcn_lstm_gates(p, z, (h, c), fmt)
 
 
@@ -221,7 +226,7 @@ def ggru_step(p: GGRUCellParams, x: torch.Tensor, state,
     r"""One frame of the G-GRU cell, direction-stacked, the input
     projection inside: zi = x·W_in + b_in, then :func:`ggru_step_hoisted`.
     x [D, B, N, F], state ``(h,)``. Returns ``(h',)``."""
-    zi = TP.matmul(x, p.w_in, stacked=True, fmt=fmt) \
+    zi = TP.matmul(x, p.w_in, stacked=True, fmt=fmt, step=True) \
         + TP.full(p.b_in)[:, None, None]
     return ggru_step_hoisted(p, zi, state, fmt)
 
@@ -235,10 +240,10 @@ def ggru_step_hoisted(p: GGRUCellParams, zi: torch.Tensor,
     Returns the new state ``(h',)``; the layer's output is h'."""
     (h,) = state
     H = h.shape[-1]
-    msg = TP.matmul(h, p.gcn_kernel, stacked=True, fmt=fmt)
-    msg = torch.einsum("dnm,dbmh->dbnh", operand(p.adj, fmt),
-                       operand(msg, fmt))
-    zh = TP.matmul(msg, p.w_hid, stacked=True, fmt=fmt)
+    msg = TP.matmul(h, p.gcn_kernel, stacked=True, fmt=fmt, step=True)
+    msg = torch.einsum("dnm,dbmh->dbnh", step_operand(p.adj, fmt),
+                       step_operand(msg, fmt))
+    zh = TP.matmul(msg, p.w_hid, stacked=True, fmt=fmt, step=True)
     r = torch.sigmoid(zi[..., 0:H] + zh[..., 0:H])
     u = torch.sigmoid(zi[..., H:2 * H] + zh[..., H:2 * H])
     cand = torch.tanh(zi[..., 2 * H:] + r * zh[..., 2 * H:])

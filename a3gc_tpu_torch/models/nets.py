@@ -27,6 +27,9 @@ The DIP net drops its input and runs the plain hoisted scan.
 operand format of every product of a net (:func:`a3gc_tpu_torch.ops.
 _common.operand_format`): fp32 at "highest"; at "default" TF32 operands
 on a card, as XLA's ``Precision.DEFAULT`` there, and fp32 on the CPU.
+
+Each recurrent layer call, kernel or plain, is the profiler span
+``a3gc.rnn`` (:func:`a3gc_tpu_torch._runtime.span`).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from a3gc_tpu_torch._device import check_module_device, resolve_device
+from a3gc_tpu_torch._runtime import span
 from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops import gcn_lstm as G
@@ -304,14 +308,16 @@ def graph_net_apply(params: GraphNetParams, cfg: GraphNetConfig, x,
                                 rng=drop_rng, fmt=fmt))
     if rng is None:
         layer = _rnn_layer(cfg, x, fmt)
-        x, state = layer(params.rnn1, x, state, n_valid)
-        x, state = layer(params.rnn2, x, state, n_valid)
+        for params2 in (params.rnn1, params.rnn2):
+            with span("a3gc.rnn"):
+                x, state = layer(params2, x, state, n_valid)
     else:
         mask = (None if n_valid is None else
                 torch.arange(x.shape[1], device=dev)[None] < n_valid[:, None])
         for params2 in (params.rnn1, params.rnn2):
-            x, state = _layer_in_scan(cfg, params2, x, state, mask, drop_rng,
-                                      fmt)
+            with span("a3gc.rnn"):
+                x, state = _layer_in_scan(cfg, params2, x, state, mask,
+                                          drop_rng, fmt)
     return C.graph_conv(params.linear_out, x, fmt=fmt), state
 
 
@@ -437,7 +443,8 @@ def dip_apply(params: DIPParams, cfg: DIPConfig, x, state=None,
                    + TP.full(params.linear1.bias))
     new_states = []
     for layer_params, layer_state in zip(params.lstm, state):
-        x, fin = layer(layer_params, x, layer_state, n_valid)
+        with span("a3gc.rnn"):
+            x, fin = layer(layer_params, x, layer_state, n_valid)
         new_states.append(fin)
     y = TP.matmul(x, params.linear2.kernel, fmt=fmt) \
         + TP.full(params.linear2.bias)

@@ -15,6 +15,7 @@ import torch
 
 from a3gc_tpu_torch._device import (check_module_device, index_tensor,
                                     resolve_device)
+from a3gc_tpu_torch._runtime import span, spanned
 from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.models import nets as N
 from a3gc_tpu_torch.ops import rotations as R
@@ -74,10 +75,12 @@ def pose_net_forward(params, cfg: PoseNetConfig, imu: torch.Tensor,
                  device=imu.device, rng=rng)
 
 
+@spanned("a3gc.ik")
 def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,
                                  rotsize: int = 9) -> torch.Tensor:
     r"""Scatter 15 predicted global rotations into the 24-joint skeleton,
-    run IK, and identity-fill the ignored joints.
+    run IK, and identity-fill the ignored joints: the profiler span
+    ``a3gc.ik``.
 
     :param glb_reduced: [F, 15, 3, 3] rotation matrices (rotsize 9) or
         [F, 15, 6] 6D rotations (rotsize 6).
@@ -150,12 +153,15 @@ def _stage_out(out: torch.Tensor, rotsize: int) -> torch.Tensor:
 
 
 @torch.no_grad()
+@spanned("a3gc.cascade")
 def cascade_apply(params3: Tuple, cfg: CascadeConfig, model, imu,
                   frame_mask=None, *, device="cuda") -> torch.Tensor:
     r"""Full cascade at inference → full local pose [B·T, 24, 3, 3].
     Graph variant: imu [B, T, 15, 12], stage outputs concatenated onto the
     node features. Flat variant (TransPose): imu [B, T, 72], stage outputs
-    concatenated onto the flat features."""
+    concatenated onto the flat features. The call is the profiler span
+    ``a3gc.cascade``; each stage, with the concatenation that feeds it,
+    ``a3gc.stage1`` … ``a3gc.stage3``; IK ``a3gc.ik``."""
     dev = resolve_device(device)
     for p in params3:
         check_module_device(p, dev)
@@ -166,11 +172,14 @@ def cascade_apply(params3: Tuple, cfg: CascadeConfig, model, imu,
     p1, p2, p3 = params3
     B, T = imu.shape[0], imu.shape[1]
 
-    leaf, _ = pose_net_forward(p1, cfg.stage1, imu, frame_mask=frame_mask)
-    x2 = torch.cat((imu, _node_features(cfg, leaf, B, T)), dim=-1)
-    full, _ = pose_net_forward(p2, cfg.stage2, x2, frame_mask=frame_mask)
-    x3 = torch.cat((imu, _node_features(cfg, full, B, T)), dim=-1)
-    out, _ = pose_net_forward(p3, cfg.stage3, x3, frame_mask=frame_mask)
+    with span("a3gc.stage1"):
+        leaf, _ = pose_net_forward(p1, cfg.stage1, imu, frame_mask=frame_mask)
+    with span("a3gc.stage2"):
+        x2 = torch.cat((imu, _node_features(cfg, leaf, B, T)), dim=-1)
+        full, _ = pose_net_forward(p2, cfg.stage2, x2, frame_mask=frame_mask)
+    with span("a3gc.stage3"):
+        x3 = torch.cat((imu, _node_features(cfg, full, B, T)), dim=-1)
+        out, _ = pose_net_forward(p3, cfg.stage3, x3, frame_mask=frame_mask)
     rotsize = cfg.stage3.rotsize
     return reduced_global_to_full_local(_stage_out(out, rotsize), model,
                                         rotsize=rotsize)

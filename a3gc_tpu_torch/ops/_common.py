@@ -30,12 +30,14 @@ import functools
 
 import torch
 
+from a3gc_tpu_torch._runtime import span
+
 __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
            "PRECISIONS", "FORMATS", "check_precision", "operand_format",
-           "round_tf32", "operand", "like", "n_valid_tensor",
-           "check_f32", "check_n_valid", "check_aligned", "k_slices",
-           "mma_row_stride", "sm_count", "device_index", "kernel_library",
-           "launch"]
+           "round_tf32", "operand", "step_operand", "like",
+           "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
+           "k_slices", "mma_row_stride", "sm_count", "device_index",
+           "kernel_library", "launch"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
 SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
@@ -119,7 +121,17 @@ def operand(t: torch.Tensor, fmt: str) -> torch.Tensor:
     straight-through gradient (the rounding's own derivative is zero
     almost everywhere; JAX differentiates a DEFAULT product through
     DEFAULT products, the port through fp32 ones). A bf16 or fp16 ``t`` is
-    a TF32 value already."""
+    a TF32 value already. The rounding is the span ``a3gc.round``; a
+    per-frame step takes :func:`step_operand`, which opens none."""
+    if fmt == "fp32" or t.dtype != torch.float32:
+        return t
+    with span("a3gc.round"):
+        return step_operand(t, fmt)
+
+
+def step_operand(t: torch.Tensor, fmt: str) -> torch.Tensor:
+    r""":func:`operand` without its span, for the products of a per-frame
+    step: a span there would be one a frame."""
     if fmt == "fp32" or t.dtype != torch.float32:
         return t
     if fmt != "tf32":

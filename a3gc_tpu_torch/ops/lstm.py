@@ -282,7 +282,7 @@ def lstm_step_hoisted(p: nn.Module, u_t: torch.Tensor, state,
     (h', c')."""
     h, c = state
     H = h.shape[-1]
-    z = u_t + TP.matmul(h, p.w_hh, fmt=fmt)
+    z = u_t + TP.matmul(h, p.w_hh, fmt=fmt, step=True)
     i = torch.sigmoid(z[..., 0:H])
     f = torch.sigmoid(z[..., H:2 * H])
     g = torch.tanh(z[..., 2 * H:3 * H])

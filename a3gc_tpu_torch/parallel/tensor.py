@@ -39,7 +39,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from a3gc_tpu_torch.ops._common import operand
+from a3gc_tpu_torch.ops._common import operand, step_operand
 
 __all__ = ["Columns", "matmul", "full", "blockwise", "column_view",
            "gather_module", "map_parameters"]
@@ -86,20 +86,24 @@ def blockwise(w, fn: Callable[[torch.Tensor], torch.Tensor]):
 
 
 def matmul(x: torch.Tensor, w, stacked: bool = False,
-           fmt: str = "fp32") -> torch.Tensor:
+           fmt: str = "fp32", step: bool = False) -> torch.Tensor:
     r"""``x @ w`` (``torch.matmul``) on operands in format ``fmt``
     (:func:`~a3gc_tpu_torch.ops._common.operand`: at "tf32" both rounded
-    to TF32, summed in fp32); ``stacked``: ``w`` carries a leading
-    direction axis that x has before its batch axes (``x @ w[:, None]``).
+    to TF32, summed in fp32; ``step``: a product of a per-frame step,
+    rounded by ``step_operand``, with no span); ``stacked``: ``w`` carries
+    a leading direction axis that x has before its batch axes
+    (``x @ w[:, None]``).
     For a :class:`Columns`, the column-parallel product: member j's block
     on its device, the outputs concatenated on x's device; across
     processes, ``g(f(x) @ W_own)``. Rounding is elementwise, so a block
     rounds as its columns of the whole do."""
+    rounded = step_operand if step else operand
+
     def right(t):
-        t = operand(t, fmt)
+        t = rounded(t, fmt)
         return t[:, None] if stacked else t
 
-    x = operand(x, fmt)
+    x = rounded(x, fmt)
     if not isinstance(w, Columns):
         return torch.matmul(x, right(w))
     if w.group is not None:

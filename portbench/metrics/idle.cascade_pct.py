@@ -1,0 +1,10 @@
+r"""``a3gc_tp.offline_seq`` (it moves ``frames_per_s``): share of the
+traced window in which the device was idle with ``a3gc.cascade`` or an
+``a3gc.stageN`` (``models/pipeline.py``) innermost, their children apart on
+the host (``span_math``)."""
+
+from portbench.span_math import idle_pct
+
+
+def read(m):
+    return idle_pct(m, "cascade")

@@ -1,0 +1,9 @@
+r"""``a3gc_tp.offline_seq`` (it moves ``frames_per_s``): share of the
+traced window in which the device was idle with ``a3gc.prep``
+(``data/pipeline.py``) innermost on the host (``span_math``)."""
+
+from portbench.span_math import idle_pct
+
+
+def read(m):
+    return idle_pct(m, "prep")

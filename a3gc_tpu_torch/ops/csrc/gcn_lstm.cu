@@ -102,7 +102,12 @@
 //
 // The launch plan (C, k-slices, shared-memory bytes) comes from the Python
 // wrapper (ops/gcn_lstm.py launch_plan); the C side recomputes the shared
-// memory and refuses a plan that disagrees.
+// memory and refuses a plan that disagrees. Clusters are portable (C ≤ 8)
+// except on the tensor-core path, which may take C = 16 (non-portable,
+// opted into at launch): one stream's grid of 2 clusters leaves most SMs
+// idle, so the plan at S = 1 spreads a (stream, direction) over twice the
+// CTAs where mma_ok still holds, halving each CTA's products and W_h slice
+// (the sums run over more k parts and peers, in a fixed order).
 //
 // Layouts (all contiguous fp32 unless noted):
 //   u [2, S, T, N, 4H]   W_h [2, H, 4H]   adj [2, 4, N, N]   bias [2, 4, H]
@@ -128,7 +133,8 @@ using namespace scan;
 constexpr int kNodes = 16;       // node rows padded to 16; rows >= N stay zero
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 8;       // portable cluster size
+constexpr int kMaxClusterWide = 16;  // non-portable: tensor-core plans only
 constexpr int kMaxKw = 32;       // attention W weights per thread (registers):
                                  // 1 column × H / KSQ rows
 constexpr int kMaxKca = 32;      // attention Wh weights per thread
@@ -839,7 +845,9 @@ bool mma_ok(int H, int Hc, bool attention) {
 
 bool plan_ok(int N, int H, int attention, const Plan& pl, bool tf32) {
   if (N <= 0 || N > kNodes || H <= 0 || H % 4 != 0) return false;
-  if (pl.C <= 0 || pl.C > kMaxCluster || H % pl.C != 0) return false;
+  if (pl.C <= 0 || pl.C > (pl.mma ? kMaxClusterWide : kMaxCluster) ||
+      H % pl.C != 0)
+    return false;
   const int Hc = H / pl.C, M = 4 * Hc;
   if (Hc % 4 != 0 || M > kThreads || pl.threads != kThreads) return false;
   if (!pow2_upto32(pl.KS) || H % (4 * pl.KS) != 0 ||
@@ -881,6 +889,9 @@ int launch(const Args* a, const Plan& pl, int S, cudaStream_t stream) {
   auto kern = gcn_lstm_kernel<ATT, TF32, MMA>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (err == cudaSuccess && pl.C > kMaxCluster)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return a ? (int)err : -(int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(pl, S, stream, attr);

@@ -66,6 +66,8 @@ __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
 MAX_KCA = 32         # W 1 column × H / KSQ rows, of Wh 2 columns × H / KSA
+MAX_CLUSTER_WIDE = 16   # a non-portable cluster (kMaxClusterWide in C):
+                        # the tensor-core plans only
 
 
 class LaunchPlan(NamedTuple):
@@ -129,7 +131,8 @@ def smem_bytes(N: int, H: int, C: int, KSQ: int, attention: bool,
 
 
 def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
-                tf32: bool = False, mma: Optional[bool] = None) -> LaunchPlan:
+                tf32: bool = False, mma: Optional[bool] = None,
+                S: Optional[int] = None) -> LaunchPlan:
     r"""The cluster for a layer of N ≤ 16 nodes at hidden width H: the
     smallest C ≤ 4 whose CTAs own at most 64 gate columns each, else the
     smallest C ≤ 8 with at most 128 (wider only where no C gives that),
@@ -145,16 +148,38 @@ def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
     The TF32 instantiation (``tf32``) takes the same split, on the tensor
     cores where :func:`mma_ok` and its shared memory allow (``mma`` forces
     the choice: False keeps the FMA loops, for measuring one against the
-    other)."""
+    other). At one stream (``S`` = 1: two clusters, most of the card's SMs
+    idle) a tensor-core plan spreads each (stream, direction) over twice
+    the CTAs where the doubled split keeps a tensor-core plan: C = 16 at H
+    = 256 (a non-portable cluster, :data:`MAX_CLUSTER_WIDE`), 8 at 128; H
+    = 64 keeps 4 (its doubled split has 32 gate columns a CTA, no
+    tensor-core plan). ``S`` None or ≥ 2 keeps the split above."""
     if N <= 0 or N > NODES or H <= 0 or H % 4:
         raise ValueError(f"gcn_lstm: needs N <= {NODES} and H % 4 == 0, got "
                          f"N={N}, H={H}")
-    passes = (((THREADS, MAX_CLUSTER),) if C is not None
+    if S is not None and S <= 0:
+        raise ValueError(f"gcn_lstm: needs S >= 1, got S={S}")
+    plan = _split_plan(N, H, attention, C, tf32, mma)
+    if C is None and S == 1 and plan.mma:
+        try:
+            return _split_plan(N, H, attention, 2 * plan.C, tf32, True)
+        except ValueError:          # no tensor-core plan at the wider split
+            pass
+    return plan
+
+
+def _split_plan(N: int, H: int, attention: bool, C: Optional[int],
+                tf32: bool, mma: Optional[bool]) -> LaunchPlan:
+    r""":func:`launch_plan` without the one-stream widening. A cluster
+    past :data:`MAX_CLUSTER` only on the tensor cores."""
+    passes = (((THREADS, MAX_CLUSTER_WIDE),) if C is not None
               else ((64, 4), (128, MAX_CLUSTER), (THREADS, MAX_CLUSTER)))
     for widest, most in passes:
         for c in ([C] if C is not None else range(1, most + 1)):
+            if c <= 0 or c > MAX_CLUSTER_WIDE or H % c:
+                continue
             Hc = H // c
-            if c > MAX_CLUSTER or H % c or Hc % 4 or 4 * Hc > widest:
+            if Hc % 4 or 4 * Hc > widest:
                 continue
             ksa, ksq = k_slices(Hc // 2, H), k_slices(Hc, H)
             smem = smem_bytes(N, H, c, ksq, attention)
@@ -169,6 +194,8 @@ def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
                                  f"cores for N={N}, H={H}, C={c}, "
                                  f"tf32={tf32}")
             use = fits if mma is None else bool(mma)
+            if c > MAX_CLUSTER and not use:
+                continue            # a non-portable cluster: mma only
             if use:
                 smem = smem_mma
             return LaunchPlan(c, k_slices(Hc, H), ksa, ksq, THREADS, smem,
@@ -183,8 +210,9 @@ def plan_refusal(N: int, H: int, attention: bool,
                  tf32: bool = False) -> Optional[str]:
     r"""Whether the kernel has a launch plan for a layer call: None where
     it has, else :func:`launch_plan`'s refusal, asked with the arguments
-    :func:`scan` gives it (so the two cannot disagree). Cached by that
-    key: a dispatch pays one lookup."""
+    :func:`scan` gives it but S (so the two cannot disagree: the one-stream
+    widening keeps the plan it cannot widen, it never refuses). Cached by
+    that key: a dispatch pays one lookup."""
     try:
         launch_plan(N, H, attention, tf32=tf32)
     except ValueError as e:
@@ -312,7 +340,7 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     check_n_valid("gcn_lstm", dev, n_valid, S)
     check_aligned("gcn_lstm", u, wh, *(attention[1:2] if attention else ()))
     if plan is None:
-        plan = launch_plan(N, H, attention is not None, tf32=tf32)
+        plan = launch_plan(N, H, attention is not None, tf32=tf32, S=S)
     lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)
@@ -325,6 +353,8 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
            *_plan_ints(plan), int(tf32))
     bi_gcn_lstm.launches += 1
     bi_gcn_lstm.tf32_launches += int(tf32)
+    by_c = bi_gcn_lstm.launches_by_cluster
+    by_c[plan.C] = by_c.get(plan.C, 0) + 1
     return y, h_out, c_out
 
 
@@ -371,6 +401,7 @@ def scan_inputs(params2: C.GCNLSTMCellParams, x: torch.Tensor, state2,
 
 bi_gcn_lstm.launches = 0    # kernel launches since the last reset to 0
 bi_gcn_lstm.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_gcn_lstm.launches_by_cluster = {}    # of them, by the plan's C
 bi_gcn_lstm.plain_dispatches = 0    # layer calls on a card that
                                     # backend="auto" gave the plain version
                                     # (no plan for their shape)

@@ -1455,7 +1455,7 @@ class Smoke:
                 row.update(scan_ms_tf32_fma=ms["tf32_fma"],
                            tf32_fma_over_fp32=ms["tf32_fma"] / ms["fp32"])
             row["plan_tf32"] = (G.launch_plan(N_NODES, H, cell == "a3gc",
-                                              tf32=True)
+                                              tf32=True, S=S)
                                 if name == "gcn_lstm" else
                                 GG.launch_plan(S, N_NODES, H, tf32=True)
                                 if name == "ggru" else
@@ -4870,7 +4870,7 @@ class Smoke:
                    "max_active": LS.max_active(plan, S, H, tf32)}
         elif name == "gcn_lstm":
             from a3gc_tpu_torch.ops import gcn_lstm as G
-            plan = G.launch_plan(N_NODES, H, True, tf32=tf32)
+            plan = G.launch_plan(N_NODES, H, True, tf32=tf32, S=S)
             rec = {"C": plan.C, "KS": plan.KS, "KSA": plan.KSA,
                    "KSQ": plan.KSQ, "mma": plan.mma, "groups": 2 * S,
                    "max_active": G.max_active(plan, S, N_NODES, H, True,

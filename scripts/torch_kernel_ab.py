@@ -31,7 +31,8 @@ their groups the card holds at once), then one summary line per kernel
 Imports nothing of JAX or of the JAX package. Exits non-zero without a card
 or if the two designs disagree by more than 1e-5.
 
-``--tf32`` instead times the TF32 plans of ``lstm`` against each other, in
+``--tf32`` instead times the TF32 plans of each kernel of ``--kernels``
+that has several (``lstm``, ``gcn_lstm``) against each other. ``lstm``, in
 turns: the FMA form at the fp32 plan's P (``mma`` = 0), the tensor-core
 form (``mma`` = 1) at each candidate P of the dense serving widths
 (TF32_CANDIDATES), the default TF32 plan and the fp32 kernel, at H = 256 /
@@ -47,8 +48,19 @@ ratio to the gap between the plain scan's formats, registers and local
 memory. Exits non-zero if a plan is off the plain
 version by more than 8.05e-3 (chip_smoke.py PREC_KERNEL_TOL).
 
-    python3 scripts/torch_kernel_ab.py --tf32 [--shapes serving|all]
-                                       [--reps N] [--out FILE]
+``gcn_lstm``, in turns: the tensor-core form at each cluster size C that
+its plan allows at the A3GC stage widths (GCN_CANDIDATES: H = 256 / 64 /
+128), one stream (S = 1, where the grid leaves most SMs idle), T = 60 and
+2048, the a3gc and the aagc cell; per C its ms, device ms, max|d| and rms
+ratio as for ``lstm``, and how many of its clusters the card holds at once;
+the plan ``launch_plan`` chooses at S = 1 is marked ``default``, and the
+layer call at that plan (``wrapper_ms``: the hoisted input projection
+too) and the plain scan at "tf32" (``plain_ms``, one call) are timed. Exits
+non-zero if a plan is off the plain version by more than 8.05e-3.
+
+    python3 scripts/torch_kernel_ab.py --tf32 [--kernels lstm,gcn_lstm]
+                                       [--shapes serving|all] [--reps N]
+                                       [--out FILE]
 """
 
 import argparse
@@ -63,6 +75,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 # the P to time the tensor-core form at, per dense serving width
 TF32_CANDIDATES = {64: (2, 4, 8), 128: (8, 16), 256: (8, 16), 512: (32,)}
+# the cluster sizes to time gcn_lstm's tensor-core form at (those with a
+# tensor-core plan: 64 or 128 gate columns a CTA)
+GCN_CANDIDATES = {64: (2, 4), 128: (4, 8), 256: (8, 16)}
 
 
 def build_old(src_dir, name):
@@ -142,8 +157,9 @@ def device_ms(torch, fn, reps, warmup=2):
 
 
 def tf32_ab(args):
-    """``--tf32``: the lstm TF32 plans against each other (see the module
-    docstring); returns the exit code."""
+    """``--tf32`` for ``lstm``: its TF32 plans against each other (see the
+    module docstring); returns (JSON lines, whether every plan is within
+    PREC_KERNEL_TOL)."""
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
@@ -164,12 +180,6 @@ def tf32_ab(args):
         shapes += [(H, S, 2, T, False) for S, T in CS.EVAL_TIMED_SHAPES
                    for H in widths]
     lines, ok = [], True
-
-    def rms(a, b):
-        num = sum(float((x.double() - y.double()).square().sum())
-                  for x, y in zip(a, b))
-        return (num / sum(x.numel() for x in a)) ** 0.5
-
     for H, S, D, T, candidates in shapes:
         p = smoke.lstm_layer(gen, H, H, D=D)
         x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S,
@@ -227,6 +237,14 @@ def tf32_ab(args):
                 line["cudnn_tf32_device_ms"] = device_ms(torch, cudnn, reps)
         lines.append(line)
         print(json.dumps(line), flush=True)
+    return lines, ok
+
+
+def write_lines(args, lines):
+    """Print the card's name and power limit; with ``--out``, write the
+    JSON lines and the card there."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
     card = CS.nvidia_smi()
     print(card)
     if args.out:
@@ -234,7 +252,77 @@ def tf32_ab(args):
             for line in lines:
                 f.write(json.dumps(line) + "\n")
             f.write(json.dumps({"card": card}) + "\n")
-    return 0 if ok else 1
+
+
+def rms(a, b):
+    """Root mean square of a - b over lists of tensors, in float64."""
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in zip(a, b))
+    return (num / sum(x.numel() for x in a)) ** 0.5
+
+
+def gcn_tf32_ab(args):
+    """``--tf32`` for ``gcn_lstm``: its tensor-core plans at each cluster
+    size against each other at S = 1 (see the module docstring); returns
+    (JSON lines, whether every plan is within PREC_KERNEL_TOL)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops._build import load_library
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = CS.Smoke()
+    load_library("gcn_lstm")
+    gen = torch.Generator().manual_seed(21)
+    S, N = 1, CS.N_NODES
+    lines, ok = [], True
+    for cell in ("a3gc", "aagc"):
+        att = cell == "a3gc"
+        for T in (CS.WINDOW, CS.PREC_T):
+            for H, _, _, _ in CS.STAGES:
+                p = smoke.cell(gen, cell, H, H)
+                x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S)
+                plans = {f"C{c}": G.launch_plan(N, H, att, C=c, tf32=True,
+                                                mma=True)
+                         for c in GCN_CANDIDATES[H]}
+                default = G.launch_plan(N, H, att, tf32=True, S=S)
+                with torch.no_grad():
+                    sargs = G.scan_inputs(p, x, st, nv, "tf32")
+                    want = G.scan_reference(*sargs, tf32=True)
+                    gap = rms(G.scan_reference(*sargs, tf32=False), want)
+                    got = {k: G.scan(*sargs, plan=pl, tf32=True)
+                           for k, pl in plans.items()}
+                    torch.cuda.synchronize()
+                    calls = {k: (lambda pl=pl: G.scan(*sargs, plan=pl,
+                                                      tf32=True))
+                             for k, pl in plans.items()}
+                    reps = args.reps if T <= 2 * CS.WINDOW else 4
+                    times = dict.fromkeys(calls, 0.0)
+                    busy = dict.fromkeys(calls, 0.0)
+                    for k in (list(calls) + list(reversed(calls))) * 2:
+                        times[k] += CS.cuda_ms(calls[k], reps) / 4
+                        busy[k] += device_ms(torch, calls[k], reps) / 4
+                    wrapper = lambda: G.bi_gcn_lstm(p, x, st, nv, "tf32")
+                    line = {"kernel": "gcn_lstm", "cell": cell, "H": H,
+                            "S": S, "T": T, "default": f"C{default.C}",
+                            "ms": times, "device_ms": busy,
+                            "wrapper_ms": CS.cuda_ms(wrapper, reps),
+                            "plain_ms": CS.cuda_ms(lambda: G.scan_reference(
+                                *sargs, tf32=True), 1, warmup=0),
+                            "rms_gap": gap, "plans": {}}
+                for k, pl in plans.items():
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got[k], want))
+                    fine = all(bool(torch.isfinite(t).all()) for t in got[k])
+                    ok &= fine and err <= CS.PREC_KERNEL_TOL
+                    line["plans"][k] = {
+                        "plan": pl._asdict(), "max_abs_err": err,
+                        "rms_ratio": rms(got[k], want) / gap, "finite": fine,
+                        "max_active": G.max_active(pl, S, N, H, att,
+                                                   tf32=True)}
+                lines.append(line)
+                print(json.dumps(line), flush=True)
+    return lines, ok
 
 
 def main():
@@ -243,7 +331,8 @@ def main():
                     help="directory with the earlier <kernel>.cu of every "
                     "kernel asked for")
     ap.add_argument("--tf32", action="store_true",
-                    help="time lstm's TF32 plans against each other")
+                    help="time the TF32 plans of lstm and gcn_lstm "
+                    "(those of --kernels) against each other")
     ap.add_argument("--shapes", choices=("serving", "all"), default="all",
                     help="with --tf32: the serving shapes only, or also "
                     "T = 120 and the evaluation lengths")
@@ -262,7 +351,14 @@ def main():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.tf32:
-        return tf32_ab(args)
+        lines, ok = [], True
+        for name, run in (("lstm", tf32_ab), ("gcn_lstm", gcn_tf32_ab)):
+            if name in names:
+                got, fine = run(args)
+                lines += got
+                ok &= fine
+        write_lines(args, lines)
+        return 0 if ok else 1
     sys.path.insert(0, ROOT)
     import chip_smoke as CS
     from a3gc_tpu_torch.ops import gcn_lstm as G
@@ -360,13 +456,7 @@ def main():
         summary["new_over_old"] = summary["new_ms"] / summary["old_ms"]
         lines.append(summary)
         print(json.dumps(summary), flush=True)
-    card = CS.nvidia_smi()
-    print(card)
-    if args.out:
-        with open(args.out, "w") as f:
-            for line in lines:
-                f.write(json.dumps(line) + "\n")
-            f.write(json.dumps({"card": card}) + "\n")
+    write_lines(args, lines)
     return 0 if ok else 1
 
 

@@ -158,7 +158,7 @@ def main():
             plan = None
             if args.tf32 and name == "gcn_lstm":
                 plan = G.launch_plan(CS.N_NODES, H, cell == "a3gc",
-                                     tf32=True, mma=not args.fma)
+                                     tf32=True, mma=not args.fma, S=S)
             elif args.tf32 and name == "ggru":
                 plan = GG.launch_plan(S, CS.N_NODES, H, tf32=True,
                                       mma=0 if args.fma else None)

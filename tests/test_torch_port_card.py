@@ -1249,6 +1249,7 @@ def _outputs(out):
     ("gcn_lstm", H, S, 2, "a3gc", 60) for H in (64, 128, 256)
     for S in (1, 8, 12)
 ] + [("gcn_lstm", H, 8, 2, "aagc", 60) for H in (64, 128, 256)]
+  + [("gcn_lstm", H, 1, 2, "aagc", 60) for H in (128, 256)]
   + [("gcn_lstm", 64, 16, 2, "a3gc", 1024)]
   + [("ggru", H, S, 2, "ggru", 60) for H in (64, 128, 256) for S in (1, 8)]
   + [("lstm", H, 8, D, "lstm", 60) for H in (64, 256, 512) for D in (2, 1)])
@@ -1285,6 +1286,50 @@ def test_torch_port_tf32_kernel_matches_plain_on_card(name, H, S, D, cell,
                                        start[..., 4, :, :] if name != "lstm"
                                        else start[..., 4, :],
                                        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n_valid", [(1, 1), (60, 37), (60, 60)])
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("cell", ["a3gc", "aagc"])
+def test_torch_port_gcn_lstm_wide_plan_matches_plain_on_card(cell, H, T,
+                                                             n_valid):
+    """One stream's TF32 plan spreads each direction over twice the CTAs
+    of the portable plan (C = 8 at H = 128, a non-portable 16 at 256): the
+    card holds both clusters at once, the layer call launches that plan
+    (``launches_by_cluster``), and on a frame and on a window, whole or
+    ragged, it is within PREC_KERNEL_TOL of the plain version at "tf32" and
+    nearer it than the plain version at "fp32" is (the rms ratio of
+    compare_formats), as is the portable plan on the same inputs."""
+    _need_card()
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    att = cell == "a3gc"
+    wide = G.launch_plan(15, H, att, tf32=True, S=1)
+    portable = G.launch_plan(15, H, att, tf32=True)
+    assert (wide.C, wide.mma) == (2 * portable.C, 1)
+    assert G.max_active(wide, 1, 15, H, att, tf32=True) >= 2
+    kernel, plain, args = _tf32_case("gcn_lstm", H, 1, T=T, cell=cell)
+    args = args[:3] + (torch.tensor([n_valid], device="cuda"),)
+    bound = PREC_SEP_FRAME if T == 1 else PREC_SEP_WINDOW
+    kernel.launches_by_cluster = {}
+    with torch.no_grad():
+        got = _outputs(kernel(*args, "tf32"))
+        assert kernel.launches_by_cluster == {wide.C: 1}
+        want = _outputs(plain(*args, "tf32"))
+        gap = _rms(_outputs(plain(*args, "fp32")), want)
+        sargs = G.scan_inputs(*args, "tf32")
+        old = list(G.scan(*sargs, plan=portable, tf32=True))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= PREC_KERNEL_TOL
+    assert _rms(got, want) <= bound * gap
+    assert _rms(old, want) <= bound * gap
+    if n_valid < T:          # frames past n_valid: y = tanh(the final h)
+        torch.testing.assert_close(got[0][0, n_valid:, :, :H],
+                                   torch.tanh(got[1][0, 0]).expand(
+                                       T - n_valid, -1, -1),
+                                   rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda

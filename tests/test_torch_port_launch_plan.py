@@ -3,7 +3,8 @@
 checked on the
 CPU for every layer shape of the serving and offline paths and the small
 widths of the card tests: the hidden split is even, shared memory fits a
-CTA, clusters are portable, the thread mappings fit the block, and
+CTA, clusters are portable (but for ``gcn_lstm``'s one-stream tensor-core
+plan at H = 256), the thread mappings fit the block, and
 ``scan_inputs`` still produces the layouts the kernels read. The kernels
 themselves run only on the card (``tests/test_torch_port_card.py``)."""
 
@@ -327,6 +328,51 @@ def test_torch_port_gcn_lstm_tf32_launch_plan(H, attention):
     assert forced.mma == 0 and forced.smem == base.smem
 
 
+@pytest.mark.parametrize("attention", [True, False])
+@pytest.mark.parametrize("H,wide", [(64, 4), (128, 8), (256, 16)])
+def test_torch_port_gcn_lstm_one_stream_launch_plan(H, wide, attention):
+    """At S = 1 the TF32 tensor-core plan spreads a (stream, direction)
+    over twice the portable plan's CTAs where the doubled split keeps a
+    tensor-core plan (64 gate columns a CTA): 8 at H = 128, 16 (a
+    non-portable cluster) at 256; H = 64 keeps 4 (32 columns a CTA have no
+    tensor-core plan). Shared memory, k-slices and registers as the C side
+    recomputes them; the fp32 and FMA instantiations keep their plans."""
+    N = 15
+    plan = G.launch_plan(N, H, attention, tf32=True, S=1)
+    Hc = H // plan.C
+    assert (plan.C, plan.mma) == (wide, 1) and 4 * Hc == 64
+    assert plan.C <= G.MAX_CLUSTER_WIDE
+    assert (plan.C > MAX_CLUSTER) == (H == 256)
+    assert G.mma_ok(H, Hc, attention)
+    assert plan.smem == G.smem_bytes(N, H, plan.C, plan.KSQ, attention,
+                                     True) <= SMEM_LIMIT
+    assert plan == G.launch_plan(N, H, attention, C=wide, tf32=True,
+                                 mma=True)
+    _check_slices(Hc, H, plan.KS)
+    _check_slices(Hc // 2, H, plan.KSA)
+    _check_slices(Hc, H, plan.KSQ)
+    if attention:
+        assert 2 * (H // plan.KSA) <= G.MAX_KCA and H // plan.KSQ <= G.MAX_KW
+    portable = G.launch_plan(N, H, attention, tf32=True)
+    assert plan.C == portable.C * (1 if H == 64 else 2)
+    assert plan.smem <= portable.smem
+    for kw in ({}, {"tf32": True, "mma": False}):
+        assert (G.launch_plan(N, H, attention, S=1, **kw)
+                == G.launch_plan(N, H, attention, **kw))
+
+
+@pytest.mark.parametrize("S", [None, 2, 3, 8, 12, 16])
+@pytest.mark.parametrize("H", [64, 128, 256])
+def test_torch_port_gcn_lstm_serving_plan_keeps_its_cluster(H, S):
+    """At S ≥ 2 (the serving, streaming and batched paths) the grid fills
+    the card and every instantiation keeps the portable plan."""
+    for attention in (True, False):
+        for kw in ({}, {"tf32": True}, {"tf32": True, "mma": False}):
+            plan = G.launch_plan(15, H, attention, S=S, **kw)
+            assert plan == G.launch_plan(15, H, attention, **kw)
+            assert plan.C == {64: 4, 128: 4, 256: 8}[H] <= MAX_CLUSTER
+
+
 @pytest.mark.parametrize("H", [32, 64, 128, 256])
 def test_torch_port_tf32_mma_smem_bytes(H):
     """The tensor-core plans' shared memory: every plan fits 232,448 B;
@@ -431,6 +477,13 @@ def test_torch_port_doubled_split_is_a_valid_plan(kernel, H):
     # over 227 KB
     lambda: G.launch_plan(15, 8, True, tf32=True, mma=True),
     lambda: G.launch_plan(15, 64, True, mma=True),
+    # a split the tensor cores cannot take: 32 gate columns a CTA, a
+    # non-portable cluster on the FMA path or past 16 CTAs, no stream
+    lambda: G.launch_plan(15, 64, True, C=8, tf32=True, mma=True),
+    lambda: G.launch_plan(15, 128, True, C=16, tf32=True),
+    lambda: G.launch_plan(15, 256, True, C=16, tf32=True, mma=False),
+    lambda: G.launch_plan(15, 256, True, C=32, tf32=True, mma=True),
+    lambda: G.launch_plan(15, 256, True, tf32=True, S=0),
     lambda: GG.launch_plan(8, 15, 8, tf32=True, mma=1),
     lambda: GG.launch_plan(8, 15, 64, mma=2),
     lambda: GG.launch_plan(8, 15, 256, tf32=True, mma=2),

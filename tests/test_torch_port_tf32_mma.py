@@ -93,11 +93,12 @@ def _pad16(t, dim):
 
 def _gcn_lstm_emulated(u, wh, adj, bias, att, h0, c0, n_valid, tf32=True):
     r"""``gcn_lstm.cu``'s tensor-core TF32 frames (A3GC cell) on the hoisted
-    inputs: (y, h, c)."""
+    inputs, in the order of the plan the kernel takes at S streams: (y, h,
+    c)."""
     r = CM.round_tf32 if tf32 else (lambda t: t)
     _, S, T, _, G4 = u.shape
     H = G4 // 4
-    Hc = H // G.launch_plan(N, H, True, tf32=True).C
+    Hc = H // G.launch_plan(N, H, True, tf32=True, S=S).C
     parts = G.att_split(H, Hc)
     w, wq, wh_att, u_att, bs, bu = att
     y = torch.zeros(S, T, N, 2 * H)
@@ -230,11 +231,34 @@ def test_torch_port_tf32_mma_blocks_cover_k(H):
     ks = sorted(k for blk in range(H // 16) for step in _steps(16 * blk)
                 for k in step)
     assert ks == list(range(H))
-    plan = G.launch_plan(N, H, True, tf32=True)
-    Hc = H // plan.C
-    parts = G.att_split(H, Hc)
-    assert plan.mma == 1 and (H // 16) % parts == 0
-    assert H // 16 // parts <= 8 and Hc // 8 * parts <= 8
+    for S in (8, 1):                   # the serving and one-stream plans
+        plan = G.launch_plan(N, H, True, tf32=True, S=S)
+        Hc = H // plan.C
+        parts = G.att_split(H, Hc)
+        assert plan.mma == 1 and (H // 16) % parts == 0
+        assert H // 16 // parts <= 8 and Hc // 8 * parts <= 8
+
+
+@pytest.mark.parametrize("T,bound", [(1, SEP_FRAME), (60, SEP_WINDOW)])
+@pytest.mark.parametrize("H", [128, 256])
+def test_torch_port_tf32_mma_wide_plan_order_within_bound(H, T, bound):
+    """The same check at one stream, whose plan spreads a direction over
+    twice the CTAs (C = 8 at H = 128, 16 at 256): hy·Wh over more k parts
+    (``att_split`` of the narrower slice)."""
+    mod, args = _layer("gcn_lstm", H, T, S=1)
+    assert G.att_split(H, H // G.launch_plan(N, H, True, tf32=True, S=1).C) \
+        > G.att_split(H, H // G.launch_plan(N, H, True, tf32=True).C)
+    with torch.no_grad():
+        want = _outputs(mod.bi_gcn_lstm_reference(*args, fmt="tf32"))
+        gap = _rms(_outputs(mod.bi_gcn_lstm_reference(*args, fmt="fp32")),
+                   want)
+        got = list(_gcn_lstm_emulated(*mod.scan_inputs(*args, "tf32")))
+        control = list(_gcn_lstm_emulated(*mod.scan_inputs(*args, "fp32"),
+                                          tf32=False))
+    assert gap > 0.0
+    assert all(torch.isfinite(t).all() for t in got)
+    assert _rms(got, want) <= bound * gap, _rms(got, want) / gap
+    assert _rms(control, want) > bound * gap, _rms(control, want) / gap
 
 
 def _lstm_emulated(u, w_hh, h0, c0, n_valid, parts, tf32=True):

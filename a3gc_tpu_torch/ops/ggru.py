@@ -335,6 +335,8 @@ def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
            *plan, int(tf32))
     bi_ggru.launches += 1
     bi_ggru.tf32_launches += int(tf32)
+    by_c = bi_ggru.launches_by_cluster
+    by_c[plan.C] = by_c.get(plan.C, 0) + 1
     return y, h_out
 
 
@@ -369,5 +371,6 @@ def scan_inputs(params2: C.GGRUCellParams, x: torch.Tensor, h2,
 
 bi_ggru.launches = 0    # kernel launches since the last reset to 0
 bi_ggru.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_ggru.launches_by_cluster = {}    # of them, by the plan's C
 bi_ggru.plain_dispatches = 0    # layer calls on a card that backend="auto"
                                 # gave the plain version (no plan)

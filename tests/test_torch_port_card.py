@@ -1411,6 +1411,42 @@ def test_torch_port_default_precision_serves_tf32_on_card():
 
 
 @pytest.mark.cuda
+def test_torch_port_ggru_cascade_launch_plan_on_card():
+    """One offline G-GRU cascade call of one stream at the published widths
+    256 / 64 / 128, precision "default" (TF32 operands): six TF32 ``ggru``
+    launches, every one of them of the plan C = 8
+    (``launches_by_cluster``), no plain dispatch, a finite pose."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                cascade_apply, init_pose_net)
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.smpl import ParametricModel
+    nira = load_adjacency_template()
+    cfg = CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+        cell="ggru", units_in=ui, units_out=uo, units_hidden=h,
+        precision="default"), rotsize=rot)
+        for h, ui, uo, rot in ((256, 12, 3, 3), (64, 15, 3, 3),
+                               (128, 15, 9, 9))))
+    params3 = tuple(init_pose_net(torch.Generator().manual_seed(i), c,
+                                  nira).cuda()
+                    for i, c in enumerate(cfg.stages))
+    imu = torch.randn((1, 300, 15, 12),
+                      generator=torch.Generator().manual_seed(6)).cuda()
+    w = GG.bi_ggru
+    w.launches = w.tf32_launches = w.plain_dispatches = 0
+    w.launches_by_cluster = {}
+    with torch.no_grad():
+        pose = cascade_apply(params3, cfg, ParametricModel(), imu)
+    torch.cuda.synchronize()
+    assert pose.shape == (300, 24, 3, 3) and torch.isfinite(pose).all()
+    assert w.launches == w.tf32_launches == 6
+    assert w.plain_dispatches == 0
+    assert w.launches_by_cluster == {8: 6}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,H,S", [("a3gc", 80, 8), ("a3gc", 80, 1),
                                       ("ggru", 152, 8), ("tp", 268, 8)])
 def test_torch_port_auto_runs_plain_where_no_plan_on_card(kind, H, S):

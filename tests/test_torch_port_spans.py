@@ -1,5 +1,5 @@
 """The port's layer spans (``a3gc.*``, ``a3gc_tpu_torch._runtime``) on the
-CPU at hidden 8: a tiny A3GC and a tiny TransPose cascade through
+CPU at hidden 8: a tiny A3GC, TransPose and G-GRU cascade through
 ``cascade_apply`` under ``torch.profiler``, their operand format patched to
 "tf32" so that the TF32 rounding runs here as it does on a card:
 
@@ -33,7 +33,7 @@ from a3gc_tpu_torch.smpl.model import ParametricModel
 torch.set_num_threads(1)
 
 WIDTH = ["--hu1", "8", "--hu2", "8", "--hu3", "8"]
-MODELS = ("a3gc", "tp")
+MODELS = ("a3gc", "tp", "ggru")
 STAGES = ("a3gc.stage1", "a3gc.stage2", "a3gc.stage3")
 
 
@@ -111,7 +111,7 @@ def test_torch_port_spans_count_per_cascade_call(model, cascades,
     assert n["a3gc.cascade"] == 1 and n["a3gc.ik"] == 1
     assert [n[s] for s in STAGES] == [1, 1, 1]
     assert n["a3gc.rnn"] == 6
-    assert n["a3gc.prep"] == (2 if model == "a3gc" else 1)
+    assert n["a3gc.prep"] == (1 if model == "tp" else 2)
 
 
 @pytest.mark.parametrize("model", MODELS)

@@ -20,7 +20,8 @@
 //   pre = adj[g]·z_g + bias[g]                bias AFTER the graph mix
 //   i,f,o = σ(pre), g = tanh(pre); c' = f·c + i·g; hy = o·tanh(c')
 //   attention (A3GC/AGC): q = relu(Σ_nodes hy·W), s = tanh(hy·Wh + q·Wq + bs),
-//                         (q computed as relu((Σ_nodes hy)·W), the same sum)
+//                         (q computed as relu(Σ_c (Σ_nodes hy_c)·W_c), the
+//                         same sum: rank c's hidden units, its rows of W)
 //                         a = s·u + bu, hy += hy·σ(a)
 //   frame < n_valid[stream] ? (h, c) = (hy, c') : keep (h, c)
 //   y[s, frame, :, d·H:(d+1)·H] = tanh(h)
@@ -33,32 +34,44 @@
 // weights (W_h alone 1 MiB per direction at H = 256) that one SM can neither
 // hold nor stream from L2 at the rate the FMAs need. The design:
 //   * CTA c of a cluster owns hidden units [c·Hc, (c+1)·Hc), Hc = H / C: the
-//     four gate columns of each ([H, 4·Hc] of W_h) and the Hc columns of Wq
-//     sit in shared memory, loaded once by cp.async.bulk; its Hc columns of
-//     the attention W and Wh sit in registers (32 + 32 per thread, with
+//     four gate columns of each ([H, 4·Hc] of W_h, loaded once by
+//     cp.async.bulk) and the Hc columns of Wq (each row rotated, see
+//     wq_rotation) sit in shared memory; its Hc rows of the attention W and
+//     Hc columns of Wh sit in registers (32 + 32 per thread, with
 //     everything else 255 registers: the budget that bounds this design);
 //   * everything up to the cell is local: the z slice for all 16 (padded)
 //     node rows (thread = one column × one k-slice, shuffles sum the
 //     k-slices), the 15×15 mix of each gate (it mixes rows within a
 //     column, so a thread mixes its own column), the bias, the gates, c';
-//   * attention, three exchanges a frame and no cluster barrier: each CTA
-//     writes its hy slice, its q = relu((Σ_nodes hy)·W) columns and its
-//     partial s·u straight into every peer's shared memory with st.async,
-//     each store completing its bytes on the receiver's mbarrier (one per
-//     exchange), and waits only on its own mbarriers. (A cluster barrier's
-//     release is a GPU-scope MEMBAR that waits for every outstanding global
-//     store: ~1-2k cycles a barrier on the H100.) One mbarrier phase per
-//     frame is safe because a peer's next-frame stores into an exchange
-//     depend, through the other two, on this CTA having finished its wait.
-//     Order: hy; own columns of q, sent, then of hy·Wh while the peers' q
-//     travel; q·Wq and s; the partial s·u, sent and waited for only in the
-//     next frame, after its h·W_h: h = hy + hy·σ(a) scales whole node rows,
-//     so the product runs on hy and its rows are scaled once every CTA has
-//     summed σ(a) from the same partials in the same order (the previous
-//     frame's y is written then). No frame updates the full h. Without
-//     attention the hy slice is the new h, exchanged by DSMEM stores and
-//     one cluster barrier a frame. The full h (or hy) is double-buffered
-//     against the peers' stores;
+//   * attention, two exchanges a frame and no cluster barrier: each CTA
+//     writes (1) its hy slice and its partial q, p_c = (Σ_nodes hy_c)·W_c
+//     over all H columns (hy_c its own columns, W_c its own rows), and (2)
+//     its partial s·u straight into every peer's shared memory with
+//     st.async, each store completing its bytes on the receiver's mbarrier
+//     (mb_h, mb_a), and waits only on its own mbarriers. (A cluster
+//     barrier's release is a GPU-scope MEMBAR that waits for every
+//     outstanding global store: ~1-2k cycles a barrier on the H100.)
+//     Order: the hy slice, sent; its node sum (each warp sums the own
+//     columns itself, lane k column k, into a row of scratch of its own:
+//     no block barrier) and p_c, sent; the wait for the peers' (mb_h); q =
+//     round(relu(Σ_r p_r)), summed in rank order, so every CTA holds the
+//     same bits; own columns of hy·Wh; q·Wq and s; the partial s·u, sent
+//     and waited for only in the next frame, after its h·W_h: h = hy +
+//     hy·σ(a) scales whole node rows, so the product runs on hy and its
+//     rows are scaled once every CTA has summed σ(a) from the same partials
+//     in the same order (the previous frame's y is written then). No frame
+//     updates the full h, and no CTA sums the nodes of all of h. One
+//     mbarrier phase per frame cannot mix two frames' bytes: a peer pushes
+//     its frame-t+1 hy and p into this CTA only after its wait for every
+//     frame-t partial s·u, this CTA's included, which this CTA sends only
+//     after it has consumed its frame-t p's (q) and hy slices (hy·Wh); and a
+//     peer's frame-t+1 s·u follows its frame-t+1 mb_h wait, which needs this
+//     CTA's frame-t+1 hy, sent only after this CTA consumed the frame-t
+//     s·u's. So the partials need one buffer, a slot a rank (the own slot
+//     holds this CTA's partial, then q). Without attention
+//     the hy slice is the new h, exchanged by DSMEM stores and one cluster
+//     barrier a frame. The full h (or hy) is double-buffered against the
+//     peers' stores;
 //   * the next frame's u slice is prefetched by cp.async during the cell
 //     and the attention; masked frames of a stream (uniform over its
 //     cluster) only write y.
@@ -68,7 +81,7 @@
 // tf32_round (ties to even, bit for bit the plain version's round_tf32):
 // the tensor core would truncate an unrounded fp32, and cvt.rna rounds ties
 // away from zero. Weights are rounded once, where they are staged,
-// activations where they are formed: z before the mix, q before it is sent,
+// activations where they are formed: z before the mix, q once summed,
 // s before its partial s·u is sent, hy as the attention products read it,
 // h = hy + hy·σ(a) by a pass before h·W_h. What bounds its FMA form (phase
 // clocks, scripts/torch_kernel_phases.py --tf32 --fma, H = 256, with the
@@ -97,7 +110,7 @@
 //     registers for the window (at most 8 k-blocks a warp: att_split k
 //     parts of a warp each, their partial sums added in order with q·Wq);
 //   * the three vector products ((Σ hy)·W, q·Wq, s·u) stay FMA loops, the
-//     three st.async exchanges stay as they are.
+//     two st.async exchanges stay as they are.
 // A shape without a tensor-core plan keeps the FMA form (plan mma = 0).
 //
 // The launch plan (C, k-slices, shared-memory bytes) comes from the Python
@@ -136,7 +149,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;       // portable cluster size
 constexpr int kMaxClusterWide = 16;  // non-portable: tensor-core plans only
 constexpr int kMaxKw = 32;       // attention W weights per thread (registers):
-                                 // 1 column × H / KSQ rows
+                                 // 1 column × the Hc own rows
 constexpr int kMaxKca = 32;      // attention Wh weights per thread
                                  // (registers): 2 columns × H / KSA rows
 
@@ -160,10 +173,14 @@ struct Args {
   int S, T, N, H, C, KS, KSA, KSQ;
 };
 
-// Row pad of Wq's column slice: k-slice ks of q·Wq reads row j·KSQ + ks,
-// so rows KSQ apart must start max(4, 32/KSQ) banks apart (16-byte rows).
-__host__ __device__ inline int wq_pad(int KSQ) {
-  return 32 / KSQ > 4 ? 32 / KSQ : 4;
+// Wq's column slice [H, Hc] sits unpadded, row j rotated by wq_rotation:
+// column k at (k + rot) % Hc. In q·Wq the lanes of k-slice ks (32 / KSQ
+// adjacent columns) read rows j ≡ ks (mod KSQ); rows share a 32-bank line
+// R = 32 / Hc at a time (Hc < 32), so the rotation moves the slices that
+// share a line onto distinct banks.
+__host__ __device__ inline int wq_rotation(int j, int Hc, int KSQ) {
+  const int R = Hc < 32 ? 32 / Hc : 1;
+  return 32 / KSQ * ((j % KSQ) / R) % Hc;
 }
 
 // The tensor-core path's hy·Wh: n-tiles Hc / 8 of own columns, each over
@@ -180,15 +197,19 @@ __host__ __device__ inline int att_split(int H, int Hc) {
 // by 4 floats: lanes of k-slices 4 rows apart then read different banks.
 // The tensor-core path (mma) holds W_h's slice transposed and swizzled
 // (mma_b_offset), pads the rows of the full h to mma_row_stride and those of
-// the mixed gates by 8 floats (the mix reads B at bank 8t + g).
-size_t smem_floats(int N, int H, int C, int KSQ, bool att, bool mma) {
+// the mixed gates by 8 floats (the mix reads B at bank 8t + g). Attention
+// adds Wq's slice, the ranks' partial q (a slot of kThreads floats each: H
+// ≤ kThreads, and the slots' loads take immediate offsets; this CTA's own
+// slot then holds q) and the small vectors; hy·Wh and s take the mixed
+// gates' buffer, free after the cell.
+size_t smem_floats(int N, int H, int C, bool att, bool mma) {
   const size_t Hc = H / C, M = 4 * Hc;
   const size_t HS = mma ? mma_row_stride(H) : H, MP = mma ? M + 8 : M;
   size_t f = (mma ? (size_t)H * M : (size_t)H * (M + 4)) +
              2 * (size_t)kNodes * HS + kNodes * MP + N * M + N * Hc + M +
              4 * (size_t)N * N;
-  if (att) f += (size_t)H * (Hc + wq_pad(KSQ)) + kNodes * Hc + 2 * H +
-                2 * Hc + C * kNodes + 2 * kNodes;
+  if (att) f += (size_t)H * Hc + (size_t)C * kThreads + 2 * Hc +
+                C * kNodes + 2 * kNodes;
   return f;
 }
 
@@ -202,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   const int s = blockIdx.y;
   const int d = blockIdx.z;
   const int S = a.S, T = a.T, N = a.N, H = a.H, C = a.C, G = 4 * H;
-  const int Hc = H / C, M = 4 * Hc, WS = M + 4, WQ = Hc + wq_pad(a.KSQ);
+  const int Hc = H / C, M = 4 * Hc, WS = M + 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // row strides of the full h and of the mixed gates (padded for the tensor
   // cores' fragment loads)
@@ -211,33 +232,32 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // the weights
-  uint64_t* mb_h = bar + 1;      // this frame's hy slices from the peers
-  uint64_t* mb_q = bar + 2;      // their q columns
-  uint64_t* mb_a = bar + 3;      // their partial s·u
+  uint64_t* mb_h = bar + 1;      // this frame's hy slices and partial q
+  uint64_t* mb_a = bar + 2;      // the peers' partial s·u
   // [H, WS]; with MMA W_h^T [M, H] (mma_b_offset)
   float* w_s = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
-  float* wq_s = w_s + (MMA ? (size_t)M * H : (size_t)H * WS);  // [H, WQ]
-  float* hb = wq_s + (ATT ? (size_t)H * WQ : 0);   // [2, 16, HS] full h / hy
-  float* pre_s = hb + 2 * kNodes * HS;         // [16, MP] mixed gates
+  float* wq_s = w_s + (MMA ? (size_t)M * H : (size_t)H * WS);  // [H, Hc]
+  float* hb = wq_s + (ATT ? (size_t)H * Hc : 0);   // [2, 16, HS] full h / hy
+  // [16, MP] mixed gates; with attention, once the cell has read them, the
+  // KSP partial planes [16, Hc] of hy·Wh, plane 0 then s
+  float* pre_s = hb + 2 * kNodes * HS;
   float* u_s = pre_s + kNodes * MP;            // [N, M] this frame's u
   float* c_s = u_s + N * M;                    // [N, Hc] carried c slice
   float* bias_s = c_s + N * Hc;                // [M]
   float* adj_s = bias_s + M;                   // [4, N, N]
-  float* sa_s = adj_s + 4 * N * N;             // [16, Hc] hy·Wh, then s
-  float* q_s = sa_s + kNodes * Hc;             // [H]
-  float* bs_s = q_s + H;                       // [Hc]
+  float* pq_s = adj_s + 4 * N * N;             // [C, kThreads] partial q
+  float* q_s = pq_s + c * kThreads;            // [H] own slot: p_c, then q
+  float* bs_s = pq_s + (size_t)C * kThreads;   // [Hc]
   float* au_s = bs_s + Hc;                     // [Hc]
   float* apart_s = au_s + Hc;                  // [C, 16] partial s·u
   float* sg_s = apart_s + C * kNodes;          // [16] σ(a) of the carried h
   float* bu_s = sg_s + kNodes;                 // [16]
-  float* hsum_s = bu_s + kNodes;               // [H] Σ_nodes hy
 
-  // the W_h slice (column block g·H + c·Hc … of every row) and Wq's columns
-  const uint32_t wbytes = sizeof(float) * H * ((MMA ? 0 : M) + (ATT ? Hc : 0));
+  // the W_h slice (column block g·H + c·Hc … of every row)
+  const uint32_t wbytes = MMA ? 0 : sizeof(float) * H * M;
   if (tid == 0) {
     mbar_init(bar);
     mbar_init(mb_h);
-    mbar_init(mb_q);
     mbar_init(mb_a);
     if (wbytes) mbar_arrive_expect_tx(bar, wbytes);
   }
@@ -257,10 +277,13 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     }
   }
   if constexpr (ATT) {
-    const float* awq = a.att_wq + (size_t)d * H * H;
-    for (int k = tid; k < H; k += kThreads)
-      bulk_load(wq_s + (size_t)k * WQ, awq + (size_t)k * H + c * Hc,
-                sizeof(float) * Hc, bar);
+    // Wq's own columns, rounded, row j rotated (wq_rotation)
+    const float* awq = a.att_wq + (size_t)d * H * H + c * Hc;
+    for (int e = tid; e < H * Hc; e += kThreads) {
+      const int j = e / Hc, k = e - j * Hc;
+      wq_s[j * Hc + (k + wq_rotation(j, Hc, a.KSQ)) % Hc] =
+          operand<TF32>(__ldg(awq + (size_t)j * H + k));
+    }
   }
 
   // thread mappings: in h·W_h a thread owns 4 adjacent columns (each h
@@ -277,11 +300,15 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   const int awarps = (Hc / 2 + cpwA - 1) / cpwA;
   const int ksA = lane / cpwA, cpA = warp * cpwA + lane % cpwA;
   const int colA = 2 * (cpA < Hc / 2 ? cpA : Hc / 2 - 1);   // of Wh
-  // q·Wq and (Σ hy)·W: a thread owns one column and k-slice ksQ
-  const int cpwQ = 32 / a.KSQ, KcQ = H / a.KSQ;
+  // q·Wq: a thread owns one column and k-slice ksQ, its rows j ≡ ksQ (mod
+  // KSQ) at the column's rotated place
+  const int cpwQ = 32 / a.KSQ;
   const int qwarps = (Hc + cpwQ - 1) / cpwQ;
   const int ksQ = lane / cpwQ, colQ = warp * cpwQ + lane % cpwQ;
   const int cq = colQ < Hc ? colQ : Hc - 1;
+  const int cqr = (cq + wq_rotation(ksQ, Hc, a.KSQ)) % Hc;
+  // (Σ_nodes hy_c)·W_c: thread j owns column j of all H over the own rows
+  const int jw = tid < H ? tid : H - 1;
 
   // the tensor-core path's hy·Wh: warp w takes n-tile ta = w % NTA of own
   // columns over k part pa = w / NTA, KBP 16-deep k-blocks (warps past
@@ -289,8 +316,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   const int NTA = MMA ? Hc / 8 : 1, KSP = MMA ? att_split(H, Hc) : 1;
   const int KBP = H / 16 / KSP, ta = warp % NTA, pa = warp / NTA;
 
-  // registers for the whole window: this thread's column of the attention
-  // W at k-slice ksQ (ww[i]: the slice's i-th row), and its column pair of
+  // registers for the whole window: this thread's column of the own rows
+  // of the attention W (ww[i]: row c·Hc + i), and its column pair of
   // Wh at k-slice ksA (wa[2i + j]: column colA + j, the slice's i-th row),
   // or with MMA its B fragments of Wh (wb[i]: k-block pa·KBP + i of n-tile
   // ta, rounded) and the A fragments of its n-tiles' gate mix (adjf)
@@ -298,12 +325,10 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   float4 wb[ATT && MMA ? kMaxKca / 4 : 1];
   float adjf[MMA ? 8 : 1];
   if constexpr (ATT) {
-    const float* aw = a.att_w + (size_t)d * H * H + c * Hc + cq;
+    const float* aw = a.att_w + ((size_t)d * H + c * Hc) * H + jw;
 #pragma unroll
-    for (int i = 0; i < kMaxKw; ++i) {
-      const size_t row = 4 * ksQ + a.KSQ * (i & ~3) + (i & 3);
-      ww[i] = i < KcQ ? operand<TF32>(__ldg(aw + row * H)) : 0.0f;
-    }
+    for (int i = 0; i < kMaxKw; ++i)
+      ww[i] = i < Hc ? operand<TF32>(__ldg(aw + (size_t)i * H)) : 0.0f;
   }
   if constexpr (ATT && MMA) {
     const float* awh = a.att_wh + (size_t)d * H * H + c * Hc + 8 * ta + gq;
@@ -387,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
     }
   };
   // this CTA's next phase of an exchange: (C - 1) peers' `bytes` each
-  uint32_t ph_h = 0, ph_q = 0, ph_a = 0;
+  uint32_t ph_h = 0, ph_a = 0;
   auto receive = [&](uint64_t* mb, uint32_t& phase, int bytes) {
     if (tid == 0) mbar_arrive_expect_tx(mb, (uint32_t)((C - 1) * bytes));
     mbar_wait_cluster(mb, phase);
@@ -407,7 +432,6 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
   prefetch_u(0);
   if (wbytes) mbar_wait(bar, 0);
   if constexpr (!MMA) round_smem<TF32>(w_s, H, M, WS);
-  if constexpr (ATT) round_smem<TF32>(wq_s, H, Hc, WQ);
   cluster.sync();                // every peer is running and initialised
   clk.mark(16);
 
@@ -640,68 +664,79 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       }
     }
     clk.mark(8);
-    // With attention a peer sends its next hy only after this CTA's q
-    // (and so after this wait): one mbarrier phase per frame cannot mix
-    // two frames' bytes. Without, nothing orders the peers' frames, so a
-    // cluster barrier ends the frame.
+    if constexpr (ATT) {
+      // p_c = (Σ_nodes hy_c)·W_c over all H columns: lane k of every warp
+      // sums the nodes of own column k (the operands rounded as q's product
+      // takes them, Hc ≤ 32) into the warp's own row of scratch past hy·Wh's
+      // planes in pre_s, thread j forms column j from it (no block
+      // barrier); 4 adjacent columns go to a peer in one store, the peers
+      // spread over the 4 lanes
+      if (warp * 32 < H) {
+        // all 16 rows, unguarded (a guarded load is a branch, and each load
+        // then waits for the one before): rows N … 15 of h stay zero (set
+        // so at the start, no store reaches them), so they add nothing
+        const float* hp = h_nxt + c * Hc + min(lane, Hc - 1);
+        float hs = 0.0f;
+#pragma unroll
+        for (int n = 0; n < kNodes; ++n)
+          hs += operand<TF32>(hp[n * HS]);
+        float* sw = pre_s + (KSP * kNodes + warp) * Hc;
+        if (lane < Hc) sw[lane] = hs;
+        __syncwarp();
+        float p_own = 0.0f;      // column tid of this CTA's partial q
+#pragma unroll
+        for (int i = 0; i < kMaxKw; i += 4) {
+          if (i < Hc) {
+            const float4 h4 = *reinterpret_cast<const float4*>(sw + i);
+            p_own = fmaf(h4.x, ww[i], p_own);
+            p_own = fmaf(h4.y, ww[i + 1], p_own);
+            p_own = fmaf(h4.z, ww[i + 2], p_own);
+            p_own = fmaf(h4.w, ww[i + 3], p_own);
+          }
+        }
+        const int l4 = lane & ~3, j4 = tid & ~3;
+        const float4 pv = {__shfl_sync(0xffffffffu, p_own, l4),
+                           __shfl_sync(0xffffffffu, p_own, l4 + 1),
+                           __shfl_sync(0xffffffffu, p_own, l4 + 2),
+                           __shfl_sync(0xffffffffu, p_own, l4 + 3)};
+        if (tid < H) q_s[tid] = p_own;
+        if (j4 < H) {
+          for (int i = lane & 3; i < C - 1; i += 4) {
+            const int peer = c + 1 + i < C ? c + 1 + i : c + 1 + i - C;
+            st_async(map_rank(q_s + j4, peer), pv, map_rank(mb_h, peer));
+          }
+        }
+      }
+      clk.mark(18);
+    }
+    // With attention the peers' hy slices and partial q of this frame, on
+    // one mbarrier phase (the header says why phases cannot mix). Without,
+    // nothing orders the peers' frames, so a cluster barrier ends the frame.
     if constexpr (ATT)
-      receive(mb_h, ph_h, (int)sizeof(float) * N * Hc);
+      receive(mb_h, ph_h, (int)sizeof(float) * (N * Hc + H));
     else
       cluster.sync();
     clk.mark(9);
     cur ^= 1;
     if constexpr (ATT) {
-      // the previous frame's y, from its hy: before this CTA's q goes out,
-      // since the peers' next hy, into that buffer, waits for it
+      // the previous frame's y, from its hy: before this CTA's s·u goes
+      // out, since the peers' next hy, into that buffer, waits for it
       if (gate_due) write_y(yf, h_cur);
       clk.mark(15);
-      // q = relu((Σ_nodes hy)·W) on own columns, to every peer
-      for (int k = tid; k < H; k += kThreads) {
+      // q = round(relu(Σ_r p_r)), summed in rank order: the same bits in
+      // every CTA; into this CTA's slot (its own partial read first)
+      if (tid < H) {
         float v = 0.0f;
-        for (int n = 0; n < N; ++n) v += operand<TF32>(h_nxt[n * HS + k]);
-        hsum_s[k] = v;
-      }
-      __syncthreads();
-      clk.mark(18);
-      if (warp < qwarps) {
-        float acc[1] = {0.0f};
-        const float* hp = hsum_s + 4 * ksQ;
 #pragma unroll
-        for (int i = 0; i < kMaxKw; i += 4) {
-          if (i < KcQ) {
-            const float4 hv = *reinterpret_cast<const float4*>(hp + a.KSQ * i);
-            acc[0] = fmaf(hv.x, ww[i], acc[0]);
-            acc[0] = fmaf(hv.y, ww[i + 1], acc[0]);
-            acc[0] = fmaf(hv.z, ww[i + 2], acc[0]);
-            acc[0] = fmaf(hv.w, ww[i + 3], acc[0]);
-          }
-        }
-        reduce_k_slices(acc, cpwQ);
-        const float q = operand<TF32>(fmaxf(acc[0], 0.0f));
-        if (cpwQ >= 4) {         // 4 neighbouring columns in one store
-          const float4 qv = {q, __shfl_down_sync(0xffffffffu, q, 1),
-                             __shfl_down_sync(0xffffffffu, q, 2),
-                             __shfl_down_sync(0xffffffffu, q, 3)};
-          if (colQ < Hc && ksQ == 0 && lane % 4 == 0) {
-            float* dst = q_s + c * Hc + colQ;
-            *reinterpret_cast<float4*>(dst) = qv;
-            for (int r = 0; r < C; ++r)
-              if (r != c) st_async(map_rank(dst, r), qv, map_rank(mb_q, r));
-          }
-        } else if (colQ < Hc && ksQ == 0) {
-          float* dst = q_s + c * Hc + colQ;
-          *dst = q;
-          for (int r = 0; r < C; ++r)
-            if (r != c) st_async(map_rank(dst, r), q, map_rank(mb_q, r));
-        }
+        for (int r = 0; r < kMaxClusterWide; ++r)
+          v += r < C ? pq_s[r * kThreads + tid] : 0.0f;
+        q_s[tid] = operand<TF32>(fmaxf(v, 0.0f));
       }
       clk.mark(19);
-      // the peers' q columns are waited for after hy·Wh
+      // own columns of hy·Wh into the KSP planes [16, Hc] of pre_s (free
+      // until the next frame's mix), added in order before q·Wq
       if constexpr (MMA) {
-        // own columns of round(hy)·Wh on the tensor cores, each A fragment
-        // rounded as it is loaded; the KSP parts' partial sums go to planes
-        // [KSP, 16, Hc] of pre_s (free until the next frame's mix), added in
-        // order before q·Wq
+        // on the tensor cores, each A fragment rounded as it is loaded
         if (pa < KSP) {
           float p4[4], e4[4];
           mma_zero(p4);
@@ -724,42 +759,45 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
               make_float2(p4[2], p4[3]);
         }
       } else if (warp < awarps) {
-        // own columns of hy·Wh (→ sa_s)
-        float acc[2 * kNodes];   // acc[2n + j]: node n, column colA + j
+        // in two passes of 8 nodes (16 accumulators live, not 32)
+#pragma unroll 1
+        for (int n0 = 0; n0 < kNodes; n0 += kNodes / 2) {
+          float acc[kNodes];     // acc[2n + j]: node n0 + n, column colA + j
 #pragma unroll
-        for (int n = 0; n < 2 * kNodes; ++n) acc[n] = 0.0f;
-        const float* hp = h_nxt + 4 * ksA;
+          for (int n = 0; n < kNodes; ++n) acc[n] = 0.0f;
+          const float* hp = h_nxt + n0 * H + 4 * ksA;
 #pragma unroll
-        for (int i = 0; i < kMaxKca / 2; i += 4) {
-          if (i < KcA) {
+          for (int i = 0; i < kMaxKca / 2; i += 4) {
+            if (i < KcA) {
 #pragma unroll
-            for (int n = 0; n < kNodes; ++n) {
-              const float4 hv = operand<TF32>(
-                  *reinterpret_cast<const float4*>(hp + n * H + a.KSA * i));
-              acc[2 * n] = fmaf(hv.x, wa[2 * i], acc[2 * n]);
-              acc[2 * n] = fmaf(hv.y, wa[2 * i + 2], acc[2 * n]);
-              acc[2 * n] = fmaf(hv.z, wa[2 * i + 4], acc[2 * n]);
-              acc[2 * n] = fmaf(hv.w, wa[2 * i + 6], acc[2 * n]);
-              acc[2 * n + 1] = fmaf(hv.x, wa[2 * i + 1], acc[2 * n + 1]);
-              acc[2 * n + 1] = fmaf(hv.y, wa[2 * i + 3], acc[2 * n + 1]);
-              acc[2 * n + 1] = fmaf(hv.z, wa[2 * i + 5], acc[2 * n + 1]);
-              acc[2 * n + 1] = fmaf(hv.w, wa[2 * i + 7], acc[2 * n + 1]);
+              for (int n = 0; n < kNodes / 2; ++n) {
+                const float4 hv = operand<TF32>(
+                    *reinterpret_cast<const float4*>(hp + n * H + a.KSA * i));
+                acc[2 * n] = fmaf(hv.x, wa[2 * i], acc[2 * n]);
+                acc[2 * n] = fmaf(hv.y, wa[2 * i + 2], acc[2 * n]);
+                acc[2 * n] = fmaf(hv.z, wa[2 * i + 4], acc[2 * n]);
+                acc[2 * n] = fmaf(hv.w, wa[2 * i + 6], acc[2 * n]);
+                acc[2 * n + 1] = fmaf(hv.x, wa[2 * i + 1], acc[2 * n + 1]);
+                acc[2 * n + 1] = fmaf(hv.y, wa[2 * i + 3], acc[2 * n + 1]);
+                acc[2 * n + 1] = fmaf(hv.z, wa[2 * i + 5], acc[2 * n + 1]);
+                acc[2 * n + 1] = fmaf(hv.w, wa[2 * i + 7], acc[2 * n + 1]);
+              }
             }
           }
-        }
-        reduce_k_slices(acc, cpwA);
-        if (cpA < Hc / 2) {
+          reduce_k_slices(acc, cpwA);
+          if (cpA < Hc / 2) {
 #pragma unroll
-          for (int n = 0; n < kNodes; ++n) {
-            if (n < N && n % a.KSA == ksA) {
-              sa_s[n * Hc + colA] = acc[2 * n];
-              sa_s[n * Hc + colA + 1] = acc[2 * n + 1];
+            for (int n = 0; n < kNodes / 2; ++n) {
+              const int m = n0 + n;
+              if (m < N && m % a.KSA == ksA) {
+                pre_s[m * Hc + colA] = acc[2 * n];
+                pre_s[m * Hc + colA + 1] = acc[2 * n + 1];
+              }
             }
           }
         }
       }
       clk.mark(10);
-      receive(mb_q, ph_q, (int)sizeof(float) * Hc);
       __syncthreads();
       clk.mark(11);
 
@@ -767,19 +805,15 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       if (warp < qwarps) {
         float acc[1] = {0.0f};
         for (int j = ksQ; j < H; j += a.KSQ)
-          acc[0] = fmaf(q_s[j], wq_s[j * WQ + cq], acc[0]);
+          acc[0] = fmaf(q_s[j], wq_s[j * Hc + cqr], acc[0]);
         reduce_k_slices(acc, cpwQ);
         if (colQ < Hc) {
           const float b = bs_s[colQ];
           for (int n = ksQ; n < N; n += a.KSQ) {
             float hw = 0.0f;             // hy·Wh
-            if constexpr (MMA) {
-              for (int p = 0; p < KSP; ++p)
-                hw += pre_s[((size_t)p * kNodes + n) * Hc + colQ];
-            } else {
-              hw = sa_s[n * Hc + colQ];
-            }
-            sa_s[n * Hc + colQ] = operand<TF32>(tanhf(hw + acc[0] + b));
+            for (int p = 0; p < KSP; ++p)
+              hw += pre_s[((size_t)p * kNodes + n) * Hc + colQ];
+            pre_s[n * Hc + colQ] = operand<TF32>(tanhf(hw + acc[0] + b));
           }
         }
       }
@@ -792,7 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcn_lstm_kernel(Args a) {
       for (int n = warp; n < N; n += kWarps) {
         float v = 0.0f;
         for (int k = lane; k < Hc; k += 32)
-          v = fmaf(sa_s[n * Hc + k], au_s[k], v);
+          v = fmaf(pre_s[n * Hc + k], au_s[k], v);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -857,15 +891,17 @@ bool plan_ok(int N, int H, int attention, const Plan& pl, bool tf32) {
     if (!pow2_upto32(pl.KSA) || H % (4 * pl.KSA) != 0 ||
         Hc / 2 * pl.KSA > kThreads || 2 * (H / pl.KSA) > kMaxKca)
       return false;
+    // q·Wq's k-slices; (Σ_nodes hy_c)·W_c: a thread a column, its weights
+    // the Hc own rows in registers
     if (!pow2_upto32(pl.KSQ) || H % (4 * pl.KSQ) != 0 ||
-        Hc * pl.KSQ > kThreads || H / pl.KSQ > kMaxKw)
+        Hc * pl.KSQ > kThreads || H > kThreads || Hc > kMaxKw)
       return false;
   }
   if (pl.mma != 0 && (pl.mma != 1 || !tf32 || !mma_ok(H, Hc, attention)))
     return false;
   return (size_t)pl.smem ==
-         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, pl.KSQ,
-                                                    attention, pl.mma != 0);
+         kHeaderBytes + sizeof(float) * smem_floats(N, H, pl.C, attention,
+                                                    pl.mma != 0);
 }
 
 cudaLaunchConfig_t config(const Plan& pl, int S, cudaStream_t stream,
@@ -928,11 +964,10 @@ extern "C" {
 
 // Dynamic shared memory of one CTA of a plan (mma = 1: the TF32
 // instantiation on the tensor cores), in bytes.
-size_t gcn_lstm_smem_bytes(int N, int H, int C, int KSQ, int attention,
-                           int mma) {
-  if (H <= 0 || C <= 0 || H % C != 0 || KSQ <= 0) return 0;
-  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, KSQ,
-                                                    attention != 0, mma != 0);
+size_t gcn_lstm_smem_bytes(int N, int H, int C, int attention, int mma) {
+  if (H <= 0 || C <= 0 || H % C != 0) return 0;
+  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, attention != 0,
+                                                    mma != 0);
 }
 
 // Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation

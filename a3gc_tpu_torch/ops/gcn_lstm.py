@@ -9,7 +9,9 @@ launch: a thread-block cluster of C CTAs per (stream, direction) that split
 the hidden units, keep their slice of the recurrent weights in shared
 memory (and registers) for the whole window, and exchange h and the
 attention sums through distributed shared memory each frame (``st.async``
-stores completing on the receiver's mbarriers).
+stores completing on the receiver's mbarriers; with attention two
+exchanges a frame: the hy slice with the CTA's partial q, then the partial
+s·u).
 :func:`launch_plan` chooses C. The launch is the CUDA implementation of
 the registered op ``a3gc_tpu_torch::gcn_lstm_scan``
 (:mod:`a3gc_tpu_torch.ops.library`), whose CPU implementation is
@@ -65,7 +67,7 @@ __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
 
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
-MAX_KCA = 32         # W 1 column × H / KSQ rows, of Wh 2 columns × H / KSA
+MAX_KCA = 32         # W 1 column × H / C rows, of Wh 2 columns × H / KSA
 MAX_CLUSTER_WIDE = 16   # a non-portable cluster (kMaxClusterWide in C):
                         # the tensor-core plans only
 
@@ -76,7 +78,7 @@ class LaunchPlan(NamedTuple):
     C: int             # CTAs per cluster; CTA c owns hidden units c·H/C …
     KS: int            # k-slices per group of 4 gate columns of h·W_h
     KSA: int           # k-slices per column pair of hy·Wh (attention)
-    KSQ: int           # k-slices per column of q·Wq and (Σ hy)·W
+    KSQ: int           # k-slices per column of q·Wq
     threads: int
     smem: int          # dynamic shared memory per CTA, bytes
     mma: int = 0       # 1: the TF32 instantiation's products on the tensor
@@ -109,24 +111,25 @@ def mma_ok(H: int, Hc: int, attention: bool) -> bool:
     return not attention or H // 16 // att_split(H, Hc) <= MAX_KCA // 4
 
 
-def smem_bytes(N: int, H: int, C: int, KSQ: int, attention: bool,
+def smem_bytes(N: int, H: int, C: int, attention: bool,
                mma: bool = False) -> int:
     r"""Dynamic shared memory of one CTA (``gcn_lstm_smem_bytes`` in C):
     the W_h slice [H, 4H/C] (rows padded by 4 floats), the full h
     double-buffered [2, 16, H], the mixed gates [16, 4H/C], u [N, 4H/C],
     c [N, H/C], bias, adjacency; with attention Wq's columns [H, H/C]
-    (rows padded by max(4, 32/KSQ) floats), s, q, Σ_nodes hy and the
-    partial sums. The tensor-core path (``mma``) holds the W_h slice
-    transposed and swizzled, unpadded, pads h's rows to
-    :func:`mma_row_stride` and the mixed gates' rows by 8 floats."""
+    (unpadded, rows rotated), the ranks' partial q [C, THREADS] (this
+    CTA's slot then holds q) and the small vectors (hy·Wh and s reuse the
+    mixed gates' buffer). The
+    tensor-core path (``mma``) holds the W_h slice transposed and swizzled,
+    unpadded, pads h's rows to :func:`mma_row_stride` and the mixed gates'
+    rows by 8 floats."""
     Hc = H // C
     M = 4 * Hc
     HS, MP = (mma_row_stride(H), M + 8) if mma else (H, M)
     floats = (H * M + (0 if mma else 4 * H) + 2 * NODES * HS + NODES * MP
               + N * M + N * Hc + M + 4 * N * N)
     if attention:
-        floats += (H * (Hc + max(4, 32 // KSQ)) + NODES * Hc + 2 * H
-                   + 2 * Hc + C * NODES + 2 * NODES)
+        floats += H * Hc + C * THREADS + 2 * Hc + C * NODES + 2 * NODES
     return SMEM_HEADER + 4 * floats
 
 
@@ -137,7 +140,8 @@ def launch_plan(N: int, H: int, attention: bool, C: Optional[int] = None,
     smallest C ≤ 4 whose CTAs own at most 64 gate columns each, else the
     smallest C ≤ 8 with at most 128 (wider only where no C gives that),
     whose slices fit in shared memory and, with attention, whose W
-    column and Wh column pair fit in 32 + 32 registers a thread. The
+    column (over the H / C own rows) and Wh column pair fit in 32 + 32
+    registers a thread. The
     64-column step is measured (``scripts/torch_kernel_ab.py``: C = 4
     beats 2 at H = 64 on an H100); clusters of 8 stop at 4 because 16
     clusters of 8, one (stream, direction) each at S = 8, do not all fit
@@ -182,11 +186,11 @@ def _split_plan(N: int, H: int, attention: bool, C: Optional[int],
             if Hc % 4 or 4 * Hc > widest:
                 continue
             ksa, ksq = k_slices(Hc // 2, H), k_slices(Hc, H)
-            smem = smem_bytes(N, H, c, ksq, attention)
+            smem = smem_bytes(N, H, c, attention)
             if smem > SMEM_LIMIT or (attention and (
-                    2 * (H // ksa) > MAX_KCA or H // ksq > MAX_KW)):
+                    2 * (H // ksa) > MAX_KCA or Hc > MAX_KW or H > THREADS)):
                 continue
-            smem_mma = smem_bytes(N, H, c, ksq, attention, True)
+            smem_mma = smem_bytes(N, H, c, attention, True)
             fits = (tf32 and mma_ok(H, Hc, attention)
                     and smem_mma <= SMEM_LIMIT)
             if mma and not fits:

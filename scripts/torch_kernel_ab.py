@@ -50,10 +50,11 @@ version by more than 8.05e-3 (chip_smoke.py PREC_KERNEL_TOL).
 
 ``gcn_lstm``, in turns: the tensor-core form at each cluster size C that
 its plan allows at the A3GC stage widths (GCN_CANDIDATES: H = 256 / 64 /
-128), one stream (S = 1, where the grid leaves most SMs idle), T = 60 and
-2048, the a3gc and the aagc cell; per C its ms, device ms, max|d| and rms
-ratio as for ``lstm``, and how many of its clusters the card holds at once;
-the plan ``launch_plan`` chooses at S = 1 is marked ``default``, and the
+128), eight streams (S = 8, serving) at T = 60 and one stream (S = 1, where
+the grid leaves most SMs idle) at T = 60 and 2048, the a3gc and the aagc
+cell; per C its ms, device ms, max|d| and rms ratio as for ``lstm``, and how
+many of its clusters the card holds at once; the plan ``launch_plan``
+chooses at that S is marked ``default``, and the
 layer call at that plan (``wrapper_ms``: the hoisted input projection
 too) and the plain scan at "tf32" (``plain_ms``, one call) are timed. Exits
 non-zero if a plan is off the plain version by more than 8.05e-3.
@@ -274,11 +275,12 @@ def gcn_tf32_ab(args):
     smoke = CS.Smoke()
     load_library("gcn_lstm")
     gen = torch.Generator().manual_seed(21)
-    S, N = 1, CS.N_NODES
+    N = CS.N_NODES
     lines, ok = [], True
+    shapes = [(CS.S_SERVE, CS.WINDOW), (1, CS.WINDOW), (1, CS.PREC_T)]
     for cell in ("a3gc", "aagc"):
         att = cell == "a3gc"
-        for T in (CS.WINDOW, CS.PREC_T):
+        for S, T in shapes:
             for H, _, _, _ in CS.STAGES:
                 p = smoke.cell(gen, cell, H, H)
                 x, st, nv = smoke.layer_inputs(gen, S, T, H, H, [T] * S)

@@ -38,10 +38,11 @@ PHASES = {
                  2: "h.W_h", 3: "s.u wait, sigma(a), sync",
                  20: "u + scale (mma: z staged)", 4: "graph mix", 5: "sync",
                  6: "cell", 7: "sync", 8: "hy push",
-                 9: "hy wait (barrier without attention)",
-                 15: "previous y", 18: "sum_nodes hy, sync",
-                 19: "q, push", 10: "hy.Wh", 11: "q wait, sync",
-                 12: "q.Wq, s", 13: "sync", 14: "s.u partials, push",
+                 18: "own sum_nodes hy, partial q, push",
+                 9: "hy + partial q wait (barrier without attention)",
+                 15: "previous y", 19: "q = relu(sum of partials)",
+                 10: "hy.Wh", 11: "sync", 12: "q.Wq, s", 13: "sync",
+                 14: "s.u partials, push",
                  22: "tf32: s.u wait, sigma(a)",
                  23: "tf32: h = hy + hy.sigma(a), y, round, sync",
                  17: "final state"},

@@ -1333,6 +1333,52 @@ def test_torch_port_gcn_lstm_wide_plan_matches_plain_on_card(cell, H, T,
 
 
 @pytest.mark.cuda
+def test_torch_port_gcn_lstm_wide_plan_long_ragged_window_on_card():
+    """The one-stream plan at the A3GC cell's longest windows (T = 2048, C =
+    16 at H = 256), ragged: 2047 frames of two exchanges each (hy with the
+    partial q, then s·u), where a frame's bytes landing in another frame's
+    mbarrier phase or partial buffer would show. Within PREC_KERNEL_TOL of
+    the plain version at "tf32" and nearer it than the plain version at
+    "fp32" is by the window's bound (compare_formats); past n_valid y is
+    tanh of the final h."""
+    _need_card()
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    T, n_valid, H = 2048, 2047, 256
+    kernel, plain, args = _tf32_case("gcn_lstm", H, 1, T=T)
+    args = args[:3] + (torch.tensor([n_valid], device="cuda"),)
+    kernel.launches_by_cluster = {}
+    with torch.no_grad():
+        got = _outputs(kernel(*args, "tf32"))
+        want = _outputs(plain(*args, "tf32"))
+        gap = _rms(_outputs(plain(*args, "fp32")), want)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_cluster == {
+        G.launch_plan(15, H, True, tf32=True, S=1).C: 1} == {16: 1}
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= PREC_KERNEL_TOL
+    assert _rms(got, want) <= PREC_SEP_WINDOW * gap
+    torch.testing.assert_close(got[0][0, n_valid:, :, :H],
+                               torch.tanh(got[1][0, 0]).expand(
+                                   T - n_valid, -1, -1), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32,mma", [(False, False), (True, False),
+                                      (True, True)])
+def test_torch_port_gcn_lstm_attention_has_no_local_memory_on_card(tf32,
+                                                                   mma):
+    """Every instantiation with attention (fp32, the TF32 FMA form, the
+    tensor-core form) keeps its window's weights and sums in registers:
+    no local memory (spills or stack), by cudaFuncGetAttributes."""
+    _need_card()
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    attrs = G.func_attributes(True, tf32, mma)
+    assert attrs["local_bytes"] == 0, attrs
+    assert attrs["regs"] <= 255
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,S,D,P,mma", [
     (H, S, D, None, mma) for H in (64, 128, 256, 512) for S in (1, 8)
     for D in (2, 1) for mma in (True, False)

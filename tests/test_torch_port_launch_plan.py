@@ -231,12 +231,13 @@ def test_torch_port_gcn_lstm_launch_plan(H, attention):
     assert plan.cluster == plan.C <= MAX_CLUSTER
     assert plan.smem <= SMEM_LIMIT
     assert plan.smem >= 4 * (H * 4 * Hc + 2 * 16 * H)      # W_h slice, h
-    assert plan.smem == G.smem_bytes(N, H, plan.C, plan.KSQ, attention)
+    assert plan.smem == G.smem_bytes(N, H, plan.C, attention)
     _check_slices(Hc, H, plan.KS)              # 4-column groups of W_h
     _check_slices(Hc // 2, H, plan.KSA)        # column pairs of Wh
-    _check_slices(Hc, H, plan.KSQ)             # columns of W and Wq
-    if attention:                              # W, Wh slices in registers
-        assert 2 * (H // plan.KSA) <= G.MAX_KCA and H // plan.KSQ <= G.MAX_KW
+    _check_slices(Hc, H, plan.KSQ)             # columns of Wq
+    if attention:       # Wh's column pair, W's own rows of a column
+        assert 2 * (H // plan.KSA) <= G.MAX_KCA and Hc <= G.MAX_KW
+        assert H <= THREADS                    # a thread a column of W
     expected_c = {8: 1, 32: 2, 64: 4, 128: 4, 256: 8}[H]
     assert plan.C == expected_c
 
@@ -313,7 +314,7 @@ def test_torch_port_gcn_lstm_tf32_launch_plan(H, attention):
     Hc = H // plan.C
     assert plan[:5] == base[:5] and base.mma == 0
     assert plan.mma == int(G.mma_ok(H, Hc, attention))
-    assert plan.smem == G.smem_bytes(N, H, plan.C, plan.KSQ, attention,
+    assert plan.smem == G.smem_bytes(N, H, plan.C, attention,
                                      bool(plan.mma)) <= SMEM_LIMIT
     if H in (64, 128, 256):
         assert plan.mma == 1
@@ -344,7 +345,7 @@ def test_torch_port_gcn_lstm_one_stream_launch_plan(H, wide, attention):
     assert plan.C <= G.MAX_CLUSTER_WIDE
     assert (plan.C > MAX_CLUSTER) == (H == 256)
     assert G.mma_ok(H, Hc, attention)
-    assert plan.smem == G.smem_bytes(N, H, plan.C, plan.KSQ, attention,
+    assert plan.smem == G.smem_bytes(N, H, plan.C, attention,
                                      True) <= SMEM_LIMIT
     assert plan == G.launch_plan(N, H, attention, C=wide, tf32=True,
                                  mma=True)
@@ -352,7 +353,7 @@ def test_torch_port_gcn_lstm_one_stream_launch_plan(H, wide, attention):
     _check_slices(Hc // 2, H, plan.KSA)
     _check_slices(Hc, H, plan.KSQ)
     if attention:
-        assert 2 * (H // plan.KSA) <= G.MAX_KCA and H // plan.KSQ <= G.MAX_KW
+        assert 2 * (H // plan.KSA) <= G.MAX_KCA and Hc <= G.MAX_KW
     portable = G.launch_plan(N, H, attention, tf32=True)
     assert plan.C == portable.C * (1 if H == 64 else 2)
     assert plan.smem <= portable.smem
@@ -390,10 +391,39 @@ def test_torch_port_tf32_mma_smem_bytes(H):
         assert p.smem == (whole if H <= 128 else
                           GG.smem_bytes(N, H, p.C, True, 1)) <= SMEM_LIMIT
         assert (whole <= SMEM_LIMIT) == (H <= 128)
-    assert G.smem_bytes(N, 256, 8, 8, True, True) == 230224
-    assert G.smem_bytes(N, 256, 8, 8, True) == 231760
+    assert G.smem_bytes(N, 256, 8, True, True) == 230224
+    assert G.smem_bytes(N, 256, 8, True) == 231760
     assert GG.smem_bytes(N, 256, 8, True, 1) == 215744
     assert GG.smem_bytes(N, 128, 4, True, 2) == 157376
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("H", [64, 128, 256])
+def test_torch_port_gcn_lstm_attention_smem_bytes(H, S, tf32):
+    """With attention a CTA adds Wq's column slice unpadded (its rows
+    rotated), the ranks' partial q [C, 256] (they ride with the hy slices:
+    two exchanges a frame; the own slot then holds q) and the small
+    vectors; hy·Wh's partial
+    planes, s and each warp's node sums of the own columns take the mixed
+    gates' buffer. The bytes of every plan of
+    the stage widths, serving (S = 8) and one-stream (S = 1), fp32 and TF32:
+    H = 256 at C = 8 keeps its figures, where the padded Wq and the buffers
+    of s, q and Σ_nodes hy gave way to the partials."""
+    N = 15
+    plan = G.launch_plan(N, H, True, tf32=tf32, S=S)
+    C, Hc = plan.C, H // plan.C
+    bare = G.smem_bytes(N, H, C, False, bool(plan.mma))
+    assert plan.smem - bare == 4 * (H * Hc + C * THREADS + 2 * Hc + 16 * C
+                                    + 32)
+    parts = G.att_split(H, Hc) if plan.mma else 1
+    assert (parts * 16 + 8) * Hc <= 16 * (4 * Hc + (8 if plan.mma else 0))
+    assert plan.smem == {(64, 4, 0): 47120, (64, 4, 1): 48656,
+                         (128, 4, 0): 127056, (128, 4, 1): 127568,
+                         (128, 8, 1): 81680, (256, 8, 0): 231760,
+                         (256, 8, 1): 230224,
+                         (256, 16, 1): 147728}[(H, C, plan.mma)]
+    assert plan.smem <= SMEM_LIMIT
 
 
 def test_torch_port_ggru_smem_bytes():
@@ -463,6 +493,8 @@ def test_torch_port_doubled_split_is_a_valid_plan(kernel, H):
     lambda: G.launch_plan(17, 64, True),             # more than 16 nodes
     lambda: G.launch_plan(15, 256, True, C=16),      # not a portable cluster
     lambda: G.launch_plan(15, 256, True, C=4),       # slice over 227 KB
+    lambda: G.launch_plan(15, 64, True, C=1),        # W's 64 own rows of a
+                                                     # column: 32 registers
     lambda: GG.launch_plan(8, 17, 64),               # more than 16 nodes
     lambda: GG.launch_plan(8, 15, 30),               # H % 4
     lambda: GG.launch_plan(0, 15, 64),               # no stream

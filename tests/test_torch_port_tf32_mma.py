@@ -9,7 +9,9 @@ rounds them. A product of two TF32 values is exact in fp32, so what changes
 against the FMA loops is the order of the fp32 sums: k in 16-deep blocks,
 each block two 8-term steps (the lanes' k renumbered: 4t, 4t + 1 in step 0,
 4t + 2, 4t + 3 in step 1) added into two accumulators that are summed at
-the end; hy·Wh over ``att_split`` k parts added in order; the graph mix as
+the end; hy·Wh over ``att_split`` k parts added in order; q's product as
+one partial a rank of the cluster (its own rows, an FMA chain), the
+partials added in rank order; the graph mix as
 two 8-node steps into one accumulator; ``lstm.cu``'s h·W_hh over its plan's
 KS k parts (one a group of warps), added in order, part 0 first. The emulation below runs those
 frames (the 8 products of a step summed in float64, then added into the
@@ -91,6 +93,29 @@ def _pad16(t, dim):
     return torch.nn.functional.pad(t, pad)
 
 
+def _fma_chain(a, b):
+    r"""Σ_k a[..., k]·b[k] as one fp32 FMA after another, k ascending:
+    each exact product (float64) added to the running fp32 sum, rounded."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[1:])
+    for k in range(a.shape[-1]):
+        acc = (acc.double() + a[..., k, None].double() * b[k].double()
+               ).float()
+    return acc
+
+
+def _partial_q(hsum, w, C):
+    r"""q's pre-activation as ``gcn_lstm.cu`` sums it: rank r of the
+    cluster forms its partial over its own rows [r·Hc, (r+1)·Hc) of hsum
+    and W (an FMA chain over k), and every rank adds the C partials in
+    rank order."""
+    Hc = hsum.shape[-1] // C
+    total = torch.zeros(hsum.shape[:-1] + w.shape[1:])
+    for rank in range(C):
+        rows = slice(rank * Hc, (rank + 1) * Hc)
+        total = total + _fma_chain(hsum[..., rows], w[rows])
+    return total
+
+
 def _gcn_lstm_emulated(u, wh, adj, bias, att, h0, c0, n_valid, tf32=True):
     r"""``gcn_lstm.cu``'s tensor-core TF32 frames (A3GC cell) on the hoisted
     inputs, in the order of the plan the kernel takes at S streams: (y, h,
@@ -98,7 +123,8 @@ def _gcn_lstm_emulated(u, wh, adj, bias, att, h0, c0, n_valid, tf32=True):
     r = CM.round_tf32 if tf32 else (lambda t: t)
     _, S, T, _, G4 = u.shape
     H = G4 // 4
-    Hc = H // G.launch_plan(N, H, True, tf32=True, S=S).C
+    C = G.launch_plan(N, H, True, tf32=True, S=S).C
+    Hc = H // C
     parts = G.att_split(H, Hc)
     w, wq, wh_att, u_att, bs, bu = att
     y = torch.zeros(S, T, N, 2 * H)
@@ -118,7 +144,7 @@ def _gcn_lstm_emulated(u, wh, adj, bias, att, h0, c0, n_valid, tf32=True):
             hsum = torch.zeros(S, H)
             for n in range(N):
                 hsum = hsum + r(hy[:, n])
-            q = r(torch.relu(hsum @ r(w[d])))
+            q = r(torch.relu(_partial_q(hsum, r(w[d]), C)))
             hw = _mma(r(_pad16(hy, -2)), r(wh_att[d]), parts)[:, :N]
             s = r(torch.tanh(hw + (q @ r(wq[d]))[:, None] + bs[d]))
             a = s @ r(u_att[d]) + bu[d]
@@ -200,7 +226,7 @@ def _rms(a, b):
 
 
 @pytest.mark.parametrize("T,bound", [(1, SEP_FRAME), (60, SEP_WINDOW)])
-@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("H", [64, 128, 256])
 @pytest.mark.parametrize("name", ["gcn_lstm", "ggru"])
 def test_torch_port_tf32_mma_order_within_bound(name, H, T, bound):
     """The tensor-core frame's order of sums at "tf32", behind the layer's
@@ -208,7 +234,8 @@ def test_torch_port_tf32_mma_order_within_bound(name, H, T, bound):
     than the bound, a fraction of the gap between the plain version at
     "fp32" and at "tf32" (``compare_formats``), over one frame and over a
     window; the same frames at "fp32" (hoist and products unrounded: the
-    fp32 kernel in the TF32 one's place) exceed it."""
+    fp32 kernel in the TF32 one's place) exceed it. Two streams take the
+    serving plans (``gcn_lstm``: C = 4 · 4 · 8, q from C partials)."""
     mod, args = _layer(name, H, T)
     emulated = _gcn_lstm_emulated if name == "gcn_lstm" else _ggru_emulated
     plain = getattr(mod, f"bi_{name}_reference")
@@ -240,14 +267,18 @@ def test_torch_port_tf32_mma_blocks_cover_k(H):
 
 
 @pytest.mark.parametrize("T,bound", [(1, SEP_FRAME), (60, SEP_WINDOW)])
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [64, 128, 256])
 def test_torch_port_tf32_mma_wide_plan_order_within_bound(H, T, bound):
     """The same check at one stream, whose plan spreads a direction over
-    twice the CTAs (C = 8 at H = 128, 16 at 256): hy·Wh over more k parts
-    (``att_split`` of the narrower slice)."""
+    twice the CTAs where it can (C = 8 at H = 128, 16 at 256; H = 64 keeps
+    4): hy·Wh over more k parts (``att_split`` of the narrower slice), q
+    from as many partials."""
     mod, args = _layer("gcn_lstm", H, T, S=1)
-    assert G.att_split(H, H // G.launch_plan(N, H, True, tf32=True, S=1).C) \
-        > G.att_split(H, H // G.launch_plan(N, H, True, tf32=True).C)
+    wide = G.launch_plan(N, H, True, tf32=True, S=1).C
+    portable = G.launch_plan(N, H, True, tf32=True).C
+    assert wide == {64: 4, 128: 8, 256: 16}[H]
+    assert (G.att_split(H, H // wide) > G.att_split(H, H // portable)) \
+        == (wide > portable)
     with torch.no_grad():
         want = _outputs(mod.bi_gcn_lstm_reference(*args, fmt="tf32"))
         gap = _rms(_outputs(mod.bi_gcn_lstm_reference(*args, fmt="fp32")),

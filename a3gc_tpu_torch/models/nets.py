@@ -153,20 +153,23 @@ def plan_refusal(cfg, streams: int, fmt: str, device) -> Optional[str]:
     r"""Why the kernel of ``cfg``'s recurrent layers (a
     :class:`GraphNetConfig` or a :class:`DIPConfig`) has no launch plan for
     a layer call of ``streams`` streams at operand format ``fmt`` on CUDA
-    device ``device``: its module's ``plan_refusal`` (None where it has a
-    plan). The key holds no input width, so rnn1 (F = H) and rnn2
-    (F = 2H), and every layer of a DIP net, get the same answer: a net
-    runs its kernel in every layer or in none."""
+    device ``device``: the refusal its module's ``cached_plan`` holds under
+    the key the launch reads (None where it holds a plan). The key holds
+    no input width, so rnn1 (F = H) and rnn2 (F = 2H), and every layer of
+    a DIP net, get the same answer: a net runs its kernel in every layer
+    or in none."""
+    tf32 = fmt == "tf32"
     if isinstance(cfg, DIPConfig):
-        return LS.plan_refusal(streams, cfg.n_hidden,
-                               sm_count(device_index(device)),
-                               cfg.directions, fmt == "tf32")
-    if cfg.cell == "ggru":
-        return GG.plan_refusal(streams, cfg.num_nodes, cfg.units_hidden,
-                               fmt == "tf32",
-                               sm_count(device_index(device)))
-    return G.plan_refusal(cfg.num_nodes, cfg.units_hidden,
-                          cfg.cell in ("a3gc", "agc"), fmt == "tf32")
+        plan = LS.cached_plan(streams, cfg.n_hidden,
+                              sm_count(device_index(device)),
+                              cfg.directions, tf32)
+    elif cfg.cell == "ggru":
+        plan = GG.cached_plan(streams, cfg.num_nodes, cfg.units_hidden,
+                              tf32, sm_count(device_index(device)))
+    else:
+        plan = G.cached_plan(cfg.num_nodes, cfg.units_hidden,
+                             cfg.cell in ("a3gc", "agc"), tf32, streams)
+    return plan if isinstance(plan, str) else None
 
 
 _NOTED_PLAIN = set()    # (kernel, refusal, fmt) already noted on stderr

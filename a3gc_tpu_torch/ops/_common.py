@@ -3,11 +3,14 @@ port's scan kernels (``gcn_lstm``, ``ggru``, ``lstm``).
 
 Each ``csrc/<name>.cu`` exports a plain C interface: ``<name>_forward``
 (device pointers, then ints, then the CUDA stream; returns a
-``cudaError_t``), ``<name>_error_string`` and ``<name>_smem_bytes``.
+``cudaError_t``), ``<name>_error_string``, ``<name>_max_active`` (ints)
+and ``<name>_func_attributes`` (ints, then two ``int*``), all bound by
+:func:`kernel_library`.
 
-The launch plans of the weight-stationary kernels (``lstm``, ``gcn_lstm``)
-are computed here in Python and passed to C: :func:`k_slices` is the
-thread mapping both use.
+The launch plans are computed in Python and passed to C: :func:`k_slices`
+is the thread mapping the kernels use, and each module's ``cached_plan``
+keeps its ``launch_plan``'s answer per key (:func:`plan_or_refusal`), which
+the dispatch and the launch both read.
 
 The operand format of the nets' products is settled here too: a net's
 ``precision`` ("highest" or "default", the JAX package's
@@ -37,7 +40,8 @@ __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
            "round_tf32", "operand", "step_operand", "like",
            "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
            "k_slices", "mma_row_stride", "sm_count", "device_index",
-           "kernel_library", "launch"]
+           "plan_or_refusal", "planned", "kernel_library", "launch",
+           "max_active_query", "attributes_query"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one block can have
 SMEM_HEADER = 64             # bytes before the float arrays (scan_common.cuh)
@@ -187,24 +191,50 @@ def check_aligned(kernel: str, *tensors):
                              "16-byte aligned")
 
 
-def kernel_library(name: str, n_pointers: int, n_ints: int,
-                   n_smem_args: int):
+def plan_or_refusal(launch_plan, *args, **kwargs):
+    r"""``launch_plan(*args, **kwargs)``, or the message of the
+    ``ValueError`` it raises: what a module's ``cached_plan`` keeps."""
+    try:
+        return launch_plan(*args, **kwargs)
+    except ValueError as e:
+        return str(e)
+
+
+def planned(plan_or_message):
+    r"""The plan of a ``cached_plan`` answer; raise ``ValueError`` with its
+    message where it is a refusal."""
+    if isinstance(plan_or_message, str):
+        raise ValueError(plan_or_message)
+    return plan_or_message
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library(name: str, n_pointers: int, n_ints: int, n_active: int,
+                   n_attributes: int):
     r"""Build (at first use) and load ``csrc/<name>.cu``, with the ctypes
-    signatures of its C interface set."""
+    signatures of its exports set from their arities (ints beside the
+    pointers of ``_forward`` and the two ``int*`` of ``_func_attributes``)."""
     from a3gc_tpu_torch.ops._build import load_library
     lib = load_library(name).lib
-    fn = getattr(lib, f"{name}_forward")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes = [ctypes.c_int] * n_smem_args
-        smem.restype = ctypes.c_size_t
+    ints, out = [ctypes.c_int], [ctypes.POINTER(ctypes.c_int)]
+    for export, argtypes, restype in (
+            ("forward", [ctypes.c_void_p] * n_pointers + ints * n_ints
+             + [ctypes.c_void_p], ctypes.c_int),
+            ("error_string", ints, ctypes.c_char_p),
+            ("max_active", ints * n_active, ctypes.c_int),
+            ("func_attributes", ints * n_attributes + out * 2,
+             ctypes.c_int)):
+        fn = getattr(lib, f"{name}_{export}")
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def _check(name: str, lib, err: int, what: str):
+    r"""Raise ``RuntimeError`` unless the ``cudaError_t`` ``err`` is 0."""
+    if err != 0:
+        raise RuntimeError(f"{name} {what} failed: "
+                           + getattr(lib, f"{name}_error_string")(err)
+                           .decode())
 
 
 def launch(name: str, lib, dev: torch.device, *args):
@@ -213,7 +243,21 @@ def launch(name: str, lib, dev: torch.device, *args):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{name}_forward")(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + getattr(lib, f"{name}_error_string")(err)
-                           .decode())
+    _check(name, lib, err, "kernel launch")
+
+
+def max_active_query(name: str, lib, *ints) -> int:
+    r"""``<name>_max_active(*ints)``, raising where it returns minus a
+    ``cudaError_t``."""
+    n = getattr(lib, f"{name}_max_active")(*ints)
+    _check(name, lib, -min(n, 0), "occupancy query")
+    return n
+
+
+def attributes_query(name: str, lib, *ints) -> dict:
+    r"""``<name>_func_attributes(*ints, &regs, &local_bytes)`` as
+    {"regs": …, "local_bytes": …}, raising on an error."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    _check(name, lib, getattr(lib, f"{name}_func_attributes")(
+        *ints, ctypes.byref(regs), ctypes.byref(local)), "attribute query")
+    return {"regs": regs.value, "local_bytes": local.value}

@@ -962,14 +962,6 @@ cudaError_t attributes(cudaFuncAttributes* fa) {
 
 extern "C" {
 
-// Dynamic shared memory of one CTA of a plan (mma = 1: the TF32
-// instantiation on the tensor cores), in bytes.
-size_t gcn_lstm_smem_bytes(int N, int H, int C, int attention, int mma) {
-  if (H <= 0 || C <= 0 || H % C != 0) return 0;
-  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, attention != 0,
-                                                    mma != 0);
-}
-
 // Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
 // the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
 // is minus a cudaError_t.

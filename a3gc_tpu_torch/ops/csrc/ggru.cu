@@ -809,14 +809,6 @@ cudaError_t attributes(cudaFuncAttributes* fa) {
 
 extern "C" {
 
-// Dynamic shared memory of one CTA of a plan of the fp32 (tf32 = 0) or the
-// TF32 instantiation (mma 1 / 2: on the tensor cores with G's own columns
-// / all of G), in bytes.
-size_t ggru_smem_bytes(int N, int H, int C, int tf32, int mma) {
-  if (H <= 0 || C <= 0 || H % C != 0) return 0;
-  return kHeaderBytes + sizeof(float) * smem_floats(N, H, C, tf32 != 0, mma);
-}
-
 // Most clusters of a plan of the fp32 (tf32 = 0) or the TF32 instantiation
 // the card holds at once (cudaOccupancyMaxActiveClusters); a negative value
 // is minus a cudaError_t.

@@ -633,14 +633,6 @@ cudaError_t attributes(bool coop, bool tf32, cudaFuncAttributes* fa) {
 
 extern "C" {
 
-// Dynamic shared memory of one CTA of a plan, in bytes (mma = 1: the TF32
-// instantiation's tensor-core form, whose KS is its k parts).
-size_t lstm_smem_bytes(int R, int H, int P, int coop, int mma, int KS) {
-  if (H <= 0 || P <= 0 || H % P != 0 || KS <= 0) return 0;
-  return kHeaderBytes +
-         sizeof(float) * smem_floats(R, H, P, coop != 0, mma != 0, KS);
-}
-
 // Most groups the card holds at once for a plan of the fp32 (tf32 = 0) or
 // the TF32 instantiation: clusters (cudaOccupancyMaxActiveClusters) or,
 // cooperative, resident CTAs. A negative value is minus a cudaError_t.

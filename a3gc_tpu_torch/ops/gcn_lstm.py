@@ -12,7 +12,8 @@ attention sums through distributed shared memory each frame (``st.async``
 stores completing on the receiver's mbarriers; with attention two
 exchanges a frame: the hy slice with the CTA's partial q, then the partial
 s·u).
-:func:`launch_plan` chooses C. The launch is the CUDA implementation of
+:func:`launch_plan` chooses C; :func:`cached_plan` keeps its answer per
+key. The launch is the CUDA implementation of
 the registered op ``a3gc_tpu_torch::gcn_lstm_scan``
 (:mod:`a3gc_tpu_torch.ops.library`), whose CPU implementation is
 :func:`scan_reference`, the plain PyTorch version of the same function: on
@@ -43,27 +44,27 @@ says so: every serving width).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from types import SimpleNamespace
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
-                                        THREADS, check_aligned, check_f32,
+                                        THREADS, attributes_query,
+                                        check_aligned, check_f32,
                                         check_n_valid, f32 as _f32, k_slices,
                                         kernel_library, launch, like,
-                                        mma_row_stride,
-                                        n_valid_tensor as _n_valid)
+                                        max_active_query, mma_row_stride,
+                                        n_valid_tensor as _n_valid,
+                                        plan_or_refusal, planned)
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = ["LaunchPlan", "bi_gcn_lstm", "bi_gcn_lstm_reference",
-           "func_attributes", "launch_plan", "max_active", "mma_ok",
-           "plan_refusal", "scan", "scan_inputs", "scan_reference",
-           "smem_bytes"]
+           "cached_plan", "func_attributes", "launch_plan", "max_active",
+           "mma_ok", "scan", "scan_inputs", "scan_reference", "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
 MAX_KW = 32          # attention weights a thread keeps in registers: of
@@ -113,7 +114,7 @@ def mma_ok(H: int, Hc: int, attention: bool) -> bool:
 
 def smem_bytes(N: int, H: int, C: int, attention: bool,
                mma: bool = False) -> int:
-    r"""Dynamic shared memory of one CTA (``gcn_lstm_smem_bytes`` in C):
+    r"""Dynamic shared memory of one CTA (C: ``smem_floats``):
     the W_h slice [H, 4H/C] (rows padded by 4 floats), the full h
     double-buffered [2, 16, H], the mixed gates [16, 4H/C], u [N, 4H/C],
     c [N, H/C], bias, adjacency; with attention Wq's columns [H, H/C]
@@ -210,18 +211,13 @@ def _split_plan(N: int, H: int, attention: bool, C: Optional[int],
 
 
 @functools.lru_cache(maxsize=None)
-def plan_refusal(N: int, H: int, attention: bool,
-                 tf32: bool = False) -> Optional[str]:
-    r"""Whether the kernel has a launch plan for a layer call: None where
-    it has, else :func:`launch_plan`'s refusal, asked with the arguments
-    :func:`scan` gives it but S (so the two cannot disagree: the one-stream
-    widening keeps the plan it cannot widen, it never refuses). Cached by
-    that key: a dispatch pays one lookup."""
-    try:
-        launch_plan(N, H, attention, tf32=tf32)
-    except ValueError as e:
-        return str(e)
-    return None
+def cached_plan(N: int, H: int, attention: bool, tf32: bool,
+                S: int) -> Union[LaunchPlan, str]:
+    r""":func:`launch_plan`'s plan for a layer call of S streams, or its
+    refusal message, computed once per key. The launch (:func:`scan`) and
+    the nets' dispatch (``models/nets.py`` ``plan_refusal``) both read
+    it."""
+    return plan_or_refusal(launch_plan, N, H, attention, tf32=tf32, S=S)
 
 
 def bi_gcn_lstm_reference(params2: C.GCNLSTMCellParams, x: torch.Tensor,
@@ -278,7 +274,7 @@ def scan_reference(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
 
 
 def _library():
-    return kernel_library("gcn_lstm", 16, 13, 6)
+    return kernel_library("gcn_lstm", 16, 13, 12, 3)
 
 
 def _plan_ints(plan: LaunchPlan):
@@ -291,15 +287,8 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int,
     r"""Clusters of ``plan`` the current card holds at once
     (``cudaOccupancyMaxActiveClusters``), for the fp32 or the TF32
     instantiation. Raises on a plan the kernel refuses."""
-    lib = _library()
-    fn = lib.gcn_lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 12
-    fn.restype = ctypes.c_int
-    n = fn(S, N, H, int(attention), *_plan_ints(plan), int(tf32))
-    if n < 0:
-        raise RuntimeError("gcn_lstm occupancy query failed: "
-                           + lib.gcn_lstm_error_string(-n).decode())
-    return n
+    return max_active_query("gcn_lstm", _library(), S, N, H, int(attention),
+                            *_plan_ints(plan), int(tf32))
 
 
 def func_attributes(attention: bool, tf32: bool,
@@ -307,17 +296,8 @@ def func_attributes(attention: bool, tf32: bool,
     r"""Registers a thread and local-memory bytes (spills) of the
     instantiation a launch of (attention, tf32, mma) runs
     (``cudaFuncGetAttributes``): {"regs": …, "local_bytes": …}."""
-    lib = _library()
-    fn = lib.gcn_lstm_func_attributes
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    err = fn(int(attention), int(tf32), int(mma), ctypes.byref(regs),
-             ctypes.byref(local))
-    if err:
-        raise RuntimeError("gcn_lstm attribute query failed: "
-                           + lib.gcn_lstm_error_string(err).decode())
-    return {"regs": regs.value, "local_bytes": local.value}
+    return attributes_query("gcn_lstm", _library(), int(attention),
+                            int(tf32), int(mma))
 
 
 def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
@@ -328,9 +308,10 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     directions in forward frame order), wh [2, H, 4H], adj [2, 4, N, N],
     bias [2, 4, H], attention None or (w, wq, wh, u [2, H], bs, bu), h0/c0
     [2, S, N, H], n_valid [S] int32 — all contiguous fp32 on one card.
-    ``plan`` defaults to :func:`launch_plan`; ``tf32`` launches the TF32
-    instantiation (the products' operands rounded to TF32). Returns
-    (y [S, T, N, 2H], h [2, S, N, H], c [2, S, N, H])."""
+    ``plan`` defaults to :func:`cached_plan`'s (``ValueError`` where it
+    refuses); ``tf32`` launches the TF32 instantiation (the products'
+    operands rounded to TF32). Returns (y [S, T, N, 2H], h [2, S, N, H],
+    c [2, S, N, H])."""
     _, S, T, N, G = u.shape
     H = G // 4
     dev = u.device
@@ -344,7 +325,7 @@ def scan(u: torch.Tensor, wh: torch.Tensor, adj: torch.Tensor,
     check_n_valid("gcn_lstm", dev, n_valid, S)
     check_aligned("gcn_lstm", u, wh, *(attention[1:2] if attention else ()))
     if plan is None:
-        plan = launch_plan(N, H, attention is not None, tf32=tf32, S=S)
+        plan = planned(cached_plan(N, H, attention is not None, tf32, S))
     lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)

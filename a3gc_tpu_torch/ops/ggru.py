@@ -8,7 +8,8 @@ launch: a thread-block cluster of C CTAs per (stream, direction) that split
 the hidden columns, keep their slice of the recurrent weights in shared
 memory for the whole window, and exchange their columns through distributed
 shared memory each frame (``st.async`` stores completing on the receiver's
-mbarriers). :func:`launch_plan` chooses C.
+mbarriers). :func:`launch_plan` chooses C; :func:`cached_plan` keeps its
+answer per key.
 
 The kernel reassociates the cell's recurrent chain: adj·(h·G)·W_hid =
 (adj·h)·(G·W_hid). Each CTA forms its columns of W = G·W_hid once per
@@ -52,26 +53,27 @@ instantiation the cell's h·G, adj·hg and msg·W_hid (``csrc/ggru.cu``).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from types import SimpleNamespace
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from a3gc_tpu_torch.models import cells as C
 from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
-                                        check_aligned, check_f32,
-                                        check_n_valid, device_index, f32,
-                                        k_slices, kernel_library, launch,
-                                        like, mma_row_stride, n_valid_tensor,
-                                        sm_count)
+                                        attributes_query, check_aligned,
+                                        check_f32, check_n_valid,
+                                        device_index, f32, k_slices,
+                                        kernel_library, launch, like,
+                                        max_active_query, mma_row_stride,
+                                        n_valid_tensor, plan_or_refusal,
+                                        planned, sm_count)
 from a3gc_tpu_torch.parallel import tensor as TP
 
-__all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "func_attributes",
-           "gate_pad", "launch_plan", "max_active", "mma_ok", "one_wave",
-           "plan_refusal", "scan", "scan_inputs", "scan_reference",
+__all__ = ["LaunchPlan", "bi_ggru", "bi_ggru_reference", "cached_plan",
+           "func_attributes", "gate_pad", "launch_plan", "max_active",
+           "mma_ok", "one_wave", "scan", "scan_inputs", "scan_reference",
            "smem_bytes"]
 
 NODES = 16           # node rows padded to 16
@@ -111,7 +113,7 @@ def mma_ok(H: int, Hc: int) -> bool:
 
 def smem_bytes(N: int, H: int, C: int, tf32: bool = False,
                mma: int = 0) -> int:
-    r"""Dynamic shared memory of one CTA (``ggru_smem_bytes`` in C): the
+    r"""Dynamic shared memory of one CTA (C: ``smem_floats``): the
     slice [H, 3H/C] of G·W_hid (:func:`gate_pad` floats after every 4 rows),
     the full adj·h [16, H], double-buffered, zi [N, 3H/C], the gate
     pre-activations [16, 3H/C], the adjacency padded to 16 × 16 and the own
@@ -209,17 +211,13 @@ def launch_plan(S: int, N: int, H: int, C: Optional[int] = None,
 
 
 @functools.lru_cache(maxsize=None)
-def plan_refusal(S: int, N: int, H: int, tf32: bool,
-                 sms: int) -> Optional[str]:
-    r"""Whether the kernel has a launch plan for a layer call on a card of
-    ``sms`` SMs: None where it has, else :func:`launch_plan`'s refusal,
-    asked with the arguments :func:`scan` gives it (so the two cannot
-    disagree). Cached by that key: a dispatch pays one lookup."""
-    try:
-        launch_plan(S, N, H, sms=sms, tf32=tf32)
-    except ValueError as e:
-        return str(e)
-    return None
+def cached_plan(S: int, N: int, H: int, tf32: bool,
+                sms: int) -> Union[LaunchPlan, str]:
+    r""":func:`launch_plan`'s plan for a layer call on a card of ``sms``
+    SMs, or its refusal message, computed once per key. The launch
+    (:func:`scan`) and the nets' dispatch (``models/nets.py``
+    ``plan_refusal``) both read it."""
+    return plan_or_refusal(launch_plan, S, N, H, sms=sms, tf32=tf32)
 
 
 def _hoist(params2: C.GGRUCellParams, x: torch.Tensor,
@@ -271,7 +269,7 @@ def scan_reference(zi: torch.Tensor, gcn_kernel: torch.Tensor,
 
 
 def _library():
-    return kernel_library("ggru", 8, 10, 5)
+    return kernel_library("ggru", 8, 10, 9, 2)
 
 
 def max_active(plan: LaunchPlan, S: int, N: int, H: int,
@@ -279,31 +277,14 @@ def max_active(plan: LaunchPlan, S: int, N: int, H: int,
     r"""Clusters of ``plan`` the current card holds at once
     (``cudaOccupancyMaxActiveClusters``), for the fp32 or the TF32
     instantiation. Raises on a plan the kernel refuses."""
-    lib = _library()
-    fn = lib.ggru_max_active
-    fn.argtypes = [ctypes.c_int] * 9
-    fn.restype = ctypes.c_int
-    n = fn(S, N, H, *plan, int(tf32))
-    if n < 0:
-        raise RuntimeError("ggru occupancy query failed: "
-                           + lib.ggru_error_string(-n).decode())
-    return n
+    return max_active_query("ggru", _library(), S, N, H, *plan, int(tf32))
 
 
 def func_attributes(tf32: bool, mma: int = 0) -> dict:
     r"""Registers a thread and local-memory bytes (spills) of the
     instantiation a launch of (tf32, mma) runs (``cudaFuncGetAttributes``):
     {"regs": …, "local_bytes": …}."""
-    lib = _library()
-    fn = lib.ggru_func_attributes
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    err = fn(int(tf32), int(mma), ctypes.byref(regs), ctypes.byref(local))
-    if err:
-        raise RuntimeError("ggru attribute query failed: "
-                           + lib.ggru_error_string(err).decode())
-    return {"regs": regs.value, "local_bytes": local.value}
+    return attributes_query("ggru", _library(), int(tf32), int(mma))
 
 
 def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
@@ -312,9 +293,9 @@ def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
     r"""Launch the kernel on hoisted inputs. zi [2, S, T, N, 3H] (both
     directions in forward frame order), gcn_kernel [2, H, H], adj [2, N, N],
     w_hid [2, H, 3H], h0 [2, S, N, H], n_valid [S] int32 — all contiguous
-    fp32 on one card. ``plan`` defaults to :func:`launch_plan`; ``tf32``
-    launches the TF32 instantiation. Returns (y [S, T, N, 2H],
-    h [2, S, N, H])."""
+    fp32 on one card. ``plan`` defaults to :func:`cached_plan`'s
+    (``ValueError`` where it refuses); ``tf32`` launches the TF32
+    instantiation. Returns (y [S, T, N, 2H], h [2, S, N, H])."""
     _, S, T, N, G3 = zi.shape
     H = G3 // 3
     dev = zi.device
@@ -324,8 +305,8 @@ def scan(zi: torch.Tensor, gcn_kernel: torch.Tensor, adj: torch.Tensor,
     check_n_valid("ggru", dev, n_valid, S)
     check_aligned("ggru", zi, gcn_kernel, w_hid)
     if plan is None:
-        plan = launch_plan(S, N, H, sms=sm_count(device_index(dev)),
-                           tf32=tf32)
+        plan = planned(cached_plan(S, N, H, tf32,
+                                   sm_count(device_index(dev))))
     lib = _library()
     y = torch.empty((S, T, N, 2 * H), dtype=torch.float32, device=dev)
     h_out = torch.empty((2, S, N, H), dtype=torch.float32, device=dev)

@@ -5,9 +5,10 @@ inputs their ``scan`` functions take: ``a3gc_tpu_torch::gcn_lstm_scan``,
 Each op has three implementations:
 
   * CUDA: the kernel's ``scan`` (``ops/gcn_lstm.py``, ``ops/ggru.py``,
-    ``ops/lstm.py``), with its argument checks, its launch plan (a device
-    query) and its launch counter — they run wherever the op runs, in the
-    eager layers and in a loaded ``torch.export`` program alike;
+    ``ops/lstm.py``), with its argument checks, its launch plan (the
+    module's ``cached_plan``, the one the nets' dispatch reads) and its
+    launch counter — they run wherever the op runs, in the eager layers
+    and in a loaded ``torch.export`` program alike;
   * CPU: the kernel's plain version on the same inputs (``scan_reference``);
   * fake (``register_fake``): the output shapes only, for tracing;
 

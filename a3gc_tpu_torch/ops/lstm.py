@@ -10,7 +10,8 @@ one launch: per (direction, block of up to 8 streams) a group of P CTAs
 that split the hidden units and keep their slice of W_hh in shared memory
 for the whole window, exchanging h each frame — a thread-block cluster
 through distributed shared memory, or, where a cluster cannot hold W_hh,
-a cooperative launch through L2. :func:`launch_plan` chooses the group.
+a cooperative launch through L2. :func:`launch_plan` chooses the group;
+:func:`cached_plan` keeps its answer per key.
 The launch is the CUDA implementation of the registered op
 ``a3gc_tpu_torch::lstm_scan`` (:mod:`a3gc_tpu_torch.ops.library`), whose
 CPU implementation is :func:`scan_reference`, the plain PyTorch version of
@@ -43,27 +44,28 @@ instantiation, the ``tf32`` flag of :func:`scan`).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from types import SimpleNamespace
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from a3gc_tpu_torch.models import layers as L
 from a3gc_tpu_torch.ops._common import (MAX_CLUSTER, SMEM_HEADER, SMEM_LIMIT,
-                                        THREADS, check_aligned, check_f32,
+                                        THREADS, attributes_query,
+                                        check_aligned, check_f32,
                                         check_n_valid, device_index, f32,
                                         k_slices, kernel_library, launch,
-                                        like, mma_row_stride, n_valid_tensor,
-                                        sm_count)
+                                        like, max_active_query,
+                                        mma_row_stride, n_valid_tensor,
+                                        plan_or_refusal, planned, sm_count)
 from a3gc_tpu_torch.parallel import tensor as TP
 
-__all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "directions",
-           "func_attributes", "launch_plan", "lstm_step_hoisted",
-           "max_active", "mma_split", "plan_refusal", "scan", "scan_inputs",
-           "scan_reference", "smem_bytes"]
+__all__ = ["LaunchPlan", "bi_lstm", "bi_lstm_reference", "cached_plan",
+           "directions", "func_attributes", "launch_plan",
+           "lstm_step_hoisted", "max_active", "mma_split", "scan",
+           "scan_inputs", "scan_reference", "smem_bytes"]
 
 WARPS = THREADS // 32
 MMA_NKB = (4, 16)           # k-blocks of 16 a warp holds A's fragments of
@@ -122,7 +124,7 @@ def mma_split(H: int, P: int) -> Optional[Tuple[int, int]]:
 
 def smem_bytes(R: int, H: int, P: int, cooperative: bool,
                mma: bool = False) -> int:
-    r"""Dynamic shared memory of one CTA (``lstm_smem_bytes`` in C): the
+    r"""Dynamic shared memory of one CTA (C: ``smem_floats``): the
     W_hh slice [H, 4H/P] with rows padded by 4 floats, the full h
     (double-buffered in a cluster), the z and u slices [R, 4H/P] and the
     c and h slices [R, H/P]. The tensor-core form (``mma``) stages the
@@ -241,18 +243,14 @@ def launch_plan(S: int, H: int, sms: int = 132, P: Optional[int] = None,
 
 
 @functools.lru_cache(maxsize=None)
-def plan_refusal(S: int, H: int, sms: int, D: int = 2,
-                 tf32: bool = False) -> Optional[str]:
-    r"""Whether the kernel has a launch plan for a layer call of D
-    directions on a card of ``sms`` SMs, for the fp32 or the TF32
-    instantiation: None where it has, else :func:`launch_plan`'s refusal,
-    asked with the arguments :func:`scan` gives it (so the two cannot
-    disagree). Cached by that key: a dispatch pays one lookup."""
-    try:
-        launch_plan(S, H, sms, D=D, tf32=tf32)
-    except ValueError as e:
-        return str(e)
-    return None
+def cached_plan(S: int, H: int, sms: int, D: int,
+                tf32: bool) -> Union[LaunchPlan, str]:
+    r""":func:`launch_plan`'s plan for a layer call of D directions on a
+    card of ``sms`` SMs, for the fp32 or the TF32 instantiation, or its
+    refusal message, computed once per key. The launch (:func:`scan`) and
+    the nets' dispatch (``models/nets.py`` ``plan_refusal``) both read
+    it."""
+    return plan_or_refusal(launch_plan, S, H, sms, D=D, tf32=tf32)
 
 
 def directions(params: nn.Module) -> int:
@@ -341,7 +339,7 @@ def scan_reference(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
 
 
 def _library():
-    return kernel_library("lstm", 10, 13, 6)
+    return kernel_library("lstm", 10, 13, 12, 4)
 
 
 def _plan_ints(plan: LaunchPlan):
@@ -354,33 +352,17 @@ def max_active(plan: LaunchPlan, S: int, H: int, tf32: bool = False) -> int:
     (``cudaOccupancyMaxActiveClusters``) or, cooperative, resident CTAs;
     for the fp32 or the TF32 instantiation. Raises on a plan the kernel
     refuses."""
-    lib = _library()
-    fn = lib.lstm_max_active
-    fn.argtypes = [ctypes.c_int] * 12
-    fn.restype = ctypes.c_int
-    n = fn(S, H, *_plan_ints(plan), int(tf32))
-    if n < 0:
-        raise RuntimeError("lstm occupancy query failed: "
-                           + lib.lstm_error_string(-n).decode())
-    return n
+    return max_active_query("lstm", _library(), S, H, *_plan_ints(plan),
+                            int(tf32))
 
 
 def func_attributes(plan: LaunchPlan, H: int, tf32: bool = False) -> dict:
     r"""Registers a thread and local-memory bytes (spills) of the
     instantiation a launch of ``plan`` at hidden width H runs
     (``cudaFuncGetAttributes``): {"regs": …, "local_bytes": …}."""
-    lib = _library()
-    fn = lib.lstm_func_attributes
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
     nkb = mma_split(H, plan.P)[1] if plan.mma else 0
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    err = fn(plan.R, int(plan.cooperative), int(tf32), nkb,
-             ctypes.byref(regs), ctypes.byref(local))
-    if err:
-        raise RuntimeError("lstm attribute query failed: "
-                           + lib.lstm_error_string(err).decode())
-    return {"regs": regs.value, "local_bytes": local.value}
+    return attributes_query("lstm", _library(), plan.R,
+                            int(plan.cooperative), int(tf32), nkb)
 
 
 def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
@@ -389,10 +371,11 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     r"""Launch the kernel on hoisted inputs. u [D, S, T, 4H] (every
     direction in forward frame order), w_hh [D, H, 4H], h0/c0 [D, S, H],
     n_valid [S] int32 — all contiguous fp32 on one card, D = 1 or 2.
-    ``plan`` defaults to :func:`launch_plan` (the TF32 plan when
-    ``tf32``); ``tf32`` launches the TF32 instantiation (h and W_hh
-    rounded to TF32; on the tensor cores where the plan's ``mma`` says
-    so). Returns (y [S, T, D·H], h [D, S, H], c [D, S, H])."""
+    ``plan`` defaults to :func:`cached_plan`'s (the TF32 plan when
+    ``tf32``; ``ValueError`` where it refuses); ``tf32`` launches the TF32
+    instantiation (h and W_hh rounded to TF32; on the tensor cores where
+    the plan's ``mma`` says so). Returns (y [S, T, D·H], h [D, S, H],
+    c [D, S, H])."""
     D, S, T, G = u.shape
     H = G // 4
     dev = u.device
@@ -401,8 +384,8 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     check_n_valid("lstm", dev, n_valid, S)
     check_aligned("lstm", u, w_hh)
     if plan is None:
-        plan = launch_plan(S, H, sm_count(device_index(dev)), D=D,
-                           tf32=tf32)
+        plan = planned(cached_plan(S, H, sm_count(device_index(dev)), D,
+                                   tf32))
     if plan.D != D:
         raise ValueError(f"lstm: a plan for D={plan.D} given {D} "
                          "directions")

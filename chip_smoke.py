@@ -277,11 +277,12 @@ import sys
 import time
 import traceback
 
+from portbench.families.ggru import ggru_layer_work
+from portbench.work import (PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, bound_seconds,
+                            layer_work, lstm_layer_work)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores, 700 W
-PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 tensor cores, dense, 700 W
-PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 KERNEL_TOL = 1e-5           # fp32, sums reordered over a 60-step recurrence
                             # (an H100 showed at most 2.1e-7 for gcn_lstm)
 PATH_TOL = 1e-3             # poses after three stages and IK
@@ -591,73 +592,9 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def layer_work(S, T, F, H, attention, hoist):
-    """(FLOP, bytes) one bidirectional graph-LSTM layer call needs: each
-    input read once, each output written once. hoist=True counts the
-    wrapper's whole function (x → y, state), hoist=False the kernel alone
-    (u → y, state)."""
-    N = N_NODES
-    rec = 2 * N * H * 4 * H + 2 * 4 * N * N * H
-    if attention:
-        rec += 2 * 2 * N * H * H + 2 * H * H + 2 * N * H
-    flop = 2 * T * S * rec
-    params = 2 * (4 * H * H + 4 * N * N + 4 * H)
-    if attention:
-        params += 2 * (3 * H * H + 2 * H + N)
-    state = 2 * 2 * S * N * H
-    if hoist:
-        flop += 2 * 2 * S * T * N * F * 4 * H
-        params += 2 * F * 4 * H
-        read = S * T * N * F + params + state
-    else:
-        read = 2 * S * T * N * 4 * H + params + state
-    write = S * T * N * 2 * H + state
-    return flop, 4 * (read + write) + 4 * S
-
-
 def gcn_layer_work(S, T, F, H, hoist):
     """layer_work of the a3gc cell, the one the serving path runs."""
     return layer_work(S, T, F, H, True, hoist)
-
-
-def ggru_layer_work(S, T, F, H, hoist, tf32=False):
-    """(FLOP, bytes) of one bidirectional G-GRU layer call, as layer_work.
-    The least the function needs: adj·(h·G)·W_hid = (adj·h)·(G·W_hid), so
-    6·N·H² + 2·N²·H FLOP per (stream, direction, frame) in the scan and one
-    G·W_hid (2·H·H·3H) per direction. With TF32 operands (``tf32``) the
-    function is the cell's order, whose products round where the fold's
-    do not: 8·N·H² + 2·N²·H FLOP a frame and no fold."""
-    N = N_NODES
-    flop = (2 * T * S * (8 * N * H * H + 2 * N * N * H) if tf32 else
-            2 * T * S * (6 * N * H * H + 2 * N * N * H)
-            + 2 * 2 * H * H * 3 * H)
-    params = 2 * (H * H + N * N + 3 * H * H)
-    state = 2 * S * N * H
-    if hoist:
-        flop += 2 * 2 * S * T * N * F * 3 * H
-        params += 2 * (F * 3 * H + 3 * H)
-        read = S * T * N * F + params + state
-    else:
-        read = 2 * S * T * N * 3 * H + params + state
-    write = S * T * N * 2 * H + state
-    return flop, 4 * (read + write) + 4 * S
-
-
-def lstm_layer_work(S, T, F, H, hoist, D=2):
-    """(FLOP, bytes) of one dense LSTM layer call of D directions (2: the
-    biLSTM, 1: the unidirectional DIP layer), as layer_work: 8·H² FLOP per
-    (stream, direction, frame) in the scan."""
-    flop = D * T * S * 8 * H * H
-    params = D * 4 * H * H
-    state = D * 2 * S * H
-    if hoist:
-        flop += D * 2 * S * T * F * 4 * H
-        params += D * (F * 4 * H + 2 * 4 * H)
-        read = S * T * F + params + state
-    else:
-        read = D * S * T * 4 * H + params + state
-    write = S * T * D * H + state
-    return flop, 4 * (read + write) + 4 * S
 
 
 def uni_lstm_layer_work(S, T, F, H, hoist):
@@ -666,9 +603,8 @@ def uni_lstm_layer_work(S, T, F, H, hoist):
 
 
 def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
-    t_ops = flop / peak * 1e3
-    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
-    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+    ms = bound_seconds(flop, nbytes, peak) * 1e3
+    return ms, ("operations" if flop / peak * 1e3 >= ms else "bytes")
 
 
 def random_rotations(rng, shape):

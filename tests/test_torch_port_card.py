@@ -1493,6 +1493,66 @@ def test_torch_port_ggru_cascade_launch_plan_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a3gc", "ggru", "tp"])
+def test_torch_port_cascade_plans_once_on_card(kind, monkeypatch):
+    """Two offline sequences of one stream through ``cascade_apply`` at the
+    published widths 256 / 64 / 128, precision "default": the first
+    computes one launch plan a width (the dispatch's, which the launch
+    reads from the same cache), the second none; six kernel launches
+    each, no plain dispatch."""
+    _need_card()
+    from a3gc_tpu_torch.data import load_adjacency_template
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
+                                                cascade_apply, init_pose_net)
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.smpl import ParametricModel
+    widths = (256, 64, 128)
+    if kind == "tp":
+        mod, wrapper = LS, LS.bi_lstm
+        cfg = CascadeConfig(*(PoseNetConfig(net=N.DIPConfig(
+            n_input=ni, n_output=no, n_hidden=h, precision="default"),
+            rotsize=rot) for h, (ni, no, rot) in zip(
+                widths, ((72, 15, 3), (87, 69, 3), (141, 135, 9)))))
+        shape = (72,)
+    else:
+        mod = GG if kind == "ggru" else G
+        wrapper = GG.bi_ggru if kind == "ggru" else G.bi_gcn_lstm
+        cfg = CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
+            cell=kind, units_in=ui, units_out=uo, units_hidden=h,
+            precision="default"), rotsize=rot)
+            for h, (ui, uo, rot) in zip(
+                widths, ((12, 3, 3), (15, 3, 3), (15, 9, 9)))))
+        shape = (15, 12)
+    nira = load_adjacency_template()
+    params3 = tuple(init_pose_net(torch.Generator().manual_seed(i), c,
+                                  nira).cuda()
+                    for i, c in enumerate(cfg.stages))
+    computed = []
+    launch_plan = mod.launch_plan
+
+    def counted(*args, **kwargs):
+        computed.append(args)
+        return launch_plan(*args, **kwargs)
+
+    monkeypatch.setattr(mod, "launch_plan", counted)
+    mod.cached_plan.cache_clear()
+    gen = torch.Generator().manual_seed(9)
+    for T, want in ((300, 3), (240, 0)):
+        wrapper.launches = wrapper.plain_dispatches = 0
+        imu = torch.randn((1, T) + shape, generator=gen).cuda()
+        computed.clear()
+        with torch.no_grad():
+            pose = cascade_apply(params3, cfg, ParametricModel(), imu)
+        torch.cuda.synchronize()
+        assert pose.shape == (T, 24, 3, 3) and torch.isfinite(pose).all()
+        assert len(computed) == want
+        assert wrapper.launches == 6 and wrapper.plain_dispatches == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,H,S", [("a3gc", 80, 8), ("a3gc", 80, 1),
                                       ("ggru", 152, 8), ("tp", 268, 8)])
 def test_torch_port_auto_runs_plain_where_no_plan_on_card(kind, H, S):

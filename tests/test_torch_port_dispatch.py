@@ -4,9 +4,10 @@ launch plan for the layer call's shape, else the plain version, as the
 JAX package's ``use_pallas`` takes its XLA scan where its kernel does not
 fit.
 
-Each ops module's ``plan_refusal`` agrees with its ``launch_plan`` over a
-sweep of widths; the known refusals dispatch plain (decided here on a
-stand-in for a CUDA tensor: the choice reads only its shape and device);
+Each ops module's ``cached_plan`` holds its ``launch_plan``'s answer over
+a sweep of widths, and the dispatch and the launch read the one cached
+plan; the known refusals dispatch plain (decided here on a stand-in for a
+CUDA tensor: the choice reads only its shape and device);
 the export pins each net by the same answer; and nets at unplanned widths
 hold within 1e-5 of JAX's ``graph_net_apply`` on the CPU (fp32, sums
 reordered over a 6-frame recurrence and two graph convolutions)."""
@@ -33,42 +34,119 @@ SMS = 132                           # an H100 SXM's SMs
 WIDTHS = list(range(4, 401, 4)) + [30, 66, 101, 250, 398]
 
 
-def _refusal(plan):
+def _plan_or_refusal(plan):
     try:
-        plan()
+        return plan()
     except ValueError as e:
         return str(e)
-    return None
+
+
+def _refusal(plan):
+    got = _plan_or_refusal(plan)
+    return got if isinstance(got, str) else None
+
+
+MODULES = {"gcn_lstm": G, "ggru": GG, "lstm": LS}
 
 
 @pytest.mark.parametrize("module", ["gcn_lstm", "ggru", "lstm"])
 def test_torch_port_plan_refusal_agrees_with_launch_plan(module):
-    """Over every width of the sweep, the predicate says "planned" exactly
-    where ``launch_plan`` (asked as the op's CUDA implementation asks it)
-    returns a plan, and gives its refusal word for word elsewhere."""
+    """Over every width of the sweep, ``cached_plan`` holds the plan
+    ``launch_plan`` (asked as the op's CUDA implementation asks it)
+    returns, and its refusal word for word where it raises."""
     cases = []
     for H in WIDTHS:
-        if module == "gcn_lstm":
-            for att in (True, False):
-                for tf32 in (False, True):
-                    cases.append((G.plan_refusal(15, H, att, tf32), _refusal(
-                        lambda: G.launch_plan(15, H, att, tf32=tf32))))
-        elif module == "ggru":
-            for S in (1, 8):
-                for tf32 in (False, True):
-                    cases.append((GG.plan_refusal(S, 15, H, tf32, SMS),
-                                  _refusal(lambda: GG.launch_plan(
+        for S in (1, 8):
+            for tf32 in (False, True):
+                if module == "gcn_lstm":
+                    for att in (True, False):
+                        cases.append((G.cached_plan(15, H, att, tf32, S),
+                                      _plan_or_refusal(lambda: G.launch_plan(
+                                          15, H, att, tf32=tf32, S=S))))
+                elif module == "ggru":
+                    cases.append((GG.cached_plan(S, 15, H, tf32, SMS),
+                                  _plan_or_refusal(lambda: GG.launch_plan(
                                       S, 15, H, sms=SMS, tf32=tf32))))
-        else:
-            for S in (1, 8):
-                for D in (1, 2):
-                    for tf32 in (False, True):
-                        cases.append((LS.plan_refusal(S, H, SMS, D, tf32),
-                                      _refusal(lambda: LS.launch_plan(
+                else:
+                    for D in (1, 2):
+                        cases.append((LS.cached_plan(S, H, SMS, D, tf32),
+                                      _plan_or_refusal(lambda: LS.launch_plan(
                                           S, H, SMS, D=D, tf32=tf32))))
     assert all(got == want for got, want in cases)
     # the sweep reaches both answers
-    assert {got is None for got, _ in cases} == {True, False}
+    assert {isinstance(got, str) for got, _ in cases} == {True, False}
+
+
+def _scan_args(module, S, H, N=15, T=2):
+    """Zero inputs of ``scan`` on the CPU, in the kernel's shapes."""
+    z = torch.zeros
+    nv = torch.full((S,), T, dtype=torch.int32)
+    if module == "gcn_lstm":
+        att = (z(2, H, H), z(2, H, H), z(2, H, H), z(2, H), z(2, H),
+               z(2, N))
+        return (z(2, S, T, N, 4 * H), z(2, H, 4 * H), z(2, 4, N, N),
+                z(2, 4, H), att, z(2, S, N, H), z(2, S, N, H), nv)
+    if module == "ggru":
+        return (z(2, S, T, N, 3 * H), z(2, H, H), z(2, N, N),
+                z(2, H, 3 * H), z(2, S, N, H), nv)
+    return (z(2, S, T, 4 * H), z(2, H, 4 * H), z(2, S, H), z(2, S, H), nv)
+
+
+def _scan_key(module, S, H, N=15):
+    """The key ``scan`` reads a TF32 plan with, on a card of SMS SMs."""
+    return {"gcn_lstm": (N, H, True, True, S),
+            "ggru": (S, N, H, True, SMS),
+            "lstm": (S, H, SMS, 2, True)}[module]
+
+
+@pytest.mark.parametrize("module", ["gcn_lstm", "ggru", "lstm"])
+def test_torch_port_dispatch_and_launch_share_one_plan(module, monkeypatch):
+    """``nets.plan_refusal`` at S = 1 and S = 8 computes each plan once,
+    and ``scan`` (its launch stubbed: CPU tensors stand in for the card's)
+    then launches that very plan without computing one; the key the
+    dispatch asks with at S = 1 holds gcn_lstm's one-stream plan (C = 16
+    at H = 256 with TF32)."""
+    mod = MODULES[module]
+    monkeypatch.setattr(TN, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(mod, "sm_count", lambda index: SMS, raising=False)
+    monkeypatch.setattr(mod, "device_index", lambda dev: 0, raising=False)
+    computed, launched = [], []
+    launch_plan = mod.launch_plan
+
+    def counted(*args, **kwargs):
+        computed.append((args, kwargs))
+        return launch_plan(*args, **kwargs)
+
+    monkeypatch.setattr(mod, "launch_plan", counted)
+    monkeypatch.setattr(mod, "_library", lambda: None)
+    monkeypatch.setattr(mod, "launch",
+                        lambda name, lib, dev, *args: launched.append(args))
+    wrapper = getattr(mod, {"gcn_lstm": "bi_gcn_lstm", "ggru": "bi_ggru",
+                            "lstm": "bi_lstm"}[module])
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "tf32_launches", 0)
+    monkeypatch.setattr(wrapper, "launches_by_cluster", {}, raising=False)
+    mod.cached_plan.cache_clear()
+    H = 256
+    cfg = _dense(H) if module == "lstm" else _graph(
+        "ggru" if module == "ggru" else "a3gc", H)
+    card = torch.device("cuda", 0)
+    for n, S in enumerate((1, 8), start=1):
+        for _ in range(2):
+            assert TN.plan_refusal(cfg, S, "tf32", card) is None
+        assert len(computed) == n
+        plan = mod.cached_plan(*_scan_key(module, S, H))
+        args, kwargs = computed[-1]
+        assert plan == launch_plan(*args, **kwargs)
+        mod.scan(*_scan_args(module, S, H), tf32=True)
+        assert len(computed) == n and len(launched) == n
+        ints = (mod._plan_ints(plan) if hasattr(mod, "_plan_ints")
+                else tuple(plan))
+        assert launched[-1][-len(ints) - 1:] == ints + (1,)
+        assert mod.cached_plan(*_scan_key(module, S, H)) is plan
+    if module == "gcn_lstm":
+        assert mod.cached_plan(*_scan_key(module, 1, H)).C == 16
+        assert mod.cached_plan(*_scan_key(module, 8, H)).C == 8
 
 
 @pytest.mark.parametrize("fmt", ["fp32", "tf32"])

@@ -34,7 +34,8 @@ names, both fixed (tests and the benchmark's readers look for them):
     stage's net with the concatenation that feeds it), ``a3gc.rnn``
     (``models/nets.py``: each recurrent layer call, kernel or plain),
     ``a3gc.ik`` (``reduced_global_to_full_local``) and ``a3gc.round``
-    (``ops/_common.py`` ``operand``: one operand rounded to TF32; the
+    (``ops/_common.py`` ``operand`` and ``weight_operand``: one operand
+    rounded to TF32, a weight's served from its cache on a hit; the
     per-frame steps round through ``step_operand`` and open none, so that
     no span opens once a frame).
 

@@ -34,7 +34,8 @@ operands are rounded to TF32 where the JAX cell's products at
 ``precision`` take them, and summed in fp32. The steps round without the
 profiler span ``a3gc.round`` (``step_operand``, ``TP.matmul(...,
 step=True)``), which would be one a frame; :func:`graph_conv`, once a
-call, rounds with it.
+call, rounds with it, its parameters through ``weight_operand`` (rounded
+once a weight version).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ import torch
 from torch import nn
 
 from a3gc_tpu_torch._device import random_rows
-from a3gc_tpu_torch.ops._common import operand, step_operand
+from a3gc_tpu_torch.ops._common import (operand, step_operand,
+                                        weight_operand)
 from a3gc_tpu_torch.parallel import tensor as TP
 
 __all__ = [
@@ -143,7 +145,7 @@ def graph_conv(p: GraphConvParams, x: torch.Tensor, *,
     dropout on x when ``rng`` is given."""
     x = _dropout(x, dropout_rate, rng)
     y = TP.matmul(x, p.kernel, fmt=fmt)
-    return torch.matmul(operand(p.adj, fmt), operand(y, fmt)) \
+    return torch.matmul(weight_operand(p.adj, fmt), operand(y, fmt)) \
         + TP.full(p.bias)
 
 

@@ -16,7 +16,8 @@ The operand format of the nets' products is settled here too: a net's
 ``precision`` ("highest" or "default", the JAX package's
 ``GraphNetConfig.precision``) becomes "fp32" or "tf32" on a device
 (:func:`operand_format`), and at "tf32" every product takes its operands
-rounded to TF32 (:func:`round_tf32`, :func:`operand`) and sums
+rounded to TF32 (:func:`round_tf32`; :func:`operand` for an activation,
+:func:`weight_operand` for a parameter, rounded once a version) and sums
 in fp32: the arithmetic of one tensor-core pass, which is what XLA's
 ``Precision.DEFAULT`` computes on an Ampere or Hopper card. The kernels'
 TF32 instantiations round by the same rule (``csrc/scan_common.cuh``
@@ -30,6 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from collections import OrderedDict
 
 import torch
 
@@ -37,7 +40,8 @@ from a3gc_tpu_torch._runtime import span
 
 __all__ = ["SMEM_LIMIT", "SMEM_HEADER", "THREADS", "MAX_CLUSTER", "f32",
            "PRECISIONS", "FORMATS", "check_precision", "operand_format",
-           "round_tf32", "operand", "step_operand", "like",
+           "round_tf32", "operand", "weight_operand", "WEIGHT_CACHE_ENTRIES",
+           "step_operand", "like",
            "n_valid_tensor", "check_f32", "check_n_valid", "check_aligned",
            "k_slices", "mma_row_stride", "sm_count", "device_index",
            "plan_or_refusal", "planned", "kernel_library", "launch",
@@ -131,6 +135,71 @@ def operand(t: torch.Tensor, fmt: str) -> torch.Tensor:
         return t
     with span("a3gc.round"):
         return step_operand(t, fmt)
+
+
+WEIGHT_CACHE_ENTRIES = 128   # rounded weights kept, least recently used out
+_WEIGHT_LOCK = threading.Lock()
+
+
+def weight_operand(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    r"""A parameter ``w`` (or a view of one) as an operand of a product in
+    format ``fmt``: :func:`operand`'s value, bit for bit. At "tf32" the
+    rounded copy is kept in ``weight_operand.cache`` and served again while
+    ``w`` is the same weight at the same version, so a net's weights are
+    rounded once, not on every call. The key is what the view reads
+    (address, storage offset, sizes, strides, dtype, device), so a fresh
+    view of a weight (``kernel[:, :F]``, a reshape) finds it; the entry
+    keeps its version counter's value (views share their base's), so an
+    in-place update anywhere in the storage's base makes it stale, and a
+    strong reference to ``w``, so its memory is never reused while the
+    entry lives. At most :data:`WEIGHT_CACHE_ENTRIES` entries, least
+    recently used evicted first.
+
+    The cache steps aside, rounding as :func:`operand` does, where autograd
+    records ``w`` (its straight-through gradient), for an inference tensor
+    (no version counter), and while ``torch.export`` or
+    ``torch.compile`` traces (the program keeps its rounding nodes).
+    Hit or miss, the call is the span ``a3gc.round``; a hit does no tensor
+    operation. Counters: ``hits``, ``misses``, ``bypassed``."""
+    if fmt == "fp32" or w.dtype != torch.float32:
+        return w
+    with span("a3gc.round"):
+        return _cached_round(w, fmt)
+
+
+def _cached_round(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    if fmt != "tf32":
+        raise ValueError(f"operand format must be one of {FORMATS}, got "
+                         f"{fmt!r}")
+    if torch.compiler.is_compiling() or w.is_inference() \
+            or (w.requires_grad and torch.is_grad_enabled()):
+        weight_operand.bypassed += 1
+        return step_operand(w, fmt)
+    key = (w.data_ptr(), w.storage_offset(), w.shape, w.stride(), w.dtype,
+           w.device)
+    version = w._version
+    cache = weight_operand.cache
+    with _WEIGHT_LOCK:
+        entry = cache.get(key)
+        if entry is not None and entry[0] == version:
+            cache.move_to_end(key)
+            weight_operand.hits += 1
+            return entry[2]
+    with torch.inference_mode(False):   # a copy autograd may save later
+        r = round_tf32(w)
+    with _WEIGHT_LOCK:
+        cache[key] = (version, w, r)
+        cache.move_to_end(key)
+        weight_operand.misses += 1
+        while len(cache) > WEIGHT_CACHE_ENTRIES:
+            cache.popitem(last=False)
+    return r
+
+
+weight_operand.cache = OrderedDict()   # key -> (version, source, rounded)
+weight_operand.hits = 0         # served from the cache since the last reset
+weight_operand.misses = 0       # rounded and kept
+weight_operand.bypassed = 0     # rounded as operand does (see above)
 
 
 def step_operand(t: torch.Tensor, fmt: str) -> torch.Tensor:

@@ -39,7 +39,8 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from a3gc_tpu_torch.ops._common import operand, step_operand
+from a3gc_tpu_torch.ops._common import (operand, step_operand,
+                                        weight_operand)
 
 __all__ = ["Columns", "matmul", "full", "blockwise", "column_view",
            "gather_module", "map_parameters"]
@@ -88,9 +89,11 @@ def blockwise(w, fn: Callable[[torch.Tensor], torch.Tensor]):
 def matmul(x: torch.Tensor, w, stacked: bool = False,
            fmt: str = "fp32", step: bool = False) -> torch.Tensor:
     r"""``x @ w`` (``torch.matmul``) on operands in format ``fmt``
-    (:func:`~a3gc_tpu_torch.ops._common.operand`: at "tf32" both rounded
-    to TF32, summed in fp32; ``step``: a product of a per-frame step,
-    rounded by ``step_operand``, with no span); ``stacked``: ``w`` carries
+    (:func:`~a3gc_tpu_torch.ops._common.operand` for x,
+    :func:`~a3gc_tpu_torch.ops._common.weight_operand` for the parameter w:
+    at "tf32" both rounded to TF32, summed in fp32; ``step``: a product of
+    a per-frame step, both rounded by ``step_operand``, with no span and no
+    cache); ``stacked``: ``w`` carries
     a leading direction axis that x has before its batch axes
     (``x @ w[:, None]``).
     For a :class:`Columns`, the column-parallel product: member j's block
@@ -98,9 +101,10 @@ def matmul(x: torch.Tensor, w, stacked: bool = False,
     processes, ``g(f(x) @ W_own)``. Rounding is elementwise, so a block
     rounds as its columns of the whole do."""
     rounded = step_operand if step else operand
+    weight = step_operand if step else weight_operand
 
     def right(t):
-        t = rounded(t, fmt)
+        t = weight(t, fmt)
         return t[:, None] if stacked else t
 
     x = rounded(x, fmt)

@@ -1492,34 +1492,22 @@ def test_torch_port_ggru_cascade_launch_plan_on_card():
     assert w.launches_by_cluster == {8: 6}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["a3gc", "ggru", "tp"])
-def test_torch_port_cascade_plans_once_on_card(kind, monkeypatch):
-    """Two offline sequences of one stream through ``cascade_apply`` at the
-    published widths 256 / 64 / 128, precision "default": the first
-    computes one launch plan a width (the dispatch's, which the launch
-    reads from the same cache), the second none; six kernel launches
-    each, no plain dispatch."""
-    _need_card()
+def _published_cascade(kind):
+    """(cfg, params3 on the card, one frame's input shape) of the ``kind``
+    cascade ("a3gc", "ggru" or "tp") at the published widths 256 / 64 /
+    128, precision "default", fresh weights (seed i for stage i)."""
     from a3gc_tpu_torch.data import load_adjacency_template
     from a3gc_tpu_torch.models import nets as N
     from a3gc_tpu_torch.models.pipeline import (CascadeConfig, PoseNetConfig,
-                                                cascade_apply, init_pose_net)
-    from a3gc_tpu_torch.ops import gcn_lstm as G
-    from a3gc_tpu_torch.ops import ggru as GG
-    from a3gc_tpu_torch.ops import lstm as LS
-    from a3gc_tpu_torch.smpl import ParametricModel
+                                                init_pose_net)
     widths = (256, 64, 128)
     if kind == "tp":
-        mod, wrapper = LS, LS.bi_lstm
         cfg = CascadeConfig(*(PoseNetConfig(net=N.DIPConfig(
             n_input=ni, n_output=no, n_hidden=h, precision="default"),
             rotsize=rot) for h, (ni, no, rot) in zip(
                 widths, ((72, 15, 3), (87, 69, 3), (141, 135, 9)))))
         shape = (72,)
     else:
-        mod = GG if kind == "ggru" else G
-        wrapper = GG.bi_ggru if kind == "ggru" else G.bi_gcn_lstm
         cfg = CascadeConfig(*(PoseNetConfig(net=N.GraphNetConfig(
             cell=kind, units_in=ui, units_out=uo, units_hidden=h,
             precision="default"), rotsize=rot)
@@ -1530,6 +1518,29 @@ def test_torch_port_cascade_plans_once_on_card(kind, monkeypatch):
     params3 = tuple(init_pose_net(torch.Generator().manual_seed(i), c,
                                   nira).cuda()
                     for i, c in enumerate(cfg.stages))
+    return cfg, params3, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a3gc", "ggru", "tp"])
+def test_torch_port_cascade_plans_once_on_card(kind, monkeypatch):
+    """Two offline sequences of one stream through ``cascade_apply`` at the
+    published widths 256 / 64 / 128, precision "default": the first
+    computes one launch plan a width (the dispatch's, which the launch
+    reads from the same cache), the second none; six kernel launches
+    each, no plain dispatch."""
+    _need_card()
+    from a3gc_tpu_torch.models.pipeline import cascade_apply
+    from a3gc_tpu_torch.ops import gcn_lstm as G
+    from a3gc_tpu_torch.ops import ggru as GG
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.smpl import ParametricModel
+    if kind == "tp":
+        mod, wrapper = LS, LS.bi_lstm
+    else:
+        mod = GG if kind == "ggru" else G
+        wrapper = GG.bi_ggru if kind == "ggru" else G.bi_gcn_lstm
+    cfg, params3, shape = _published_cascade(kind)
     computed = []
     launch_plan = mod.launch_plan
 
@@ -1550,6 +1561,41 @@ def test_torch_port_cascade_plans_once_on_card(kind, monkeypatch):
         assert pose.shape == (T, 24, 3, 3) and torch.isfinite(pose).all()
         assert len(computed) == want
         assert wrapper.launches == 6 and wrapper.plain_dispatches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a3gc", "ggru", "tp"])
+def test_torch_port_weight_operand_cascades_on_card(kind):
+    """Two offline sequences of one stream at the published widths, precision
+    "default": the first rounds every weight operand once (18 an A3GC or
+    G-GRU cascade, 12 a TransPose one), the second is served from the
+    cache with no miss; each sequence's pose is bit-equal to the same
+    call with the cache cleared before it."""
+    _need_card()
+    from a3gc_tpu_torch.models.pipeline import cascade_apply
+    from a3gc_tpu_torch.ops import _common as CM
+    from a3gc_tpu_torch.smpl import ParametricModel
+    wo, n_weights = CM.weight_operand, {"a3gc": 18, "ggru": 18, "tp": 12}[kind]
+    cfg, params3, shape = _published_cascade(kind)
+    model, gen = ParametricModel(), torch.Generator().manual_seed(11)
+    imus = [torch.randn((1, T) + shape, generator=gen).cuda()
+            for T in (300, 240)]
+    wo.cache.clear()
+    poses = []
+    for want in ((0, n_weights), (n_weights, 0)):
+        wo.hits = wo.misses = wo.bypassed = 0
+        with torch.no_grad():
+            poses.append(cascade_apply(params3, cfg, model,
+                                       imus[len(poses)]))
+        assert (wo.hits, wo.misses, wo.bypassed) == want + (0,)
+    for imu, pose in zip(imus, poses):
+        wo.cache.clear()
+        with torch.no_grad():
+            fresh = cascade_apply(params3, cfg, model, imu)
+        torch.cuda.synchronize()
+        assert torch.isfinite(pose).all()
+        assert torch.equal(pose.view(torch.int32), fresh.view(torch.int32))
+    wo.cache.clear()
 
 
 @pytest.mark.cuda

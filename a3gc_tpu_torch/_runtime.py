@@ -28,10 +28,12 @@ names, both fixed (tests and the benchmark's readers look for them):
     ``eval/streaming.py``, ``jit_step`` / ``jit_eval_step`` in
     ``train/loop.py``);
   * layer spans, ``a3gc.<layer>``, inside a step: ``a3gc.prep`` (each
-    call of ``data/pipeline.py`` ``normalize_imu`` and
-    ``scatter_graph_inputs``), ``a3gc.cascade`` (``models/pipeline.py``
-    ``cascade_apply``), ``a3gc.stage1`` … ``a3gc.stage3`` (in it, each
-    stage's net with the concatenation that feeds it), ``a3gc.rnn``
+    call of ``data/pipeline.py`` ``normalize_imu``,
+    ``scatter_graph_inputs`` and ``dip_batch``), ``a3gc.cascade``
+    (``models/pipeline.py`` ``cascade_apply``, and ``forward_offline``, a
+    single net's step), ``a3gc.stage1`` … ``a3gc.stage3`` (in it, each
+    stage's net with the concatenation that feeds it; a single net's is
+    ``a3gc.stage1``), ``a3gc.rnn``
     (``models/nets.py``: each recurrent layer call, kernel or plain),
     ``a3gc.ik`` (``reduced_global_to_full_local``) and ``a3gc.round``
     (``ops/_common.py`` ``operand`` and ``weight_operand``: one operand

@@ -12,8 +12,9 @@ Layout of a packed dataset (npz or dict of arrays):
   acc [N, T, 18]  ori [N, T, 54]  pose [N, T, 135]
   leaf_pos [N, T, 5, 3]  full_pos [N, T, 24, 3]
 
-:func:`normalize_imu` and :func:`scatter_graph_inputs` are each the
-profiler span ``a3gc.prep`` (:func:`a3gc_tpu_torch._runtime.span`).
+:func:`normalize_imu`, :func:`scatter_graph_inputs` and :func:`dip_batch`
+are each the profiler span ``a3gc.prep``
+(:func:`a3gc_tpu_torch._runtime.span`).
 
 For mesh training, :func:`put_device_sharded` splits a corpus into one
 block of rows a device of the mesh, and :meth:`Sampler.iter_indices_sharded`
@@ -142,6 +143,7 @@ def flat_batch(raw: Dict[str, torch.Tensor],
             full.reshape(B, T, 69), smpl)
 
 
+@spanned("a3gc.prep")
 def dip_batch(raw: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
               no_root: bool = True, rotsize: int = 9):
     r"""A DIP net's batch: drop the root sensor's channels (``no_root``),

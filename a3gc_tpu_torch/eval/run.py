@@ -39,7 +39,7 @@ from a3gc_tpu_torch.config import joint_set as JS
 from a3gc_tpu_torch.data import pipeline as DPipe
 from a3gc_tpu_torch.metrics import PoseEvaluator
 from a3gc_tpu_torch.models.pipeline import (
-    CascadeConfig, _stage_out, cascade_apply, pose_net_forward,
+    CascadeConfig, _stage_out, cascade_apply, forward_offline,
     reduced_global_to_full_local)
 from a3gc_tpu_torch.smpl.model import ParametricModel
 
@@ -350,7 +350,10 @@ class DipEvaluator(_Scorer):
 
     @torch.no_grad()
     def evaluate(self, sequences: List[Dict[str, np.ndarray]]):
-        r"""Each sequence alone at batch 1, at its own length.
+        r"""Each sequence alone at batch 1, at its own length: the prep,
+        then the single net's whole step
+        (:func:`~a3gc_tpu_torch.models.pipeline.forward_offline`: the net
+        and IK).
 
         :return: (mean metric [5, 2], total seconds, total frames)."""
         self._reset_split()
@@ -361,10 +364,9 @@ class DipEvaluator(_Scorer):
             gt = reduced_to_full(seq["pose"].reshape(T, 15, 3, 3))
             t0 = time.perf_counter()
             with span("jit__run"):
-                out, _ = pose_net_forward(self.params, self.cfg,
-                                          self._prep(seq))
-                metrics.append(self._score([self._to_pose(out)], [gt],
-                                           t0)[0])
+                pose = forward_offline(self.params, self.cfg, self.model,
+                                       self._prep(seq))
+                metrics.append(self._score([pose], [gt], t0)[0])
             total_time += time.perf_counter() - t0
             total_frames += T
         return _mean(metrics), total_time, total_frames

@@ -100,13 +100,18 @@ def reduced_global_to_full_local(glb_reduced: torch.Tensor, model,
 
 
 @torch.no_grad()
+@spanned("a3gc.cascade")
 def forward_offline(params, cfg: PoseNetConfig, model, imu: torch.Tensor,
                     state=None) -> torch.Tensor:
-    r"""Offline forward of one net on the device ``imu`` lies on: net +
-    (for rotsize 9 / 6) the reduced → full IK conversion. imu [B, T, ...] →
-    rotsize 9 / 6: full local pose [B·T, 24, 3, 3]; rotsize 3: the raw net
-    output."""
-    out, _ = pose_net_forward(params, cfg, imu, state)
+    r"""Offline forward of one net on the device ``imu`` lies on, the
+    one-stage counterpart of :func:`cascade_apply` (the DIP net's whole
+    step, which ``DipEvaluator.evaluate`` runs): net + (for rotsize 9 / 6)
+    the reduced → full IK conversion. imu [B, T, ...] → rotsize 9 / 6: full
+    local pose [B·T, 24, 3, 3]; rotsize 3: the raw net output. The call is
+    the profiler span ``a3gc.cascade``, the net ``a3gc.stage1``, IK
+    ``a3gc.ik``."""
+    with span("a3gc.stage1"):
+        out, _ = pose_net_forward(params, cfg, imu, state)
     if cfg.rotsize == 3:
         return out
     return reduced_global_to_full_local(_stage_out(out, cfg.rotsize), model,

@@ -406,6 +406,9 @@ def scan(u: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
            *_plan_ints(plan), int(tf32))
     bi_lstm.launches += 1
     bi_lstm.tf32_launches += int(tf32)
+    key = ("coop" if plan.cooperative else "cluster", plan.P)
+    by_plan = bi_lstm.launches_by_plan
+    by_plan[key] = by_plan.get(key, 0) + 1
     return y, h_out, c_out
 
 
@@ -447,5 +450,6 @@ def scan_inputs(params: nn.Module, x: torch.Tensor, state,
 
 bi_lstm.launches = 0    # kernel launches since the last reset to 0
 bi_lstm.tf32_launches = 0   # of them, of the TF32 instantiation
+bi_lstm.launches_by_plan = {}   # of them, by ("cluster" | "coop", P)
 bi_lstm.plain_dispatches = 0    # layer calls on a card that backend="auto"
                                 # gave the plain version (no plan)

@@ -1,0 +1,12 @@
+r"""``dip.offline_seq`` (it moves ``frames_per_s.transpose``): share of the
+traced window in which the device was idle with ``a3gc.cascade`` or
+``a3gc.stage1`` (``models/pipeline.py`` ``forward_offline``: the net's two
+dense layers and the glue around its layer calls) innermost, their children
+apart on the host (``span_math``). The six parts sum to
+``device.idle_pct.dip``."""
+
+from portbench.span_math import idle_pct
+
+
+def read(m):
+    return idle_pct(m, "cascade")

@@ -1,0 +1,9 @@
+r"""``dip.offline_seq`` (it moves ``frames_per_s.transpose``): host launch
+calls (``cudaLaunch*``, ``cuLaunch*``) made inside any ``a3gc.*`` span,
+over the sequences of the window (``span_math``)."""
+
+from portbench.span_math import launches_per_seq
+
+
+def read(m):
+    return launches_per_seq(m)

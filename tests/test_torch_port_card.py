@@ -1492,6 +1492,67 @@ def test_torch_port_ggru_cascade_launch_plan_on_card():
     assert w.launches_by_cluster == {8: 6}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [240, 2400])
+def test_torch_port_dip_offline_cooperative_plan_on_card(T):
+    """The DIP net at its published widths 60 / 512 / 135, precision
+    "default" (TF32 operands), one sequence of T frames (the shortest and
+    the longest of the benchmark's ``dip.offline_seq``) through
+    ``dip_batch`` and ``forward_offline``, the path of
+    ``DipEvaluator.evaluate``: two TF32 ``lstm`` launches, both of the
+    cooperative plan of P = 32 (``launches_by_plan``), no plain dispatch,
+    a finite pose. The net's output through the kernel (backend "auto")
+    is within PREC_KERNEL_TOL of the plain path at "tf32" (backend
+    "eager") on every frame, and nearer it by root mean square than the
+    plain path at "fp32" is, by PREC_SEP_WINDOW."""
+    _need_card()
+    import dataclasses
+
+    from a3gc_tpu_torch.data import load_stats
+    from a3gc_tpu_torch.data import pipeline as DPipe
+    from a3gc_tpu_torch.models import nets as N
+    from a3gc_tpu_torch.models.pipeline import (PoseNetConfig,
+                                                forward_offline,
+                                                init_pose_net,
+                                                pose_net_forward)
+    from a3gc_tpu_torch.ops import lstm as LS
+    from a3gc_tpu_torch.smpl import ParametricModel
+    cfg = PoseNetConfig(net=N.DIPConfig(n_input=60, n_output=135,
+                                        n_hidden=512, precision="default"),
+                        rotsize=9)
+    params = init_pose_net(torch.Generator().manual_seed(28), cfg).cuda()
+    gen = torch.Generator().manual_seed(T)
+    raw = {"ori": torch.randn((1, T, 54), generator=gen).cuda(),
+           "acc": torch.randn((1, T, 18), generator=gen).cuda(),
+           "pose": None}
+    stats = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda")
+             for k, v in load_stats().items()}
+    w = LS.bi_lstm
+    w.launches = w.tf32_launches = w.plain_dispatches = 0
+    w.launches_by_plan = {}
+    with torch.no_grad():
+        imu, _ = DPipe.dip_batch(raw, stats, no_root=True)
+        pose = forward_offline(params, cfg, ParametricModel(), imu)
+        torch.cuda.synchronize()
+        assert pose.shape == (T, 24, 3, 3) and torch.isfinite(pose).all()
+        assert (w.launches, w.tf32_launches, w.plain_dispatches) == (2, 2, 0)
+        assert w.launches_by_plan == {("coop", 32): 2}
+
+        def net(**kw):
+            return dataclasses.replace(cfg, net=dataclasses.replace(cfg.net,
+                                                                    **kw))
+
+        x = torch.randn((1, T, 60), generator=gen).cuda()
+        got = pose_net_forward(params, cfg, x)[0]
+        want = pose_net_forward(params, net(backend="eager"), x)[0]
+        fp32 = pose_net_forward(params, net(backend="eager",
+                                            precision="highest"), x)[0]
+    assert w.launches_by_plan == {("coop", 32): 4}
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= PREC_KERNEL_TOL
+    assert _rms([got], [want]) <= PREC_SEP_WINDOW * _rms([fp32], [want])
+
+
 def _published_cascade(kind):
     """(cfg, params3 on the card, one frame's input shape) of the ``kind``
     cascade ("a3gc", "ggru" or "tp") at the published widths 256 / 64 /

@@ -126,6 +126,7 @@ def test_torch_port_dispatch_and_launch_share_one_plan(module, monkeypatch):
     monkeypatch.setattr(wrapper, "launches", 0)
     monkeypatch.setattr(wrapper, "tf32_launches", 0)
     monkeypatch.setattr(wrapper, "launches_by_cluster", {}, raising=False)
+    monkeypatch.setattr(wrapper, "launches_by_plan", {}, raising=False)
     mod.cached_plan.cache_clear()
     H = 256
     cfg = _dense(H) if module == "lstm" else _graph(
@@ -147,6 +148,42 @@ def test_torch_port_dispatch_and_launch_share_one_plan(module, monkeypatch):
     if module == "gcn_lstm":
         assert mod.cached_plan(*_scan_key(module, 1, H)).C == 16
         assert mod.cached_plan(*_scan_key(module, 8, H)).C == 8
+
+
+@pytest.mark.parametrize("H,D,tf32,key", [
+    (512, 2, True, ("coop", 32)),       # the DIP net's layers
+    (512, 1, True, ("coop", 32)),       # the unidirectional DIP net's
+    (512, 2, False, ("coop", 32)),
+    (256, 2, True, ("cluster", 8)),     # TransPose's stages
+    (256, 2, False, ("coop", 16)),
+    (128, 2, True, ("cluster", 8)),
+    (64, 2, True, ("cluster", 2))])
+def test_torch_port_lstm_launches_counted_by_plan(H, D, tf32, key,
+                                                  monkeypatch):
+    """``lstm.scan`` counts each launch under its plan's form and P
+    (``bi_lstm.launches_by_plan``), the plan the launch passes to C (its
+    launch stubbed: CPU tensors stand in for the card's), at S = 1 and
+    S = 8 alike."""
+    monkeypatch.setattr(LS, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(LS, "device_index", lambda dev: 0)
+    monkeypatch.setattr(LS, "_library", lambda: None)
+    launched = []
+    monkeypatch.setattr(LS, "launch",
+                        lambda name, lib, dev, *args: launched.append(args))
+    monkeypatch.setattr(LS.bi_lstm, "launches", 0)
+    monkeypatch.setattr(LS.bi_lstm, "tf32_launches", 0)
+    monkeypatch.setattr(LS.bi_lstm, "launches_by_plan", {})
+    for S in (1, 8, 1):
+        args = _scan_args("lstm", S, H)
+        if D == 1:
+            args = tuple(a[:1] if a.dim() > 1 else a for a in args)
+        LS.scan(*args, tf32=tf32)
+        plan = LS.cached_plan(S, H, SMS, D, tf32)
+        assert launched[-1][-len(LS._plan_ints(plan)) - 1:-1] == \
+            LS._plan_ints(plan)
+        assert (("coop" if plan.cooperative else "cluster"), plan.P) == key
+    assert LS.bi_lstm.launches_by_plan == {key: 3}
+    assert LS.bi_lstm.launches == 3
 
 
 @pytest.mark.parametrize("fmt", ["fp32", "tf32"])

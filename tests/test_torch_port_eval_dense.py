@@ -107,3 +107,34 @@ def test_torch_port_dip_evaluate_streaming_matches_jax(dip, seqs,
         seqs, window=W, lookahead=K, history=P, batch_streams=batch_streams)
     _table(got, want)
     assert frames == sum(LENGTHS)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "tf32"])
+def test_torch_port_dip_evaluate_poses_are_the_inline_steps(dip, seqs, fmt,
+                                                            monkeypatch):
+    """``DipEvaluator.evaluate`` scores the poses of ``forward_offline``
+    (the single net's whole step), bit for bit those of the steps it
+    strung together inline before: the prep, ``pose_net_forward``, then
+    ``_stage_out`` and IK; at fp32 and with the nets' products on TF32
+    operands, as on a card."""
+    ours, _ = dip
+    monkeypatch.setattr(TN, "operand_format", lambda precision, dev: fmt)
+    scored = []
+    score = ours._score
+
+    def keep(poses, gts, t0):
+        scored.extend(poses)
+        return score(poses, gts, t0)
+
+    monkeypatch.setattr(ours, "_score", keep)
+    ours.evaluate(seqs)
+    assert len(scored) == len(seqs)
+    with torch.no_grad():
+        for seq, got in zip(seqs, scored):
+            out, _ = TPL.pose_net_forward(ours.params, ours.cfg,
+                                          ours._prep(seq))
+            want = TPL.reduced_global_to_full_local(
+                TPL._stage_out(out, ours.cfg.rotsize), ours.model,
+                rotsize=ours.cfg.rotsize)
+            assert got.shape == (seq["ori"].shape[0], 24, 3, 3)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -1,10 +1,12 @@
 """The port's layer spans (``a3gc.*``, ``a3gc_tpu_torch._runtime``) on the
 CPU at hidden 8: a tiny A3GC, TransPose and G-GRU cascade through
-``cascade_apply`` under ``torch.profiler``, their operand format patched to
-"tf32" so that the TF32 rounding runs here as it does on a card:
+``cascade_apply``, and a tiny DIP net through ``dip_batch`` and
+``forward_offline``, under ``torch.profiler``, their operand format patched
+to "tf32" so that the TF32 rounding runs here as it does on a card:
 
   * every layer span opens where it belongs, nested as the layers are;
-  * a call opens 1 cascade, 3 stages, 6 recurrent layers and 1 IK span;
+  * a call opens 1 cascade, 3 stages, 6 recurrent layers and 1 IK span (a
+    DIP net: 1 cascade, 1 stage, 2 recurrent layers, 1 IK span);
   * the number of ``a3gc.round`` spans does not grow with the frames: no
     span opens inside a per-frame loop;
   * without a profiler a span is the shared null context, and the fp32
@@ -26,7 +28,8 @@ from a3gc_tpu_torch import cli as TCLI
 from a3gc_tpu_torch.data import pipeline as DPipe
 from a3gc_tpu_torch.data.synthetic import synthetic_packed_dataset
 from a3gc_tpu_torch.models import nets as N
-from a3gc_tpu_torch.models.pipeline import cascade_apply
+from a3gc_tpu_torch.models.pipeline import (PoseNetConfig, cascade_apply,
+                                            forward_offline, init_pose_net)
 from a3gc_tpu_torch.ops import _common as CM
 from a3gc_tpu_torch.smpl.model import ParametricModel
 
@@ -127,6 +130,57 @@ def test_torch_port_spans_round_count_does_not_grow_with_frames(
 def test_torch_port_spans_no_round_at_fp32(model, cascades):
     n = Counter(e.name for e in _traced(cascades, model, 12))
     assert n["a3gc.round"] == 0 and n["a3gc.rnn"] == 6
+
+
+def _traced_dip(bidirectional, T):
+    """The spans of the single-net path on T frames: ``dip_batch`` (the
+    root sensor dropped), then ``forward_offline`` (net and IK), as
+    ``DipEvaluator.evaluate`` runs it."""
+    cfg = PoseNetConfig(net=N.DIPConfig(n_hidden=8,
+                                        bidirectional=bidirectional))
+    params = init_pose_net(torch.Generator().manual_seed(5), cfg)
+    rng = np.random.default_rng(T)
+    raw = {k: torch.as_tensor(rng.normal(size=(1, T, n)),
+                              dtype=torch.float32)
+           for k, n in (("ori", 54), ("acc", 18))}
+    raw["pose"] = None
+    stats = {f"{k}_{m}_channel": (torch.zeros(n) if m == "mean"
+                                  else torch.ones(n))
+             for k, n in (("ori", 54), ("acc", 18)) for m in ("mean", "std")}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        imu, _ = DPipe.dip_batch(raw, stats, no_root=True)
+        pose = forward_offline(params, cfg, ParametricModel(device="cpu"),
+                               imu)
+    assert imu.shape == (1, T, 60) and pose.shape == (T, 24, 3, 3)
+    return [e for e in prof.events() if e.name.startswith("a3gc.")]
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_torch_port_spans_single_net_open_in_their_layers(bidirectional,
+                                                          tf32_operands):
+    parents = {}
+    for e in _traced_dip(bidirectional, 12):
+        parents.setdefault(e.name, set()).add(_a3gc_parent(e))
+    assert parents["a3gc.prep"] == {None}
+    assert parents["a3gc.cascade"] == {None}
+    assert parents["a3gc.stage1"] == {"a3gc.cascade"}
+    assert parents["a3gc.rnn"] == {"a3gc.stage1"}
+    assert parents["a3gc.ik"] == {"a3gc.cascade"}
+    assert {"a3gc.rnn"} < parents["a3gc.round"] <= {"a3gc.rnn",
+                                                    "a3gc.stage1"}
+    assert set(parents) == {"a3gc.prep", "a3gc.cascade", "a3gc.stage1",
+                            "a3gc.rnn", "a3gc.ik", "a3gc.round"}
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_torch_port_spans_count_per_single_net_call(bidirectional,
+                                                    tf32_operands):
+    counts = [Counter(e.name for e in _traced_dip(bidirectional, T))
+              for T in (3, 21)]
+    n = counts[0]
+    assert (n["a3gc.prep"], n["a3gc.cascade"], n["a3gc.stage1"],
+            n["a3gc.rnn"], n["a3gc.ik"]) == (1, 1, 1, 2, 1)
+    assert n["a3gc.round"] > 0 and counts[0] == counts[1]
 
 
 def test_torch_port_spans_are_the_shared_null_context_when_off():
